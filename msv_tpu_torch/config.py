@@ -79,9 +79,11 @@ def derive_stft_params(sr: int, setting: SpecSetting) -> StftParams:
 # Precision mode for the device compute path.
 #   "parity": true f32 GEMMs (no TF32, no bf16 operands), used by all
 #             parity tests and default sessions.
-#   "fast":   the bf16-operand mode of msv_tpu.  The port's
-#             kernel runs f32 operands in both modes for now (the bf16
-#             mode is still to port, ROADMAP queue 2).
+#   "fast":   bf16 operands with f32 accumulation, as msv_tpu's fast
+#             mode: the session and streaming launch the bf16 kernel
+#             (csrc/mel_spectrogram_bf16.cu).  Most bins stay within one
+#             grey step (120 dB / 255 = 0.47 dB) of parity; bins more than
+#             ~50 dB under a frame's loudest component can swing further.
 _PRECISION_MODE = "parity"
 _PRECISION_MODE_EXPLICIT = False
 

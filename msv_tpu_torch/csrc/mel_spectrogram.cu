@@ -40,31 +40,20 @@
 //    accumulate in the output buffer, which is rewritten as dB at the end.
 //  * Each (frame, band) sum has one owner thread, adding bins in increasing
 //    order: no atomics, deterministic, and the int16 route is bit-equal to
-//    the f32 route.  Ragged edges are masked in the kernel.
+//    the f32 route.  Ragged edges are masked in the kernel.  The band loop
+//    and the dB epilogue are mel_common.cuh's, shared with the bf16 kernel.
 // Tensor cores (a split-bf16 or TF32 mode), TMA and wgmma are later work.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mel_common.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;
+using msv::WARPS;
 constexpr int CPT = 8;         // DFT columns per warp
 constexpr int KT = WARPS * CPT;  // frequency columns per tile
 constexpr int NK = 32;         // C/S rows per shared-memory slice
 constexpr int SLICE = NK * KT;   // floats per C (or S) slice
 constexpr int PER_THREAD = SLICE / (32 * WARPS);
-constexpr float kAmin = 1e-18f;
-constexpr float kDbScale = 8.685889638065036f;  // 20 / ln(10)
-constexpr float kDbFloor = -360.0f;             // 20 * log10(1e-18)
-
-__device__ __forceinline__ float load_sample(const float* p, long long i) {
-  return p[i];
-}
-
-__device__ __forceinline__ float load_sample(const int16_t* p, long long i) {
-  return static_cast<float>(p[i]) * 3.0517578125e-05f;  // exact 2^-15
-}
 
 struct SliceRegs {
   float c[PER_THREAD];
@@ -121,7 +110,8 @@ mel_db_kernel(const T* __restrict__ wave, long long wave_stride,
 
   for (int i = tid; i < rows * hop; i += 32 * WARPS) {
     const long long g = base + i;
-    chunk[(i / hop) * hs + i % hop] = g < wave_len ? load_sample(w, g) : 0.0f;
+    chunk[(i / hop) * hs + i % hop] =
+        g < wave_len ? msv::load_sample(w, g) : 0.0f;
   }
   // The mel sums accumulate in `out` itself: entry (f, m) belongs to the
   // thread of lane f % 32 in warp m % WARPS, across every tile.
@@ -190,47 +180,10 @@ mel_db_kernel(const T* __restrict__ wave, long long wave_stride,
     }
     __syncthreads();
 
-    // out[f][m] (+)= sum over the band's bins in this tile of mag * fb;
-    // the tile holding a band's first bin stores, later tiles add
-    for (int m = warp; m < n_mel; m += WARPS) {
-      const int lo = __ldg(bands + 2 * m);
-      const int ks = max(lo, k0);
-      const int ke = min(__ldg(bands + 2 * m + 1), min(k0 + KT, n_freq));
-      if (ks >= ke) continue;
-      float part[FPT];
-#pragma unroll
-      for (int h = 0; h < FPT; ++h) part[h] = 0.0f;
-      for (int k = ks; k < ke; ++k) {
-        const float wgt = __ldg(fb + static_cast<long long>(k) * n_mel + m);
-#pragma unroll
-        for (int h = 0; h < FPT; ++h) {
-          part[h] = fmaf(mag[(k - k0) * TF + h * 32 + lane], wgt, part[h]);
-        }
-      }
-#pragma unroll
-      for (int h = 0; h < FPT; ++h) {
-        const int f = h * 32 + lane;
-        if (f < nf) {
-          float* dst = o + static_cast<long long>(f) * n_mel + m;
-          *dst = lo >= k0 ? part[h] : *dst + part[h];
-        }
-      }
-    }
+    msv::accumulate_bands<TF>(mag, fb, bands, o, k0, KT, n_freq, n_mel, nf,
+                              lane, warp);
   }
-
-  // dB over the entries this thread owns; bands with no support sum to 0
-  for (int m = warp; m < n_mel; m += WARPS) {
-    const bool any = __ldg(bands + 2 * m) < __ldg(bands + 2 * m + 1);
-#pragma unroll
-    for (int h = 0; h < FPT; ++h) {
-      const int f = h * 32 + lane;
-      if (f < nf) {
-        float* dst = o + static_cast<long long>(f) * n_mel + m;
-        const float x = any ? *dst : 0.0f;
-        *dst = x > kAmin ? logf(x) * kDbScale : kDbFloor;
-      }
-    }
-  }
+  msv::db_epilogue<TF>(o, bands, n_mel, nf, lane, warp);
 }
 
 size_t smem_bytes(int fpt, int win, int hop) {
@@ -265,14 +218,8 @@ int launch(const void* wave, long long wave_stride, long long wave_len,
            int batch, const float* c, const float* s, const float* fb,
            const int* bands, float* out, int win, int hop, int n_frames,
            int n_freq, int n_mel, cudaStream_t stream) {
-  int dev = 0, limit = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(
-        &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t cap = static_cast<size_t>(limit);
+  size_t cap = 0;
+  if (const int err = msv::smem_optin_limit(&cap)) return err;
 #define MSV_LAUNCH(F)                                                      \
   launch_fpt<T, F>(wave, wave_stride, wave_len, batch, c, s, fb, bands,   \
                    out, win, hop, n_frames, n_freq, n_mel,                \

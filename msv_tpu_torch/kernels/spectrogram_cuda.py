@@ -1,20 +1,30 @@
-"""The fused mel dB spectrogram kernel: CUDA C++ for Hopper, bound with ctypes.
+"""The fused mel dB spectrogram kernels: CUDA C++ for Hopper, bound with ctypes.
 
-Replaces ``msv_tpu/kernels/spectrogram_pallas.py::mel_spectrogram_pallas``
-(its f32-operand mode, both schedules).  The kernel source is
-``msv_tpu_torch/csrc/mel_spectrogram.cu``; its header says what bounds it on
-an H100 and how the design answers that.  It is built with ``nvcc`` at first
-use into ``build/msv_tpu_torch/`` beside the package, keyed on the source's
-hash, and loaded as a plain C library.
+Replace ``msv_tpu/kernels/spectrogram_pallas.py::mel_spectrogram_pallas``
+in two of its modes:
 
-Unlike the TPU kernel, no layout is prepared on the host: the kernel takes
-the reflect-padded 1-D wave ``(L,)`` or ``(B, L)`` (f32, or int16 scaled by
+* ``mode="parity"``: f32 operands, both schedules
+  (``msv_tpu_torch/csrc/mel_spectrogram.cu``, SIMT f32 FMA);
+* ``mode="fast"``: bf16 operands with f32 accumulation
+  (``msv_tpu_torch/csrc/mel_spectrogram_bf16.cu``, tensor-core
+  ``mma.sync``).
+
+Each source's header says what bounds it on an H100 and how its design
+answers that; both include ``csrc/mel_common.cuh``, their shared mel band
+accumulation and dB epilogue.  They are built with ``nvcc`` at first use
+into one library under ``build/msv_tpu_torch/`` beside the package, keyed
+on the hash of both sources and the header, and loaded as a plain C
+library.
+
+Unlike the TPU kernel, no layout is prepared on the host: a kernel takes the
+reflect-padded 1-D wave ``(L,)`` or ``(B, L)`` (f32, or int16 scaled by
 2^-15 as it is loaded), ``C``/``S`` as ``(win, n_freq)`` and ``fb`` as
-``(n_freq, n_mel)``, and masks ragged edges itself.
+``(n_freq, n_mel)`` (f32 for parity, bf16 from ``operands_bf16`` for fast),
+and masks ragged edges itself.
 
-``mel_spectrogram_plain`` is the same function in torch ops.  The wrapper
-``mel_spectrogram_cuda`` takes it only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises.
+``mel_spectrogram_plain`` is the same function in torch ops, in either
+mode.  The wrapper ``mel_spectrogram_cuda`` takes it only for tensors on the
+CPU; for CUDA tensors it launches the mode's kernel or raises.
 """
 
 import ctypes
@@ -28,18 +38,28 @@ import threading
 import numpy as np
 import torch
 
+from ..ops.stft import frame_device
+
 _AMIN = 1e-18
 _DB_SCALE = 20.0 / math.log(10.0)
 _DB_FLOOR = 20.0 * math.log10(_AMIN)
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "mel_spectrogram.cu")
+SOURCES = {
+    "parity": os.path.join(_PKG_DIR, "csrc", "mel_spectrogram.cu"),
+    "fast": os.path.join(_PKG_DIR, "csrc", "mel_spectrogram_bf16.cu"),
+}
+# Device code both sources include (band accumulation, dB epilogue).
+HEADER = os.path.join(_PKG_DIR, "csrc", "mel_common.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "msv_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-# Kernel launches made by mel_spectrogram_cuda (the CPU route does not count).
+MODES = ("parity", "fast")
+# Kernel launches made by mel_spectrogram_cuda (the CPU route does not
+# count): the total, and by precision mode (the kernel it launched).
 LAUNCHES = 0
+LAUNCHES_BY_MODE = {"parity": 0, "fast": 0}
 # nvcc's report (registers, shared memory, spills) from the last build.
 BUILD_REPORT = ""
 
@@ -59,18 +79,23 @@ def _nvcc() -> str:
 
 
 def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library."""
+    """Compile (once per hash of both sources and their header) and load
+    the kernel library."""
     global _LIB, BUILD_REPORT
     with _LIB_LOCK:
         if _LIB is not None:
             return _LIB
-        with open(SOURCE, "rb") as f:
-            tag = hashlib.sha256(f.read()).hexdigest()[:16]
+        h = hashlib.sha256()
+        for path in (*(SOURCES[m] for m in MODES), HEADER):
+            with open(path, "rb") as f:
+                h.update(f.read())
+        tag = h.hexdigest()[:16]
         so = os.path.join(BUILD_DIR, f"libmsv_mel_{tag}.so")
         if not os.path.exists(so):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                   *(SOURCES[m] for m in MODES)]
             r = subprocess.run(cmd, capture_output=True, text=True)
             if r.returncode != 0:
                 raise RuntimeError(
@@ -85,6 +110,8 @@ def build() -> ctypes.CDLL:
             p, i, ll, ll, i, p, p, p, p, p, i, i, i, i, i, p,
         ]
         lib.msv_mel_spectrogram.restype = ctypes.c_int
+        lib.msv_mel_spectrogram_bf16.argtypes = lib.msv_mel_spectrogram.argtypes
+        lib.msv_mel_spectrogram_bf16.restype = ctypes.c_int
         lib.msv_cuda_error_string.argtypes = [ctypes.c_int]
         lib.msv_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -129,29 +156,61 @@ def mel_bands(fb):
                        dim=1).to(torch.int32).contiguous()
 
 
-def mel_spectrogram_plain(padded, c, s, fb, *, win, hop, n_frames):
-    """The kernel's function in torch ops: frames -> DFT GEMM pair ->
-    magnitude -> mel GEMM -> dB (natural log, as the kernel computes it)."""
+def operands_bf16(c, s, fb):
+    """The fast mode's device operands: bf16 copies of the f32 ``(C, S,
+    fb)``, rounded to nearest even, on the same device and in the same
+    layouts.  Made once per rate and cached by the caller."""
+    return tuple(t.to(torch.bfloat16).contiguous() for t in (c, s, fb))
+
+
+def round_bf16(x):
+    """``x`` rounded to bf16 (nearest even) and back to f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def mel_spectrogram_plain(padded, c, s, fb, *, win, hop, n_frames,
+                          mode="parity"):
+    """The kernels' function in torch ops: frames -> DFT GEMM pair ->
+    magnitude -> mel GEMM -> dB (natural log, as the kernels compute it).
+
+    ``mode="fast"`` is f32 arithmetic on bf16-rounded values: the frames,
+    C, S, the magnitude and fb are rounded to bf16 (nearest even) and back.
+    A product of two bf16 values is exact in f32, so this is "bf16
+    operands, f32 accumulation" as the fast kernel computes it, and it runs
+    on any device.  The operands may be f32 or already bf16.
+    """
     x = padded
     if x.dtype == torch.int16:
         x = x.to(torch.float32) * 2.0**-15
-    frames = x[..., : (n_frames - 1) * hop + win].unfold(-1, win, hop)
+    frames = frame_device(x, win, hop, n_frames)
+    c, s, fb = (t.to(torch.float32) for t in (c, s, fb))
+    if mode == "fast":
+        frames, c, s, fb = (round_bf16(t) for t in (frames, c, s, fb))
     re = frames @ c
     im = frames @ s
-    mel = torch.sqrt(re * re + im * im) @ fb
+    mag = torch.sqrt(re * re + im * im)
+    if mode == "fast":
+        mag = round_bf16(mag)
+    mel = mag @ fb
     return torch.where(mel > _AMIN, torch.log(mel) * _DB_SCALE, _DB_FLOOR)
 
 
+_OPERAND_DTYPE = {"parity": torch.float32, "fast": torch.bfloat16}
+
+
 def _check(padded, c, s, fb, win, hop, n_frames, mode):
-    if mode not in ("parity", "fast"):
+    if mode not in MODES:
         raise ValueError(f"unknown precision mode: {mode!r}")
     if padded.ndim not in (1, 2):
         raise ValueError("padded must be (L,) or (B, L)")
     if padded.dtype not in (torch.float32, torch.int16):
         raise ValueError(f"padded must be float32 or int16, got {padded.dtype}")
+    want = _OPERAND_DTYPE[mode]
     for name, t in (("c", c), ("s", s), ("fb", fb)):
-        if t.dtype != torch.float32 or t.ndim != 2:
-            raise ValueError(f"{name} must be a 2-D float32 tensor")
+        if t.dtype != want or t.ndim != 2:
+            raise ValueError(
+                f"{name} must be a 2-D {want} tensor in mode {mode!r}"
+                + (" (make them with operands_bf16)" if mode == "fast" else ""))
     n_freq = c.shape[1]
     if c.shape != (win, n_freq) or s.shape != (win, n_freq):
         raise ValueError(f"c and s must be (win={win}, n_freq), got "
@@ -169,19 +228,36 @@ def _check(padded, c, s, fb, win, hop, n_frames, mode):
         raise ValueError("padded, c, s and fb must be on one device")
 
 
+def _check_out(out, shape, device):
+    if (out.dtype != torch.float32 or tuple(out.shape) != shape
+            or not out.is_contiguous() or out.device != device):
+        raise ValueError(
+            f"out must be a contiguous float32 {shape} tensor on {device}, "
+            f"got {out.dtype} {tuple(out.shape)} on {out.device}")
+
+
 def mel_spectrogram_cuda(padded, c, s, fb, *, win, hop, n_frames,
-                         mode="parity"):
+                         mode="parity", out=None):
     """Fused mel dB spectrogram: ``(n_frames, n_mel)``, or
     ``(B, n_frames, n_mel)`` for a ``(B, L)`` batch, float32.
 
-    Frame k is ``padded[..., k*hop : k*hop + win]``.  ``mode`` is the
-    session's precision mode; both modes run f32 operands here.
+    Frame k is ``padded[..., k*hop : k*hop + win]``.  ``mode`` picks the
+    kernel: "parity" takes f32 ``c``/``s``/``fb`` (``operands_from_numpy``),
+    "fast" their bf16 copies (``operands_bf16``).  ``out``, if given, is a
+    contiguous float32 tensor of the result's shape that the kernel writes
+    (a row range of a larger plane, for instance) and that is returned.
     """
     global LAUNCHES
     _check(padded, c, s, fb, win, hop, n_frames, mode)
+    n_freq, n_mel = fb.shape
+    shape = (n_frames, n_mel) if padded.ndim == 1 else (
+        padded.shape[0], n_frames, n_mel)
+    if out is not None:
+        _check_out(out, shape, padded.device)
     if padded.device.type == "cpu":
-        return mel_spectrogram_plain(padded, c, s, fb, win=win, hop=hop,
-                                     n_frames=n_frames)
+        db = mel_spectrogram_plain(padded, c, s, fb, win=win, hop=hop,
+                                   n_frames=n_frames, mode=mode)
+        return db if out is None else out.copy_(db)
     if padded.device.type != "cuda":
         raise ValueError(f"unsupported device: {padded.device}")
     for name, t in (("padded", padded), ("c", c), ("s", s), ("fb", fb)):
@@ -190,13 +266,14 @@ def mel_spectrogram_cuda(padded, c, s, fb, *, win, hop, n_frames,
     lib = build()
     wave = padded if padded.ndim == 2 else padded.unsqueeze(0)
     batch, length = wave.shape
-    n_freq, n_mel = fb.shape
     bands = mel_bands(fb)
-    out = torch.empty((batch, n_frames, n_mel), dtype=torch.float32,
-                      device=wave.device)
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=wave.device)
+    fn = (lib.msv_mel_spectrogram if mode == "parity"
+          else lib.msv_mel_spectrogram_bf16)
     with torch.cuda.device(wave.device):
         stream = torch.cuda.current_stream(wave.device).cuda_stream
-        err = lib.msv_mel_spectrogram(
+        err = fn(
             wave.data_ptr(), int(wave.dtype == torch.int16), length, length,
             batch, c.data_ptr(), s.data_ptr(), fb.data_ptr(),
             bands.data_ptr(), out.data_ptr(),
@@ -204,6 +281,8 @@ def mel_spectrogram_cuda(padded, c, s, fb, *, win, hop, n_frames,
         )
     if err != 0:
         msg = lib.msv_cuda_error_string(err).decode()
-        raise RuntimeError(f"mel_spectrogram kernel launch failed: {msg}")
+        raise RuntimeError(f"mel_spectrogram kernel ({mode}) launch failed: "
+                           f"{msg}")
     LAUNCHES += 1
-    return out if padded.ndim == 2 else out[0]
+    LAUNCHES_BY_MODE[mode] += 1
+    return out

@@ -4,7 +4,8 @@ decibel.rs:33-56:
 
     log_ref = log10(ref)  if ref  > amin else log10(amin)
     out     = log10(x) - log_ref  if x > amin else log10(amin) - log_ref
-    amp_to_db = 20 * out,  amin default 1e-18  (decibel.rs:7)
+    amp_to_db   = 20 * out,  amin default 1e-18  (decibel.rs:7)
+    power_to_db = 10 * out,  amin default 1e-36  (decibel.rs:8)
 
 The branch is the strict ``>`` (not >=), so it is ``torch.where`` on exactly
 that predicate.
@@ -16,6 +17,7 @@ import torch
 
 REF_DEFAULT = 1.0
 AMIN_AMP_DEFAULT = 1e-18
+AMIN_POWER_DEFAULT = 1e-36
 
 
 def _log_for_db(x, ref_value, amin: float):
@@ -50,3 +52,9 @@ def amp_to_db(x, ref_value=REF_DEFAULT, amin: float = AMIN_AMP_DEFAULT):
     reference's DeciBelRef::Max variant (reference = array maximum).
     """
     return 20.0 * _log_for_db(x, ref_value, amin)
+
+
+def power_to_db(x, ref_value=REF_DEFAULT, amin: float = AMIN_POWER_DEFAULT):
+    """10*log10 with floor (decibel.rs:58-66, defaults decibel.rs:90-100).
+    ``ref_value`` may be "max" (DeciBelRef::Max)."""
+    return 10.0 * _log_for_db(x, ref_value, amin)

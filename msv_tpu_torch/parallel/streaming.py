@@ -1,0 +1,277 @@
+"""Streaming long-file spectrogram on one GPU, ported from
+``msv_tpu/parallel/streaming.py``.
+
+A long file (an hour at 48 kHz is 360 000 frames) is cut into segments of
+``seg_chunks * chunk_frames`` frames by msv_tpu's own plan
+(``_seg_plan_for``), each materialized on the host only as its slice of the
+reflect-padded signal (``padded_slice``).  Every segment is one launch of
+the fused mel dB kernel (``kernels/spectrogram_cuda.py``, the parity or the
+fast kernel) writing its rows of one preallocated ``(n_total, n_mel)``
+plane, so no hour-long intermediate and no concatenation exists.  On a card
+the schedule overlaps the host and the device: two pinned host buffers used
+in turn, a copy stream that ships segment k+1 while the compute stream runs
+segment k, and a per-segment masked min/max that stays on the device until
+one host sync at the end.
+
+Not ported: ``impl="fft"`` and ``mel_fb=None`` (ROADMAP queue 1: linear
+scale) and the packed transfers ``transfer="pack"``/``"pack1"`` (ROADMAP
+queue 1 item 11: wire codec).  ``"auto"`` and ``"raw"`` both ship raw
+samples.
+"""
+
+import numpy as np
+import torch
+
+from ..config import get_precision_mode
+from ..kernels.spectrogram_cuda import mel_spectrogram_cuda, operands_bf16
+from ..ops.framing import n_frames_for
+
+_PCM16_SCALE = 2.0**-15
+
+
+def _seg_plan_for(n_frames: int, chunk_frames: int, seg_chunks: int):
+    """Segment-size ladder: full-size segments while they fit, then ONE
+    tail segment of the next power-of-two chunk count — bounds transfer
+    waste for short files at <2x while keeping program variety at
+    log2(seg_chunks)+1 compiled executables total."""
+    n_chunks_needed = -(-max(n_frames, 1) // chunk_frames)
+    seg_plan = []
+    remaining = n_chunks_needed
+    while remaining >= seg_chunks:
+        seg_plan.append(seg_chunks)
+        remaining -= seg_chunks
+    if remaining > 0:
+        tail = 1
+        while tail < remaining:
+            tail *= 2
+        seg_plan.append(min(tail, seg_chunks))
+    return seg_plan
+
+
+def padded_slice(src, a: int, b: int, half: int, n: int, dtype=np.int16):
+    """Samples [a, b) of the conceptual reflect-padded + zero-tailed signal,
+    materializing only this segment (src may be an np.memmap or ndarray).
+
+    Replaces whole-file reflect_pad + pad copies: at hour scale those are
+    two ~350 MB passes on the single host core before the first byte can
+    move; this touches each output byte once.
+    """
+    out = np.zeros(b - a, dtype=dtype)
+    # left reflect region: padded[p] = wav[half - p] for p < half
+    lo = a
+    if lo < half:
+        hi = min(b, half)
+        src_l = np.asarray(src[half - lo : half - hi : -1] if half - hi > 0
+                           else src[half - lo :: -1][: hi - lo])
+        out[: hi - lo] = src_l
+        lo = hi
+    # middle: padded[p] = wav[p - half] for half <= p < half + n
+    if lo < b and lo < half + n:
+        hi = min(b, half + n)
+        out[lo - a : hi - a] = src[lo - half : hi - half]
+        lo = hi
+    # right reflect: padded[p] = wav[n - 2 - (p - half - n)] while valid
+    if lo < b and lo < half + n + half:
+        hi = min(b, half + n + half)
+        idx0 = n - 2 - (lo - half - n)
+        idx1 = n - 2 - (hi - 1 - half - n)
+        if idx0 >= 0:
+            idx1c = max(idx1, 0)
+            src_r = np.asarray(src[idx0 : idx1c - 1 if idx1c > 0 else None : -1])
+            out[lo - a : lo - a + len(src_r)] = src_r
+    return out  # anything beyond stays zero (bucket tail)
+
+
+def _device_operands(c, s, mel_fb, device, mode):
+    """(C, S, fb) as ``mode``'s kernel operands on ``device``: tensors are
+    taken as they are (already the mode's operands, or f32 for fast mode,
+    which rounds them to bf16 here); numpy arrays are shipped as f32."""
+    if device is None:
+        if not isinstance(c, torch.Tensor):
+            raise ValueError("streaming needs a device: pass device=, or "
+                             "c, s and mel_fb as tensors on the device")
+        device = c.device
+    ops = tuple(
+        a.to(device) if isinstance(a, torch.Tensor)
+        else torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+        for a in (c, s, mel_fb)
+    )
+    if mode == "fast" and ops[0].dtype != torch.bfloat16:
+        ops = operands_bf16(*ops)
+    return ops
+
+
+def _check_route(mel_fb, impl, transfer):
+    if impl not in ("dft", "pallas", "fft"):
+        raise ValueError(f"unknown impl: {impl!r}")
+    if impl == "fft" or mel_fb is None:
+        raise NotImplementedError(
+            "streaming without the mel filterbank (impl='fft' or "
+            "mel_fb=None) is not ported yet (ROADMAP queue 1: linear scale)")
+    if transfer in ("pack", "pack1"):
+        raise NotImplementedError(
+            f"transfer={transfer!r} is not ported (ROADMAP queue 1 item 11: "
+            f"wire codec); 'auto' and 'raw' ship raw samples")
+    if transfer not in ("auto", "raw"):
+        raise ValueError(f"unknown transfer: {transfer!r}")
+
+
+def _run_segments(make_seg, seg_plan, n_frames, win, hop, ops, chunk_frames,
+                  *, mode, keep_wav=False):
+    """Segment k's host slice -> device -> one kernel launch into rows
+    [f0, f0 + seg_frames) of the output plane.
+
+    On a card the host prepares segment k+1 while the device computes
+    segment k: the kernel launches are asynchronous, the copies run on their
+    own stream from one of two pinned buffers, the compute stream waits on
+    each copy's event, and the host waits on the event of a buffer's last
+    copy before it rewrites that buffer.  Per-segment min/max stay on the
+    device; one host sync at the end reads them.
+    """
+    c, s, fb = ops
+    device = c.device
+    on_card = device.type == "cuda"
+    n_total = sum(seg_plan) * chunk_frames
+    db = torch.empty((n_total, fb.shape[1]), dtype=torch.float32,
+                     device=device)
+    if on_card:
+        compute = torch.cuda.current_stream(device)
+        copier = torch.cuda.Stream(device)
+        max_len = max(seg_plan) * chunk_frames * hop + (win - hop)
+        pinned = [None, None]
+        in_flight = [None, None]  # event of each buffer's last copy
+    mins, maxs, segs = [], [], []
+    f0 = 0
+    for k, nck in enumerate(seg_plan):
+        seg_frames = nck * chunk_frames
+        seg_np = make_seg(f0 * hop, seg_frames * hop + (win - hop))
+        if on_card:
+            slot = k % 2
+            if pinned[slot] is None:
+                pinned[slot] = torch.empty(
+                    max_len, dtype=torch.from_numpy(seg_np[:0]).dtype,
+                    pin_memory=True)
+            if in_flight[slot] is not None:
+                in_flight[slot].synchronize()
+            host = pinned[slot][: len(seg_np)]
+            host.numpy()[:] = seg_np
+            with torch.cuda.stream(copier):
+                seg = torch.empty(len(seg_np), dtype=host.dtype,
+                                  device=device)
+                seg.copy_(host, non_blocking=True)
+                in_flight[slot] = torch.cuda.Event()
+                in_flight[slot].record(copier)
+            compute.wait_event(in_flight[slot])
+            # allocated on the copy stream, read on the compute stream
+            seg.record_stream(compute)
+        else:
+            seg = torch.from_numpy(seg_np)
+        rows = mel_spectrogram_cuda(seg, c, s, fb, win=win, hop=hop,
+                                    n_frames=seg_frames, mode=mode,
+                                    out=db[f0 : f0 + seg_frames])
+        # rows at or after n_frames are zero-tail frames: not in the range
+        n_valid = max(0, min(n_frames - f0, seg_frames))
+        if n_valid:
+            mins.append(rows[:n_valid].amin())
+            maxs.append(rows[:n_valid].amax())
+        if keep_wav:
+            segs.append((seg, seg_frames))
+        f0 += seg_frames
+    mm = torch.stack([torch.stack(mins).amin(),
+                      torch.stack(maxs).amax()]).cpu()  # one host sync
+    out = (db, n_frames, float(mm[0]), float(mm[1]))
+    if not keep_wav:
+        return out
+    # consecutive segments overlap by win - hop samples: all but the last
+    # contribute their first seg_frames * hop samples
+    pieces = [d[: fg * hop] for d, fg in segs[:-1]] + [segs[-1][0]]
+    return (*out, pieces[0] if len(pieces) == 1 else torch.cat(pieces))
+
+
+def streaming_spec_db(
+    wav: np.ndarray,
+    win: int,
+    hop: int,
+    c,
+    s,
+    mel_fb=None,
+    chunk_frames: int = 4096,
+    n_fft: int | None = None,
+    window: np.ndarray | None = None,
+    impl: str = "dft",
+    seg_chunks: int = 8,
+    transfer: str = "auto",
+    keep_wav: bool = False,
+    scale: float = 2.0**-15,
+    *,
+    device=None,
+):
+    """Full-file dB spectrogram via segmented kernel launches.
+
+    Returns (db (n_frames_padded, n_mel) on the device, n_frames, min_db,
+    max_db), as ``msv_tpu``'s ``streaming_spec_db`` does: the same segment
+    plan, so the same padded frame count.
+
+    ``impl`` "dft" and "pallas" both run the CUDA kernel on each segment;
+    any hop is allowed.  ``n_fft`` and ``window`` serve only
+    ``impl="fft"``, which is not ported.  Integer carriers: int16 with
+    ``scale`` 2^-15 goes to the kernel as int16; int32 (a channel sum) and
+    any other scale are scaled to f32 on the host, one segment at a time
+    (exact: power-of-two scales).
+
+    The kernel follows the session's precision mode
+    (``set_precision_mode``), as in ``msv_tpu``.  ``device`` defaults to the
+    device of ``c`` (a tensor).  ``c``, ``s``, ``mel_fb`` may be numpy f32,
+    or tensors that are the mode's operands (f32, or bf16 for "fast").
+
+    ``keep_wav=True`` appends a 5th value: the reflect-padded, zero-tailed
+    wave on the device, stitched from the shipped segments.
+    """
+    _check_route(mel_fb, impl, transfer)
+    mode = get_precision_mode()
+    ops = _device_operands(c, s, mel_fb, device, mode)
+    # integer input is kept as the carrier: int16 raw PCM or the int32
+    # multi-channel sum
+    dtype = wav.dtype if wav.dtype in (np.int16, np.int32) else np.float32
+    wav = np.ascontiguousarray(wav, dtype=dtype)
+    as_i16 = dtype == np.int16 and scale == _PCM16_SCALE
+    n_frames = n_frames_for(len(wav), win, hop)
+    seg_plan = _seg_plan_for(n_frames, chunk_frames, seg_chunks)
+    half = win // 2
+
+    def make_seg(a, seg_len):
+        seg = padded_slice(wav, a, a + seg_len, half, len(wav), dtype=dtype)
+        if not as_i16 and seg.dtype != np.float32:
+            seg = seg.astype(np.float32) * np.float32(scale)
+        return seg
+
+    return _run_segments(make_seg, seg_plan, n_frames, win, hop, ops,
+                         chunk_frames, mode=mode, keep_wav=keep_wav)
+
+
+def streaming_spec_db_mmap(path, win, hop, c, s, mel_fb=None,
+                           chunk_frames: int = 4096, seg_chunks: int = 8,
+                           transfer: str = "auto", *, device=None):
+    """Disk-streamed long-file spectrogram: segments are sliced straight
+    from a memory-mapped mono WAV (PCM16 or float32), so host memory holds
+    a segment or two, whatever the file's length.  Same results and
+    schedule as :func:`streaming_spec_db` on the same samples."""
+    from ..io.audio import open_wav_mmap
+
+    _check_route(mel_fb, "dft", transfer)
+    mode = get_precision_mode()
+    ops = _device_operands(c, s, mel_fb, device, mode)
+    mm, sr = open_wav_mmap(path)
+    n = len(mm)
+    half = win // 2
+    if n < half + 1:
+        raise ValueError(f"{path}: too short for win_length={win}")
+    n_frames = n_frames_for(n, win, hop)
+    seg_plan = _seg_plan_for(n_frames, chunk_frames, seg_chunks)
+    dtype = np.float32 if mm.dtype == np.float32 else np.int16
+
+    def make_seg(a, seg_len):
+        return padded_slice(mm, a, a + seg_len, half, n, dtype=dtype)
+
+    return _run_segments(make_seg, seg_plan, n_frames, win, hop, ops,
+                         chunk_frames, mode=mode)

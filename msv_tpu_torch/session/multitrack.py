@@ -3,9 +3,12 @@
 
 Host Python owns file I/O and the global-dB state machine; the device owns
 every per-sample computation.  Every track's spectrogram goes through the
-fused CUDA kernel (``kernels/spectrogram_cuda.py``): tracks that share a
-bucket ``(sr, n_frames_pad, wire)`` go as one batched launch.  Renders are
-torch ops over the cached device dB planes.
+fused CUDA kernel of the session's precision mode
+(``kernels/spectrogram_cuda.py``: the f32 kernel under "parity", the bf16
+kernel under "fast"): tracks that share a bucket ``(sr, n_frames_pad,
+wire)`` go as one batched launch, and a track over STREAMING_FRAME_THRESHOLD
+frames goes alone through segmented streaming (``parallel/streaming.py``).
+Renders are torch ops over the cached device dB planes.
 
 Behavioural contracts kept from msv_tpu:
   * dB window: max_db = min(global_max, 0), min_db = max(global_min,
@@ -16,9 +19,9 @@ Behavioural contracts kept from msv_tpu:
   * channel sum (not mean) to mono (lib.rs:42); window = hann/n_fft.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item, or is absent): streaming of tracks over STREAMING_FRAME_THRESHOLD
-frames, FreqScale.LINEAR, packed dB wires, waveform images, adaptive
-renders, the device-memory budget and save/load.
+item, or is absent): FreqScale.LINEAR, packed dB wires, waveform images
+(so a streamed track's device wave is not kept), adaptive renders, the
+device-memory budget and save/load.
 """
 
 import functools
@@ -31,7 +34,9 @@ import torch
 from ..config import (FreqScale, SpecSetting, derive_stft_params,
                       get_image_wire, get_precision_mode)
 from ..kernels.pipeline import render_grey_q, render_rgb
-from ..kernels.spectrogram_cuda import mel_spectrogram_cuda, operands_from_numpy
+from ..kernels.spectrogram_cuda import (mel_spectrogram_cuda, operands_bf16,
+                                        operands_from_numpy)
+from ..parallel.streaming import streaming_spec_db
 from ..ops.dft import windowed_dft_matrices
 from ..ops.framing import n_frames_for, reflect_pad_center
 from ..ops.mel import calc_mel_fb_default, hz_to_mel, mel_to_hz
@@ -50,8 +55,8 @@ from ..utils.profiling import StageTimer, get_logger
 from ..utils.rounding import trunc_int
 
 FRAME_BUCKET = 256
-# Tracks longer than this many frames take msv_tpu's segmented
-# streaming engine, which is not ported yet.
+# Tracks longer than this many frames go one at a time through segmented
+# streaming (parallel/streaming.py), as in msv_tpu.
 STREAMING_FRAME_THRESHOLD = 32768
 # Render-size guards (docs/PARITY.md): bound the host-side weight arrays
 # and the output image.
@@ -225,7 +230,8 @@ class MultiTrack:
         elif self.device.type != "cpu":
             raise ValueError(f"unsupported device: {self.device}")
         self.tracks: dict[int, AudioTrack] = {}
-        self._operands: dict[int, tuple] = {}  # sr -> (C, S, fb) on device
+        # sr -> {mode: (C, S, fb)} on device: f32 for parity, bf16 for fast
+        self._operands: dict[int, dict[str, tuple]] = {}
         self._state: dict[int, _TrackState] = {}
         self.max_db = -np.inf
         self.min_db = np.inf
@@ -244,7 +250,16 @@ class MultiTrack:
         window = default_stft_window(track.win_length, track.n_fft)
         c, s = windowed_dft_matrices(window, track.n_fft)
         fb = calc_mel_fb_default(track.sr, track.n_fft)
-        self._operands[track.sr] = operands_from_numpy(c, s, fb, self.device)
+        self._operands[track.sr] = {
+            "parity": operands_from_numpy(c, s, fb, self.device)}
+
+    def _sr_operands(self, sr: int, mode: str) -> tuple:
+        """The kernel operands of rate ``sr`` in precision ``mode``; the
+        bf16 copies are made at the first fast-mode use and kept."""
+        ops = self._operands[sr]
+        if mode not in ops:
+            ops[mode] = operands_bf16(*ops["parity"])
+        return ops[mode]
 
     # ------------------------------------------------------- spectrograms
 
@@ -270,14 +285,41 @@ class MultiTrack:
 
     def _compute_specs(self, id_list) -> None:
         """One kernel launch per bucket (sr, n_frames_pad, wire): a bucket of
-        one track is a batch of one."""
+        one track is a batch of one.  Tracks over STREAMING_FRAME_THRESHOLD
+        frames stream, one at a time."""
         groups: dict[tuple, list[int]] = {}
+        streamed: list[int] = []
         for id in id_list:
             tr = self.tracks[id]
-            key = (tr.sr, _frame_counts(tr)[1], tr.wire)
-            groups.setdefault(key, []).append(id)
+            n_frames, n_frames_pad = _frame_counts(tr)
+            if n_frames > STREAMING_FRAME_THRESHOLD:
+                streamed.append(id)
+                continue
+            groups.setdefault((tr.sr, n_frames_pad, tr.wire), []).append(id)
         for (sr, n_frames_pad, _wire), ids in groups.items():
             self._calc_spec_group(ids, sr, n_frames_pad)
+        for id in streamed:
+            with self.timer.stage("add_tracks.streaming"):
+                self._state[id] = self._calc_spec_streaming(self.tracks[id])
+
+    def _calc_spec_streaming(self, track) -> _TrackState:
+        """Long-track path: segmented streaming through the kernel of the
+        session's precision mode, with the track's carrier and scale."""
+        src = (track._wav_int if track._wav_int is not None
+               else np.asarray(track.wav, np.float32))
+        db, n_valid, smin, smax = streaming_spec_db(
+            src, track.win_length, track.hop_length,
+            *self._sr_operands(track.sr, get_precision_mode()),
+            scale=track.scale,
+        )
+        st = _TrackState()
+        st.spec_db = db
+        st.n_frames = n_valid
+        st.n_frames_pad = int(db.shape[0])
+        st.n_out = int(db.shape[1])
+        st.smin = smin
+        st.smax = smax
+        return st
 
     def _calc_spec_group(self, ids, sr: int, n_frames_pad: int) -> None:
         """Same-bucket tracks stacked into one (B, L) kernel launch, with the
@@ -288,11 +330,11 @@ class MultiTrack:
             wave = torch.from_numpy(np.stack([p[0] for p in preps]))
         with self.timer.stage("add_tracks.h2d"):
             wave = wave.to(self.device)
-        c, s, fb = self._operands[sr]
+        mode = get_precision_mode()
         with self.timer.stage("add_tracks.kernel_minmax"):
             db_b = mel_spectrogram_cuda(
-                wave, c, s, fb, win=tr0.win_length, hop=tr0.hop_length,
-                n_frames=n_frames_pad, mode=get_precision_mode(),
+                wave, *self._sr_operands(sr, mode), win=tr0.win_length,
+                hop=tr0.hop_length, n_frames=n_frames_pad, mode=mode,
             )
             n_valid = torch.tensor([p[1] for p in preps], device=self.device)
             frame = torch.arange(n_frames_pad, device=self.device)
@@ -345,15 +387,6 @@ class MultiTrack:
         with self.timer.stage("add_tracks.decode"):
             new = [AudioTrack(p, self.setting, channel=ch)
                    for p, ch in zip(path_list, channels)]
-            for track in new:
-                n_frames = _frame_counts(track)[0]
-                if n_frames > STREAMING_FRAME_THRESHOLD:
-                    raise NotImplementedError(
-                        f"{track.path}: {n_frames} frames exceeds "
-                        f"STREAMING_FRAME_THRESHOLD "
-                        f"({STREAMING_FRAME_THRESHOLD}); streaming is not "
-                        f"ported yet (ROADMAP queue 1: streaming)"
-                    )
         with self.timer.stage("add_tracks.operands"):
             for id, track in zip(id_list, new):
                 self._ensure_sr_operands(track)

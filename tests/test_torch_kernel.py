@@ -9,6 +9,12 @@ itself is compared with the plain version on the card only, where JAX is
 absent: there run  python -m pytest --noconftest -m gpu tests/test_torch_kernel.py
 (the JAX imports live in the ``jx`` fixture, so this module imports without
 them).
+
+Fast mode (bf16 operands, f32 accumulation) is held to the Pallas kernel
+with bf16 operands with the split-mode bounds of
+tests/test_pallas_kernel.py:266-271 (max < 0.47 dB, one 120 dB / 255 grey
+step; p99 < 0.01 dB): the two compute the same function and differ only
+where a sum lands by a rounding boundary of the bf16 magnitude.
 """
 
 import types
@@ -28,6 +34,7 @@ from msv_tpu_torch.utils import round_up_to  # noqa: E402
 
 RATES = [8000, 16000, 22050, 24000, 44100, 48000]
 ATOL, RTOL = 2e-3, 1e-4
+GREY_STEP = 0.47  # dB: one 120 dB / 255 grey level
 
 
 @pytest.fixture(scope="module")
@@ -45,6 +52,10 @@ def _setup(sr, win_ms=40.0):
     window = default_stft_window(p.win_length, p.n_fft)
     c, s = windowed_dft_matrices(window, p.n_fft)
     return p.win_length, p.hop_length, c, s, calc_mel_fb_default(sr, p.n_fft)
+
+
+def _p99(d):
+    return float(np.percentile(np.abs(d), 99))
 
 
 def _signal(rng, n, batch=None):
@@ -146,6 +157,13 @@ def _bad_inputs():
         ("1-D fb", (wave, c, c, fb[:, 0]), ok),
         ("zero frames", (wave, c, c, fb), dict(ok, n_frames=0)),
         ("bad mode", (wave, c, c, fb), dict(ok, mode="bf16")),
+        ("f32 operands in fast mode", (wave, c, c, fb), dict(ok, mode="fast")),
+        ("bf16 operands in parity mode", (wave, *K.operands_bf16(c, c, fb)),
+         ok),
+        ("out of the wrong shape", (wave, c, c, fb),
+         dict(ok, out=torch.empty(nf + 1, n_mel))),
+        ("out of the wrong dtype", (wave, c, c, fb),
+         dict(ok, out=torch.empty(nf, n_mel, dtype=torch.float64))),
     ]
 
 
@@ -159,11 +177,140 @@ def test_wrapper_rejects_bad_dtype_or_shape(case):
 def test_cpu_route_is_not_counted_as_a_launch(rng):
     win, hop, c, s, fb = _setup(8000)
     padded = reflect_pad_center(_signal(rng, 4000), win)
-    before = K.LAUNCHES
-    K.mel_spectrogram_cuda(torch.from_numpy(padded),
-                           *K.operands_from_numpy(c, s, fb), win=win, hop=hop,
-                           n_frames=n_frames_for(4000, win, hop))
-    assert K.LAUNCHES == before
+    before = (K.LAUNCHES, dict(K.LAUNCHES_BY_MODE))
+    ops = K.operands_from_numpy(c, s, fb)
+    for mode, o in (("parity", ops), ("fast", K.operands_bf16(*ops))):
+        K.mel_spectrogram_cuda(torch.from_numpy(padded), *o, win=win,
+                               hop=hop, n_frames=n_frames_for(4000, win, hop),
+                               mode=mode)
+    assert (K.LAUNCHES, K.LAUNCHES_BY_MODE) == before
+
+
+@pytest.mark.parametrize("mode", ["parity", "fast"])
+def test_out_argument_is_written_in_place(rng, mode):
+    win, hop, c, s, fb = _setup(8000)
+    padded = torch.from_numpy(reflect_pad_center(_signal(rng, 4000), win))
+    ops = K.operands_from_numpy(c, s, fb)
+    if mode == "fast":
+        ops = K.operands_bf16(*ops)
+    nf = n_frames_for(4000, win, hop)
+    plane = torch.full((nf + 7, fb.shape[1]), 5.0)
+    got = K.mel_spectrogram_cuda(padded, *ops, win=win, hop=hop, n_frames=nf,
+                                 mode=mode, out=plane[3 : 3 + nf])
+    assert got.data_ptr() == plane[3].data_ptr()
+    want = K.mel_spectrogram_plain(padded, *ops, win=win, hop=hop,
+                                   n_frames=nf, mode=mode)
+    assert torch.equal(plane[3 : 3 + nf], want)
+    assert (plane[:3] == 5.0).all() and (plane[3 + nf :] == 5.0).all()
+
+
+def _pallas_fast(jx, padded, c, s, fb, win, hop, n_frames):
+    """The Pallas kernel in fast mode (bf16 operand tiles), interpreted."""
+    import ml_dtypes
+
+    jnp, pl = jx.jnp, jx.pallas
+    n_frames_pad = round_up_to(n_frames, pl.TILE_F)
+    c3, s3, fb3, n_mel = pl.prepare_matrices(c, s, fb, win)
+    rows = [pl.prepare_wav2d(p, win, hop, n_frames_pad)
+            for p in np.atleast_2d(padded)]
+    bf = [jnp.asarray(a.astype(ml_dtypes.bfloat16)) for a in (c3, s3, fb3)]
+    ref = pl.mel_spectrogram_pallas(
+        jnp.asarray(np.stack(rows)), *bf, win=win, hop=hop,
+        n_frames=n_frames_pad, interpret=True, mode="fast")
+    ref = np.asarray(ref)[:, :n_frames, :n_mel]
+    return ref if padded.ndim == 2 else ref[0]
+
+
+@pytest.mark.parametrize("batch", [None, 2])
+@pytest.mark.parametrize("sr", [8000, 16000])
+def test_plain_fast_matches_pallas_fast_interpret(sr, batch, rng, jx):
+    win, hop, c, s, fb = _setup(sr)
+    wav = _signal(rng, sr // 2, batch=batch)
+    n_frames = n_frames_for(wav.shape[-1], win, hop)
+    padded = (reflect_pad_center(wav, win) if batch is None
+              else np.stack([reflect_pad_center(w, win) for w in wav]))
+    ref = _pallas_fast(jx, padded, c, s, fb, win, hop, n_frames)
+    got = K.mel_spectrogram_cuda(
+        torch.from_numpy(padded),
+        *K.operands_bf16(*K.operands_from_numpy(c, s, fb)),
+        win=win, hop=hop, n_frames=n_frames, mode="fast",
+    ).numpy()
+    assert got.shape == ref.shape
+    d = got - ref
+    print(f"fast plain vs Pallas fast, {sr} Hz B={batch}: max "
+          f"{np.abs(d).max():.3g} dB, p99 {_p99(d):.3g} dB")
+    assert np.abs(d).max() < GREY_STEP
+    assert _p99(d) < 0.01
+
+
+def _feature_setup(sr):
+    """The ML frontend's operands at n_mel=64, 40/10 ms: unscaled hann and
+    the slaney filterbank, the shapes of tests/test_features.py:65-83."""
+    from msv_tpu_torch.ops.mel import calc_mel_fb
+    from msv_tpu_torch.ops.windows import hann
+
+    win, hop, n_fft = sr // 25, sr // 100, 512
+    c, s = windowed_dft_matrices(hann(win, False), n_fft)
+    return win, hop, c, s, calc_mel_fb(sr, n_fft, 64, 0.0, None, "slaney",
+                                       np.float32)
+
+
+@pytest.mark.parametrize("operands", ["features", "session"])
+def test_fast_vs_parity_plain(operands, rng):
+    """Fast against parity, both plain, on white noise.  On the frontend's
+    64 wide bands (the JAX bound of tests/test_features.py:83) every bin is
+    within one grey step.  On the session's bands, one or two bins wide, a
+    bin near a null of |X| is swamped by the bf16 rounding of the frame and
+    of C/S (about 2^-9 of the frame's loudest component): 99% of bins are
+    within one grey step and deep nulls swing further, as msv_tpu's
+    tests/test_session.py:241-244 notes for the TPU."""
+    sr = 8000
+    win, hop, c, s, fb = (_feature_setup if operands == "features"
+                          else _setup)(sr)
+    wav = (rng.standard_normal((2, sr)) * 0.4).astype(np.float32)
+    padded = torch.from_numpy(np.stack([reflect_pad_center(w, win)
+                                        for w in wav]))
+    ops = K.operands_from_numpy(c, s, fb)
+    kw = dict(win=win, hop=hop, n_frames=n_frames_for(sr, win, hop))
+    d = (K.mel_spectrogram_plain(padded, *ops, mode="fast", **kw)
+         - K.mel_spectrogram_plain(padded, *ops, mode="parity", **kw)).numpy()
+    print(f"fast vs parity, {operands} operands: max {np.abs(d).max():.3g} "
+          f"dB, p99 {_p99(d):.3g} dB, share > {GREY_STEP} dB "
+          f"{(np.abs(d) > GREY_STEP).mean():.4f}")
+    if operands == "features":
+        assert np.abs(d).max() < GREY_STEP
+    else:
+        assert _p99(d) < GREY_STEP
+
+
+@pytest.mark.parametrize("sr", [8000, 22050])
+def test_fast_int16_route_equals_f32_route(sr, rng):
+    win, hop, c, s, fb = _setup(sr)
+    i16 = (rng.standard_normal((2, sr // 4)) * 8000).astype(np.int16)
+    f32 = i16.astype(np.float32) * np.float32(2.0**-15)
+    n_frames = n_frames_for(i16.shape[1], win, hop)
+    ops = K.operands_bf16(*K.operands_from_numpy(c, s, fb))
+    out = [K.mel_spectrogram_cuda(
+        torch.from_numpy(np.stack([reflect_pad_center(w, win) for w in wav])),
+        *ops, win=win, hop=hop, n_frames=n_frames, mode="fast").numpy()
+        for wav in (i16, f32)]
+    np.testing.assert_array_equal(out[0], out[1])
+
+
+def test_operands_bf16_round_to_nearest_even():
+    import ml_dtypes
+
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((64, 33)).astype(np.float32)
+    # exact ties: a bf16 value plus half its last place, both parities
+    bits = x.view(np.uint32) & np.uint32(0xFFFF0000)
+    x[::2] = (bits[::2] | np.uint32(0x8000)).view(np.float32)
+    x[1::4] = (bits[1::4] | np.uint32(0x18000)).view(np.float32)
+    got = K.operands_bf16(*(torch.from_numpy(a) for a in (x, x[:, :5], x.T)))
+    for g, a in zip(got, (x, x[:, :5], x.T)):
+        assert g.dtype == torch.bfloat16 and g.is_contiguous()
+        want = a.astype(ml_dtypes.bfloat16).astype(np.float32)
+        np.testing.assert_array_equal(g.float().numpy(), want)
 
 
 def test_mel_bands_bound_each_filter():
@@ -208,3 +355,37 @@ def test_cuda_kernel_matches_plain_on_the_card(sr, win_ms):
     assert torch.equal(out["i16"], out["f32"])
     assert torch.equal(one, out["f32"][1])  # batch rows are independent
     torch.testing.assert_close(out["f32"], plain, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sr,win_ms", [(8000, 40.0), (22050, 40.0),
+                                       (44100, 40.0), (48000, 40.0),
+                                       (48000, 120.0)])  # 2 m-tiles
+def test_fast_kernel_matches_plain_on_the_card(sr, win_ms):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(sr)
+    win, hop, c, s, fb = _setup(sr, win_ms)
+    i16 = (rng.standard_normal((2, 3 * sr)) * 3000).astype(np.int16)
+    f32 = i16.astype(np.float32) * np.float32(2.0**-15)
+    n_frames = n_frames_for(i16.shape[1], win, hop)
+    ops = K.operands_bf16(*K.operands_from_numpy(c, s, fb, "cuda"))
+    out = {}
+    for name, wav in (("i16", i16), ("f32", f32)):
+        padded = np.stack([reflect_pad_center(w, win) for w in wav])
+        x = torch.from_numpy(padded).cuda()
+        before = K.LAUNCHES_BY_MODE["fast"]
+        out[name] = K.mel_spectrogram_cuda(x, *ops, win=win, hop=hop,
+                                           n_frames=n_frames, mode="fast")
+        assert K.LAUNCHES_BY_MODE["fast"] == before + 1
+    plain = K.mel_spectrogram_plain(x, *ops, win=win, hop=hop,
+                                    n_frames=n_frames, mode="fast")
+    one = K.mel_spectrogram_cuda(x[1], *ops, win=win, hop=hop,
+                                 n_frames=n_frames, mode="fast")
+    torch.cuda.synchronize()
+    assert torch.equal(out["i16"], out["f32"])
+    assert torch.equal(one, out["f32"][1])  # batch rows are independent
+    d = (out["f32"] - plain).abs().flatten()
+    assert d.max().item() < GREY_STEP
+    assert d.kthvalue(int(np.ceil(0.99 * d.numel()))).values.item() < 0.01

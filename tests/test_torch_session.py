@@ -197,7 +197,7 @@ def test_flac_fixture_within_one_step_of_jax():
           f"equal={digest[:16] == GOLDEN_FLAC_SPEC}")
 
 
-def test_unported_paths_raise_not_implemented(sessions, monkeypatch):
+def test_unported_paths_raise_not_implemented(sessions):
     _, port, paths = sessions
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         msv_tpu_torch.MultiTrack(
@@ -206,11 +206,10 @@ def test_unported_paths_raise_not_implemented(sessions, monkeypatch):
             device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.get_spec_db(0, wire="q10")
-    monkeypatch.setattr(tmt, "STREAMING_FRAME_THRESHOLD", 100)
-    mt = msv_tpu_torch.MultiTrack(device="cpu")
-    with pytest.raises(NotImplementedError, match="streaming"):
-        mt.add_tracks([0], [paths[0]])
-    assert mt.tracks == {}
+    c, s, fb = port._operands[8000]["parity"]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        msv_tpu_torch.streaming_spec_db(np.zeros(4000, np.int16), 320, 80,
+                                        c, s, fb, impl="fft")
 
 
 def test_default_device_needs_a_card():
