@@ -6,8 +6,8 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each printing its lines:
   1. device   the card's name and power limit (nvidia-smi), torch, CUDA and
               nvcc versions;
-  2. build    compiles both mel dB kernels (f32 parity, bf16 fast) from
-              csrc/ into one library with nvcc;
+  2. build    compiles the three mel dB kernels (f32 parity, bf16 fast,
+              split-f32) from csrc/ into one library with nvcc;
   3. kernel   the parity kernel against its plain PyTorch version at all
               six rate buckets, f32 and int16 input, batch 1 and 2, on 240 s
               of audio per row (about 24 000 frames); atol 2e-3 dB, rtol
@@ -21,6 +21,18 @@ Phases, each printing its lines:
               0.01 dB, int16 bit-equal to f32; against the parity kernel,
               under 5% of bins more than 0.47 dB apart (deep nulls swing
               further); times of both kernels and the plain version;
+  3c. split   (run after phase 3b, on its own seeded stream) the split-f32
+              kernel against its plain version (mode="split") at phase 3's
+              shapes (f32_agree), int16 bit-equal to f32; against the parity
+              kernel p99 < 0.01 dB and under 0.1% of bins more than 0.47 dB
+              apart; on tests/test_pallas_kernel.py's two-tone signal at 16
+              and 48 kHz, max < 0.47 dB from parity and under a twentieth of
+              fast's max; times of the split, parity and fast kernels and of
+              the split plain version; then tools/profile_split_tpu.py's
+              A/B: 30 minutes at 48 kHz in 32 768-frame device-resident
+              segments, parity, split and fast, in frames per second (the
+              main path of the split kernel: its launches are counted
+              there);
   4. session  the user's path: MultiTrack(device="cuda").add_tracks on seven
               240 s stereo PCM16 WAVs at 8/16/22.05/24/44.1/44.1/48 kHz (six
               kernel launch groups), a 500-row full-width image of every
@@ -30,7 +42,15 @@ Phases, each printing its lines:
               against an f64 witness of the kernel's function (f32_agree);
               then the seven tracks again under precision_mode_scope("fast"):
               one fast launch per group, the 48 kHz track against the plain
-              version (max < 0.47 dB, p99 < 0.01 dB);
+              version (max < 0.47 dB, p99 < 0.01 dB); 200-row full-width
+              waveform images of every track, a 1200-column waveform crop
+              equal to the slice of the full image, the 10 s track's
+              waveform images equal to the CPU session's; then
+              set_setting(linear) on the seven tracks (no mel kernel
+              launch), a full-width linear image and a crop, the 10 s track
+              against the CPU session on the linear scale (f32_agree, one
+              u8 step); a save_session / load_session round trip; which
+              audio decoder ran;
   5. stream   long tracks: a 60-minute 48 kHz mono PCM16 WAV and an
               8-minute 44.1 kHz stereo PCM16 WAV (the int32 carrier) open
               through segmented streaming, one parity launch per segment;
@@ -40,17 +60,21 @@ Phases, each printing its lines:
               streaming_spec_db_mmap on the hour equal to the session's
               plane; then both tracks under precision_mode_scope("fast"),
               the hour's plane under 5% of bins more than 0.47 dB from
-              parity;
+              parity; the hour's waveform image drawn from the device wave
+              streaming kept (no second upload); the 8-minute track through
+              linear streaming against one one-shot spec_pipeline
+              (f32_agree);
   6. features log_mel_spectrogram on 4 x 4 s at 48 kHz (n_mel 128, 40/10
               ms) and on 64 x 10 s at 16 kHz (25/10 ms): one fast launch per
               call by default, one parity launch with precision="parity",
               each against its plain version (fast: max < 0.47 dB, p99 <
               0.01 dB; parity: f32_agree).
-Each path of phases 4-6 is driven with the launch counts set to 0 just
+Each path of phases 3c-6 is driven with the launch counts set to 0 just
 before it and read just after; comparisons run outside those windows.  The
-second-to-last line is a JSON object describing each kernel; the last line
-is {"ok": true, "device": {...}}.  Exits non-zero, printing neither,
-without a CUDA device or when any check fails.
+second-to-last line is a JSON object describing each kernel (its bound is
+computed from this run's shapes against the H100 SXM's published peaks);
+the last line is {"ok": true, "device": {...}}.  Exits non-zero, printing
+neither, without a CUDA device or when any check fails.
 """
 
 import json
@@ -89,6 +113,12 @@ DEEP_DB = 60.0
 F32_FLOOR = 1e-6
 FLOOR_SHARE = 1e-3
 SEED = 20261016
+# Split against parity: share of bins more than one grey step apart.
+SPLIT_SHARE = 1e-3
+# Published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet) and
+# its HBM3 rate: the roofline of the kernels line.
+PEAK_FLOPS = {"parity": 67e12, "fast": 989e12, "split": 989e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def cuda_ms(fn, reps=5):
@@ -121,6 +151,31 @@ def reset_counts(K):
 def read_counts(K):
     torch.cuda.synchronize()
     return dict(K.LAUNCHES_BY_MODE)
+
+
+def counts(parity=0, fast=0, split=0):
+    """The launch counts a path should leave, by kernel."""
+    return {"parity": parity, "fast": fast, "split": split}
+
+
+def bound(K, mode, padded, ops, n_frames):
+    """(bound_ms, bound_by) of one launch on ``padded``: the larger of the
+    bytes it must move (the wave, C, S and fb read once, the dB plane
+    written once) over the HBM rate, and its operations (the DFT pair and
+    each mel band's support; three products each in split mode) over the
+    mode's peak rate."""
+    win, n_freq = ops[0].shape[-2:]
+    n_mel = ops[2].shape[-1]
+    bands = K.mel_bands(ops[2])
+    band_bins = int((bands[:, 1] - bands[:, 0]).sum())
+    rows = 1 if padded.ndim == 1 else padded.shape[0]
+    products = 3 if mode == "split" else 1
+    flops = products * 2 * rows * n_frames * (2 * win * n_freq + band_bins)
+    nbytes = (sum(t.numel() * t.element_size() for t in (padded, *ops))
+              + 4 * rows * n_frames * n_mel)
+    t_ops, t_bytes = flops / PEAK_FLOPS[mode], nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def quantile(err, q):
@@ -175,7 +230,9 @@ def f64_witness(padded, c, s, fb, win, hop, n_frames):
     if np.asarray(padded).dtype == np.int16:
         x = x * 2.0**-15
     fr = np.lib.stride_tricks.sliding_window_view(x, win, axis=-1)
-    fr = fr[..., ::hop, :][..., :n_frames, :]
+    # contiguous: numpy's matmul leaves BLAS for the strided view (100x
+    # slower)
+    fr = np.ascontiguousarray(fr[..., ::hop, :][..., :n_frames, :])
     c, s, fb = (t.double().cpu().numpy() for t in (c, s, fb))
     re, im = fr @ c, fr @ s
     mel = np.sqrt(re * re + im * im) @ fb
@@ -294,7 +351,8 @@ def phase_kernel(K, rng):
                   f"(i16 {ms_i16:.3f}), plain {plain_ms:.3f} ms")
             if sr == 48000 and batch == 1:
                 headline = (ms, plain_ms, f"{sr} Hz, B=1, f32, "
-                            f"{n_frames} frames x {n_mel} mel")
+                            f"{n_frames} frames x {n_mel} mel",
+                            *bound(K, "parity", x["f32"], ops, n_frames))
         del wave, ops
         torch.cuda.empty_cache()
     return max_err, headline
@@ -316,7 +374,10 @@ def write_session_wavs(rng, d):
 
 
 def phase_session(K, rng):
-    from msv_tpu_torch import MultiTrack, precision_mode_scope
+    from msv_tpu_torch import (FreqScale, MultiTrack, SpecSetting,
+                               precision_mode_scope)
+    from msv_tpu_torch.io import _native_audio as NA
+    from msv_tpu_torch.io.audio import open_audio_file_ex
     from msv_tpu_torch.ops.framing import n_frames_for
     from msv_tpu_torch.session.multitrack import FRAME_BUCKET
     from msv_tpu_torch.utils import round_up_to
@@ -370,11 +431,24 @@ def phase_session(K, rng):
         mt10.add_tracks([0], [p10])
         img10 = mt10.get_spec_image(0, 100.0, 500, wire="rgb")
         short_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        wav_imgs = [mt.get_wav_image(i, 100.0, 200, -1.0, 1.0) for i in ids]
+        wav_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        wcrop = mt.get_wav_image_crop(0, 100.0, 200, -1.0, 1.0, 30.0, 42.0)
+        wcrop_s = time.perf_counter() - t0
+        w10 = (mt10.get_wav_image(0, 100.0, 200, -1.0, 1.0),
+               mt10.get_wav_image_crop(0, 1000.0, 200, -0.5, 0.5, 2.0, 3.2))
         launches = read_counts(K)
         # ---- end of the main path
-        check(launches == {"parity": len(groups) + 1, "fast": 0},
-              f"launches {launches}")
+        check(launches == counts(len(groups) + 1), f"launches {launches}")
         check(img10.shape == (500, 1000, 3), f"10 s image {img10.shape}")
+        for i, w in zip(ids, wav_imgs):
+            check(w.shape == (200, int(100 * SECONDS), 4)
+                  and w.dtype == np.uint8 and (w[..., 3] > 0).any(),
+                  f"track {i} waveform image {w.shape}")
+        check(np.array_equal(wcrop, wav_imgs[0][:, 3000:4200]),
+              "waveform crop != slice of the full waveform image")
 
         for i in ids:
             db = mt.get_spec_db(i)
@@ -404,12 +478,19 @@ def phase_session(K, rng):
         img_cpu = cpu.get_spec_image(0, 100.0, 500, wire="rgb")
         px = int(np.abs(img10.astype(np.int16) - img_cpu).max())
         check(px <= 1, f"10 s track: CUDA vs CPU image differs by {px}")
+        w10_cpu = (cpu.get_wav_image(0, 100.0, 200, -1.0, 1.0),
+                   cpu.get_wav_image_crop(0, 1000.0, 200, -0.5, 0.5, 2.0, 3.2))
+        check(all(np.array_equal(a, b) for a, b in zip(w10, w10_cpu)),
+              "10 s track: CUDA waveform images != the CPU session's")
 
         print(f"[session] add_tracks ({len(paths)} tracks, {len(groups)} "
               f"kernel launches) {add_s:.3f} s; {len(ids)} full-width "
               f"500x{int(100 * SECONDS)} images (grey8 wire) {render_s:.3f} s;"
               f" one on the rgb wire {rgb_s:.3f} s; 1200-px crop "
-              f"{crop_s:.3f} s; 10 s track add+render (dense) {short_s:.3f} s")
+              f"{crop_s:.3f} s; 10 s track add+render (dense) {short_s:.3f} s;"
+              f" {len(ids)} full-width 200x{int(100 * SECONDS)} waveform "
+              f"images {wav_s:.3f} s; 1200-px waveform crop {wcrop_s:.3f} s; "
+              f"10 s track's waveform image and crop equal the CPU session's")
         stages = {k: v["total_s"] for k, v in mt.timer.summary().items()}
         print(f"[session] stage seconds, host clock: {json.dumps(stages)}")
         print(f"[session] dB range [{mt.get_min_db():.3f}, "
@@ -431,7 +512,7 @@ def phase_session(K, rng):
         img_f = mf.get_spec_image(ids[-1], 100.0, 500)
         fast_launches = read_counts(K)
         # ---- end of the fast session
-        check(fast_launches == {"parity": 0, "fast": len(groups)},
+        check(fast_launches == counts(fast=len(groups)),
               f"fast session launches {fast_launches} for {len(groups)} "
               f"groups")
         check(img_f.shape == img.shape, f"fast image {img_f.shape}")
@@ -456,7 +537,77 @@ def phase_session(K, rng):
               f"track vs plain max {e_max:.3g} dB p99 {e_p99:.3g} dB; vs the "
               f"parity session share>{GREY_STEP} {min(shares):.4f}-"
               f"{max(shares):.4f}")
-        return launches, fast_launches
+        del mf
+
+        # ---- the linear scale: live settings on the seven-track session
+        linear = SpecSetting(freq_scale=FreqScale.LINEAR)
+        torch.cuda.synchronize()
+        reset_counts(K)
+        mt.timer.reset()
+        t0 = time.perf_counter()
+        mt.set_setting(linear)
+        torch.cuda.synchronize()
+        lin_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        limg = mt.get_spec_image(ids[-1], 100.0, 500)
+        limg_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lcrop = mt.get_spec_image_crop(ids[-1], 100.0, 500, 30.0, 42.0)
+        lcrop_s = time.perf_counter() - t0
+        mt10.set_setting(linear)
+        lin_launches = read_counts(K)
+        # ---- end of the linear path
+        check(lin_launches == counts(), f"the linear session launched a mel "
+              f"kernel: {lin_launches}")
+        check(sorted(mt.tracks) == ids and limg.shape == img.shape
+              and np.array_equal(lcrop, limg[:, 3000:4200]),
+              f"linear image {limg.shape} or crop")
+        tr = mt.tracks[ids[-1]]
+        check(mt.get_spec_db(ids[-1]).shape[1] == tr.n_fft // 2 + 1,
+              "linear plane width")
+        cpu.set_setting(linear)
+        lerr, lnote = check_f32(torch.from_numpy(mt10.get_spec_db(0)),
+                                torch.from_numpy(cpu.get_spec_db(0)),
+                                "10 s track, linear: CUDA vs CPU")
+        lpx = int(np.abs(mt10.get_spec_image(0, 100.0, 500, wire="rgb")
+                         .astype(np.int16)
+                         - cpu.get_spec_image(0, 100.0, 500, wire="rgb"))
+                  .max())
+        check(lpx <= 1, f"10 s track, linear: images differ by {lpx}")
+        stages = {k: v["total_s"] for k, v in mt.timer.summary().items()}
+        print(f"[session] set_setting(linear) on {len(ids)} tracks (re-add, "
+              f"no kernel launch) {lin_s:.3f} s; full-width 500x"
+              f"{int(100 * SECONDS)} linear image {limg_s:.3f} s, 1200-px crop "
+              f"{lcrop_s:.3f} s; 10 s track vs CPU max|dB err| {lerr:.3g} "
+              f"({lnote}), max image step {lpx}; stage seconds, host clock: "
+              f"{json.dumps(stages)}")
+
+        path = os.path.join(d, "session.json")
+        mt.save_session(path)
+        back = MultiTrack.load_session(path, device="cuda")
+        check(back.setting == mt.setting and sorted(back.tracks) == ids
+              and abs(back.get_max_db() - mt.get_max_db()) <= ATOL,
+              "save_session / load_session round trip")
+        check_f32(torch.from_numpy(back.get_spec_db(ids[0])),
+                  torch.from_numpy(mt.get_spec_db(ids[0])),
+                  "reloaded session's plane")
+        print(f"[session] save_session / load_session: {len(ids)} tracks, "
+              f"{back.setting.freq_scale.value} scale, dB range and planes "
+              f"as saved")
+        del back
+
+        # the decoders: PCM16 WAVs take numpy's integer route by design;
+        # other WAVs (and FLAC) the port's own native library
+        native0 = NA.DECODES["native"]
+        open_audio_file_ex(p10)
+        check(NA.DECODES["native"] == native0 + 1 and NA.LIBRARY,
+              f"the native decoder did not run: {NA.BUILD_ERROR}")
+        print(f"[session] audio decoders: session adds of PCM16 WAVs by the "
+              f"numpy integer route; native C++ decoder "
+              f"{os.path.relpath(NA.LIBRARY)} (built from msv_tpu_torch/"
+              f"native/) decoded {NA.DECODES['native']} file(s), numpy "
+              f"fallback {NA.DECODES['numpy']}")
+        return launches, fast_launches, lin_launches
 
 
 def phase_fast(K, rng):
@@ -519,10 +670,168 @@ def phase_fast(K, rng):
                   f"{par_ms:.3f} ms")
             if sr == 48000 and batch == 1:
                 headline = (ms, plain_ms, f"{sr} Hz, B=1, f32, "
-                            f"{n_frames} frames x {n_mel} mel")
+                            f"{n_frames} frames x {n_mel} mel",
+                            *bound(K, "fast", x["f32"], ops16, n_frames))
         del wave, ops, ops16
         torch.cuda.empty_cache()
     return max_err, headline
+
+
+def two_tone(sr):
+    """tests/test_pallas_kernel.py:241-244's signal: 220 and 1367 Hz over
+    faint noise, one second."""
+    t = np.arange(sr) / sr
+    noise = np.random.default_rng(sr).standard_normal(len(t))
+    return (0.4 * np.sin(2 * np.pi * 220 * t)
+            + 0.2 * np.sin(2 * np.pi * 1367 * t)
+            + 0.005 * noise).astype(np.float32)
+
+
+def phase_split(K, rng):
+    """3c: the split-f32 kernel against its plain version, the parity and
+    fast kernels, then the 30-minute A/B (its main path)."""
+    from msv_tpu_torch.ops.framing import n_frames_for, reflect_pad_center
+
+    max_err, headline = 0.0, None
+    for sr in RATES:
+        win, hop, ops = operands(sr, "cuda")
+        ops16, ops_s = K.operands_bf16(*ops), K.operands_split(*ops)
+        i16 = make_signal(rng, sr, SECONDS, 2)
+        n_frames = n_frames_for(i16.shape[1], win, hop)
+        padded = np.stack([reflect_pad_center(x, win) for x in i16])
+        wave = {
+            "i16": torch.from_numpy(padded).cuda(),
+            "f32": torch.from_numpy(
+                padded.astype(np.float32) * np.float32(2.0**-15)).cuda(),
+        }
+        for batch in (1, 2):
+            x = {k: (v[0] if batch == 1 else v) for k, v in wave.items()}
+            kw = dict(win=win, hop=hop, n_frames=n_frames)
+
+            def split(dtype="f32"):
+                return K.mel_spectrogram_cuda(x[dtype], *ops_s, mode="split",
+                                              **kw)
+
+            def plain():
+                return K.mel_spectrogram_plain(x["f32"], *ops_s,
+                                               mode="split", **kw)
+
+            def parity():
+                return K.mel_spectrogram_cuda(x["f32"], *ops, **kw)
+
+            def fast():
+                return K.mel_spectrogram_cuda(x["f32"], *ops16, mode="fast",
+                                              **kw)
+
+            got_i16, got, want, par = split("i16"), split(), plain(), parity()
+            torch.cuda.synchronize()
+            n_mel = ops[2].shape[1]
+            shape = (n_frames, n_mel) if batch == 1 else (2, n_frames, n_mel)
+            what = f"{sr} Hz B={batch} split"
+            check(tuple(got.shape) == shape, f"{what}: shape")
+            check(bool(torch.isfinite(got).all()), f"{what}: finite")
+            check(torch.equal(got_i16, got), f"{what}: int16 != f32 route")
+            err, note = check_f32(got, want, f"{what} vs plain")
+            max_err = max(max_err, err)
+            dp = (got - par).abs()
+            p_max, p_p99 = dp.max().item(), quantile(dp, 0.99)
+            share = (dp > GREY_STEP).float().mean().item()
+            check(p_p99 < 0.01 and share < SPLIT_SHARE,
+                  f"{what} vs parity kernel: p99 {p_p99} dB, {share} of bins "
+                  f"more than {GREY_STEP} dB apart")
+            ms, ms_i16 = cuda_ms(split), cuda_ms(lambda: split("i16"))
+            plain_ms, par_ms, fast_ms = (cuda_ms(plain), cuda_ms(parity),
+                                         cuda_ms(fast))
+            print(f"[split] {sr:5d} Hz B={batch} frames {n_frames}: vs plain "
+                  f"max|err| {err:.3g} dB ({note}), i16==f32; vs parity max "
+                  f"{p_max:.3g} dB p99 {p_p99:.3g} dB share>{GREY_STEP} "
+                  f"{share:.2e}; split kernel {ms:.3f} ms (i16 {ms_i16:.3f}), "
+                  f"plain {plain_ms:.3f} ms, parity kernel {par_ms:.3f} ms, "
+                  f"fast kernel {fast_ms:.3f} ms")
+            if sr == 48000 and batch == 1:
+                headline = (ms, plain_ms, f"{sr} Hz, B=1, f32, "
+                            f"{n_frames} frames x {n_mel} mel",
+                            *bound(K, "split", x["f32"], ops_s, n_frames))
+        del wave, ops, ops16, ops_s
+        torch.cuda.empty_cache()
+
+    for sr in (16000, 48000):  # the JAX test's own signal and bounds
+        win, hop, ops = operands(sr, "cuda")
+        n_frames = 128
+        padded = reflect_pad_center(two_tone(sr), win)
+        padded = np.pad(padded, (0, max(0, (n_frames - 1) * hop + win
+                                        - len(padded))))
+        x = torch.from_numpy(padded).cuda()
+        kw = dict(win=win, hop=hop, n_frames=n_frames)
+        par = K.mel_spectrogram_cuda(x, *ops, **kw)
+        d_split = (K.mel_spectrogram_cuda(x, *K.operands_split(*ops),
+                                          mode="split", **kw) - par).abs()
+        d_fast = (K.mel_spectrogram_cuda(x, *K.operands_bf16(*ops),
+                                         mode="fast", **kw) - par).abs()
+        s_max, f_max = d_split.max().item(), d_fast.max().item()
+        s_p99 = quantile(d_split, 0.99)
+        check(s_max < GREY_STEP and s_max < f_max / 20,
+              f"two-tone {sr} Hz: split max {s_max} dB, fast max {f_max} dB")
+        print(f"[split] two-tone {sr} Hz, 128 frames, vs the parity kernel: "
+              f"split max {s_max:.3g} dB p99 {s_p99:.3g} dB, fast max "
+              f"{f_max:.3g} dB (split < fast/20)")
+    launches, ab = split_ab(K, rng)
+    return max_err, headline, launches, ab
+
+
+def split_ab(K, rng, minutes=30, seg=32768):
+    """tools/profile_split_tpu.py's A/B on the card: 30 minutes at 48 kHz,
+    reflect-padded and resident on the device, in 32 768-frame segments;
+    each mode's kernel over every segment, CUDA events, median of 3."""
+    from msv_tpu_torch.ops.framing import n_frames_for, reflect_pad_center
+
+    sr = 48000
+    win, hop, ops = operands(sr, "cuda")
+    base = make_signal(rng, sr, 60.0, 4)
+    gains = 0.3 + 0.6 * rng.random(minutes)
+    i16 = np.concatenate([np.clip(base[m % 4] * gains[m], -32768, 32767)
+                          .astype(np.int16) for m in range(minutes)])
+    n_frames = n_frames_for(len(i16), win, hop)
+    n_segs = -(-n_frames // seg)
+    padded = reflect_pad_center(i16, win)
+    need = n_segs * seg * hop + (win - hop)
+    wave = torch.from_numpy(np.pad(padded, (0, need - len(padded)))).cuda()
+    wave = wave.to(torch.float32) * 2.0**-15
+    segs = [wave[i * seg * hop : i * seg * hop + seg * hop + (win - hop)]
+            for i in range(n_segs)]
+    mode_ops = {"parity": ops, "split": K.operands_split(*ops),
+                "fast": K.operands_bf16(*ops)}
+    outs = {m: torch.empty((n_segs * seg, ops[2].shape[1]), device="cuda")
+            for m in mode_ops}
+
+    def run(mode):
+        for i, x in enumerate(segs):
+            K.mel_spectrogram_cuda(x, *mode_ops[mode], win=win, hop=hop,
+                                   n_frames=seg, mode=mode,
+                                   out=outs[mode][i * seg : (i + 1) * seg])
+
+    # ---- the split kernel's main path: the A/B itself
+    torch.cuda.synchronize()
+    reset_counts(K)
+    ab = {m: cuda_ms(lambda: run(m), reps=3) for m in mode_ops}
+    launches = read_counts(K)
+    # ---- end of the main path
+    check(launches == counts(4 * n_segs, 4 * n_segs, 4 * n_segs),
+          f"A/B launches {launches}")
+    d = (outs["split"] - outs["parity"])[:n_frames].abs()
+    share = (d > GREY_STEP).float().mean().item()
+    check(bool(torch.isfinite(outs["split"]).all())
+          and quantile(d, 0.99) < 0.01 and share < SPLIT_SHARE,
+          f"A/B split vs parity: share>{GREY_STEP} {share}")
+    fps = {m: n_frames / (t / 1e3) for m, t in ab.items()}
+    print(f"[split] A/B, {minutes} min at 48 kHz ({n_frames} frames, {n_segs} "
+          f"device-resident segments of {seg}): " + "; ".join(
+              f"{m} {ab[m]:.3f} ms = {fps[m] / 1e6:.3f} M frames/s"
+              for m in mode_ops) + f"; split vs parity share>{GREY_STEP} "
+          f"{share:.2e}")
+    del wave, segs, outs
+    torch.cuda.empty_cache()
+    return launches, ab
 
 
 def write_hour_wav(rng, path, sr=48000, minutes=60):
@@ -560,9 +869,12 @@ def one_shot(K, src, scale, win, hop, n_frames, ops):
 
 def phase_streaming(K, rng, minutes=60, stereo_s=480.0):
     from msv_tpu_torch import (MultiTrack, precision_mode_scope,
-                               streaming_spec_db_mmap)
+                               streaming_spec_db, streaming_spec_db_mmap)
     from msv_tpu_torch.io.audio import write_wav
+    from msv_tpu_torch.kernels.pipeline import spec_pipeline
+    from msv_tpu_torch.ops.framing import reflect_pad_center
     from msv_tpu_torch.parallel.streaming import _seg_plan_for
+    from msv_tpu_torch.render.envelope import EnvelopeState
     from msv_tpu_torch.session.multitrack import STREAMING_FRAME_THRESHOLD
 
     with tempfile.TemporaryDirectory(prefix="msv_chip_stream_") as d:
@@ -591,6 +903,14 @@ def phase_streaming(K, rng, minutes=60, stereo_s=480.0):
         t0 = time.perf_counter()
         crop = mt.get_spec_image_crop(0, 100.0, 500, 321.68, 333.68)
         crop_s = time.perf_counter() - t0
+        env = mt._env_states[0]  # kept by streaming during add_tracks
+        t0 = time.perf_counter()
+        wimg = mt.get_wav_image(0, 10.0, 200, -1.0, 1.0)
+        wimg_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        wcrop = mt.get_wav_image_crop(0, 100.0, 200, -1.0, 1.0, 321.68,
+                                      333.68)
+        wcrop_s = time.perf_counter() - t0
         tr0 = mt.tracks[0]
         t0 = time.perf_counter()
         mm_db, mm_n, mm_min, mm_max = streaming_spec_db_mmap(
@@ -609,7 +929,7 @@ def phase_streaming(K, rng, minutes=60, stereo_s=480.0):
                   f"track {i} did not stream: {s_.n_frames} frames, pad "
                   f"{s_.n_frames_pad}")
         n_seg = len(plans[0]) + len(plans[1])
-        check(launches == {"parity": n_seg + len(plans[0]), "fast": 0},
+        check(launches == counts(n_seg + len(plans[0])),
               f"streaming launches {launches}, segments {plans}")
         check(mt.tracks[1].wire == "f32"
               and mt.tracks[1]._wav_int.dtype == np.int32,
@@ -617,6 +937,23 @@ def phase_streaming(K, rng, minutes=60, stereo_s=480.0):
         check(img.shape == (500, 600 * minutes, 3) and img.dtype == np.uint8,
               f"hour image {img.shape}")
         check(crop.shape == (500, 1200, 3), f"crop {crop.shape}")
+        # the hour's waveform: the device wave streaming shipped, adopted
+        # during add_tracks and drawn without a second upload
+        check(env.origin == "adopted" and mt._env_states[0] is env
+              and env.offset == tr0.win_length // 2
+              and env.dev.dtype == torch.int16,
+              f"hour envelope: {env.origin}, offset {env.offset}")
+        check(wimg.shape == (200, 600 * minutes, 4)
+              and (wimg[..., 3] > 0).any(axis=0).all(),
+              f"hour waveform image {wimg.shape}")
+        # the same crop from the wave uploaded anew, as a one-shot track's
+        mt._env_states[0] = EnvelopeState(None, tr0._wav_int,
+                                          n=tr0.n_samples, scale=tr0.scale,
+                                          device="cuda")
+        check(np.array_equal(wcrop, mt.get_wav_image_crop(
+            0, 100.0, 200, -1.0, 1.0, 321.68, 333.68)),
+              "hour waveform crop: adopted != uploaded wave")
+        mt._env_states[0] = env
 
         s0 = mt._state[0]
         check(torch.equal(mm_db, s0.spec_db) and mm_n == s0.n_frames
@@ -647,6 +984,26 @@ def phase_streaming(K, rng, minutes=60, stereo_s=480.0):
               f"500x{600 * minutes} image {img_s:.3f} s; 1200-px crop across the "
               f"327.68 s segment boundary {crop_s:.3f} s; mmap streaming of "
               f"the hour {mmap_s:.3f} s")
+        print(f"[stream] the hour's waveform from the adopted streamed wave "
+              f"(no second upload): 200x{600 * minutes} image {wimg_s:.3f} s,"
+              f" 1200-px crop {wcrop_s:.3f} s, equal to the crop of an "
+              f"uploaded wave")
+        # what keeping the streamed wave costs the hour (host clock, in
+        # turns: off, on, on, off)
+        keep = {False: [], True: []}
+        for kw in (False, True, True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = streaming_spec_db(tr0._wav_int, tr0.win_length,
+                                    tr0.hop_length,
+                                    *mt._sr_operands(48000, "parity"),
+                                    keep_wav=kw)
+            torch.cuda.synchronize()
+            keep[kw].append(time.perf_counter() - t0)
+            del out
+        print(f"[stream] the hour's streaming_spec_db, host clock: keep_wav="
+              f"False {keep[False][0]:.3f} / {keep[False][1]:.3f} s, keep_wav="
+              f"True {keep[True][0]:.3f} / {keep[True][1]:.3f} s")
 
         # ---- the fast path: both tracks under precision_mode_scope("fast")
         torch.cuda.synchronize()
@@ -661,7 +1018,7 @@ def phase_streaming(K, rng, minutes=60, stereo_s=480.0):
         fast_launches = read_counts(K)
         check(img_f.shape == img.shape, f"fast hour image {img_f.shape}")
         # ---- end of the fast path
-        check(fast_launches == {"parity": 0, "fast": n_seg},
+        check(fast_launches == counts(fast=n_seg),
               f"fast streaming launches {fast_launches}")
         d = (mf._state[0].spec_db - s0.spec_db)[: s0.n_frames].abs()
         p_max, p_p99 = d.max().item(), quantile(d, 0.99)
@@ -673,9 +1030,42 @@ def phase_streaming(K, rng, minutes=60, stereo_s=480.0):
               f"p99 {p_p99:.3g} dB, share>{GREY_STEP} {share:.4f}; dB range "
               f"fast [{mf.get_min_db():.3f}, {mf.get_max_db():.3f}] vs parity "
               f"[{mt.get_min_db():.3f}, {mt.get_max_db():.3f}]")
-        del mt, mf, mm_db
+        del mf, mm_db
+
+        # ---- the 8-minute track through linear streaming (no filterbank)
+        tr1 = mt.tracks[1]
+        c, s, _ = mt._sr_operands(tr1.sr, "parity")
+        win, hop = tr1.win_length, tr1.hop_length
+        del mt
         torch.cuda.empty_cache()
-        return launches, fast_launches
+        torch.cuda.synchronize()
+        reset_counts(K)
+        t0 = time.perf_counter()
+        ldb, lnf, lmin, lmax = streaming_spec_db(tr1._wav_int, win, hop, c, s,
+                                                 None, scale=tr1.scale)
+        torch.cuda.synchronize()
+        lin_s = time.perf_counter() - t0
+        lin_launches = read_counts(K)
+        check(lin_launches == counts(), f"linear streaming {lin_launches}")
+        padded = torch.from_numpy(reflect_pad_center(
+            tr1._wav_int, win).astype(np.float32) * np.float32(tr1.scale))
+        one, omin, omax = spec_pipeline(padded.cuda(), c, s, None, lnf,
+                                        win=win, hop=hop, n_frames=lnf,
+                                        use_mel=False, mode="parity")
+        check(ldb.shape[1] == tr1.n_fft // 2 + 1
+              and bool(torch.isfinite(ldb[:lnf]).all()),
+              f"linear streamed plane {tuple(ldb.shape)}")
+        lerr, lnote = check_f32(ldb[:lnf], one,
+                                "8 min linear: streamed vs one-shot")
+        check(abs(lmax - omax.item()) <= ATOL + RTOL * abs(omax.item()),
+              f"8 min linear max dB {lmax} vs {omax.item()}")
+        print(f"[stream] 8 min 44.1 kHz stereo through linear streaming "
+              f"({lnf} frames x {ldb.shape[1]} bins, no kernel launch) "
+              f"{lin_s:.3f} s; vs one one-shot spec_pipeline max|err| "
+              f"{lerr:.3g} dB ({lnote}); dB range [{lmin:.3f}, {lmax:.3f}]")
+        del ldb, one, padded
+        torch.cuda.empty_cache()
+        return launches, fast_launches, lin_launches
 
 
 def phase_features(K, rng):
@@ -703,13 +1093,13 @@ def phase_features(K, rng):
     outs = {}
     for name, *_ in shapes:
         outs[name, "fast"] = call(name)
-        check(K.LAUNCHES_BY_MODE == {"parity": 0, "fast": len(outs)},
+        check(K.LAUNCHES_BY_MODE == counts(fast=len(outs)),
               f"{name}: default features launched {K.LAUNCHES_BY_MODE}")
     for name, *_ in shapes:
         outs[name, "parity"] = call(name, "parity")
     launches = read_counts(K)
     # ---- end of the main path
-    check(launches == {"parity": 2, "fast": 2}, f"features {launches}")
+    check(launches == counts(2, 2), f"features {launches}")
     for name, sr, b, sec, n_mel, win_ms, hop_ms in shapes:
         win, hop = round(win_ms * sr / 1000), round(hop_ms * sr / 1000)
         padded = features.pad_batch(xs[name], win)
@@ -755,41 +1145,44 @@ def main():
     smi = phase_device()
     phase_build(K)
     rng = np.random.default_rng(SEED)
-    max_err, (ms, plain_ms, shape) = phase_kernel(K, rng)
+    heads = {}
+    errs = {}
+    errs["parity"], heads["parity"] = phase_kernel(K, rng)
     session = phase_session(K, rng)
     # the later phases draw from their own streams (no check depends on
     # the signals drawn: see f32_agree)
-    fast_err, (fast_ms, fast_plain_ms, fast_shape) = phase_fast(
-        K, np.random.default_rng(SEED + 1))
+    errs["fast"], heads["fast"] = phase_fast(K,
+                                             np.random.default_rng(SEED + 1))
+    errs["split"], heads["split"], split_path, _ = phase_split(
+        K, np.random.default_rng(SEED + 4))
     paths = [*session, *phase_streaming(K, np.random.default_rng(SEED + 2)),
-             phase_features(K, np.random.default_rng(SEED + 3))]
+             phase_features(K, np.random.default_rng(SEED + 3)), split_path]
     launches = {m: sum(p[m] for p in paths) for m in K.MODES}
     print(f"[launches] main-path launches by path (session, fast session, "
-          f"streaming, fast streaming, features): {paths}")
-    replaces = "msv_tpu/kernels/spectrogram_pallas.py:411"
-    print(json.dumps({"kernels": [{
-        "name": "mel_spectrogram",
-        "route": "cuda",
-        "source": "msv_tpu_torch/csrc/mel_spectrogram.cu",
-        "replaces": replaces,
-        "launches": launches["parity"],
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "shape": shape,
-        "card": smi,
-    }, {
-        "name": "mel_spectrogram_bf16",
-        "route": "cuda",
-        "source": "msv_tpu_torch/csrc/mel_spectrogram_bf16.cu",
-        "replaces": replaces,
-        "launches": launches["fast"],
-        "max_abs_err": fast_err,
-        "ms": fast_ms,
-        "plain_ms": fast_plain_ms,
-        "shape": fast_shape,
-        "card": smi,
-    }]}))
+          f"linear session, streaming, fast streaming, linear streaming, "
+          f"features, split A/B): {paths}")
+    kernels = []
+    for mode, name, line in (("parity", "mel_spectrogram", 411),
+                             ("fast", "mel_spectrogram_bf16", 411),
+                             ("split", "mel_spectrogram_split", 446)):
+        ms, plain_ms, shape, bound_ms, bound_by = heads[mode]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": os.path.relpath(K.SOURCES[mode]),
+            "replaces": f"msv_tpu/kernels/spectrogram_pallas.py:{line}",
+            "launches": launches[mode],
+            "max_abs_err": errs[mode],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            # no single PyTorch call computes the fused mel dB function
+            "library_ms": None,
+            "shape": shape,
+            "card": smi,
+        })
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,10 @@
 
 A port of the ``msv_tpu`` package to one NVIDIA H100: decode audio ->
 centered STFT -> Slaney mel -> dB through hand-written CUDA kernels
-(``kernels/spectrogram_cuda.py``: f32 parity and bf16 fast), streamed in
-segments for long files, then globally-normalized grey -> Lanczos3 resize ->
-colormapped RGB images as PyTorch ops; and the log-mel ML frontend
+(``kernels/spectrogram_cuda.py``: f32 parity, bf16 fast and split-f32), or
+the linear scale as PyTorch ops, streamed in segments for long files, then
+globally-normalized grey -> Lanczos3 resize -> colormapped RGB images and
+min/max waveform images as PyTorch ops; and the log-mel ML frontend
 (``features.py``) on the same kernels.  Module paths
 mirror ``msv_tpu`` so each counterpart is easy to find; every function
 takes tensors on an explicit ``device``.

@@ -1,8 +1,9 @@
-// Device helpers shared by the two fused mel dB kernels:
-// mel_spectrogram.cu (f32 parity mode) and mel_spectrogram_bf16.cu (bf16
-// fast mode).  Both stage samples, compute the DFT magnitude of a tile of
-// frequency bins into shared memory, then run the same sparse-band mel
-// accumulation and the same dB epilogue; only the DFT bodies differ.
+// Device helpers shared by the three fused mel dB kernels:
+// mel_spectrogram.cu (f32 parity mode), mel_spectrogram_bf16.cu (bf16 fast
+// mode) and mel_spectrogram_split.cu (split-f32 mode).  All stage samples,
+// compute the DFT magnitude of a tile of frequency bins into shared memory,
+// then run the same sparse-band mel accumulation and the same dB epilogue;
+// only the DFT bodies differ.
 
 #pragma once
 
@@ -39,6 +40,38 @@ __device__ __forceinline__ float load_weight(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
+// d += a . b on the tensor cores: one m16n8k16 tile, bf16 in, f32
+// accumulate (the bf16 and split kernels' product).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 bf16 tiles from shared memory, transposed: the B fragments of
+// two n-tiles of a 16-row K step.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const __nv_bfloat16* p) {
+  const unsigned addr =
+      static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+      "{%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// The split-f32 pair of x as floats: hi = bf16_rn(x), lo = bf16_rn(x - hi)
+// (hi + lo carries about 16 mantissa bits of x).
+__device__ __forceinline__ float2 split_f32(float x) {
+  const float hi = __bfloat162float(__float2bfloat16_rn(x));
+  return make_float2(hi, __bfloat162float(__float2bfloat16_rn(x - hi)));
+}
+
 // out[f][m] (+)= sum over band m's bins in tile [k0, k0 + kt) of
 // mag[k - k0][f] * fb[k][m], for the TF frames of the block (nf valid).
 // A Slaney band covers a contiguous run of bins (`bands` gives [lo, hi) per
@@ -47,12 +80,16 @@ __device__ __forceinline__ float load_weight(const __nv_bfloat16* p) {
 // (frame, band) sum has one owner thread, lane f % 32 of warp m % WARPS,
 // adding bins in increasing order: no atomics and deterministic.  The tile
 // holding a band's first bin stores, later tiles add.
-template <int TF, typename MagT, typename FbT>
+// SPLIT: fb is the bf16 hi plane, the lo plane follows it (n_freq * n_mel
+// further), and each bin adds mh*fbh + mh*fbl + ml*fbh with (mh, ml) the
+// split of the f32 magnitude: bf16 products, exact in f32, lo*lo dropped.
+template <int TF, bool SPLIT = false, typename MagT, typename FbT>
 __device__ __forceinline__ void accumulate_bands(
     const MagT* mag, const FbT* __restrict__ fb, const int* __restrict__ bands,
     float* o, int k0, int kt, int n_freq, int n_mel, int nf, int lane,
     int warp) {
   constexpr int FPL = (TF + 31) / 32;  // frames per lane
+  const long long plane = static_cast<long long>(n_freq) * n_mel;
   for (int m = warp; m < n_mel; m += WARPS) {
     const int lo = __ldg(bands + 2 * m);
     const int ks = max(lo, k0);
@@ -62,12 +99,23 @@ __device__ __forceinline__ void accumulate_bands(
 #pragma unroll
     for (int h = 0; h < FPL; ++h) part[h] = 0.0f;
     for (int k = ks; k < ke; ++k) {
-      const float wgt = load_weight(fb + static_cast<long long>(k) * n_mel + m);
+      const long long gi = static_cast<long long>(k) * n_mel + m;
+      const float wgt = load_weight(fb + gi);
+      float wlo = 0.0f;
+      if constexpr (SPLIT) wlo = load_weight(fb + plane + gi);
 #pragma unroll
       for (int h = 0; h < FPL; ++h) {
         const int f = h * 32 + lane;
         if (f < TF) {
-          part[h] = fmaf(to_f32(mag[(k - k0) * TF + f]), wgt, part[h]);
+          const float x = to_f32(mag[(k - k0) * TF + f]);
+          if constexpr (SPLIT) {
+            const float2 xs = split_f32(x);
+            part[h] = fmaf(xs.x, wgt, part[h]);
+            part[h] = fmaf(xs.x, wlo, part[h]);
+            part[h] = fmaf(xs.y, wgt, part[h]);
+          } else {
+            part[h] = fmaf(x, wgt, part[h]);
+          }
         }
       }
     }

@@ -65,27 +65,8 @@ constexpr int WCOLS = 32;           // frequency columns per warp
 constexpr int NB = WARPS * WCOLS;   // frequency columns per tile
 constexpr int KS = 32;              // C/S rows per shared-memory slab
 constexpr int NBP = NB + 8;         // padded slab row stride (bf16)
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const __nv_bfloat16* p) {
-  const unsigned addr =
-      static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-      "{%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
+using msv::ldmatrix_x4_trans;
+using msv::mma_bf16;
 
 // MT m-tiles of 16 frames per block; every warp covers all of them.
 template <typename T, int MT>

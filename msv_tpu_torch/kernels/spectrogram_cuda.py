@@ -1,28 +1,32 @@
 """The fused mel dB spectrogram kernels: CUDA C++ for Hopper, bound with ctypes.
 
 Replace ``msv_tpu/kernels/spectrogram_pallas.py::mel_spectrogram_pallas``
-in two of its modes:
+in its three modes:
 
 * ``mode="parity"``: f32 operands, both schedules
   (``msv_tpu_torch/csrc/mel_spectrogram.cu``, SIMT f32 FMA);
 * ``mode="fast"``: bf16 operands with f32 accumulation
   (``msv_tpu_torch/csrc/mel_spectrogram_bf16.cu``, tensor-core
-  ``mma.sync``).
+  ``mma.sync``);
+* ``mode="split"``: split-f32, each f32 product as three bf16 tensor-core
+  products over (hi, lo) pairs (``msv_tpu_torch/csrc/
+  mel_spectrogram_split.cu``; operands from ``operands_split``).
 
 Each source's header says what bounds it on an H100 and how its design
-answers that; both include ``csrc/mel_common.cuh``, their shared mel band
+answers that; all include ``csrc/mel_common.cuh``, their shared mel band
 accumulation and dB epilogue.  They are built with ``nvcc`` at first use
 into one library under ``build/msv_tpu_torch/`` beside the package, keyed
-on the hash of both sources and the header, and loaded as a plain C
+on the hash of the sources and the header, and loaded as a plain C
 library.
 
 Unlike the TPU kernel, no layout is prepared on the host: a kernel takes the
 reflect-padded 1-D wave ``(L,)`` or ``(B, L)`` (f32, or int16 scaled by
 2^-15 as it is loaded), ``C``/``S`` as ``(win, n_freq)`` and ``fb`` as
-``(n_freq, n_mel)`` (f32 for parity, bf16 from ``operands_bf16`` for fast),
-and masks ragged edges itself.
+``(n_freq, n_mel)`` (f32 for parity, bf16 from ``operands_bf16`` for fast;
+split takes ``(2, ...)`` hi/lo stacks of each), and masks ragged edges
+itself.
 
-``mel_spectrogram_plain`` is the same function in torch ops, in either
+``mel_spectrogram_plain`` is the same function in torch ops, in every
 mode.  The wrapper ``mel_spectrogram_cuda`` takes it only for tensors on the
 CPU; for CUDA tensors it launches the mode's kernel or raises.
 """
@@ -48,18 +52,19 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {
     "parity": os.path.join(_PKG_DIR, "csrc", "mel_spectrogram.cu"),
     "fast": os.path.join(_PKG_DIR, "csrc", "mel_spectrogram_bf16.cu"),
+    "split": os.path.join(_PKG_DIR, "csrc", "mel_spectrogram_split.cu"),
 }
-# Device code both sources include (band accumulation, dB epilogue).
+# Device code every source includes (band accumulation, dB epilogue).
 HEADER = os.path.join(_PKG_DIR, "csrc", "mel_common.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "msv_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-MODES = ("parity", "fast")
+MODES = ("parity", "fast", "split")
 # Kernel launches made by mel_spectrogram_cuda (the CPU route does not
 # count): the total, and by precision mode (the kernel it launched).
 LAUNCHES = 0
-LAUNCHES_BY_MODE = {"parity": 0, "fast": 0}
+LAUNCHES_BY_MODE = {mode: 0 for mode in MODES}
 # nvcc's report (registers, shared memory, spills) from the last build.
 BUILD_REPORT = ""
 
@@ -79,7 +84,7 @@ def _nvcc() -> str:
 
 
 def build() -> ctypes.CDLL:
-    """Compile (once per hash of both sources and their header) and load
+    """Compile (once per hash of the sources and their header) and load
     the kernel library."""
     global _LIB, BUILD_REPORT
     with _LIB_LOCK:
@@ -94,24 +99,36 @@ def build() -> ctypes.CDLL:
         if not os.path.exists(so):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   *(SOURCES[m] for m in MODES)]
-            r = subprocess.run(cmd, capture_output=True, text=True)
+            # one nvcc per source, all at once, then one link
+            objs = [f"{tmp}.{m}.o" for m in MODES]
+            cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", o, SOURCES[m]]
+                    for m, o in zip(MODES, objs)]
+            procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for c in cmds]
+            outs = [p.communicate()[0] for p in procs]
+            link = [_nvcc(), "-shared", "-o", tmp, *objs]
+            for cmd, p, out in zip(cmds, procs, outs):
+                if p.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                                       f"{' '.join(cmd)}\n{out}")
+            r = subprocess.run(link, capture_output=True, text=True)
             if r.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n"
-                    f"{r.stdout}{r.stderr}"
-                )
-            BUILD_REPORT = r.stdout + r.stderr
+                raise RuntimeError(f"nvcc failed ({r.returncode}): "
+                                   f"{' '.join(link)}\n{r.stdout}{r.stderr}")
+            BUILD_REPORT = "".join(outs)
             os.replace(tmp, so)
+            for o in objs:
+                os.remove(o)
         lib = ctypes.CDLL(so)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.msv_mel_spectrogram.argtypes = [
             p, i, ll, ll, i, p, p, p, p, p, i, i, i, i, i, p,
         ]
         lib.msv_mel_spectrogram.restype = ctypes.c_int
-        lib.msv_mel_spectrogram_bf16.argtypes = lib.msv_mel_spectrogram.argtypes
-        lib.msv_mel_spectrogram_bf16.restype = ctypes.c_int
+        for name in ("msv_mel_spectrogram_bf16", "msv_mel_spectrogram_split"):
+            getattr(lib, name).argtypes = lib.msv_mel_spectrogram.argtypes
+            getattr(lib, name).restype = ctypes.c_int
         lib.msv_cuda_error_string.argtypes = [ctypes.c_int]
         lib.msv_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -146,11 +163,14 @@ def operands_from_pallas(c3d, s3d, fb3d, win, n_freq, n_mel, device="cpu"):
 def mel_bands(fb):
     """(n_mel, 2) int32 [lo, hi) support of each filterbank column: the
     bins where it is nonzero ((0, 0) for an all-zero column).  The kernel
-    multiplies only these bins; the skipped products are exact zeros."""
+    multiplies only these bins; the skipped products are exact zeros.  For
+    a split ``(2, n_freq, n_mel)`` stack, where either plane is nonzero."""
     nz = fb != 0
+    if nz.ndim == 3:
+        nz = nz.any(dim=0)
     has = nz.any(dim=0)
     lo = nz.to(torch.uint8).argmax(dim=0)
-    hi = fb.shape[0] - nz.flip(0).to(torch.uint8).argmax(dim=0)
+    hi = nz.shape[0] - nz.flip(0).to(torch.uint8).argmax(dim=0)
     zero = torch.zeros_like(lo)
     return torch.stack([torch.where(has, lo, zero), torch.where(has, hi, zero)],
                        dim=1).to(torch.int32).contiguous()
@@ -168,6 +188,23 @@ def round_bf16(x):
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+def split_f32(x):
+    """The (hi, lo) split of f32 ``x`` as f32 values: hi = bf16_rn(x), lo =
+    bf16_rn(x - hi).  hi + lo carries about 16 mantissa bits of x."""
+    hi = round_bf16(x)
+    return hi, round_bf16(x - hi)
+
+
+def operands_split(c, s, fb):
+    """The split mode's device operands: each f32 matrix of ``(C, S, fb)``
+    as a ``(2, ...)`` bf16 stack of its (hi, lo) split, on the same device.
+    The counterpart of msv_tpu's ``prepare_matrices_split`` without the TPU
+    tiling, bit-equal to its ``split_bf16`` planes.  Made once per rate and
+    cached by the caller."""
+    return tuple(torch.stack(split_f32(t.to(torch.float32)))
+                 .to(torch.bfloat16).contiguous() for t in (c, s, fb))
+
+
 def mel_spectrogram_plain(padded, c, s, fb, *, win, hop, n_frames,
                           mode="parity"):
     """The kernels' function in torch ops: frames -> DFT GEMM pair ->
@@ -178,11 +215,28 @@ def mel_spectrogram_plain(padded, c, s, fb, *, win, hop, n_frames,
     A product of two bf16 values is exact in f32, so this is "bf16
     operands, f32 accumulation" as the fast kernel computes it, and it runs
     on any device.  The operands may be f32 or already bf16.
+
+    ``mode="split"`` splits the frames and the magnitude into (hi, lo)
+    bf16 pairs (``split_f32``) and takes each product as three f32 matmuls
+    on bf16 values (hi.hi + hi.lo + lo.hi), as the split kernel does.  The
+    operands are the ``(2, ...)`` stacks of ``operands_split``, or f32
+    matrices that it splits here.
     """
     x = padded
     if x.dtype == torch.int16:
         x = x.to(torch.float32) * 2.0**-15
     frames = frame_device(x, win, hop, n_frames)
+    if mode == "split":
+        if c.ndim == 2:
+            c, s, fb = operands_split(c, s, fb)
+        (ch, cl), (sh, sl), (fbh, fbl) = (t.to(torch.float32)
+                                          for t in (c, s, fb))
+        fh, fl = split_f32(frames)
+        re = fh @ ch + fh @ cl + fl @ ch
+        im = fh @ sh + fh @ sl + fl @ sh
+        mh, ml = split_f32(torch.sqrt(re * re + im * im))
+        mel = mh @ fbh + mh @ fbl + ml @ fbh
+        return torch.where(mel > _AMIN, torch.log(mel) * _DB_SCALE, _DB_FLOOR)
     c, s, fb = (t.to(torch.float32) for t in (c, s, fb))
     if mode == "fast":
         frames, c, s, fb = (round_bf16(t) for t in (frames, c, s, fb))
@@ -195,7 +249,12 @@ def mel_spectrogram_plain(padded, c, s, fb, *, win, hop, n_frames,
     return torch.where(mel > _AMIN, torch.log(mel) * _DB_SCALE, _DB_FLOOR)
 
 
-_OPERAND_DTYPE = {"parity": torch.float32, "fast": torch.bfloat16}
+# mode -> (operand dtype, operand rank, the maker named in errors)
+_OPERANDS = {
+    "parity": (torch.float32, 2, "operands_from_numpy"),
+    "fast": (torch.bfloat16, 2, "operands_bf16"),
+    "split": (torch.bfloat16, 3, "operands_split"),
+}
 
 
 def _check(padded, c, s, fb, win, hop, n_frames, mode):
@@ -205,12 +264,17 @@ def _check(padded, c, s, fb, win, hop, n_frames, mode):
         raise ValueError("padded must be (L,) or (B, L)")
     if padded.dtype not in (torch.float32, torch.int16):
         raise ValueError(f"padded must be float32 or int16, got {padded.dtype}")
-    want = _OPERAND_DTYPE[mode]
+    dtype, ndim, maker = _OPERANDS[mode]
+    # a split stack mixed with a plain matrix raises here, as in msv_tpu
     for name, t in (("c", c), ("s", s), ("fb", fb)):
-        if t.dtype != want or t.ndim != 2:
+        if t.dtype != dtype or t.ndim != ndim or (ndim == 3
+                                                  and t.shape[0] != 2):
             raise ValueError(
-                f"{name} must be a 2-D {want} tensor in mode {mode!r}"
-                + (" (make them with operands_bf16)" if mode == "fast" else ""))
+                f"c, s and fb must all be {'(2, ...) ' if ndim == 3 else ''}"
+                f"{ndim}-D {dtype} tensors in mode {mode!r} (make them with "
+                f"{maker}); {name} is {t.dtype} {tuple(t.shape)}")
+    if ndim == 3:
+        c, s, fb = c[0], s[0], fb[0]
     n_freq = c.shape[1]
     if c.shape != (win, n_freq) or s.shape != (win, n_freq):
         raise ValueError(f"c and s must be (win={win}, n_freq), got "
@@ -243,13 +307,14 @@ def mel_spectrogram_cuda(padded, c, s, fb, *, win, hop, n_frames,
 
     Frame k is ``padded[..., k*hop : k*hop + win]``.  ``mode`` picks the
     kernel: "parity" takes f32 ``c``/``s``/``fb`` (``operands_from_numpy``),
-    "fast" their bf16 copies (``operands_bf16``).  ``out``, if given, is a
+    "fast" their bf16 copies (``operands_bf16``), "split" their (hi, lo)
+    stacks (``operands_split``).  ``out``, if given, is a
     contiguous float32 tensor of the result's shape that the kernel writes
     (a row range of a larger plane, for instance) and that is returned.
     """
     global LAUNCHES
     _check(padded, c, s, fb, win, hop, n_frames, mode)
-    n_freq, n_mel = fb.shape
+    n_freq, n_mel = fb.shape[-2:]
     shape = (n_frames, n_mel) if padded.ndim == 1 else (
         padded.shape[0], n_frames, n_mel)
     if out is not None:
@@ -269,8 +334,9 @@ def mel_spectrogram_cuda(padded, c, s, fb, *, win, hop, n_frames,
     bands = mel_bands(fb)
     if out is None:
         out = torch.empty(shape, dtype=torch.float32, device=wave.device)
-    fn = (lib.msv_mel_spectrogram if mode == "parity"
-          else lib.msv_mel_spectrogram_bf16)
+    fn = {"parity": lib.msv_mel_spectrogram,
+          "fast": lib.msv_mel_spectrogram_bf16,
+          "split": lib.msv_mel_spectrogram_split}[mode]
     with torch.cuda.device(wave.device):
         stream = torch.cuda.current_stream(wave.device).cuda_stream
         err = fn(

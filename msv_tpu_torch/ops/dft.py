@@ -1,5 +1,5 @@
 """Windowed real DFT as a GEMM: the host builders of ``msv_tpu/ops/dft.py``
-(:26-57).
+(:26-96), and its inverse as two GEMMs (``inverse_rdft``, :99-124).
 
 The device computes  re = frames @ C,  im = frames @ S  with C, S of shape
 (win_length, n_freq) built here on the host (f64 twiddles, cast to f32).
@@ -44,3 +44,36 @@ def windowed_dft_matrices(window: np.ndarray, n_fft: int, dtype=np.float32):
     return _dft_matrices_cached(
         len(window), n_fft, window.tobytes(), np.dtype(dtype).str
     )
+
+
+@functools.lru_cache(maxsize=32)
+def _irdft_matrices_cached(n_fft: int, dtype_str: str):
+    n_freq = n_fft // 2 + 1
+    j = np.arange(n_fft, dtype=np.float64)[:, None]
+    k = np.arange(n_freq, dtype=np.float64)[None, :]
+    phase = 2.0 * np.pi * j * k / n_fft
+    # real-input inverse: x_j = (1/n) * sum_k w_k (re_k cos - im_k sin),
+    # with w_k = 2 except DC and (for even n) Nyquist.
+    w = np.full(n_freq, 2.0)
+    w[0] = 1.0
+    if n_fft % 2 == 0:
+        w[-1] = 1.0
+    dt = np.dtype(dtype_str)
+    ci = (np.cos(phase) * w / n_fft).astype(dt)  # (n_fft, n_freq)
+    si = (-np.sin(phase) * w / n_fft).astype(dt)
+    return ci, si
+
+
+def inverse_rdft(spec, n_fft: int):
+    """Inverse of the real DFT (reference: ``InvRealFFT``, realfft.rs:166-242),
+    as two f32 GEMMs (TF32 off on the card, as every caller's forward).
+
+    ``spec``: (..., n_fft//2+1) complex tensor, or a (re, im) pair of real
+    tensors.  Returns the real signal (..., n_fft), normalized by 1/n_fft
+    (a true inverse of the unnormalized forward transform)."""
+    import torch
+
+    re, im = spec if isinstance(spec, tuple) else (spec.real, spec.imag)
+    ci, si = (torch.from_numpy(a).to(re.device)
+              for a in _irdft_matrices_cached(n_fft, "<f4"))
+    return re @ ci.T + im @ si.T

@@ -6,15 +6,18 @@ A long file (an hour at 48 kHz is 360 000 frames) is cut into segments of
 (``_seg_plan_for``), each materialized on the host only as its slice of the
 reflect-padded signal (``padded_slice``).  Every segment is one launch of
 the fused mel dB kernel (``kernels/spectrogram_cuda.py``, the parity or the
-fast kernel) writing its rows of one preallocated ``(n_total, n_mel)``
-plane, so no hour-long intermediate and no concatenation exists.  On a card
-the schedule overlaps the host and the device: two pinned host buffers used
-in turn, a copy stream that ships segment k+1 while the compute stream runs
-segment k, and a per-segment masked min/max that stays on the device until
-one host sync at the end.
+fast kernel) writing its rows of one preallocated ``(n_total, n_out)``
+plane, so no hour-long intermediate and no concatenation exists.  Without
+the filterbank (``mel_fb=None``, the linear scale) or with ``impl="fft"``,
+each segment runs msv_tpu's per-chunk XLA step as torch ops instead (the
+DFT GEMM pair or ``torch.fft.rfft``, magnitude, [mel GEMM], log10 dB),
+``chunk_frames`` frames at a time.  On a card the schedule overlaps the
+host and the device: two pinned host buffers used in turn, a copy stream
+that ships segment k+1 while the compute stream runs segment k, and a
+per-segment masked min/max that stays on the device until one host sync at
+the end.
 
-Not ported: ``impl="fft"`` and ``mel_fb=None`` (ROADMAP queue 1: linear
-scale) and the packed transfers ``transfer="pack"``/``"pack1"`` (ROADMAP
+Not ported: the packed transfers ``transfer="pack"``/``"pack1"`` (ROADMAP
 queue 1 item 11: wire codec).  ``"auto"`` and ``"raw"`` both ship raw
 samples.
 """
@@ -24,7 +27,9 @@ import torch
 
 from ..config import get_precision_mode
 from ..kernels.spectrogram_cuda import mel_spectrogram_cuda, operands_bf16
+from ..ops.decibel import amp_to_db
 from ..ops.framing import n_frames_for
+from ..ops.stft import dft_magnitude, frame_device
 
 _PCM16_SCALE = 2.0**-15
 
@@ -82,43 +87,75 @@ def padded_slice(src, a: int, b: int, half: int, n: int, dtype=np.int16):
     return out  # anything beyond stays zero (bucket tail)
 
 
-def _device_operands(c, s, mel_fb, device, mode):
-    """(C, S, fb) as ``mode``'s kernel operands on ``device``: tensors are
-    taken as they are (already the mode's operands, or f32 for fast mode,
-    which rounds them to bf16 here); numpy arrays are shipped as f32."""
+def _device_operands(c, s, mel_fb, device, mode, kernel=True):
+    """(C, S, fb) on ``device``: tensors are taken as they are, numpy arrays
+    are shipped as f32.  For the kernel they are ``mode``'s operands (f32
+    for fast mode are rounded to bf16 here); the torch-op route takes them
+    in f32.  ``mel_fb`` may be None (no filterbank)."""
     if device is None:
         if not isinstance(c, torch.Tensor):
             raise ValueError("streaming needs a device: pass device=, or "
-                             "c, s and mel_fb as tensors on the device")
+                             "c and s as tensors on the device")
         device = c.device
     ops = tuple(
-        a.to(device) if isinstance(a, torch.Tensor)
+        None if a is None
+        else a.to(device) if isinstance(a, torch.Tensor)
         else torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
         for a in (c, s, mel_fb)
     )
+    if not kernel:
+        return tuple(None if a is None else a.to(torch.float32) for a in ops)
     if mode == "fast" and ops[0].dtype != torch.bfloat16:
         ops = operands_bf16(*ops)
     return ops
 
 
-def _check_route(mel_fb, impl, transfer):
+def _check_route(mel_fb, impl, transfer, n_fft=None, window=None):
+    """Whether the route is the fused kernel (True) or torch ops (False);
+    raises on what no route takes."""
     if impl not in ("dft", "pallas", "fft"):
         raise ValueError(f"unknown impl: {impl!r}")
-    if impl == "fft" or mel_fb is None:
-        raise NotImplementedError(
-            "streaming without the mel filterbank (impl='fft' or "
-            "mel_fb=None) is not ported yet (ROADMAP queue 1: linear scale)")
+    if impl == "fft" and (n_fft is None or window is None):
+        raise ValueError("impl='fft' requires n_fft and window")
+    if impl == "pallas" and mel_fb is None:
+        raise ValueError("impl='pallas' requires mel_fb")
     if transfer in ("pack", "pack1"):
         raise NotImplementedError(
             f"transfer={transfer!r} is not ported (ROADMAP queue 1 item 11: "
             f"wire codec); 'auto' and 'raw' ship raw samples")
     if transfer not in ("auto", "raw"):
         raise ValueError(f"unknown transfer: {transfer!r}")
+    return impl != "fft" and mel_fb is not None
+
+
+def _torch_segment(seg, ops, out, *, win, hop, chunk_frames, scale, window,
+                   n_fft):
+    """msv_tpu's per-chunk streaming step as torch ops, into the rows
+    ``out`` of one segment: frames -> DFT GEMM pair (``window`` None) or
+    |rfft| of the windowed frames zero-padded to ``n_fft`` -> [mel GEMM]
+    -> amp_to_db, ``chunk_frames`` frames at a time."""
+    c, s, fb = ops
+    x = seg.to(torch.float32) * scale if seg.dtype == torch.int16 else seg
+    for f0 in range(0, out.shape[0], chunk_frames):
+        nf = min(chunk_frames, out.shape[0] - f0)
+        if window is not None:
+            # |X| does not depend on where the zero pad sits: a right pad
+            # replaces the centered one
+            frames = frame_device(x[f0 * hop:], win, hop, nf)
+            wf = torch.nn.functional.pad(frames * window, (0, n_fft - win))
+            mag = torch.fft.rfft(wf, dim=-1).abs()
+        else:
+            mag = dft_magnitude(x[f0 * hop:], c, s, win=win, hop=hop,
+                                n_frames=nf)
+        out[f0 : f0 + nf] = amp_to_db(mag if fb is None else mag @ fb)
+    return out
 
 
 def _run_segments(make_seg, seg_plan, n_frames, win, hop, ops, chunk_frames,
-                  *, mode, keep_wav=False):
-    """Segment k's host slice -> device -> one kernel launch into rows
+                  *, mode, keep_wav=False, scale=_PCM16_SCALE, window=None,
+                  n_fft=None):
+    """Segment k's host slice -> device -> one kernel launch (with the
+    filterbank and no ``window``) or the torch-op step into rows
     [f0, f0 + seg_frames) of the output plane.
 
     On a card the host prepares segment k+1 while the device computes
@@ -132,8 +169,13 @@ def _run_segments(make_seg, seg_plan, n_frames, win, hop, ops, chunk_frames,
     device = c.device
     on_card = device.type == "cuda"
     n_total = sum(seg_plan) * chunk_frames
-    db = torch.empty((n_total, fb.shape[1]), dtype=torch.float32,
-                     device=device)
+    kernel = fb is not None and window is None
+    n_out = fb.shape[-1] if fb is not None else (
+        c.shape[1] if window is None else n_fft // 2 + 1)
+    db = torch.empty((n_total, n_out), dtype=torch.float32, device=device)
+    if window is not None:
+        window = torch.from_numpy(np.ascontiguousarray(
+            window, np.float32)).to(device)
     if on_card:
         compute = torch.cuda.current_stream(device)
         copier = torch.cuda.Stream(device)
@@ -166,9 +208,14 @@ def _run_segments(make_seg, seg_plan, n_frames, win, hop, ops, chunk_frames,
             seg.record_stream(compute)
         else:
             seg = torch.from_numpy(seg_np)
-        rows = mel_spectrogram_cuda(seg, c, s, fb, win=win, hop=hop,
-                                    n_frames=seg_frames, mode=mode,
-                                    out=db[f0 : f0 + seg_frames])
+        if kernel:
+            rows = mel_spectrogram_cuda(seg, c, s, fb, win=win, hop=hop,
+                                        n_frames=seg_frames, mode=mode,
+                                        out=db[f0 : f0 + seg_frames])
+        else:
+            rows = _torch_segment(seg, ops, db[f0 : f0 + seg_frames],
+                                  win=win, hop=hop, chunk_frames=chunk_frames,
+                                  scale=scale, window=window, n_fft=n_fft)
         # rows at or after n_frames are zero-tail frames: not in the range
         n_valid = max(0, min(n_frames - f0, seg_frames))
         if n_valid:
@@ -206,30 +253,34 @@ def streaming_spec_db(
     *,
     device=None,
 ):
-    """Full-file dB spectrogram via segmented kernel launches.
+    """Full-file dB spectrogram via segmented launches.
 
-    Returns (db (n_frames_padded, n_mel) on the device, n_frames, min_db,
+    Returns (db (n_frames_padded, n_out) on the device, n_frames, min_db,
     max_db), as ``msv_tpu``'s ``streaming_spec_db`` does: the same segment
-    plan, so the same padded frame count.
+    plan, so the same padded frame count.  n_out is n_mel with
+    ``mel_fb``, else n_fft // 2 + 1 (the linear scale).
 
-    ``impl`` "dft" and "pallas" both run the CUDA kernel on each segment;
-    any hop is allowed.  ``n_fft`` and ``window`` serve only
-    ``impl="fft"``, which is not ported.  Integer carriers: int16 with
-    ``scale`` 2^-15 goes to the kernel as int16; int32 (a channel sum) and
+    With ``mel_fb``, ``impl`` "dft" and "pallas" both run the CUDA kernel on
+    each segment (ln-based dB; any hop is allowed).  ``mel_fb=None`` (the
+    linear scale) or ``impl="fft"`` (``torch.fft.rfft`` of the frames
+    times ``window``, zero-padded to ``n_fft``; both required) run torch
+    ops per segment, with msv_tpu's log10 dB.  Integer carriers: int16 with
+    ``scale`` 2^-15 goes to the device as int16; int32 (a channel sum) and
     any other scale are scaled to f32 on the host, one segment at a time
     (exact: power-of-two scales).
 
     The kernel follows the session's precision mode
-    (``set_precision_mode``), as in ``msv_tpu``.  ``device`` defaults to the
-    device of ``c`` (a tensor).  ``c``, ``s``, ``mel_fb`` may be numpy f32,
-    or tensors that are the mode's operands (f32, or bf16 for "fast").
+    (``set_precision_mode``), as in ``msv_tpu``; the torch-op route is f32
+    in every mode.  ``device`` defaults to the device of ``c`` (a tensor).
+    ``c``, ``s``, ``mel_fb`` may be numpy f32, or tensors that are the
+    mode's operands (f32, or bf16 for "fast").
 
     ``keep_wav=True`` appends a 5th value: the reflect-padded, zero-tailed
     wave on the device, stitched from the shipped segments.
     """
-    _check_route(mel_fb, impl, transfer)
+    kernel = _check_route(mel_fb, impl, transfer, n_fft, window)
     mode = get_precision_mode()
-    ops = _device_operands(c, s, mel_fb, device, mode)
+    ops = _device_operands(c, s, mel_fb, device, mode, kernel)
     # integer input is kept as the carrier: int16 raw PCM or the int32
     # multi-channel sum
     dtype = wav.dtype if wav.dtype in (np.int16, np.int32) else np.float32
@@ -246,7 +297,9 @@ def streaming_spec_db(
         return seg
 
     return _run_segments(make_seg, seg_plan, n_frames, win, hop, ops,
-                         chunk_frames, mode=mode, keep_wav=keep_wav)
+                         chunk_frames, mode=mode, keep_wav=keep_wav,
+                         scale=scale, window=window if impl == "fft" else None,
+                         n_fft=n_fft)
 
 
 def streaming_spec_db_mmap(path, win, hop, c, s, mel_fb=None,
@@ -258,9 +311,9 @@ def streaming_spec_db_mmap(path, win, hop, c, s, mel_fb=None,
     schedule as :func:`streaming_spec_db` on the same samples."""
     from ..io.audio import open_wav_mmap
 
-    _check_route(mel_fb, "dft", transfer)
+    kernel = _check_route(mel_fb, "dft", transfer)
     mode = get_precision_mode()
-    ops = _device_operands(c, s, mel_fb, device, mode)
+    ops = _device_operands(c, s, mel_fb, device, mode, kernel)
     mm, sr = open_wav_mmap(path)
     n = len(mm)
     half = win // 2

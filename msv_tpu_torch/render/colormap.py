@@ -28,6 +28,8 @@ COLORMAP = np.array(
     dtype=np.uint8,
 )  # display.rs:10-21
 
+WAVECOLOR = np.array([200, 21, 103, 255], dtype=np.uint8)  # display.rs:22
+
 
 @functools.lru_cache(maxsize=4)
 def _host_lut(bits: int) -> np.ndarray:

@@ -2,29 +2,32 @@
 (reference: ``MultiTrack``, lib.rs:72-365; ``AudioTrack``, lib.rs:30-62).
 
 Host Python owns file I/O and the global-dB state machine; the device owns
-every per-sample computation.  Every track's spectrogram goes through the
-fused CUDA kernel of the session's precision mode
+every per-sample computation.  On the mel scale every track's spectrogram
+goes through the fused CUDA kernel of the session's precision mode
 (``kernels/spectrogram_cuda.py``: the f32 kernel under "parity", the bf16
-kernel under "fast"): tracks that share a bucket ``(sr, n_frames_pad,
-wire)`` go as one batched launch, and a track over STREAMING_FRAME_THRESHOLD
-frames goes alone through segmented streaming (``parallel/streaming.py``).
-Renders are torch ops over the cached device dB planes.
+kernel under "fast"); on the linear scale through ``spec_pipeline_batched``
+(torch ops, f32).  Tracks that share a bucket ``(sr, n_frames_pad, wire)``
+go as one batched call, and a track over STREAMING_FRAME_THRESHOLD frames
+goes alone through segmented streaming (``parallel/streaming.py``), whose
+device wave the track keeps for its waveform images.  Renders are torch ops
+over the cached device dB planes and device waves
+(``render/envelope.py`` for the waveform).
 
 Behavioural contracts kept from msv_tpu:
   * dB window: max_db = min(global_max, 0), min_db = max(global_min,
     max_db - db_range), 1e-3 change hysteresis (lib.rs:193-218).
   * Padded frames (rows >= n_frames) are left out of the per-track min/max.
-  * up_ratio frequency alignment: mel(max_sr/2)/mel(sr/2) (lib.rs:231-248,
-    f32).
+  * up_ratio frequency alignment: mel(max_sr/2)/mel(sr/2), or max_sr/sr on
+    the linear scale (lib.rs:231-248, f32).
   * channel sum (not mean) to mono (lib.rs:42); window = hann/n_fft.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item, or is absent): FreqScale.LINEAR, packed dB wires, waveform images
-(so a streamed track's device wave is not kept), adaptive renders, the
-device-memory budget and save/load.
+item, or is absent): packed dB wires, adaptive renders and the
+device-memory budget.
 """
 
 import functools
+import json
 import os
 import threading
 
@@ -33,7 +36,8 @@ import torch
 
 from ..config import (FreqScale, SpecSetting, derive_stft_params,
                       get_image_wire, get_precision_mode)
-from ..kernels.pipeline import render_grey_q, render_rgb
+from ..kernels.pipeline import (render_grey_q, render_rgb,
+                                spec_pipeline_batched)
 from ..kernels.spectrogram_cuda import (mel_spectrogram_cuda, operands_bf16,
                                         operands_from_numpy)
 from ..parallel.streaming import streaming_spec_db
@@ -42,6 +46,7 @@ from ..ops.framing import n_frames_for, reflect_pad_center
 from ..ops.mel import calc_mel_fb_default, hz_to_mel, mel_to_hz
 from ..ops.windows import default_stft_window
 from ..render.colormap import paint_grey_wire
+from ..render.envelope import EnvelopeState, wav_to_image
 from ..render.grey import grey_height, spec_to_grey
 from ..render.resize import (
     DENSE_LIMIT,
@@ -212,11 +217,6 @@ class MultiTrack:
 
     def __init__(self, setting: SpecSetting | None = None, device="cuda"):
         self.setting = setting or SpecSetting()
-        if self.setting.freq_scale != FreqScale.MEL:
-            raise NotImplementedError(
-                "FreqScale.LINEAR is not ported yet (ROADMAP queue 1: "
-                "linear scale)"
-            )
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -230,9 +230,14 @@ class MultiTrack:
         elif self.device.type != "cpu":
             raise ValueError(f"unsupported device: {self.device}")
         self.tracks: dict[int, AudioTrack] = {}
-        # sr -> {mode: (C, S, fb)} on device: f32 for parity, bf16 for fast
+        # sr -> {mode: (C, S, fb)} on device: f32 for parity, bf16 for fast;
+        # fb is None on the linear scale
         self._operands: dict[int, dict[str, tuple]] = {}
         self._state: dict[int, _TrackState] = {}
+        # id -> EnvelopeState: the device wave of get_wav_image, built at
+        # the first waveform render, or adopted from streaming
+        self._env_states: dict[int, EnvelopeState] = {}
+        self._env_lock = threading.Lock()
         self.max_db = -np.inf
         self.min_db = np.inf
         self.max_sec = 0.0
@@ -243,6 +248,10 @@ class MultiTrack:
 
     # ------------------------------------------------------------- caches
 
+    @property
+    def _use_mel(self) -> bool:
+        return self.setting.freq_scale == FreqScale.MEL
+
     def _ensure_sr_operands(self, track: AudioTrack) -> None:
         if track.sr in self._operands:
             return
@@ -250,13 +259,17 @@ class MultiTrack:
         window = default_stft_window(track.win_length, track.n_fft)
         c, s = windowed_dft_matrices(window, track.n_fft)
         fb = calc_mel_fb_default(track.sr, track.n_fft)
+        ops = operands_from_numpy(c, s, fb, self.device)
         self._operands[track.sr] = {
-            "parity": operands_from_numpy(c, s, fb, self.device)}
+            "parity": ops if self._use_mel else (*ops[:2], None)}
 
     def _sr_operands(self, sr: int, mode: str) -> tuple:
-        """The kernel operands of rate ``sr`` in precision ``mode``; the
-        bf16 copies are made at the first fast-mode use and kept."""
+        """The operands of rate ``sr`` in precision ``mode``; the bf16
+        copies are made at the first fast-mode use and kept.  The linear
+        scale has no filterbank and computes in f32 in every mode."""
         ops = self._operands[sr]
+        if not self._use_mel:
+            return ops["parity"]
         if mode not in ops:
             ops[mode] = operands_bf16(*ops["parity"])
         return ops[mode]
@@ -284,9 +297,11 @@ class MultiTrack:
         return padded, n_frames, n_frames_pad
 
     def _compute_specs(self, id_list) -> None:
-        """One kernel launch per bucket (sr, n_frames_pad, wire): a bucket of
-        one track is a batch of one.  Tracks over STREAMING_FRAME_THRESHOLD
-        frames stream, one at a time."""
+        """One batched call per bucket (sr, n_frames_pad, wire): a kernel
+        launch on the mel scale, ``spec_pipeline_batched`` on the linear
+        one; a bucket of one track is a batch of one.  Tracks over
+        STREAMING_FRAME_THRESHOLD frames stream, one at a time, and keep
+        their streamed device wave for the waveform images."""
         groups: dict[tuple, list[int]] = {}
         streamed: list[int] = []
         for id in id_list:
@@ -300,16 +315,30 @@ class MultiTrack:
             self._calc_spec_group(ids, sr, n_frames_pad)
         for id in streamed:
             with self.timer.stage("add_tracks.streaming"):
-                self._state[id] = self._calc_spec_streaming(self.tracks[id])
+                self._state[id] = self._calc_spec_streaming(self.tracks[id],
+                                                            id)
 
-    def _calc_spec_streaming(self, track) -> _TrackState:
+    def _calc_spec_streaming(self, track, id) -> _TrackState:
         """Long-track path: segmented streaming through the kernel of the
-        session's precision mode, with the track's carrier and scale."""
+        session's precision mode (the torch-op route on the linear scale),
+        with the track's carrier and scale.
+
+        The streamed (reflect-padded) wave stays on the device and becomes
+        the track's envelope buffer: a later get_wav_image costs no second
+        whole-file transfer."""
         src = (track._wav_int if track._wav_int is not None
                else np.asarray(track.wav, np.float32))
-        db, n_valid, smin, smax = streaming_spec_db(
+        db, n_valid, smin, smax, wav_dev = streaming_spec_db(
             src, track.win_length, track.hop_length,
             *self._sr_operands(track.sr, get_precision_mode()),
+            keep_wav=True, scale=track.scale,
+        )
+        self._env_states[id] = EnvelopeState.from_device(
+            wav_dev, track.n_samples, offset=track.win_length // 2,
+            src_int=track._wav_int,
+            # true-float sources have no integer carrier; the deep-zoom
+            # branch then reads the f32 mono
+            src_f32=None if track._wav_int is not None else track.wav,
             scale=track.scale,
         )
         st = _TrackState()
@@ -322,7 +351,8 @@ class MultiTrack:
         return st
 
     def _calc_spec_group(self, ids, sr: int, n_frames_pad: int) -> None:
-        """Same-bucket tracks stacked into one (B, L) kernel launch, with the
+        """Same-bucket tracks stacked into one (B, L) kernel launch (or one
+        ``spec_pipeline_batched`` call on the linear scale), with the
         per-track dB min/max over valid frames and one host sync."""
         tr0 = self.tracks[ids[0]]
         with self.timer.stage("add_tracks.host_prep"):
@@ -331,19 +361,25 @@ class MultiTrack:
         with self.timer.stage("add_tracks.h2d"):
             wave = wave.to(self.device)
         mode = get_precision_mode()
-        with self.timer.stage("add_tracks.kernel_minmax"):
-            db_b = mel_spectrogram_cuda(
-                wave, *self._sr_operands(sr, mode), win=tr0.win_length,
-                hop=tr0.hop_length, n_frames=n_frames_pad, mode=mode,
-            )
-            n_valid = torch.tensor([p[1] for p in preps], device=self.device)
-            frame = torch.arange(n_frames_pad, device=self.device)
-            fmask = (frame[None, :] < n_valid[:, None])[:, :, None]
-            inf = torch.tensor(np.inf, dtype=torch.float32,
-                               device=self.device)
-            smax = torch.where(fmask, db_b, -inf).amax(dim=(1, 2))
-            smin = torch.where(fmask, db_b, inf).amin(dim=(1, 2))
-            mm = torch.stack([smin, smax]).cpu().numpy()  # one host sync
+        n_valid = torch.tensor([p[1] for p in preps], device=self.device)
+        kw = dict(win=tr0.win_length, hop=tr0.hop_length,
+                  n_frames=n_frames_pad, mode=mode)
+        if not self._use_mel:
+            with self.timer.stage("add_tracks.linear_minmax"):
+                # int16 carriers are PCM16 (2^-15); the rest arrive in f32
+                db_b, smin, smax = spec_pipeline_batched(
+                    wave, *self._sr_operands(sr, mode), n_valid,
+                    use_mel=False, **kw)
+                mm = torch.stack([smin, smax]).cpu().numpy()  # one sync
+        else:
+            with self.timer.stage("add_tracks.kernel_minmax"):
+                db_b = mel_spectrogram_cuda(
+                    wave, *self._sr_operands(sr, mode), **kw)
+                frame = torch.arange(n_frames_pad, device=self.device)
+                fmask = (frame[None, :] < n_valid[:, None])[:, :, None]
+                smax = torch.where(fmask, db_b, -torch.inf).amax(dim=(1, 2))
+                smin = torch.where(fmask, db_b, torch.inf).amin(dim=(1, 2))
+                mm = torch.stack([smin, smax]).cpu().numpy()  # one sync
         for b, id in enumerate(ids):
             st = _TrackState()
             st.spec_db = db_b[b]
@@ -390,6 +426,8 @@ class MultiTrack:
         with self.timer.stage("add_tracks.operands"):
             for id, track in zip(id_list, new):
                 self._ensure_sr_operands(track)
+                # a re-added id is a new file: drop the old envelope buffer
+                self._env_states.pop(id, None)
                 self.tracks[id] = track
             # recompute (not just raise) max_sec: replacing the longest
             # track with a shorter file must lower it
@@ -407,6 +445,7 @@ class MultiTrack:
         track = self._track(id)
         del self.tracks[id]
         self._state.pop(id, None)
+        self._env_states.pop(id, None)
         if self.id_max_sec == id:
             best_id, best_sec = 0, 0.0
             for tid, t in self.tracks.items():
@@ -441,9 +480,10 @@ class MultiTrack:
         return changed
 
     def _up_ratio(self, sr: int) -> float:
-        """Cross-track frequency alignment ratio on the mel scale, f32
-        (lib.rs:231-248)."""
+        """Cross-track frequency alignment ratio, f32 (lib.rs:231-248)."""
         f32 = np.float32
+        if not self._use_mel:
+            return float(f32(self.max_sr) / f32(sr))
         return float(
             hz_to_mel(f32(self.max_sr) / f32(2.0))
             / hz_to_mel(f32(sr) / f32(2.0))
@@ -452,7 +492,8 @@ class MultiTrack:
     # ------------------------------------------------------------ renders
 
     def get_spec_db(self, id: int, wire: str = "f32") -> np.ndarray:
-        """The dB spectrogram -> float32 (n_frames, n_mel), fetched exactly.
+        """The dB spectrogram -> float32 (n_frames, n_out), fetched exactly:
+        n_out is n_mel on the mel scale, n_fft // 2 + 1 on the linear one.
         msv_tpu's packed wires ("q16"/"q12"/"q10"/"q8") are not
         ported."""
         if wire != "f32":
@@ -540,6 +581,57 @@ class MultiTrack:
             return self._run_render(st, wv, wh, height=height, banded=True,
                                     wire=wire or get_image_wire())
 
+    # ------------------------------------------------------- waveform images
+
+    def _env_state_for(self, id: int, track) -> EnvelopeState:
+        """The track's envelope state, its wave shipped to the device at the
+        first waveform render (integer carriers as they are: no f32 copy on
+        the host)."""
+        st = self._env_states.get(id)
+        if st is None:
+            # double-checked: two concurrent renders of a fresh track must
+            # not both ship the wave
+            with self._env_lock:
+                st = self._env_states.get(id)
+                if st is None:
+                    st = EnvelopeState(
+                        None if track._wav_int is not None else track.wav,
+                        track._wav_int, n=track.n_samples,
+                        scale=track.scale, device=self.device)
+                    self._env_states[id] = st
+        return st
+
+    def get_wav_image(self, id: int, px_per_sec: float, nheight: int,
+                      amp_min: float, amp_max: float) -> np.ndarray:
+        """Waveform envelope image (lib.rs:300-313) -> (h, w, 4) RGBA u8."""
+        track = self._track(id)
+        f32 = np.float32
+        nwidth = trunc_int(f32(px_per_sec) * f32(track.n_samples)
+                           / f32(track.sr))
+        _check_render_dims(nwidth, nheight, "get_wav_image")
+        st = self._env_state_for(id, track)
+        with self.timer.stage("get_wav_image.render"):
+            return wav_to_image(None, nwidth, nheight, (amp_min, amp_max),
+                                state=st)
+
+    def get_wav_image_crop(self, id: int, px_per_sec: float, nheight: int,
+                           amp_min: float, amp_max: float, start_sec: float,
+                           end_sec: float) -> np.ndarray:
+        """Viewport waveform render — columns [c0, c1) of the full-width
+        envelope image (pixel-identical to slicing it)."""
+        track = self._track(id)
+        f32 = np.float32
+        nwidth = trunc_int(f32(px_per_sec) * f32(track.n_samples)
+                           / f32(track.sr))
+        c0 = trunc_int(f32(px_per_sec) * f32(start_sec))
+        c1 = trunc_int(f32(px_per_sec) * f32(end_sec))
+        _check_render_dims(max(min(c1, nwidth) - max(c0, 0), 0), nheight,
+                           "get_wav_image_crop")
+        st = self._env_state_for(id, track)
+        with self.timer.stage("get_wav_image.render"):
+            return wav_to_image(None, nwidth, nheight, (amp_min, amp_max),
+                                state=st, col_range=(c0, c1))
+
     def get_grey(self, id: int) -> np.ndarray:
         """The normalized grey image (display.rs:44-54)."""
         track = self._track(id)
@@ -551,9 +643,11 @@ class MultiTrack:
     # ------------------------------------------------------------ getters
 
     def get_frequency_hz(self, id: int, relative_freq: float) -> float:
-        """Cursor frequency readout on the mel scale (lib.rs:315-322)."""
+        """Cursor frequency readout (lib.rs:315-322), f32 math."""
         f32 = np.float32
         half_sr = f32(self._track(id).sr) / f32(2.0)
+        if not self._use_mel:
+            return float(half_sr * f32(relative_freq))
         return float(mel_to_hz(hz_to_mel(half_sr) * f32(relative_freq)))
 
     def get_max_db(self) -> float:
@@ -584,3 +678,74 @@ class MultiTrack:
     def get_channel(self, id: int):
         """Selected channel (int) or None for the sum-to-mono default."""
         return self._track(id).channel
+
+    # ------------------------------------------------------------ settings
+
+    def set_setting(self, setting: SpecSetting) -> bool:
+        """Change settings and reload every track (AudioTrack::reload,
+        lib.rs:57-61 — declared but never wired in the reference; here it is
+        the live settings path).  Every cache goes: dB planes, envelope
+        states and operands.  Returns whether the dB range changed."""
+        self.setting = setting
+        ids = sorted(self.tracks)
+        paths = [self.tracks[i].path for i in ids]
+        chans = [self.tracks[i].channel for i in ids]
+        self.tracks.clear()
+        self._state.clear()
+        self._env_states.clear()
+        self._operands.clear()
+        self.max_db, self.min_db = -np.inf, np.inf
+        self.max_sec, self.id_max_sec, self.max_sr = 0.0, 0, 0
+        if not ids:
+            return self._update_db_state()
+        return self.add_tracks(ids, paths, channels=chans)
+
+    def save_session(self, path: str) -> None:
+        """Serialize session state: track list + settings + dB stats, the
+        v2 manifest of msv_tpu.  Spectrograms are recomputable, so a
+        restart is re-add + renormalize from this manifest."""
+        manifest = {
+            # v2 adds per-track channel selection; v1 manifests (plain
+            # path strings) still load
+            "version": 2,
+            "setting": {
+                "win_ms": self.setting.win_ms,
+                "t_overlap": self.setting.t_overlap,
+                "f_overlap": self.setting.f_overlap,
+                "freq_scale": self.setting.freq_scale.value,
+                "db_range": self.setting.db_range,
+            },
+            "tracks": {
+                str(i): {"path": t.path, "channel": t.channel}
+                for i, t in self.tracks.items()
+            },
+            "max_db": self.max_db if np.isfinite(self.max_db) else None,
+            "min_db": self.min_db if np.isfinite(self.min_db) else None,
+        }
+        with open(path, "w") as f:
+            json.dump(manifest, f, indent=1)
+
+    @classmethod
+    def load_session(cls, path: str, device="cuda") -> "MultiTrack":
+        """A session on ``device`` from a v1 or v2 manifest of
+        :meth:`save_session` (or of msv_tpu's)."""
+        with open(path) as f:
+            m = json.load(f)
+        s = m["setting"]
+        setting = SpecSetting(
+            win_ms=s["win_ms"],
+            t_overlap=s["t_overlap"],
+            f_overlap=s["f_overlap"],
+            freq_scale=FreqScale(s["freq_scale"]),
+            db_range=s["db_range"],
+        )
+        mt = cls(setting, device=device)
+        ids = sorted(int(k) for k in m["tracks"])
+        if ids:
+            ent = [m["tracks"][str(i)] for i in ids]
+            # v1: plain path strings; v2: {"path", "channel"} objects
+            paths = [e if isinstance(e, str) else e["path"] for e in ent]
+            chans = [None if isinstance(e, str) else e.get("channel")
+                     for e in ent]
+            mt.add_tracks(ids, paths, channels=chans)
+        return mt

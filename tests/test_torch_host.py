@@ -3,6 +3,7 @@ their originals' source, parameter derivation, and the import boundary
 (``msv_tpu_torch`` never imports jax or msv_tpu)."""
 
 import os
+import shutil
 import subprocess
 import sys
 
@@ -56,14 +57,11 @@ EDITED = {
          "For deep profiles use ``torch.profiler.profile`` around a session "
          "call; these"),
     ],
-    # the one line: the committed native decoder library, by file path
-    "io/_native_audio.py": [
-        ('    so = os.path.join(os.path.dirname(__file__), "..", "native", '
-         '"libmsv_native.so")',
-         '    so = os.path.join(os.path.dirname(__file__), "..", "..", '
-         '"msv_tpu", "native", "libmsv_native.so")'),
-    ],
 }
+
+# The native decoders: byte-for-byte copies, built by the port itself.
+NATIVE = ["native/wav_decoder.cc", "native/flac_decoder.cc"]
+FIXTURES = os.path.join(REPO, "tests", "fixtures")
 
 RATES = [  # sr, win, hop, n_fft
     (8000, 320, 80, 512),
@@ -97,12 +95,70 @@ def test_edited_copy_differs_only_by_named_lines(rel):
     assert copy == expect
 
 
-def test_native_audio_copy_loads_the_committed_library():
-    from msv_tpu_torch.io import _native_audio
+@pytest.mark.parametrize("rel", NATIVE)
+def test_native_decoder_source_equals_original(rel):
+    with open(os.path.join(PORT_PKG, rel), "rb") as a, \
+            open(os.path.join(JAX_PKG, rel), "rb") as b:
+        assert a.read() == b.read()
 
-    if not os.path.exists(os.path.join(JAX_PKG, "native", "libmsv_native.so")):
-        pytest.skip("native library not built")
-    assert _native_audio._load() is not None
+
+def test_native_audio_copy_loads_the_committed_library():
+    """The library is built from the port's committed sources into the
+    port's build directory, never loaded from msv_tpu."""
+    from msv_tpu_torch.io import _native_audio as na
+
+    if shutil.which(os.environ.get("CXX") or "g++") is None:
+        pytest.skip("no C++ compiler")
+    assert na._load() is not None, na.BUILD_ERROR
+    lib = os.path.realpath(na.LIBRARY)
+    assert lib.startswith(os.path.realpath(na.BUILD_DIR) + os.sep)
+    assert na.SOURCES == [os.path.join(PORT_PKG, r) for r in NATIVE]
+    assert "msv_tpu" + os.sep + "native" not in lib
+
+
+def test_no_port_file_loads_from_the_jax_package():
+    """No string in a port source names a path into msv_tpu/ (its native
+    library included) for the port to load."""
+    hits = []
+    for root, _dirs, files in os.walk(PORT_PKG):
+        for name in files:
+            if name.endswith((".py", ".cu", ".cuh")):
+                text = _read(root, name)
+                if ("libmsv_native.so" in text
+                        or '"msv_tpu", "native"' in text
+                        or "msv_tpu/native/lib" in text):
+                    hits.append(name)
+    assert hits == []
+
+
+@pytest.mark.parametrize("name", ["sine440_8k.flac", "duotone_8k_stereo.flac",
+                                  "stereo_pcm16.wav", "mono_f32.wav"])
+def test_native_decode_equals_jax(name, tmp_path):
+    """The port's decode of a file equals msv_tpu's, through the native
+    decoder (FLAC, and WAVs the numpy route does not take)."""
+    from msv_tpu.io import audio as jaudio
+    from msv_tpu_torch.io import _native_audio as na
+    from msv_tpu_torch.io import audio as taudio
+
+    path = os.path.join(FIXTURES, name)
+    if name.endswith(".wav"):
+        rng = np.random.default_rng(11)
+        x = (rng.standard_normal((2, 4000)) * 0.3).astype(np.float32)
+        path = str(tmp_path / name)
+        if name == "stereo_pcm16.wav":
+            jaudio.write_wav(path, x, 16000, bits=16)
+        else:
+            jaudio.write_wav(path, x[0], 16000, bits=32)
+    before = na.DECODES["native"]
+    got = taudio.open_audio_file_ex(path)
+    want = jaudio.open_audio_file_ex(path)
+    if shutil.which(os.environ.get("CXX") or "g++") is not None:
+        assert na.DECODES["native"] == before + 1
+    assert got[1] == want[1] and got[2] is want[2] is None
+    np.testing.assert_array_equal(got[0], want[0])
+    mono = taudio.open_audio_mono_ex(path)  # FLAC: the integer route
+    for g, w in zip(mono, jaudio.open_audio_mono_ex(path)):
+        np.testing.assert_array_equal(g, w)
 
 
 @pytest.mark.parametrize("sr,win,hop,n_fft", RATES)

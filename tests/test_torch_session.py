@@ -199,17 +199,17 @@ def test_flac_fixture_within_one_step_of_jax():
 
 def test_unported_paths_raise_not_implemented(sessions):
     _, port, paths = sessions
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        msv_tpu_torch.MultiTrack(
-            msv_tpu_torch.SpecSetting(
-                freq_scale=msv_tpu_torch.FreqScale.LINEAR),
-            device="cpu")
+    # the linear scale is ported (tests/test_torch_linear.py)
+    msv_tpu_torch.MultiTrack(
+        msv_tpu_torch.SpecSetting(freq_scale=msv_tpu_torch.FreqScale.LINEAR),
+        device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.get_spec_db(0, wire="q10")
     c, s, fb = port._operands[8000]["parity"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         msv_tpu_torch.streaming_spec_db(np.zeros(4000, np.int16), 320, 80,
-                                        c, s, fb, impl="fft")
+                                        c, s, fb, transfer="pack")
+    assert not hasattr(port, "get_adaptive_spec_image_crop")
 
 
 def test_default_device_needs_a_card():

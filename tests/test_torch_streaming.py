@@ -142,8 +142,8 @@ def test_mmap_equals_in_memory(tmp_path, rng):
 @pytest.mark.parametrize("kw,exc", [
     (dict(transfer="pack"), NotImplementedError),
     (dict(transfer="pack1"), NotImplementedError),
-    (dict(impl="fft"), NotImplementedError),
-    (dict(mel_fb=None), NotImplementedError),
+    (dict(impl="fft"), ValueError),  # without n_fft and window
+    (dict(mel_fb=None, impl="pallas"), ValueError),
     (dict(transfer="zip"), ValueError),
     (dict(impl="xla"), ValueError),
 ])
@@ -152,7 +152,7 @@ def test_unported_routes_raise(kw, exc, rng):
     args = dict(mel_fb=fb, device="cpu")
     args.update(kw)
     with pytest.raises(exc, match="ROADMAP" if exc is NotImplementedError
-                       else "unknown"):
+                       else "unknown|requires"):
         tstream.streaming_spec_db(np.zeros(4000, np.int16), win, hop, c, s,
                                   **args)
 
