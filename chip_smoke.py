@@ -6,9 +6,13 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each printing its lines:
   1. device   the card's name and power limit (nvidia-smi), torch, CUDA and
               nvcc versions;
-  2. build    compiles the three mel dB kernels (f32 parity, bf16 fast,
-              split-f32) from csrc/ into one library with nvcc;
-  3. kernel   the parity kernel against its plain PyTorch version at all
+  2. build    compiles the three mel dB kernels (f32 parity in 3xTF32,
+              bf16 fast, split-f32) from csrc/ into one library with nvcc,
+              and prints -Xptxas -v's registers and spills of each
+              instantiation;
+  3. kernel   the parity kernel (on operands laid out once by
+              prepare_operands, as the session caches them; so in 3b and
+              3c) against its plain PyTorch version at all
               six rate buckets, f32 and int16 input, batch 1 and 2, on 240 s
               of audio per row (about 24 000 frames); atol 2e-3 dB, rtol
               1e-4, except that bins 60 dB or more under their frame's peak
@@ -75,6 +79,9 @@ second-to-last line is a JSON object describing each kernel (its bound is
 computed from this run's shapes against the H100 SXM's published peaks);
 the last line is {"ok": true, "device": {...}}.  Exits non-zero, printing
 neither, without a CUDA device or when any check fails.
+
+What bounds each kernel is measured apart by msv_tpu_torch/kernels/probe.py
+(source variants without the ring, the products or the SIMT passes).
 """
 
 import json
@@ -116,8 +123,11 @@ SEED = 20261016
 # Split against parity: share of bins more than one grey step apart.
 SPLIT_SHARE = 1e-3
 # Published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet) and
-# its HBM3 rate: the roofline of the kernels line.
-PEAK_FLOPS = {"parity": 67e12, "fast": 989e12, "split": 989e12}
+# its HBM3 rate: the roofline of the kernels line.  The parity kernel's DFT
+# pair runs on the tensor cores in 3xTF32 (three TF32 products each), its
+# mel product in SIMT f32; "simt" is the f32 rate outside the tensor cores.
+PEAK_FLOPS = {"parity": 495e12, "fast": 989e12, "split": 989e12,
+              "simt": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -163,17 +173,22 @@ def bound(K, mode, padded, ops, n_frames):
     bytes it must move (the wave, C, S and fb read once, the dB plane
     written once) over the HBM rate, and its operations (the DFT pair and
     each mel band's support; three products each in split mode) over the
-    mode's peak rate."""
+    mode's peak rate.  Parity: three TF32 products per DFT product at the
+    TF32 peak, and the mel product at the SIMT f32 rate."""
     win, n_freq = ops[0].shape[-2:]
     n_mel = ops[2].shape[-1]
     bands = K.mel_bands(ops[2])
     band_bins = int((bands[:, 1] - bands[:, 0]).sum())
     rows = 1 if padded.ndim == 1 else padded.shape[0]
-    products = 3 if mode == "split" else 1
-    flops = products * 2 * rows * n_frames * (2 * win * n_freq + band_bins)
+    dft = 2 * rows * n_frames * 2 * win * n_freq
+    mel = 2 * rows * n_frames * band_bins
+    if mode == "parity":
+        t_ops = 3 * dft / PEAK_FLOPS["parity"] + mel / PEAK_FLOPS["simt"]
+    else:
+        t_ops = (3 if mode == "split" else 1) * (dft + mel) / PEAK_FLOPS[mode]
     nbytes = (sum(t.numel() * t.element_size() for t in (padded, *ops))
               + 4 * rows * n_frames * n_mel)
-    t_ops, t_bytes = flops / PEAK_FLOPS[mode], nbytes / HBM_BYTES_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -262,16 +277,35 @@ def phase_device():
     return smi
 
 
+def build_report(text):
+    """ptxas's registers and spills of each kernel instantiation, from
+    ``-Xptxas -v``'s output: [(kernel<sample type, m-tiles>, usage)]."""
+    import re
+
+    out, name = [], None
+    for ln in text.splitlines():
+        m = re.search(r"entry function '(\w+)'", ln)
+        if m:
+            spill = ""
+            k = re.search(r"(mel_db_\w+?_kernel)I([a-z])Li(\d+)E", m.group(1))
+            name = (f"{k.group(1)}<{ {'f': 'float', 's': 'int16'}[k.group(2)]},"
+                    f" {k.group(3)}>" if k else m.group(1))
+        elif name and "spill" in ln:
+            spill = ln.split(":", 1)[-1].strip()
+        elif name and "Used" in ln and "registers" in ln:
+            out.append((name, f"{ln.split(':', 1)[-1].strip()}; {spill}"))
+            name = None
+    return out
+
+
 def phase_build(K):
     t0 = time.perf_counter()
     K.build()
     dt = time.perf_counter() - t0
-    report = [ln.strip() for ln in K.BUILD_REPORT.splitlines()
-              if "registers" in ln or "spill" in ln]
     srcs = " + ".join(os.path.relpath(K.SOURCES[m]) for m in K.MODES)
     print(f"[build] {srcs} in {dt:.2f} s (nvcc {' '.join(K.NVCC_FLAGS)})")
-    for ln in report:
-        print(f"[build]   {ln}")
+    for name, usage in build_report(K.BUILD_REPORT):
+        print(f"[build]   {name}: {usage}")
 
 
 def operands(sr, device):
@@ -312,6 +346,7 @@ def phase_kernel(K, rng):
     max_err, headline = 0.0, None
     for sr in RATES:
         win, hop, ops = operands(sr, "cuda")
+        prepared = K.prepare_operands(*ops, "parity")
         i16 = make_signal(rng, sr, SECONDS, 2)
         n_frames = n_frames_for(i16.shape[1], win, hop)
         padded = np.stack([reflect_pad_center(x, win) for x in i16])
@@ -324,7 +359,7 @@ def phase_kernel(K, rng):
             x = {k: (v[0] if batch == 1 else v) for k, v in wave.items()}
 
             def run(dtype):
-                return K.mel_spectrogram_cuda(x[dtype], *ops, win=win,
+                return K.mel_spectrogram_cuda(x[dtype], prepared, win=win,
                                               hop=hop, n_frames=n_frames)
 
             def plain():
@@ -353,7 +388,7 @@ def phase_kernel(K, rng):
                 headline = (ms, plain_ms, f"{sr} Hz, B=1, f32, "
                             f"{n_frames} frames x {n_mel} mel",
                             *bound(K, "parity", x["f32"], ops, n_frames))
-        del wave, ops
+        del wave, ops, prepared
         torch.cuda.empty_cache()
     return max_err, headline
 
@@ -619,6 +654,8 @@ def phase_fast(K, rng):
     for sr in RATES:
         win, hop, ops = operands(sr, "cuda")
         ops16 = K.operands_bf16(*ops)
+        rec, rec16 = (K.prepare_operands(*ops, "parity"),
+                      K.prepare_operands(*ops16, "fast"))
         i16 = make_signal(rng, sr, SECONDS, 2)
         n_frames = n_frames_for(i16.shape[1], win, hop)
         padded = np.stack([reflect_pad_center(x, win) for x in i16])
@@ -632,7 +669,7 @@ def phase_fast(K, rng):
             kw = dict(win=win, hop=hop, n_frames=n_frames)
 
             def fast(dtype="f32"):
-                return K.mel_spectrogram_cuda(x[dtype], *ops16, mode="fast",
+                return K.mel_spectrogram_cuda(x[dtype], rec16, mode="fast",
                                               **kw)
 
             def plain():
@@ -640,7 +677,7 @@ def phase_fast(K, rng):
                                                **kw)
 
             def parity():
-                return K.mel_spectrogram_cuda(x["f32"], *ops, **kw)
+                return K.mel_spectrogram_cuda(x["f32"], rec, **kw)
 
             got_i16, got, want, par = fast("i16"), fast(), plain(), parity()
             torch.cuda.synchronize()
@@ -672,7 +709,7 @@ def phase_fast(K, rng):
                 headline = (ms, plain_ms, f"{sr} Hz, B=1, f32, "
                             f"{n_frames} frames x {n_mel} mel",
                             *bound(K, "fast", x["f32"], ops16, n_frames))
-        del wave, ops, ops16
+        del wave, ops, ops16, rec, rec16
         torch.cuda.empty_cache()
     return max_err, headline
 
@@ -696,6 +733,8 @@ def phase_split(K, rng):
     for sr in RATES:
         win, hop, ops = operands(sr, "cuda")
         ops16, ops_s = K.operands_bf16(*ops), K.operands_split(*ops)
+        rec, rec16 = (K.prepare_operands(*ops, "parity"),
+                      K.prepare_operands(*ops16, "fast"))
         i16 = make_signal(rng, sr, SECONDS, 2)
         n_frames = n_frames_for(i16.shape[1], win, hop)
         padded = np.stack([reflect_pad_center(x, win) for x in i16])
@@ -717,10 +756,10 @@ def phase_split(K, rng):
                                                mode="split", **kw)
 
             def parity():
-                return K.mel_spectrogram_cuda(x["f32"], *ops, **kw)
+                return K.mel_spectrogram_cuda(x["f32"], rec, **kw)
 
             def fast():
-                return K.mel_spectrogram_cuda(x["f32"], *ops16, mode="fast",
+                return K.mel_spectrogram_cuda(x["f32"], rec16, mode="fast",
                                               **kw)
 
             got_i16, got, want, par = split("i16"), split(), plain(), parity()
@@ -752,7 +791,7 @@ def phase_split(K, rng):
                 headline = (ms, plain_ms, f"{sr} Hz, B=1, f32, "
                             f"{n_frames} frames x {n_mel} mel",
                             *bound(K, "split", x["f32"], ops_s, n_frames))
-        del wave, ops, ops16, ops_s
+        del wave, ops, ops16, ops_s, rec, rec16
         torch.cuda.empty_cache()
 
     for sr in (16000, 48000):  # the JAX test's own signal and bounds
@@ -799,8 +838,10 @@ def split_ab(K, rng, minutes=30, seg=32768):
     wave = wave.to(torch.float32) * 2.0**-15
     segs = [wave[i * seg * hop : i * seg * hop + seg * hop + (win - hop)]
             for i in range(n_segs)]
-    mode_ops = {"parity": ops, "split": K.operands_split(*ops),
-                "fast": K.operands_bf16(*ops)}
+    # the parity and fast kernels take their operands prepared once
+    mode_ops = {"parity": (K.prepare_operands(*ops, "parity"),),
+                "split": K.operands_split(*ops),
+                "fast": (K.prepare_operands(*K.operands_bf16(*ops), "fast"),)}
     outs = {m: torch.empty((n_segs * seg, ops[2].shape[1]), device="cuda")
             for m in mode_ops}
 
@@ -915,7 +956,7 @@ def phase_streaming(K, rng, minutes=60, stereo_s=480.0):
         t0 = time.perf_counter()
         mm_db, mm_n, mm_min, mm_max = streaming_spec_db_mmap(
             hour, tr0.win_length, tr0.hop_length,
-            *mt._sr_operands(48000, "parity"))
+            mt._sr_kernel_operands(48000, "parity"), None)
         torch.cuda.synchronize()
         mmap_s = time.perf_counter() - t0
         launches = read_counts(K)
@@ -996,8 +1037,8 @@ def phase_streaming(K, rng, minutes=60, stereo_s=480.0):
             t0 = time.perf_counter()
             out = streaming_spec_db(tr0._wav_int, tr0.win_length,
                                     tr0.hop_length,
-                                    *mt._sr_operands(48000, "parity"),
-                                    keep_wav=kw)
+                                    mt._sr_kernel_operands(48000, "parity"),
+                                    None, keep_wav=kw)
             torch.cuda.synchronize()
             keep[kw].append(time.perf_counter() - t0)
             del out

@@ -1,9 +1,21 @@
 // Device helpers shared by the three fused mel dB kernels:
-// mel_spectrogram.cu (f32 parity mode), mel_spectrogram_bf16.cu (bf16 fast
-// mode) and mel_spectrogram_split.cu (split-f32 mode).  All stage samples,
-// compute the DFT magnitude of a tile of frequency bins into shared memory,
-// then run the same sparse-band mel accumulation and the same dB epilogue;
-// only the DFT bodies differ.
+// mel_spectrogram.cu (f32 parity mode, 3xTF32), mel_spectrogram_bf16.cu (bf16
+// fast mode) and mel_spectrogram_split.cu (split-f32 mode).  All stage
+// samples, compute the DFT magnitude of a tile of frequency bins into shared
+// memory, then run a sparse-band mel accumulation and the dB: the split
+// kernel with accumulate_bands and db_epilogue below, the parity and fast
+// kernels with mel_tile (the same sums, from shared-memory band tables,
+// stores coalesced, dB written by the tile that ends a band).
+//
+// The parity and fast kernels also share the staging ring of C/S slabs
+// (bulk copies completing on mbarriers, below) and the leftover bin: their
+// operands come from kernels/spectrogram_cuda.py::prepare_operands, which
+// cuts C and S into slabs of KS rows x NB bins laid out as the ring stage's
+// shared-memory image (C rows, then S rows, at a padded row stride), each
+// slab one contiguous, 16-byte aligned run of bytes, and keeps the last
+// column of C and S (bin n_freq - 1 = n_fft / 2) apart.  Tiles then cover
+// n_freq - 1 = 2^k bins, and the last one computes the leftover bin with
+// SIMT FMAs over the kept columns: no launch walks K for a tile of one bin.
 
 #pragma once
 
@@ -164,6 +176,364 @@ inline int smem_optin_limit(size_t* cap) {
   }
   *cap = static_cast<size_t>(limit);
   return static_cast<int>(err);
+}
+
+// ---------------------------------------------------------------------------
+// The staging ring: C/S slabs copied by the copy engine, one bulk copy per
+// slab, each completing on its stage's mbarrier.  The fast kernel runs
+// WARPS consumer warps and one producer warp that keeps the ring full; the
+// parity kernel, whose registers a ninth warp would cut to 168 a thread
+// (three warps on one of the SM's four 16K-register partitions), refills
+// from thread 0 after a barrier.
+
+constexpr int kSlabRows = 16;   // C/S rows per slab (prepare_operands' KS)
+constexpr int kMaxStages = 8;   // ring stages at most
+constexpr int kRingOffset = 128;  // bytes of mbarriers before the ring
+constexpr int kProducer = WARPS;  // the producer warp's index
+static_assert(2 * kMaxStages * sizeof(uint64_t) <= kRingOffset,
+              "the full and empty mbarriers fit before the ring");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// A barrier of the WARPS consumer warps alone (named barrier 1: the
+// producer warp has left by then).
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(32 * WARPS) : "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst` (both
+// 16-byte aligned) by the copy engine; `bar` completes its phase when they
+// have landed.  Issued by one thread.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  // the stage was last read through the generic proxy: order those reads
+  // before the async proxy's writes
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Wait until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Slab q of `total` (tile-major, then K: slab q starts q * slab_bytes into
+// `slabs`) staged in ring stage q % stages.  The first `stages` copies are
+// issued at the start.  With a producer warp, it refills stage s with slab
+// q + stages once each consumer warp has released slab q (one arrival per
+// warp on the stage's `empty` mbarrier, after its last read); without one,
+// thread 0 refills it after the __syncthreads that follows every warp's
+// last read.  Each consumer thread walks the slabs in order with a Cursor
+// (slab, stage, phase).
+struct Ring {
+  uint64_t* full;          // per stage: the copy has landed
+  uint64_t* empty;         // per stage: every consumer warp is done with it
+  unsigned char* stage0;   // stage 0's bytes; stage s at s * slab_bytes
+  const unsigned char* src;
+  uint32_t slab_bytes;
+  int stages, total;
+
+  struct Cursor {
+    int q = 0, s = 0;
+    uint32_t phase = 0;
+  };
+
+  // thread 0: barriers and the first copies (then a __syncthreads)
+  __device__ void start(int tid) const {
+    if (tid != 0) return;
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, WARPS);
+    }
+    fence_mbar_init();
+    for (int q = 0; q < min(stages, total); ++q) issue(q, q);
+  }
+  __device__ void issue(int q, int s) const {
+    bulk_load(stage0 + static_cast<size_t>(s) * slab_bytes,
+              src + static_cast<size_t>(q) * slab_bytes, slab_bytes,
+              full + s);
+  }
+  // the producer warp: every later slab, each into its stage once that
+  // stage's last slab has been released
+  __device__ void produce(int lane) const {
+    if (lane != 0) return;
+    int s = 0;
+    uint32_t phase = 0;
+    for (int q = stages; q < total; ++q) {
+      mbar_wait(empty + s, phase);
+      issue(q, s);
+      if (++s == stages) {
+        s = 0;
+        phase ^= 1u;
+      }
+    }
+  }
+  // the cursor's slab, once it has landed
+  __device__ const unsigned char* acquire(const Cursor& c) const {
+    mbar_wait(full + c.s, c.phase);
+    return stage0 + static_cast<size_t>(c.s) * slab_bytes;
+  }
+  // after this warp's last read of the cursor's slab: release its stage
+  // to the producer warp and move on
+  __device__ void release(Cursor& c, int lane) const {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + c.s);
+    next(c);
+  }
+  // without a producer warp: after every warp's last read of the cursor's
+  // slab, thread 0 refills its stage; move on
+  __device__ void release_all(Cursor& c, int tid) const {
+    __syncthreads();
+    if (tid == 0 && c.q + stages < total) issue(c.q + stages, c.s);
+    next(c);
+  }
+  __device__ void next(Cursor& c) const {
+    ++c.q;
+    if (++c.s == stages) {
+      c.s = 0;
+      c.phase ^= 1u;
+    }
+  }
+};
+
+// A prepare_operands record as the parity and fast kernels read it (E: f32
+// or bf16): the C/S slabs, the kept columns of bin n_freq - 1 ((win, 2)),
+// the compact filterbank, the bands' [lo, hi) and their offsets into it.
+template <typename E>
+struct Prepared {
+  const E* slabs;
+  const E* tail;
+  const E* wts;
+  const int* bands;
+  const int* woff;
+  const int* tile_bands;  // (n_tiles, 2): the bands [ma, mb) each tile meets
+  int n_tiles, n_wts;
+};
+
+// The band tables (bands, woff, wts) as the mel pass reads them, from
+// shared memory.
+template <typename E>
+struct BandTables {
+  const int* bands;
+  const int* woff;
+  const E* wts;
+};
+
+// Shared memory for the band tables: bands (2 ints a band), woff (1) and
+// the compact weights, rounded up to 16 bytes.
+inline size_t table_bytes(int n_mel, int n_wts, size_t esize) {
+  return (12 * static_cast<size_t>(n_mel) + esize * n_wts + 15) / 16 * 16;
+}
+
+// Copy the band tables into shared memory at `dst` (the consumer threads,
+// tid < 32 * WARPS; a barrier must follow before they are read).
+template <typename E>
+__device__ __forceinline__ BandTables<E> stage_tables(unsigned char* dst,
+                                                      const Prepared<E>& ops,
+                                                      int n_mel, int tid) {
+  int* bands = reinterpret_cast<int*>(dst);
+  int* woff = bands + 2 * n_mel;
+  E* wts = reinterpret_cast<E*>(woff + n_mel);
+  if (tid < 32 * WARPS) {
+    for (int i = tid; i < 2 * n_mel; i += 32 * WARPS) bands[i] = ops.bands[i];
+    for (int i = tid; i < n_mel; i += 32 * WARPS) woff[i] = ops.woff[i];
+    for (int i = tid; i < ops.n_wts; i += 32 * WARPS) wts[i] = ops.wts[i];
+  }
+  return {bands, woff, wts};
+}
+
+// The kept columns (win, 2) for the leftover bin: copied into the ring's
+// bytes (`ring`, `ring_bytes`), idle once every consumer has read the last
+// slab, when they fit (then a consumer_sync must follow), else read where
+// they are.
+template <typename E>
+__device__ __forceinline__ const E* stage_tail(unsigned char* ring,
+                                               size_t ring_bytes,
+                                               const E* tail, int win,
+                                               int tid) {
+  if (2 * sizeof(E) * static_cast<size_t>(win) > ring_bytes) return tail;
+  E* dst = reinterpret_cast<E*>(ring);
+  for (int i = tid; i < 2 * win; i += 32 * WARPS) dst[i] = tail[i];
+  return dst;
+}
+
+// Shared memory the card offers: per block (opt-in), per SM, and reserved
+// by the runtime per resident block.
+struct SmemLimits {
+  size_t block, sm, reserved;
+};
+
+inline int smem_limits(SmemLimits* lim) {
+  int dev = 0, block = 0, sm = 0, reserved = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&block,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  *lim = {static_cast<size_t>(block), static_cast<size_t>(sm),
+          static_cast<size_t>(reserved)};
+  return static_cast<int>(err);
+}
+
+// The ring's depth for a block whose other shared memory is `fixed` bytes:
+// 0 if three stages do not fit; else three, and more (up to kMaxStages)
+// while the block still fits as many times on an SM as with three.
+inline int ring_stages(size_t fixed, size_t slab, const SmemLimits& lim) {
+  auto bytes = [&](int st) { return fixed + st * slab; };
+  if (bytes(3) > lim.block) return 0;
+  auto per_sm = [&](int st) { return lim.sm / (bytes(st) + lim.reserved); };
+  int st = 3;
+  while (st < kMaxStages && bytes(st + 1) <= lim.block &&
+         per_sm(st + 1) == per_sm(3))
+    ++st;
+  return st;
+}
+
+// ---------------------------------------------------------------------------
+// The leftover bin n_freq - 1.
+
+__device__ __forceinline__ float2 load_pair(const float* p, int n) {
+  return reinterpret_cast<const float2*>(p)[n];
+}
+
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p, int n) {
+  return __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(p)[n]);
+}
+
+// (re, im) of the leftover bin for frame tid / P of the block's TF frames,
+// P = 32 * WARPS / TF threads a frame: re = sum over n < win of x[n] *
+// tail[n][0], im likewise with tail[n][1], f32 FMA.  Staged samples sit in
+// rows at stride `hs`, row r starting at sample r * hop (frame f's sample n
+// in row f + n / hop, column n % hop; hs == hop is the plain layout).  Each
+// of a frame's P threads sums every P-th sample in increasing order (row by
+// row, four in flight), and a butterfly adds the P partial sums: a fixed
+// order, so every lane of the frame gets the same bits.
+template <int TF, typename SampleT, typename TailT>
+__device__ __forceinline__ float2 leftover_bin(const SampleT* chunk, int hs,
+                                               int hop,
+                                               const TailT* __restrict__ tail,
+                                               int win, int tid) {
+  constexpr int P = 32 * WARPS / TF;
+  static_assert(P >= 1 && P <= 32 && (P & (P - 1)) == 0, "P: 1 to 32");
+  const int f = tid / P, p = tid % P;
+  float re = 0.0f, im = 0.0f;
+  for (int r = 0, n0 = 0; n0 < win; ++r, n0 += hop) {
+    const SampleT* x = chunk + static_cast<long long>(f + r) * hs - n0;
+    const int end = min(win, n0 + hop);
+#pragma unroll 4
+    for (int n = n0 + ((p - n0) % P + P) % P; n < end; n += P) {
+      const float v = to_f32(x[n]);
+      const float2 cs = load_pair(tail, n);
+      re = fmaf(v, cs.x, re);
+      im = fmaf(v, cs.y, im);
+    }
+  }
+#pragma unroll
+  for (int o = P / 2; o > 0; o /= 2) {
+    re += __shfl_xor_sync(0xffffffffu, re, o);
+    im += __shfl_xor_sync(0xffffffffu, im, o);
+  }
+  return make_float2(re, im);
+}
+
+// ---------------------------------------------------------------------------
+// The parity and fast kernels' mel pass, over one frequency tile, bins
+// [k0, k0 + kt): accumulate_bands' sums with the filterbank of
+// prepare_operands staged in shared memory (each band's weights contiguous:
+// bin k of band m at wts[woff[m] + k - lo]).  Lane l takes bands ma + l,
+// ma + l + 32, ... of the tile's range [ma, mb), warp w frames w, w + 8,
+// ...: a warp's stores of one frame are consecutive bands, 128 contiguous
+// bytes.  Each (frame, band) sum has one owner thread adding bins in
+// increasing order (no atomics, deterministic); the tile holding a band's
+// first bin stores, later tiles add, and the tile holding its last bin
+// writes it as dB, so no epilogue pass reads the sums back.  `mag` holds
+// bin k - k0 of frame f at (k - k0) * MS + f: MS is TF plus one word, so
+// lanes at different bins read different banks.
+
+template <int TF, typename MagT>
+__host__ __device__ constexpr int mag_stride() {
+  return TF + 4 / static_cast<int>(sizeof(MagT));
+}
+
+template <int TF, typename MagT, typename WT>
+__device__ __forceinline__ void mel_tile(const MagT* mag,
+                                         const BandTables<WT>& tb, int ma,
+                                         int mb, float* o, int k0, int kt,
+                                         int n_mel, int nf, int lane,
+                                         int warp) {
+  constexpr int MS = mag_stride<TF, MagT>();
+  const int k1 = k0 + kt;
+  for (int m = ma + lane; m < mb; m += 32) {
+    const int lo = tb.bands[2 * m], hi = tb.bands[2 * m + 1];
+    const int ks = max(lo, k0), ke = min(hi, k1);
+    if (ks >= ke) continue;
+    const WT* w = tb.wts + (tb.woff[m] - lo);  // w[k]: bin k's weight
+    const MagT* x = mag - k0 * MS;             // x[k * MS + f]
+    for (int f = warp; f < nf; f += WARPS) {
+      float part = 0.0f;
+      for (int k = ks; k < ke; ++k)
+        part = fmaf(to_f32(x[k * MS + f]), to_f32(w[k]), part);
+      float* dst = o + static_cast<long long>(f) * n_mel + m;
+      const float v = lo >= k0 ? part : *dst + part;
+      *dst = hi > k1 ? v : (v > kAmin ? logf(v) * kDbScale : kDbFloor);
+    }
+  }
+}
+
+// Bands with no support (an all-zero filterbank column) as dB: -360.
+template <int TF>
+__device__ __forceinline__ void mel_empty_bands(float* o, const int* bands,
+                                                int n_mel, int nf, int lane,
+                                                int warp) {
+  constexpr int FPL = (TF + 31) / 32;
+  for (int m = warp; m < n_mel; m += WARPS) {
+    if (bands[2 * m] < bands[2 * m + 1]) continue;
+#pragma unroll
+    for (int h = 0; h < FPL; ++h) {
+      const int f = h * 32 + lane;
+      if (f < nf) o[static_cast<long long>(f) * n_mel + m] = kDbFloor;
+    }
+  }
 }
 
 }  // namespace msv

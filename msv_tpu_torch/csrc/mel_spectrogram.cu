@@ -1,232 +1,356 @@
-// Fused mel dB spectrogram for Hopper (sm_90a).
+// Fused mel dB spectrogram for Hopper (sm_90a), f32 parity mode.
 //
 // Replaces the TPU kernel msv_tpu/kernels/spectrogram_pallas.py::
 // mel_spectrogram_pallas (both schedules, `resident` and `stream`, in f32
-// operand mode).  One launch computes, for every frame k of every batch row,
+// operand mode, precision=HIGHEST).  One launch computes, for every frame k
+// of every batch row,
 //
 //   frame = padded[k*hop : k*hop + win]        (int16 input scaled by 2^-15)
 //   re = frame . C,  im = frame . S            (C, S: (win, n_freq) f32)
 //   mel = sqrt(re^2 + im^2) . fb               (fb: (n_freq, n_mel) f32)
 //   dB  = 20*ln(mel)/ln(10) if mel > 1e-18 else -360
 //
-// What bounds it on an H100: arithmetic.  The DFT pair costs
-// 2*win*n_freq*2 FLOPs a frame (7.9 MFLOP at 48 kHz: win 1920, n_freq 1025)
-// against win*4 bytes of new samples, far above the memory roofline.  The
-// math is f32 FMA on the SIMT cores, so the result is true f32 (no TF32 or
-// bf16 rounding): this is the parity mode.  The SIMT rate, not the tensor
-// cores, is the ceiling here.
+// The DFT pair runs on the tensor cores in 3xTF32, as the TPU reference
+// gets f32 from its MXU by several passes (precision=HIGHEST): each f32
+// value x is split in registers into hi = tf32_rna(x) and lo = tf32_rna(x -
+// hi), and each product x*c is taken as xh*ch + xl*ch + xh*cl with
+// mma.sync.m16n8k8 (tf32 in, f32 accumulate).  The products of 11-bit
+// significands are exact in f32; the dropped xl*cl and the rounding of lo
+// leave about 2^-21 of each product, a few units of f32 roundoff.  The
+// tensor cores' f32 accumulation does not round to nearest: summed over a
+// whole window (720 k-steps at 120 ms) it moved a one-bin band of white
+// noise 0.04 dB from an f64 witness.  So each slab's 16 samples accumulate
+// in fresh registers, added to the running sums by f32 FADD (round to
+// nearest) once per slab.  A 16-bit sample splits exactly: the int16 route
+// is bit-equal to the f32 route.  The magnitude, the mel product and the dB
+// stay SIMT f32.
+//
+// What bounds it on an H100: the tensor cores.  The DFT pair is 2*2*win*
+// (n_freq - 1) FLOPs a frame issued three times: 566 GFLOP at 48 kHz for
+// 240 s (24 001 frames), 1.15 ms at the 495 TFLOP/s dense TF32 peak; HBM
+// traffic (the wave once, the dB plane once, about 0.05 GB) is 0.02 ms.
+// Every block also reads all of the C/S slabs from L2: 15.7 MB in f32 at
+// 48 kHz, 376 blocks, about 5.9 GB.  Measured on an H100 80GB HBM3 at 700 W
+// (kernels/probe.py, 48 kHz, B = 1): 4.1 ms, of which the products alone
+// take 3.5 ms, the slab ring adds 0.6 ms and the SIMT parts (staging, the
+// leftover bin, the mel pass) 0.4 ms.  A third of the mma takes 60% of the
+// time: mma.sync m16n8k8 in TF32 issues at about 37% of the TF32 peak here,
+// and that rate, not the ring or L2, is the limit.  The levers are wgmma
+// (asynchronous, the full rate; C/S as hi/lo planes in shared memory) and
+// then a two-block cluster sharing each slab by multicast copies.
 //
 // What the design does about it:
-//  * One block per (tile of TF = 32*FPT frames, batch row), 8 warps.  Lane l
-//    of every warp owns frames l, l+32, ... (FPT of them) of the tile; warp w
-//    owns CPT = 8 of the KT = 64 DFT columns of the current frequency tile.
-//    Per sample n a thread does 16*FPT FMAs for FPT conflict-free loads of
-//    its samples and 4 broadcast 16-byte loads of C/S: more frames per lane
-//    means fewer C/S loads per FMA (on an H100 at 700 W and 48 kHz, 3 frames
-//    per lane ran 1.2x faster than 2; 2 ran 2x faster than 1 with the mel
-//    sums still in shared memory).  FPT is the largest of 3, 2, 1 whose tile
-//    fits the card's shared memory (3 for every default rate).
-//  * The block stages its raw samples once, as rows of `hop` samples at an
-//    odd row stride (hop | 1): frame f's sample n sits in row f + n/hop, so
-//    the 32 lanes read 32 different banks.  Device memory sees the wave once,
-//    not win/hop = 4 times as frames.  Loads are scalar: hops of 221 and 441
-//    leave rows that are not 16-byte aligned.
-//  * C/S are streamed through shared memory in NK = 32-row slices, the next
-//    slice held in registers while the current one is used.
-//  * The mel GEMM reads only each band's nonzero support (a Slaney band
-//    covers a contiguous run of bins, `bands` gives [lo, hi) per band), so
-//    it costs about 2*n_freq FMAs a frame instead of n_freq*n_mel.  Adding
-//    the skipped zero products would not change the sums.  The mel sums
-//    accumulate in the output buffer, which is rewritten as dB at the end.
-//  * Each (frame, band) sum has one owner thread, adding bins in increasing
-//    order: no atomics, deterministic, and the int16 route is bit-equal to
-//    the f32 route.  Ragged edges are masked in the kernel.  The band loop
-//    and the dB epilogue are mel_common.cuh's, shared with the bf16 kernel.
-// Tensor cores (a split-bf16 or TF32 mode), TMA and wgmma are later work.
+//  * One block per (tile of TF = 16*MT frames, batch row), 8 warps.  Each
+//    warp owns all TF frames and 16 of the NB = 128 bins of the current
+//    frequency tile: every B fragment it splits feeds MT m-tiles, every A
+//    fragment 2 n-tiles x 2 matrices, 12*MT independent mma per 8 samples
+//    of K.
+//  * C and S arrive through mel_common.cuh's ring: prepare_operands lays
+//    them out as slabs of KS = 16 rows x NB bins (C rows then S rows at a
+//    row stride of NB + 8 = 136 floats, 8 mod 32 words: the B-fragment reads
+//    at rows tig and tig + 4, column g, hit 32 banks), one bulk copy per
+//    slab, at least three in flight; the copy of slab j + 2 overlaps the
+//    products of slab j, and thread 0 refills a stage after the barrier
+//    that follows its last read (a producer warp would cut the registers
+//    to 168 a thread: mel_common.cuh).  B fragments are split in registers
+//    as they are read, so the ring moves half the bytes of hi/lo planes.
+//  * The block stages its samples once, in f32, in overlapping rows: row r
+//    holds the R = ceil8(hop) + 8 samples from r*hop on, at a row stride
+//    hs = R + 4 (4 mod 8 words).  Frame f's samples n0..n0+7 of a k-step
+//    sit in row f + j, j = n0/hop, columns n0 - j*hop on: one offset for
+//    the whole warp, any hop (odd ones included) and any frame start, and
+//    the A-fragment reads of frames g = 0..7 at columns tig = 0..3 hit 32
+//    banks.  Device memory sees the wave once, not win/hop times.
+//  * Tiles cover n_freq - 1 = n_fft/2 bins; the last one adds the leftover
+//    bin n_freq - 1 with SIMT f32 FMAs over its kept columns (2*win FMAs a
+//    frame, 0.1% of the work) as one more magnitude column.  No launch walks
+//    K for a tile of one bin.
+//  * The mel product reads only each band's nonzero bins, from the compact
+//    filterbank of prepare_operands (mel_common.cuh's mel_tile), one owner
+//    thread per (frame, band) adding bins in increasing order: no atomics,
+//    deterministic, int16 bit-equal to f32.  A band's sum is written as dB
+//    in the tile that holds its last bin.
+//  * MT (4, 2, then 1) is the largest whose samples, magnitude tile and
+//    three ring stages fit the card's shared memory; the ring then deepens
+//    while as many blocks still fit on an SM.
 
 #include "mel_common.cuh"
 
 namespace {
 
 using msv::WARPS;
-constexpr int CPT = 8;         // DFT columns per warp
-constexpr int KT = WARPS * CPT;  // frequency columns per tile
-constexpr int NK = 32;         // C/S rows per shared-memory slice
-constexpr int SLICE = NK * KT;   // floats per C (or S) slice
-constexpr int PER_THREAD = SLICE / (32 * WARPS);
+constexpr int KS = msv::kSlabRows;  // C/S rows per slab
+constexpr int WCOLS = 16;           // bins per warp: 2 n-tiles of 8
+constexpr int NB = WARPS * WCOLS;   // bins per frequency tile
+constexpr int ROW = NB + 8;         // slab row stride (floats)
+constexpr int SLAB = 2 * KS * ROW;  // floats per slab: C rows, then S rows
+constexpr uint32_t SLAB_BYTES = SLAB * sizeof(float);
+constexpr int STAGE_LOADS = 16;     // sample loads in flight per thread
+static_assert(SLAB_BYTES % 16 == 0, "bulk copies move 16-byte multiples");
 
-struct SliceRegs {
-  float c[PER_THREAD];
-  float s[PER_THREAD];
-};
-
-// Rows n0..n0+NK of C and S, columns k0..k0+KT, zero outside the matrices.
-__device__ __forceinline__ void load_slice(SliceRegs& r, const float* c,
-                                           const float* s, int n0, int k0,
-                                           int win, int n_freq, int tid) {
-#pragma unroll
-  for (int q = 0; q < PER_THREAD; ++q) {
-    const int idx = tid + q * 32 * WARPS;
-    const int n = n0 + idx / KT;
-    const int k = k0 + idx % KT;
-    const bool ok = n < win && k < n_freq;
-    const long long g = static_cast<long long>(n) * n_freq + k;
-    r.c[q] = ok ? __ldg(c + g) : 0.0f;
-    r.s[q] = ok ? __ldg(s + g) : 0.0f;
-  }
+// (hi, lo) of x as tf32 register values: hi = tf32_rna(x), lo =
+// tf32_rna(x - hi); x - hi is exact in f32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
 }
 
-__device__ __forceinline__ void store_slice(const SliceRegs& r, float* cs,
-                                            int tid) {
-#pragma unroll
-  for (int q = 0; q < PER_THREAD; ++q) {
-    cs[tid + q * 32 * WARPS] = r.c[q];
-    cs[SLICE + tid + q * 32 * WARPS] = r.s[q];
-  }
+// d += a . b on the tensor cores: one m16n8k8 tile, tf32 in, f32
+// accumulate.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// FPT frames per lane: a block covers TF = 32 * FPT frames.
-template <typename T, int FPT>
-__global__ void __launch_bounds__(32 * WARPS)
-mel_db_kernel(const T* __restrict__ wave, long long wave_stride,
-              long long wave_len, const float* __restrict__ c,
-              const float* __restrict__ s, const float* __restrict__ fb,
-              const int* __restrict__ bands, float* __restrict__ out,
-              int win, int hop, int n_frames, int n_freq, int n_mel) {
-  constexpr int TF = 32 * FPT;
-  extern __shared__ float4 smem4[];
-  float* cs = reinterpret_cast<float*>(smem4);  // C slice, then S slice
-  float* mag = cs + 2 * SLICE;                  // [KT][TF]
-  float* chunk = mag + KT * TF;                 // [rows][hs]
-  const int hs = hop | 1;
-  const int rows = TF - 1 + (win + hop - 1) / hop;
+// Samples per staged row: hop, rounded up to 8, and the 8 a k-step reads
+// past a row's own hop samples.
+__host__ __device__ __forceinline__ int row_len(int hop) {
+  return (hop + 7) / 8 * 8 + 8;
+}
 
-  const int lane = threadIdx.x;  // frames lane, lane + 32, ... of the tile
+// Row stride of the staged samples: 4 mod 8 words, so that 8 frames' rows
+// start in 8 distinct 4-bank groups.
+__host__ __device__ __forceinline__ int sample_stride(int hop) {
+  return row_len(hop) + 4;
+}
+
+// Where the band tables start: after the mbarriers, the ring, the
+// magnitude tile (NB + 1 bins) and the staged sample rows (through frame
+// TF-1's window rounded up to whole slabs), at a 16-byte boundary.
+__host__ __device__ __forceinline__ size_t tables_offset(int mt, int win,
+                                                         int hop,
+                                                         int stages) {
+  const int tf = 16 * mt;
+  const int win_p = (win + KS - 1) / KS * KS;
+  const size_t rows = tf + (win_p - 1) / hop;
+  const size_t end = msv::kRingOffset + stages * SLAB_BYTES +
+                     sizeof(float) * (static_cast<size_t>(NB + 1) * (tf + 1) +
+                                      rows * sample_stride(hop));
+  return (end + 15) / 16 * 16;
+}
+
+// MT m-tiles of 16 frames per block; every warp covers all of them.
+template <typename T, int MT>
+__global__ void __launch_bounds__(32 * WARPS, 1)
+mel_db_tf32_kernel(const T* __restrict__ wave, long long wave_stride,
+                   long long wave_len, const msv::Prepared<float> ops,
+                   float* __restrict__ out, int win, int hop, int n_frames,
+                   int n_freq, int n_mel, int stages) {
+  constexpr int TF = 16 * MT;
+  constexpr int P = 32 * WARPS / TF;  // threads per frame, leftover bin
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int win_p = (win + KS - 1) / KS * KS;
+  const int n_k = win_p / KS;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  const msv::Ring ring{bars, bars + msv::kMaxStages, smem + msv::kRingOffset,
+                       reinterpret_cast<const unsigned char*>(ops.slabs),
+                       SLAB_BYTES, stages, ops.n_tiles * n_k};
+  constexpr int MS = msv::mag_stride<TF, float>();
+  float* mag = reinterpret_cast<float*>(smem + msv::kRingOffset +
+                                        stages * SLAB_BYTES);  // [NB+1][MS]
+  float* chunk = mag + (NB + 1) * MS;  // overlapping rows at stride hs
+  const int rl = row_len(hop), hs = sample_stride(hop);
+  const int rows = TF + (win_p - 1) / hop;
+  unsigned char* tables = smem + tables_offset(MT, win, hop, stages);
+
+  const int lane = threadIdx.x;
   const int warp = threadIdx.y;
   const int tid = warp * 32 + lane;
+  const int g = lane >> 2;   // mma group: fragment row / B column
+  const int tig = lane & 3;  // thread in group: fragment column
   const int f0 = blockIdx.x * TF;
   const T* w = wave + static_cast<long long>(blockIdx.y) * wave_stride;
   const long long base = static_cast<long long>(f0) * hop;
 
-  for (int i = tid; i < rows * hop; i += 32 * WARPS) {
-    const long long g = base + i;
-    chunk[(i / hop) * hs + i % hop] =
-        g < wave_len ? msv::load_sample(w, g) : 0.0f;
+  ring.start(tid);
+  for (int r = warp; r < rows; r += WARPS) {  // row r: samples r*hop on
+    const long long g0 = base + static_cast<long long>(r) * hop;
+    for (int cb = 0; cb < rl; cb += 32 * STAGE_LOADS) {
+      float v[STAGE_LOADS];  // all loads in flight before the stores
+#pragma unroll
+      for (int u = 0; u < STAGE_LOADS; ++u) {
+        const int c = cb + lane + 32 * u;
+        v[u] = c < rl && g0 + c < wave_len ? msv::load_sample(w, g0 + c)
+                                           : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < STAGE_LOADS; ++u) {
+        const int c = cb + lane + 32 * u;
+        if (c < rl) chunk[r * hs + c] = v[u];
+      }
+    }
   }
-  // The mel sums accumulate in `out` itself: entry (f, m) belongs to the
-  // thread of lane f % 32 in warp m % WARPS, across every tile.
+  const msv::BandTables<float> tb = msv::stage_tables(tables, ops, n_mel, tid);
+  __syncthreads();
+
   float* o = out + (static_cast<long long>(blockIdx.y) * n_frames + f0) * n_mel;
   const int nf = min(TF, n_frames - f0);
+  const int wn0 = warp * WCOLS;  // this warp's first bin in the tile
+  // this thread's A rows: frames mt*16 + g and mt*16 + g + 8, column tig
+  int arow[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) arow[mt][h] = (mt * 16 + g + 8 * h) * hs + tig;
+  msv::Ring::Cursor cur;
 
-  for (int k0 = 0; k0 < n_freq; k0 += KT) {
-    float re[FPT][CPT], im[FPT][CPT];
+  for (int t = 0; t < ops.n_tiles; ++t) {
+    // [C or S][m-tile][n-tile][fragment]: the tile's sums so far
+    float acc[2][MT][2][4];
 #pragma unroll
-    for (int h = 0; h < FPT; ++h) {
+    for (int m = 0; m < 2; ++m)
 #pragma unroll
-      for (int q = 0; q < CPT; ++q) re[h][q] = im[h][q] = 0.0f;
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[m][mt][nt][q] = 0.0f;
+    // the k-step's samples n0..n0+7 of every frame: row offset j (as koff,
+    // with the column) and column c0 = n0 - j*hop; uniform across the warp
+    int koff = 0, c0 = 0;
+
+    for (int j = 0; j < n_k; ++j) {
+      const float* cs = reinterpret_cast<const float*>(ring.acquire(cur));
+      float part[2][MT][2][4];  // this slab's products
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) part[m][mt][nt][r] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < KS; kk += 8) {
+        // B fragments of the warp's 2 n-tiles, C and S: rows kk + tig and
+        // kk + tig + 4, column g of each n-tile
+        uint32_t bh[2][2][2], bl[2][2][2];
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              split_tf32(cs[m * KS * ROW + (kk + tig + 4 * r) * ROW + wn0 +
+                            nt * 8 + g],
+                         bh[m][nt][r], bl[m][nt][r]);
+        const float* x = chunk + koff;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          uint32_t ah[4], al[4];
+          split_tf32(x[arow[mt][0]], ah[0], al[0]);
+          split_tf32(x[arow[mt][1]], ah[1], al[1]);
+          split_tf32(x[arow[mt][0] + 4], ah[2], al[2]);
+          split_tf32(x[arow[mt][1] + 4], ah[3], al[3]);
+#pragma unroll
+          for (int m = 0; m < 2; ++m)
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {  // small terms first
+              mma_tf32(part[m][mt][nt], al, bh[m][nt]);
+              mma_tf32(part[m][mt][nt], ah, bl[m][nt]);
+              mma_tf32(part[m][mt][nt], ah, bh[m][nt]);
+            }
+        }
+        koff += 8;
+        c0 += 8;
+        while (c0 >= hop) {  // the next row
+          c0 -= hop;
+          koff += hs - hop;
+        }
+      }
+      ring.release_all(cur, tid);
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) acc[m][mt][nt][r] += part[m][mt][nt][r];
     }
-    SliceRegs regs;
-    load_slice(regs, c, s, 0, k0, win, n_freq, tid);
-    store_slice(regs, cs, tid);
-    __syncthreads();
 
-    const float* p = chunk + lane * hs;  // frame `lane`, sample 0; frame
-                                         // lane + 32h is 32h rows further
-    int j = 0;                           // n % hop
-    for (int n0 = 0; n0 < win; n0 += NK) {
-      const bool more = n0 + NK < win;
-      if (more) load_slice(regs, c, s, n0 + NK, k0, win, n_freq, tid);
-      const int nk = min(NK, win - n0);
-      const float* crow = cs + warp * CPT;
-#pragma unroll 4
-      for (int nn = 0; nn < nk; ++nn) {
-        const float4 c0 = *reinterpret_cast<const float4*>(crow + nn * KT);
-        const float4 c1 = *reinterpret_cast<const float4*>(crow + nn * KT + 4);
-        const float4 s0 =
-            *reinterpret_cast<const float4*>(crow + SLICE + nn * KT);
-        const float4 s1 =
-            *reinterpret_cast<const float4*>(crow + SLICE + nn * KT + 4);
-        const float cv[CPT] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
-        const float sv[CPT] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+    // every warp is done with the last tile's mel pass and these slabs
+    msv::consumer_sync();
+    // |X| in f32 into mag[bin][frame], for the bins the products cover
+    const int k0 = t * NB;
+    const int nv = min(NB, n_freq - 1 - k0);
 #pragma unroll
-        for (int h = 0; h < FPT; ++h) {
-          const float x = p[h * 32 * hs];
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-          for (int q = 0; q < CPT; ++q) {
-            re[h][q] = fmaf(x, cv[q], re[h][q]);
-            im[h][q] = fmaf(x, sv[q], im[h][q]);
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int col = wn0 + nt * 8 + tig * 2 + (q & 1);
+          if (col < nv) {
+            const float x = acc[0][mt][nt][q], y = acc[1][mt][nt][q];
+            mag[col * MS + mt * 16 + g + (q >> 1) * 8] = sqrtf(x * x + y * y);
           }
         }
-        ++p;
-        if (++j == hop) {  // next row of the odd-stride layout
-          j = 0;
-          p += hs - hop;
-        }
-      }
-      __syncthreads();
-      if (more) {
-        store_slice(regs, cs, tid);
-        __syncthreads();
-      }
+    int kt = NB;
+    if (t == ops.n_tiles - 1) {  // the leftover bin n_freq - 1, column nv
+      const float* tl = msv::stage_tail(smem + msv::kRingOffset,
+                                        stages * SLAB_BYTES, ops.tail, win,
+                                        tid);
+      msv::consumer_sync();
+      const float2 v = msv::leftover_bin<TF>(chunk, hs, hop, tl, win, tid);
+      if (tid % P == 0) mag[nv * MS + tid / P] = sqrtf(v.x * v.x + v.y * v.y);
+      kt = nv + 1;
     }
+    msv::consumer_sync();
 
-#pragma unroll
-    for (int h = 0; h < FPT; ++h) {
-#pragma unroll
-      for (int q = 0; q < CPT; ++q) {
-        mag[(warp * CPT + q) * TF + h * 32 + lane] =
-            sqrtf(re[h][q] * re[h][q] + im[h][q] * im[h][q]);
-      }
-    }
-    __syncthreads();
-
-    msv::accumulate_bands<TF>(mag, fb, bands, o, k0, KT, n_freq, n_mel, nf,
-                              lane, warp);
+    msv::mel_tile<TF>(mag, tb, __ldg(ops.tile_bands + 2 * t),
+                      __ldg(ops.tile_bands + 2 * t + 1), o, k0, kt, n_mel,
+                      nf, lane, warp);
   }
-  msv::db_epilogue<TF>(o, bands, n_mel, nf, lane, warp);
+  msv::mel_empty_bands<TF>(o, tb.bands, n_mel, nf, lane, warp);
 }
 
-size_t smem_bytes(int fpt, int win, int hop) {
-  const int rows = 32 * fpt - 1 + (win + hop - 1) / hop;
-  return sizeof(float) * (2 * static_cast<size_t>(SLICE) +
-                          static_cast<size_t>(KT) * 32 * fpt +
-                          static_cast<size_t>(rows) * (hop | 1));
+// Shared memory besides the ring.
+size_t fixed_bytes(int mt, int win, int hop, int n_mel, int n_wts) {
+  return tables_offset(mt, win, hop, 0) +
+         msv::table_bytes(n_mel, n_wts, sizeof(float));
 }
 
-template <typename T, int FPT>
-int launch_fpt(const void* wave, long long wave_stride, long long wave_len,
-               int batch, const float* c, const float* s, const float* fb,
-               const int* bands, float* out, int win, int hop, int n_frames,
-               int n_freq, int n_mel, size_t smem, cudaStream_t stream) {
+template <typename T, int MT>
+int launch_mt(const void* wave, long long wave_stride, long long wave_len,
+              int batch, const msv::Prepared<float>& ops, float* out, int win,
+              int hop, int n_frames, int n_freq, int n_mel, int stages,
+              cudaStream_t stream) {
+  const size_t smem =
+      fixed_bytes(MT, win, hop, n_mel, ops.n_wts) + stages * SLAB_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      mel_db_kernel<T, FPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mel_db_tf32_kernel<T, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tf = 32 * FPT;
-  const dim3 grid((n_frames + tf - 1) / tf, batch);
+  const dim3 grid((n_frames + 16 * MT - 1) / (16 * MT), batch);
   const dim3 block(32, WARPS);
-  mel_db_kernel<T, FPT><<<grid, block, smem, stream>>>(
-      static_cast<const T*>(wave), wave_stride, wave_len, c, s, fb, bands,
-      out, win, hop, n_frames, n_freq, n_mel);
+  mel_db_tf32_kernel<T, MT><<<grid, block, smem, stream>>>(
+      static_cast<const T*>(wave), wave_stride, wave_len, ops, out, win, hop,
+      n_frames, n_freq, n_mel, stages);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The most frames per lane (3, 2, then 1) whose staged samples fit the
-// card's shared memory: more frames per lane means fewer C/S loads per FMA.
+// The most m-tiles (4, 2, then 1) whose block fits with a ring of three
+// stages: more frames per block means fewer slab copies per frame.
 template <typename T>
 int launch(const void* wave, long long wave_stride, long long wave_len,
-           int batch, const float* c, const float* s, const float* fb,
-           const int* bands, float* out, int win, int hop, int n_frames,
-           int n_freq, int n_mel, cudaStream_t stream) {
-  size_t cap = 0;
-  if (const int err = msv::smem_optin_limit(&cap)) return err;
-#define MSV_LAUNCH(F)                                                      \
-  launch_fpt<T, F>(wave, wave_stride, wave_len, batch, c, s, fb, bands,   \
-                   out, win, hop, n_frames, n_freq, n_mel,                \
-                   smem_bytes(F, win, hop), stream)
-  if (smem_bytes(3, win, hop) <= cap) return MSV_LAUNCH(3);
-  if (smem_bytes(2, win, hop) <= cap) return MSV_LAUNCH(2);
-  if (smem_bytes(1, win, hop) <= cap) return MSV_LAUNCH(1);
+           int batch, const msv::Prepared<float>& ops, float* out, int win,
+           int hop, int n_frames, int n_freq, int n_mel,
+           cudaStream_t stream) {
+  msv::SmemLimits lim;
+  if (const int err = msv::smem_limits(&lim)) return err;
+#define MSV_LAUNCH(M)                                                        \
+  if (const int st = msv::ring_stages(                                     \
+          fixed_bytes(M, win, hop, n_mel, ops.n_wts), SLAB_BYTES, lim))     \
+    return launch_mt<T, M>(wave, wave_stride, wave_len, batch, ops, out,    \
+                           win, hop, n_frames, n_freq, n_mel, st, stream);
+  MSV_LAUNCH(4)
+  MSV_LAUNCH(2)
+  MSV_LAUNCH(1)
 #undef MSV_LAUNCH
   return static_cast<int>(cudaErrorInvalidConfiguration);
 }
@@ -236,21 +360,38 @@ int launch(const void* wave, long long wave_stride, long long wave_len,
 extern "C" {
 
 // wave: (batch, wave_stride) f32 or int16 (wave_is_i16), wave_len valid
-// samples per row; bands: (n_mel, 2) int32 [lo, hi) bin support of each fb
-// column; out: (batch, n_frames, n_mel) f32.  Launches on `stream` without
-// synchronising; returns the launch's cudaError_t.
+// samples per row; then a prepare_operands record (f32): slabs: n_tiles *
+// ceil(win / ks) slabs (16-byte aligned) of ks rows x nb bins at row stride
+// row_stride, which must be this kernel's KS, NB and ROW; tail: (win, 2),
+// the columns of bin n_freq - 1 of C and S; wts: (n_wts,) each band's
+// filterbank weights over its bins, band m's from woff[m]; bands: (n_mel,
+// 2) int32 [lo, hi) bin support of each band; tile_bands: (n_tiles, 2)
+// int32, the bands [ma, mb) each frequency tile meets.  out: (batch,
+// n_frames, n_mel) f32.
+// Launches on `stream` without synchronising; returns the launch's
+// cudaError_t.
 int msv_mel_spectrogram(const void* wave, int wave_is_i16,
                         long long wave_stride, long long wave_len, int batch,
-                        const float* c, const float* s, const float* fb,
-                        const int* bands, float* out, int win, int hop,
-                        int n_frames, int n_freq, int n_mel, void* stream) {
+                        const void* slabs, const void* tail, const void* wts,
+                        const int* bands, const int* woff,
+                        const int* tile_bands, float* out,
+                        int win, int hop, int n_frames, int n_freq, int n_mel,
+                        int n_tiles, int n_wts, int ks, int nb,
+                        int row_stride, void* stream) {
+  if (ks != KS || nb != NB || row_stride != ROW || n_tiles < 1 ||
+      reinterpret_cast<uintptr_t>(slabs) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const msv::Prepared<float> ops{static_cast<const float*>(slabs),
+                                 static_cast<const float*>(tail),
+                                 static_cast<const float*>(wts), bands, woff,
+                                 tile_bands, n_tiles, n_wts};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (wave_is_i16) {
-    return launch<int16_t>(wave, wave_stride, wave_len, batch, c, s, fb,
-                           bands, out, win, hop, n_frames, n_freq, n_mel, st);
+    return launch<int16_t>(wave, wave_stride, wave_len, batch, ops, out, win,
+                           hop, n_frames, n_freq, n_mel, st);
   }
-  return launch<float>(wave, wave_stride, wave_len, batch, c, s, fb, bands,
-                       out, win, hop, n_frames, n_freq, n_mel, st);
+  return launch<float>(wave, wave_stride, wave_len, batch, ops, out, win, hop,
+                       n_frames, n_freq, n_mel, st);
 }
 
 const char* msv_cuda_error_string(int err) {

@@ -19,71 +19,125 @@
 // mode="fast"), up to f32 summation order.
 //
 // What bounds it on an H100: the DFT pair is 2*2*win*n_freq FLOPs a frame
-// (7.9 MFLOP at 48 kHz), 92% of the work; an hour at 48 kHz is 2.8 TFLOP of
-// it, against 345 MB of int16 read and 500 MB of f32 dB written, so HBM is
-// not the ceiling.  C and S (7.9 MB in bf16 at 48 kHz) stay in L2 and every
-// block re-reads them, 64 FLOPs per byte staged.  With one block per SM (the
-// shared memory below), what bounds this design is the latency of staging
-// each C/S slab from L2 between two barriers, not tensor-core issue: on an
-// H100 80GB HBM3 at 700 W, 189 GFLOP at 48 kHz take 2.6 ms (73 TFLOP/s).
+// (7.9 MFLOP at 48 kHz), 92% of the work: 189 GFLOP for 240 s at 48 kHz,
+// 0.19 ms at the 989 TFLOP/s dense bf16 peak, against about 0.05 GB of
+// HBM traffic (0.015 ms).  C and S (7.9 MB in bf16 at 48 kHz) stay in L2 and
+// every block re-reads them, 64 FLOPs per byte staged: the staging of
+// C/S, not tensor-core issue, bounded the earlier design (each 32-row slab
+// loaded with 2-byte loads between two barriers, one block per SM: 2.9 ms
+// at 48 kHz on an H100 80GB HBM3 at 700 W, 6.6% of the bound).  Measured on
+// that card now (kernels/probe.py, 48 kHz, B = 1): 0.8 ms, of which the
+// products take 0.5 ms (mma.sync at about 39% of the bf16 peak), the ring
+// 0.05 ms and the SIMT parts (staging, the leftover bin, the mel pass) 0.25
+// ms.  The lever is wgmma (the full rate), then fewer SIMT passes.
 //
-// What the design does about it (simple and right first; wgmma, TMA and a
-// pipelined producer/consumer design are later work):
-//  * One block per (tile of TF = 16*MT frames, batch row), 8 warps.  Each
-//    warp owns all TF frames and 32 of the NB = 256 frequency columns of the
-//    current tile, so every A fragment it loads feeds 4 n-tiles x 2
-//    matrices of mma.sync.m16n8k16 (bf16 in, f32 accumulate): 8*MT
-//    independent mma per 16 samples of K.
-//  * The block stages its samples once, rounded to bf16.  Frame f starts at
-//    sample f*hop, which for odd hops (221, 441) is an odd bf16 offset: no
-//    ldmatrix and no aligned pair there.  So odd hops stage a second copy
-//    shifted by one sample; a frame whose start is odd reads its sample
-//    pairs from that copy, and every A register is one aligned 32-bit load.
-//  * C and S are staged per 32-row K slab into shared memory at a padded
-//    row stride (264 bf16 = 33 x 16 bytes, so the 8 rows an ldmatrix reads
-//    fall in 8 different bank groups) and read as B fragments with
-//    ldmatrix.x4.trans.  The global rows of C/S are n_freq (odd) wide, so
-//    the staging uses 2-byte loads, all of a row's issued before its stores
-//    so that they overlap.  Rows >= win and columns >= n_freq stage as
-//    zeros, and only the active warps' columns are staged (the last tile of
-//    n_freq = 2^k + 1 bins holds one bin).
+// What the design does about it:
+//  * C and S arrive through mel_common.cuh's ring: prepare_operands lays
+//    them out as slabs of KS = 16 rows x NB = 256 bins (C rows then S rows,
+//    row stride 264 bf16 = 33 x 16 bytes, so the 8 rows an ldmatrix reads
+//    fall in 8 different bank groups), one bulk copy per slab, at least
+//    three in flight: the copy engine stages slab j + 2 while the warps
+//    multiply slab j.  A ninth warp is the producer: it refills a stage as
+//    soon as all 8 consumer warps have arrived on its `empty` mbarrier, so
+//    no block-wide barrier stands between slabs.
+//  * One block per (tile of TF = 16*MT frames, batch row), 8 consumer
+//    warps and the producer.  Each consumer warp owns all TF frames and 32
+//    of the NB frequency columns of the current tile, so every A fragment
+//    it loads feeds 4 n-tiles x 2 matrices of mma.sync.m16n8k16 (bf16 in,
+//    f32 accumulate): 8*MT independent mma per slab; B fragments are read
+//    with ldmatrix.x4.trans.
+//  * The block stages its samples once, rounded to bf16, in overlapping
+//    rows: row r holds the R >= hop + 16 samples from r*hop on, at a row
+//    stride of 8 mod 16 elements (4 mod 8 words, so the A-fragment reads of
+//    frames g = 0..7 hit 32 banks).  Frame f's samples n0..n0+15 of a k-step
+//    sit in row f + j, j = n0/hop, from column c0 = n0 - j*hop: one offset
+//    for the whole warp.  For odd hops c0 can be odd, and a bf16 pair at an
+//    odd column is no aligned 32-bit word: so odd hops stage a second copy
+//    shifted by one sample, read when c0 is odd, and every A register is
+//    one aligned 32-bit load.
+//  * Tiles cover n_freq - 1 = n_fft/2 bins; the last one adds the leftover
+//    bin n_freq - 1 with SIMT f32 FMAs on the bf16 samples and the bf16
+//    kept columns (the same function: bf16 products are exact in f32) as
+//    one more magnitude column.  No launch walks K for a tile of one bin.
 //  * The magnitude is rounded to bf16 and stored per tile in shared memory;
-//    the mel product then walks only each band's nonzero bins (the parity
-//    kernel's sparse-band loop), one owner thread per (frame, band), adding
-//    bins in increasing order: no atomics, deterministic, and the int16
-//    route is bit-equal to the f32 route.  The mel sums accumulate in the
-//    output buffer, which is rewritten as dB at the end (both are
-//    mel_common.cuh's, shared with the parity kernel).
-//  * MT (4, 2, then 1) is the largest whose shared memory fits the card.
+//    the mel product then walks only each band's nonzero bins, from the
+//    compact filterbank of prepare_operands, one owner thread per (frame,
+//    band), adding bins in increasing order: no atomics, deterministic, and
+//    the int16 route is bit-equal to the f32 route.  A band's sum is written
+//    as dB in the tile that holds its last bin (mel_common.cuh's mel_tile,
+//    shared with the parity kernel).
+//  * MT (4, 2, then 1) is the largest whose samples (two copies for odd
+//    hops), magnitude tile and three ring stages fit the card's shared
+//    memory; the ring then deepens while as many blocks still fit on an SM.
 
 #include "mel_common.cuh"
 
 namespace {
 
 using msv::WARPS;
-constexpr int WCOLS = 32;           // frequency columns per warp
-constexpr int NB = WARPS * WCOLS;   // frequency columns per tile
-constexpr int KS = 32;              // C/S rows per shared-memory slab
-constexpr int NBP = NB + 8;         // padded slab row stride (bf16)
 using msv::ldmatrix_x4_trans;
 using msv::mma_bf16;
+constexpr int KS = msv::kSlabRows;  // C/S rows per slab: one k16 step
+constexpr int WCOLS = 32;           // frequency columns per warp
+constexpr int NB = WARPS * WCOLS;   // frequency columns per tile
+constexpr int NBP = NB + 8;         // slab row stride (bf16)
+constexpr uint32_t SLAB_BYTES = 2 * KS * NBP * sizeof(__nv_bfloat16);
+constexpr int STAGE_LOADS = 16;     // sample loads in flight per thread
+static_assert(KS == 16, "one mma k-step per slab");
+static_assert(SLAB_BYTES % 16 == 0, "bulk copies move 16-byte multiples");
+
+// Samples per staged row: hop and the 16 a k-step reads past a row's own
+// hop samples, rounded up to 8.
+__host__ __device__ __forceinline__ int row_len(int hop) {
+  return (hop + 16 + 7) / 8 * 8;
+}
+
+// Row stride of the staged samples: 8 mod 16 elements (4 mod 8 words), so
+// that 8 frames' rows start in 8 distinct 4-bank groups.
+__host__ __device__ __forceinline__ int sample_stride(int hop) {
+  return (row_len(hop) + 15) / 16 * 16 + 8;
+}
+
+// Where the band tables start: after the mbarriers, the ring, the bf16
+// magnitude tile (NB + 1 bins) and the staged sample rows through frame
+// TF-1's window rounded up to whole slabs (two copies for odd hops), at a
+// 16-byte boundary.
+__host__ __device__ __forceinline__ size_t tables_offset(int mt, int win,
+                                                         int hop,
+                                                         int stages) {
+  const size_t copies = (hop & 1) ? 2 : 1;
+  const int win_p = (win + KS - 1) / KS * KS;
+  const size_t rows = 16 * mt + (win_p - 1) / hop;
+  const size_t end =
+      msv::kRingOffset + stages * SLAB_BYTES +
+      sizeof(__nv_bfloat16) * (static_cast<size_t>(NB + 1) * (16 * mt + 2) +
+                               copies * rows * sample_stride(hop));
+  return (end + 15) / 16 * 16;
+}
 
 // MT m-tiles of 16 frames per block; every warp covers all of them.
 template <typename T, int MT>
-__global__ void __launch_bounds__(32 * WARPS)
+__global__ void __launch_bounds__(32 * (WARPS + 1))
 mel_db_bf16_kernel(const T* __restrict__ wave, long long wave_stride,
-                   long long wave_len, const __nv_bfloat16* __restrict__ c,
-                   const __nv_bfloat16* __restrict__ s,
-                   const __nv_bfloat16* __restrict__ fb,
-                   const int* __restrict__ bands, float* __restrict__ out,
-                   int win, int hop, int n_frames, int n_freq, int n_mel,
-                   int chunk_len) {
+                   long long wave_len, const msv::Prepared<__nv_bfloat16> ops,
+                   float* __restrict__ out, int win, int hop, int n_frames,
+                   int n_freq, int n_mel, int stages) {
   constexpr int TF = 16 * MT;
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* cs = reinterpret_cast<__nv_bfloat16*>(smem4);  // C, S slabs
-  __nv_bfloat16* mag = cs + 2 * KS * NBP;                        // [NB][TF]
-  __nv_bfloat16* chunk0 = mag + NB * TF;                         // samples
-  __nv_bfloat16* chunk1 = chunk0 + chunk_len;  // shifted by 1 (odd hops)
+  constexpr int P = 32 * WARPS / TF;  // threads per frame, leftover bin
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int n_k = (win + KS - 1) / KS;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  const msv::Ring ring{bars, bars + msv::kMaxStages, smem + msv::kRingOffset,
+                       reinterpret_cast<const unsigned char*>(ops.slabs),
+                       SLAB_BYTES, stages, ops.n_tiles * n_k};
+  constexpr int MS = msv::mag_stride<TF, __nv_bfloat16>();
+  __nv_bfloat16* mag = reinterpret_cast<__nv_bfloat16*>(
+      smem + msv::kRingOffset + stages * SLAB_BYTES);  // [NB + 1][MS]
+  const int rl = row_len(hop), hs = sample_stride(hop);
+  const int rows = TF + (n_k * KS - 1) / hop;
+  __nv_bfloat16* chunk0 = mag + (NB + 1) * MS;  // overlapping sample rows
+  __nv_bfloat16* chunk1 = chunk0 + rows * hs;   // shifted by 1 (odd hops)
+  unsigned char* tables = smem + tables_offset(MT, win, hop, stages);
 
   const int lane = threadIdx.x;
   const int warp = threadIdx.y;
@@ -95,37 +149,63 @@ mel_db_bf16_kernel(const T* __restrict__ wave, long long wave_stride,
   const long long base = static_cast<long long>(f0) * hop;
   const bool odd = hop & 1;
 
-  for (int i = tid; i < chunk_len; i += 32 * WARPS) {
-    const long long gi = base + i;
-    chunk0[i] =
-        __float2bfloat16_rn(gi < wave_len ? msv::load_sample(w, gi) : 0.0f);
-    if (odd) {
-      chunk1[i] = __float2bfloat16_rn(
-          gi + 1 < wave_len ? msv::load_sample(w, gi + 1) : 0.0f);
+  ring.start(tid);
+  // the consumer warps stage the samples: row r holds samples r*hop on
+  for (int r = warp; r < rows && warp < WARPS; r += WARPS) {
+    const long long g0 = base + static_cast<long long>(r) * hop;
+    // warp-uniform batches (the shuffles below need every lane)
+    for (int cb = 0; cb < rl; cb += 32 * STAGE_LOADS) {
+      // all loads in flight before the stores: sample c of the row for
+      // c = cb + lane + 32u, and, for the shifted copy, sample c + 1 (the
+      // next lane's, or lane 0's of the next u for lane 31)
+      float v[STAGE_LOADS + 1];
+#pragma unroll
+      for (int u = 0; u <= STAGE_LOADS; ++u) {
+        const int c = cb + lane + 32 * u;
+        v[u] = (u < STAGE_LOADS || odd) && c <= rl && g0 + c < wave_len
+                   ? msv::load_sample(w, g0 + c)
+                   : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < STAGE_LOADS; ++u) {
+        const int c = cb + lane + 32 * u;
+        if (c < rl) chunk0[r * hs + c] = __float2bfloat16_rn(v[u]);
+      }
+      if (odd) {
+#pragma unroll
+        for (int u = 0; u < STAGE_LOADS; ++u) {
+          const float up = __shfl_down_sync(0xffffffffu, v[u], 1);
+          const float nx = __shfl_sync(0xffffffffu, v[u + 1], 0);
+          const int c = cb + lane + 32 * u;
+          if (c < rl)
+            chunk1[r * hs + c] = __float2bfloat16_rn(lane == 31 ? nx : up);
+        }
+      }
     }
   }
-  // Row bases of this thread's A fragment rows (frames mt*16 + g and +8):
-  // an even frame start reads chunk0, an odd one chunk1 one element back, so
-  // every (n, n+1) pair with n even is one aligned 32-bit word.
-  const __nv_bfloat16* arow[MT][2];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int p = (mt * 16 + g + 8 * h) * hop;
-      arow[mt][h] = (p & 1) ? chunk1 + (p - 1) : chunk0 + p;
-    }
+  const msv::BandTables<__nv_bfloat16> tb =
+      msv::stage_tables(tables, ops, n_mel, tid);
+  __syncthreads();
+  if (warp == msv::kProducer) {  // the producer warp keeps the ring full
+    ring.produce(lane);
+    return;
   }
+  // this thread's A rows: frames mt*16 + g and mt*16 + g + 8, column 2*tig
+  int arow[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) arow[mt][h] = (mt * 16 + g + 8 * h) * hs + 2 * tig;
 
   float* o = out + (static_cast<long long>(blockIdx.y) * n_frames + f0) * n_mel;
   const int nf = min(TF, n_frames - f0);
   const int wn0 = warp * WCOLS;  // this warp's first column in the tile
+  // B fragment rows and columns this lane addresses for ldmatrix
+  const int brow = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int bcol = wn0 + (lane >> 4) * 8;
+  msv::Ring::Cursor cur;
 
-  for (int k0 = 0; k0 < n_freq; k0 += NB) {
-    const bool active = k0 + wn0 < n_freq;  // warp-uniform
-    // columns staged: the active warps' (the last tile of n_freq = 2^k + 1
-    // bins holds one bin, so it stages one warp's 32 columns, not 256)
-    const int ncols = min(NB, (n_freq - k0 + WCOLS - 1) / WCOLS * WCOLS);
+  for (int t = 0; t < ops.n_tiles; ++t) {
     float re[MT][4][4], im[MT][4][4];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
@@ -136,138 +216,126 @@ mel_db_bf16_kernel(const T* __restrict__ wave, long long wave_stride,
       }
     }
 
-    for (int n0 = 0; n0 < win; n0 += KS) {
-      __syncthreads();  // the previous slab (or tile's mel pass) is done
-      // each warp stages rows warp, warp + WARPS, ...; a row's loads are
-      // all issued before its stores, so 2 * NB / 32 loads are in flight
+    // the k-step's samples n0..n0+15 of every frame: row offset j (as
+    // roff) and column c0 = n0 - j*hop; uniform across the warp
+    int roff = 0, c0 = 0;
+    for (int j = 0; j < n_k; ++j) {
+      const auto* cs =
+          reinterpret_cast<const __nv_bfloat16*>(ring.acquire(cur));
+      // B fragments of the warp's 4 n-tiles, for C and for S
+      uint32_t bc[2][4], bs[2][4];
 #pragma unroll
-      for (int rr = 0; rr < KS / WARPS; ++rr) {
-        const int r = warp + rr * WARPS;
-        const int n = n0 + r;
-        __nv_bfloat16 vc[NB / 32], vs[NB / 32];
-#pragma unroll
-        for (int j = 0; j < NB / 32; ++j) {
-          const int col = lane + 32 * j;
-          const int k = k0 + col;
-          const bool ok = col < ncols && n < win && k < n_freq;
-          const long long gi = static_cast<long long>(n) * n_freq + k;
-          vc[j] = ok ? c[gi] : __float2bfloat16_rn(0.0f);
-          vs[j] = ok ? s[gi] : __float2bfloat16_rn(0.0f);
-        }
-#pragma unroll
-        for (int j = 0; j < NB / 32; ++j) {
-          const int col = lane + 32 * j;
-          if (col < ncols) {
-            cs[r * NBP + col] = vc[j];
-            cs[KS * NBP + r * NBP + col] = vs[j];
-          }
-        }
+      for (int pr = 0; pr < 2; ++pr) {
+        ldmatrix_x4_trans(bc[pr], cs + brow * NBP + bcol + pr * 16);
+        ldmatrix_x4_trans(bs[pr], cs + (KS + brow) * NBP + bcol + pr * 16);
       }
-      __syncthreads();
-      if (active) {
-#pragma unroll
-        for (int kk = 0; kk < KS; kk += 16) {
-          // B fragments of the warp's 4 n-tiles, for C and for S
-          uint32_t bc[2][4], bs[2][4];
-          const int brow = kk + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-          for (int pr = 0; pr < 2; ++pr) {
-            const int bcol = wn0 + pr * 16 + (lane >> 4) * 8;
-            ldmatrix_x4_trans(bc[pr], cs + brow * NBP + bcol);
-            ldmatrix_x4_trans(bs[pr], cs + KS * NBP + brow * NBP + bcol);
-          }
-          const int ka = n0 + kk + tig * 2;
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            uint32_t a[4];
-            a[0] = *reinterpret_cast<const uint32_t*>(arow[mt][0] + ka);
-            a[1] = *reinterpret_cast<const uint32_t*>(arow[mt][1] + ka);
-            a[2] = *reinterpret_cast<const uint32_t*>(arow[mt][0] + ka + 8);
-            a[3] = *reinterpret_cast<const uint32_t*>(arow[mt][1] + ka + 8);
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt) {
-              const int pr = nt >> 1, hi = (nt & 1) * 2;
-              mma_bf16(re[mt][nt], a, bc[pr][hi], bc[pr][hi + 1]);
-              mma_bf16(im[mt][nt], a, bs[pr][hi], bs[pr][hi + 1]);
-            }
-          }
-        }
-      }
-    }
-
-    // |X| rounded to bf16 into mag[col][frame]
-    if (active) {
+      // an odd c0 reads the shifted copy one column back: an even column
+      const __nv_bfloat16* x =
+          ((c0 & 1) ? chunk1 + (c0 - 1) : chunk0 + c0) + roff;
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
+        uint32_t a[4];
+        a[0] = *reinterpret_cast<const uint32_t*>(x + arow[mt][0]);
+        a[1] = *reinterpret_cast<const uint32_t*>(x + arow[mt][1]);
+        a[2] = *reinterpret_cast<const uint32_t*>(x + arow[mt][0] + 8);
+        a[3] = *reinterpret_cast<const uint32_t*>(x + arow[mt][1] + 8);
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
+          const int pr = nt >> 1, hi = (nt & 1) * 2;
+          mma_bf16(re[mt][nt], a, bc[pr][hi], bc[pr][hi + 1]);
+          mma_bf16(im[mt][nt], a, bs[pr][hi], bs[pr][hi + 1]);
+        }
+      }
+      ring.release(cur, lane);
+      c0 += KS;
+      while (c0 >= hop) {  // the next row
+        c0 -= hop;
+        roff += hs;
+      }
+    }
+
+    // every warp is done with the last tile's mel pass and these slabs
+    msv::consumer_sync();
+    // |X| rounded to bf16 into mag[col][frame], for the bins the products
+    // cover
+    const int k0 = t * NB;
+    const int nv = min(NB, n_freq - 1 - k0);
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int col = wn0 + nt * 8 + tig * 2 + (q & 1);
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int col = wn0 + nt * 8 + tig * 2 + (q & 1);
+          if (col < nv) {
             const int f = mt * 16 + g + (q >> 1) * 8;
             const float x = re[mt][nt][q], y = im[mt][nt][q];
-            mag[col * TF + f] = __float2bfloat16_rn(sqrtf(x * x + y * y));
+            mag[col * MS + f] = __float2bfloat16_rn(sqrtf(x * x + y * y));
           }
         }
       }
     }
-    __syncthreads();
+    int kt = NB;
+    if (t == ops.n_tiles - 1) {  // the leftover bin n_freq - 1, column nv
+      const __nv_bfloat16* tl = msv::stage_tail(
+          smem + msv::kRingOffset, stages * SLAB_BYTES, ops.tail, win, tid);
+      msv::consumer_sync();
+      const float2 v = msv::leftover_bin<TF>(chunk0, hs, hop, tl, win, tid);
+      if (tid % P == 0)
+        mag[nv * MS + tid / P] =
+            __float2bfloat16_rn(sqrtf(v.x * v.x + v.y * v.y));
+      kt = nv + 1;
+    }
+    msv::consumer_sync();
 
-    msv::accumulate_bands<TF>(mag, fb, bands, o, k0, NB, n_freq, n_mel, nf,
-                              lane, warp);
+    msv::mel_tile<TF>(mag, tb, __ldg(ops.tile_bands + 2 * t),
+                      __ldg(ops.tile_bands + 2 * t + 1), o, k0, kt, n_mel,
+                      nf, lane, warp);
   }
-  msv::db_epilogue<TF>(o, bands, n_mel, nf, lane, warp);
+  msv::mel_empty_bands<TF>(o, tb.bands, n_mel, nf, lane, warp);
 }
 
-// Staged samples per copy: frame TF-1's window rounded up to whole slabs,
-// plus the pair read past it, rounded to 8 elements (16 bytes).
-int chunk_elems(int mt, int win, int hop) {
-  const int win_p = (win + KS - 1) / KS * KS;
-  const long long n = static_cast<long long>(16 * mt - 1) * hop + win_p + 2;
-  return static_cast<int>((n + 7) / 8 * 8);
-}
-
-size_t smem_bytes(int mt, int win, int hop) {
-  const size_t copies = (hop & 1) ? 2 : 1;
-  return sizeof(__nv_bfloat16) *
-         (2 * static_cast<size_t>(KS) * NBP + static_cast<size_t>(NB) * 16 * mt +
-          copies * chunk_elems(mt, win, hop));
+// Shared memory besides the ring.
+size_t fixed_bytes(int mt, int win, int hop, int n_mel, int n_wts) {
+  return tables_offset(mt, win, hop, 0) +
+         msv::table_bytes(n_mel, n_wts, sizeof(__nv_bfloat16));
 }
 
 template <typename T, int MT>
 int launch_mt(const void* wave, long long wave_stride, long long wave_len,
-              int batch, const __nv_bfloat16* c, const __nv_bfloat16* s,
-              const __nv_bfloat16* fb, const int* bands, float* out, int win,
-              int hop, int n_frames, int n_freq, int n_mel,
-              cudaStream_t stream) {
-  const size_t smem = smem_bytes(MT, win, hop);
+              int batch, const msv::Prepared<__nv_bfloat16>& ops, float* out,
+              int win, int hop, int n_frames, int n_freq, int n_mel,
+              int stages, cudaStream_t stream) {
+  const size_t smem =
+      fixed_bytes(MT, win, hop, n_mel, ops.n_wts) + stages * SLAB_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       mel_db_bf16_kernel<T, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tf = 16 * MT;
   const dim3 grid((n_frames + tf - 1) / tf, batch);
-  const dim3 block(32, WARPS);
+  const dim3 block(32, WARPS + 1);  // and the producer warp
   mel_db_bf16_kernel<T, MT><<<grid, block, smem, stream>>>(
-      static_cast<const T*>(wave), wave_stride, wave_len, c, s, fb, bands,
-      out, win, hop, n_frames, n_freq, n_mel, chunk_elems(MT, win, hop));
+      static_cast<const T*>(wave), wave_stride, wave_len, ops, out, win, hop,
+      n_frames, n_freq, n_mel, stages);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* wave, long long wave_stride, long long wave_len,
-           int batch, const __nv_bfloat16* c, const __nv_bfloat16* s,
-           const __nv_bfloat16* fb, const int* bands, float* out, int win,
-           int hop, int n_frames, int n_freq, int n_mel,
+           int batch, const msv::Prepared<__nv_bfloat16>& ops, float* out,
+           int win, int hop, int n_frames, int n_freq, int n_mel,
            cudaStream_t stream) {
-  size_t cap = 0;
-  if (const int err = msv::smem_optin_limit(&cap)) return err;
-#define MSV_LAUNCH(M)                                                     \
-  launch_mt<T, M>(wave, wave_stride, wave_len, batch, c, s, fb, bands,   \
-                  out, win, hop, n_frames, n_freq, n_mel, stream)
-  if (smem_bytes(4, win, hop) <= cap) return MSV_LAUNCH(4);
-  if (smem_bytes(2, win, hop) <= cap) return MSV_LAUNCH(2);
-  if (smem_bytes(1, win, hop) <= cap) return MSV_LAUNCH(1);
+  msv::SmemLimits lim;
+  if (const int err = msv::smem_limits(&lim)) return err;
+#define MSV_LAUNCH(M)                                                        \
+  if (const int st = msv::ring_stages(                                     \
+          fixed_bytes(M, win, hop, n_mel, ops.n_wts), SLAB_BYTES, lim))     \
+    return launch_mt<T, M>(wave, wave_stride, wave_len, batch, ops, out,    \
+                           win, hop, n_frames, n_freq, n_mel, st, stream);
+  MSV_LAUNCH(4)
+  MSV_LAUNCH(2)
+  MSV_LAUNCH(1)
 #undef MSV_LAUNCH
   return static_cast<int>(cudaErrorInvalidConfiguration);
 }
@@ -276,28 +344,34 @@ int launch(const void* wave, long long wave_stride, long long wave_len,
 
 extern "C" {
 
-// The arguments of msv_mel_spectrogram, with c, s and fb in bf16:
-// wave: (batch, wave_stride) f32 or int16 (wave_is_i16), wave_len valid
-// samples per row; c, s: (win, n_freq) bf16; fb: (n_freq, n_mel) bf16;
-// bands: (n_mel, 2) int32 [lo, hi) bin support of each fb column; out:
-// (batch, n_frames, n_mel) f32.  Launches on `stream` without
-// synchronising; returns the launch's cudaError_t.
+// The arguments of msv_mel_spectrogram, with the prepared record in bf16
+// (slabs, tail and wts; the row stride must be this kernel's NBP).
+// Launches on `stream` without synchronising; returns the launch's
+// cudaError_t.
 int msv_mel_spectrogram_bf16(const void* wave, int wave_is_i16,
                              long long wave_stride, long long wave_len,
-                             int batch, const void* c, const void* s,
-                             const void* fb, const int* bands, float* out,
-                             int win, int hop, int n_frames, int n_freq,
-                             int n_mel, void* stream) {
+                             int batch, const void* slabs, const void* tail,
+                             const void* wts, const int* bands,
+                             const int* woff, const int* tile_bands,
+                             float* out, int win, int hop,
+                             int n_frames, int n_freq, int n_mel, int n_tiles,
+                             int n_wts, int ks, int nb, int row_stride,
+                             void* stream) {
+  if (ks != KS || nb != NB || row_stride != NBP || n_tiles < 1 ||
+      reinterpret_cast<uintptr_t>(slabs) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  using bf16 = __nv_bfloat16;
+  const msv::Prepared<bf16> ops{static_cast<const bf16*>(slabs),
+                                static_cast<const bf16*>(tail),
+                                static_cast<const bf16*>(wts), bands, woff,
+                                tile_bands, n_tiles, n_wts};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* cb = static_cast<const __nv_bfloat16*>(c);
-  const auto* sb = static_cast<const __nv_bfloat16*>(s);
-  const auto* fbb = static_cast<const __nv_bfloat16*>(fb);
   if (wave_is_i16) {
-    return launch<int16_t>(wave, wave_stride, wave_len, batch, cb, sb, fbb,
-                           bands, out, win, hop, n_frames, n_freq, n_mel, st);
+    return launch<int16_t>(wave, wave_stride, wave_len, batch, ops, out, win,
+                           hop, n_frames, n_freq, n_mel, st);
   }
-  return launch<float>(wave, wave_stride, wave_len, batch, cb, sb, fbb, bands,
-                       out, win, hop, n_frames, n_freq, n_mel, st);
+  return launch<float>(wave, wave_stride, wave_len, batch, ops, out, win, hop,
+                       n_frames, n_freq, n_mel, st);
 }
 
 }  // extern "C"

@@ -26,7 +26,8 @@ import torch
 
 from .config import get_precision_mode, precision_mode_is_explicit
 from .kernels.spectrogram_cuda import (mel_spectrogram_cuda, operands_bf16,
-                                       operands_from_numpy, round_bf16)
+                                       operands_from_numpy, prepare_operands,
+                                       round_bf16)
 from .ops.decibel import amp_to_db, power_to_db
 from .ops.dft import windowed_dft_matrices
 from .ops.framing import n_frames_for, reflect_pad_center
@@ -74,6 +75,15 @@ def feature_operands(sr, win, n_fft, n_mel, fmin, fmax, mel_norm, mode,
     fb = calc_mel_fb(sr, n_fft, n_mel, fmin, fmax, mel_norm, np.float32)
     ops = operands_from_numpy(c, s, fb, device)
     return operands_bf16(*ops) if mode == "fast" else ops
+
+
+@functools.lru_cache(maxsize=32)
+def feature_kernel_operands(sr, win, n_fft, n_mel, fmin, fmax, mel_norm,
+                            mode, device):
+    """``feature_operands`` laid out for the ``mode`` kernel
+    (``prepare_operands``), made once per setting and device."""
+    return prepare_operands(*feature_operands(
+        sr, win, n_fft, n_mel, fmin, fmax, mel_norm, mode, device), mode)
 
 
 def pad_batch(wav, win):
@@ -155,15 +165,16 @@ def log_mel_spectrogram(
     padded = pad_batch(wav, win_length).to(device)
     n_frames = n_frames_for(wav.shape[1], win_length, hop_length)
     fused = log == "amp_db" and spec == "magnitude"
-    c, s, fb = feature_operands(
-        sr, win_length, n_fft, n_mel, float(fmin),
-        None if fmax is None else float(fmax), mel_norm,
-        precision if fused else "parity", device)
+    setting = (sr, win_length, n_fft, n_mel, float(fmin),
+               None if fmax is None else float(fmax), mel_norm)
     if fused:
-        out = mel_spectrogram_cuda(padded.contiguous(), c, s, fb,
-                                   win=win_length, hop=hop_length,
-                                   n_frames=n_frames, mode=precision)
+        out = mel_spectrogram_cuda(
+            padded.contiguous(),
+            feature_kernel_operands(*setting, precision, device),
+            win=win_length, hop=hop_length, n_frames=n_frames,
+            mode=precision)
     else:
+        c, s, fb = feature_operands(*setting, "parity", device)
         out = _features_core(padded, c, s, fb, win=win_length,
                              hop=hop_length, n_frames=n_frames, log=log,
                              mode=precision, spec=spec)

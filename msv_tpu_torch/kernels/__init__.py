@@ -1,17 +1,20 @@
 """Device compute: the fused mel dB spectrogram kernels (CUDA C++, f32
-parity, bf16 fast and split-f32, ``spectrogram_cuda``), the linear-scale
+parity in 3xTF32, bf16 fast and split-f32, ``spectrogram_cuda``), the linear-scale
 spectrogram and the render pipelines as torch ops (``pipeline``)."""
 
 from .pipeline import (render_grey_q, render_rgb, spec_pipeline,
                        spec_pipeline_batched)
-from .spectrogram_cuda import (mel_spectrogram_cuda, mel_spectrogram_plain,
-                               operands_bf16, operands_split)
+from .spectrogram_cuda import (MelOperands, mel_spectrogram_cuda,
+                               mel_spectrogram_plain, operands_bf16,
+                               operands_split, prepare_operands)
 
 __all__ = [
+    "MelOperands",
     "mel_spectrogram_cuda",
     "mel_spectrogram_plain",
     "operands_bf16",
     "operands_split",
+    "prepare_operands",
     "render_grey_q",
     "render_rgb",
     "spec_pipeline",

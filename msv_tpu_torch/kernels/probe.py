@@ -1,0 +1,280 @@
+"""What bounds the parity and fast mel kernels on the card: source variants
+of both, each built and timed beside the sources as they are.
+
+Run from the repository root on a machine with a CUDA card and nvcc::
+
+    python -m msv_tpu_torch.kernels.probe [--seconds 240] [--reps 5]
+
+Each variant is a copy of ``csrc/`` with one textual change, built with
+``nvcc`` (the package's flags) into ``build/msv_tpu_torch/probe/<variant>/``
+and loaded on its own.  Both kernels are called with the same prepared
+operands on 240 s of noise at 48 and 8 kHz, B = 1, f32 input, and timed by
+CUDA events (median of ``reps`` after a warm-up).  Only ``base`` computes
+the right numbers; the others exist for their times:
+
+* ``base``: the sources as they are;
+* ``no_fence``: no ``fence.proxy.async`` before each bulk copy;
+* ``no_ring``: no copy and no wait, every slab read from stage 0 as it
+  lies: the products alone;
+* ``no_mma``: no ``mma`` (the compiler then drops the loads and splits that
+  feed them): staging, ring, barriers and the mel pass alone;
+* ``bare``: neither ring nor ``mma``: sample staging, the mel pass and the
+  dB epilogue alone;
+* ``int_split`` (parity): tf32 rounding by integer add and mask instead of
+  ``cvt.rna.tf32.f32`` (the same values for finite inputs);
+* ``no_split`` (parity): no split at all, each value passed as its own hi
+  and lo;
+* ``one_pass`` (parity): only the hi*hi products, a third of the ``mma``;
+* ``bare_no_bands``, ``bare_no_stage``, ``bare_no_store``,
+  ``bare_no_log``: ``bare`` without the mel pass, without the sample
+  staging, without the mel pass's stores, or with them but without the dB.
+
+With ``--sass`` it also prints the opcode counts of each kernel's f32,
+four-m-tile instantiation in ``base`` (``cuobjdump -sass``).
+
+The launches do not go through ``mel_spectrogram_cuda`` and are not counted
+in ``LAUNCHES``.  Prints one line per (variant, mode, rate), then a JSON
+object of the times.
+"""
+
+import argparse
+import ctypes
+import json
+import os
+import shutil
+import statistics
+import subprocess
+
+import numpy as np
+import torch
+
+from . import spectrogram_cuda as K
+
+PROBE_DIR = os.path.join(K.BUILD_DIR, "probe")
+_CSRC = os.path.dirname(K.HEADER)
+# variant -> [(file, text, replacement)]
+_FENCE = '  asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");\n'
+VARIANTS = {
+    "base": [],
+    "no_fence": [("mel_common.cuh", _FENCE, "")],
+    "no_ring": [
+        ("mel_common.cuh", "    if (lane != 0) return;\n", "    return;\n"),
+        ("mel_common.cuh",
+         "    __syncthreads();\n    if (tid == 0 && c.q + stages < total) "
+         "issue(c.q + stages, c.s);\n", ""),
+        ("mel_common.cuh",
+         "    mbar_wait(full + c.s, c.phase);\n", ""),
+        ("mel_common.cuh",
+         "    for (int q = 0; q < min(stages, total); ++q) issue(q, q);\n", ""),
+    ],
+    "no_mma": [
+        ("mel_spectrogram.cu", "                                         "
+         "const uint32_t (&b)[2]) {\n",
+         "                                         "
+         "const uint32_t (&b)[2]) {\n  return;\n"),
+        ("mel_common.cuh", "uint32_t b0, uint32_t b1) {\n",
+         "uint32_t b0, uint32_t b1) {\n  return;\n"),
+    ],
+}
+_CVT = ('  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(hi) : "f"(x));\n'
+        '  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(lo) : "f"(x - '
+        '__uint_as_float(hi)));\n')
+VARIANTS["bare"] = VARIANTS["no_ring"] + VARIANTS["no_mma"]
+VARIANTS["int_split"] = [("mel_spectrogram.cu", _CVT, (
+    "  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n"
+    "  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & "
+    "0xffffe000u;\n"))]
+VARIANTS["no_split"] = [("mel_spectrogram.cu", _CVT,
+                         "  hi = lo = __float_as_uint(x);\n")]
+VARIANTS["one_pass"] = [
+    ("mel_spectrogram.cu",
+     "              mma_tf32(part[m][mt][nt], al, bh[m][nt]);\n"
+     "              mma_tf32(part[m][mt][nt], ah, bl[m][nt]);\n", "")]
+_BANDS = "  const int k1 = k0 + kt;\n"
+VARIANTS["bare_no_bands"] = VARIANTS["bare"] + [
+    ("mel_common.cuh", _BANDS, _BANDS + "  return;\n")]
+_STORE = ("      *dst = hi > k1 ? v : (v > kAmin ? logf(v) * kDbScale : "
+          "kDbFloor);\n")
+VARIANTS["bare_no_store"] = VARIANTS["bare"] + [
+    ("mel_common.cuh", _STORE, "      if (v == -1.5f) " + _STORE.lstrip())]
+VARIANTS["bare_no_log"] = VARIANTS["bare"] + [
+    ("mel_common.cuh", _STORE, "      *dst = v;\n")]
+VARIANTS["bare_no_stage"] = VARIANTS["bare"] + [
+    ("mel_spectrogram.cu", "  for (int r = warp; r < rows; r += WARPS) {",
+     "  for (int r = warp; r < 0; r += WARPS) {"),
+    ("mel_spectrogram_bf16.cu",
+     "  for (int r = warp; r < rows && warp < WARPS; r += WARPS) {",
+     "  for (int r = warp; r < 0; r += WARPS) {")]
+
+_SOURCES = ("mel_spectrogram.cu", "mel_spectrogram_bf16.cu")
+
+
+def sass_opcodes(obj, kernel):
+    """Opcode counts of the first function in ``obj`` whose name holds
+    ``kernel`` (``cuobjdump -sass``)."""
+    import collections
+    import re
+
+    cuobjdump = os.path.join(os.path.dirname(K._nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", obj], capture_output=True,
+                          text=True, check=True).stdout
+    counts, inside = collections.Counter(), False
+    for ln in text.splitlines():
+        if "Function :" in ln:
+            if inside:
+                break
+            inside = kernel in ln
+        elif inside:
+            m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                         ln)
+            if m:
+                counts[m.group(1)] += 1
+    return counts
+
+
+def _variant_dir(name):
+    d = os.path.join(PROBE_DIR, name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    for f in (*_SOURCES, "mel_common.cuh"):
+        shutil.copy(os.path.join(_CSRC, f), d)
+    for f, old, new in VARIANTS[name]:
+        path = os.path.join(d, f)
+        with open(path) as fh:
+            text = fh.read()
+        if old not in text:
+            raise RuntimeError(f"variant {name}: {f} no longer holds "
+                               f"{old!r}")
+        with open(path, "w") as fh:
+            fh.write(text.replace(old, new))
+    return d
+
+
+def build_all(names):
+    """One library per variant; all nvcc runs at once."""
+    jobs = []
+    for name in names:
+        d = _variant_dir(name)
+        objs = [os.path.join(d, f + ".o") for f in _SOURCES]
+        for src, obj in zip(_SOURCES, objs):
+            jobs.append(subprocess.Popen(
+                [K._nvcc(), *K.NVCC_FLAGS, "-c", "-o", obj,
+                 os.path.join(d, src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for p in jobs:
+        out = p.communicate()[0]
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed: {' '.join(p.args)}\n{out}")
+    libs = {}
+    for name in names:
+        d = os.path.join(PROBE_DIR, name)
+        so = os.path.join(d, "libprobe.so")
+        subprocess.run([K._nvcc(), "-shared", "-o", so,
+                        *(os.path.join(d, f + ".o") for f in _SOURCES)],
+                       check=True, capture_output=True)
+        lib = ctypes.CDLL(so)
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        for fn in ("msv_mel_spectrogram", "msv_mel_spectrogram_bf16"):
+            getattr(lib, fn).argtypes = [p, i, ll, ll, i, *[p] * 7,
+                                         *[i] * 10, p]
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def _operands(sr, mode):
+    from ..config import SpecSetting, derive_stft_params
+    from ..ops.dft import windowed_dft_matrices
+    from ..ops.mel import calc_mel_fb_default
+    from ..ops.windows import default_stft_window
+
+    p = derive_stft_params(sr, SpecSetting())
+    c, s = windowed_dft_matrices(default_stft_window(p.win_length, p.n_fft),
+                                 p.n_fft)
+    ops = K.operands_from_numpy(c, s, calc_mel_fb_default(sr, p.n_fft),
+                                "cuda")
+    if mode == "fast":
+        ops = K.operands_bf16(*ops)
+    return p.win_length, p.hop_length, K.prepare_operands(*ops, mode)
+
+
+def time_ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seconds", type=float, default=240.0)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--rates", type=int, nargs="+", default=[48000, 8000])
+    ap.add_argument("--variants", nargs="+", default=list(VARIANTS))
+    ap.add_argument("--sass", action="store_true")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("probe: no CUDA device")
+    from ..ops.framing import n_frames_for, reflect_pad_center
+
+    libs = build_all(args.variants)
+    if args.sass:
+        for src, kernel in (("mel_spectrogram.cu", "mel_db_tf32_kernelIfLi4E"),
+                            ("mel_spectrogram_bf16.cu",
+                             "mel_db_bf16_kernelIfLi4E")):
+            ops = sass_opcodes(os.path.join(PROBE_DIR, "base", src + ".o"),
+                               kernel)
+            print(f"[sass] {kernel}: {sum(ops.values())} instructions; "
+                  + ", ".join(f"{k} {v}" for k, v in ops.most_common(25)))
+    rng = np.random.default_rng(20261016)
+    results = {}
+    for sr in args.rates:
+        n = int(args.seconds * sr)
+        wav = (0.1 * rng.standard_normal(n)).astype(np.float32)
+        for mode in ("parity", "fast"):
+            win, hop, ops = _operands(sr, mode)
+            n_frames = n_frames_for(n, win, hop)
+            x = torch.from_numpy(reflect_pad_center(wav, win)).cuda()
+            out = torch.empty((n_frames, ops.fb.shape[1]), device="cuda")
+            base = None
+            for name in args.variants:
+                fn = getattr(libs[name], "msv_mel_spectrogram" + (
+                    "_bf16" if mode == "fast" else ""))
+                stream = torch.cuda.current_stream().cuda_stream
+
+                def run():
+                    err = fn(x.data_ptr(), 0, x.numel(), x.numel(), 1,
+                             ops.slabs.data_ptr(), ops.tail.data_ptr(),
+                             ops.wts.data_ptr(), ops.bands.data_ptr(),
+                             ops.woff.data_ptr(), ops.tile_bands.data_ptr(),
+                             out.data_ptr(), win, hop,
+                             n_frames,
+                             ops.n_freq, ops.fb.shape[1], ops.n_tiles,
+                             ops.wts.numel(), ops.ks, ops.nb, ops.row,
+                             stream)
+                    if err:
+                        raise RuntimeError(f"{name} {mode}: error {err}")
+
+                ms = time_ms(run, args.reps)
+                if name == "base":
+                    base = out.clone()
+                    ok = bool(torch.isfinite(base).all())
+                else:
+                    ok = None
+                results[f"{name}/{mode}/{sr}"] = ms
+                print(f"[probe] {name:10s} {mode:6s} {sr:5d} Hz B=1 "
+                      f"{n_frames} frames: {ms:.3f} ms"
+                      + ("" if ok is None else f" (finite: {ok})"))
+    print(json.dumps(results))
+
+
+if __name__ == "__main__":
+    main()

@@ -4,7 +4,8 @@ Replace ``msv_tpu/kernels/spectrogram_pallas.py::mel_spectrogram_pallas``
 in its three modes:
 
 * ``mode="parity"``: f32 operands, both schedules
-  (``msv_tpu_torch/csrc/mel_spectrogram.cu``, SIMT f32 FMA);
+  (``msv_tpu_torch/csrc/mel_spectrogram.cu``, the DFT pair in 3xTF32 on
+  the tensor cores, ``mma.sync``);
 * ``mode="fast"``: bf16 operands with f32 accumulation
   (``msv_tpu_torch/csrc/mel_spectrogram_bf16.cu``, tensor-core
   ``mma.sync``);
@@ -14,17 +15,20 @@ in its three modes:
 
 Each source's header says what bounds it on an H100 and how its design
 answers that; all include ``csrc/mel_common.cuh``, their shared mel band
-accumulation and dB epilogue.  They are built with ``nvcc`` at first use
-into one library under ``build/msv_tpu_torch/`` beside the package, keyed
-on the hash of the sources and the header, and loaded as a plain C
-library.
+accumulation and dB epilogue, and the parity and fast kernels' staging ring
+and leftover bin.  They are built with ``nvcc`` at first use into one
+library under ``build/msv_tpu_torch/`` beside the package, keyed on the
+hash of the sources and the header, and loaded as a plain C library.
 
-Unlike the TPU kernel, no layout is prepared on the host: a kernel takes the
-reflect-padded 1-D wave ``(L,)`` or ``(B, L)`` (f32, or int16 scaled by
-2^-15 as it is loaded), ``C``/``S`` as ``(win, n_freq)`` and ``fb`` as
-``(n_freq, n_mel)`` (f32 for parity, bf16 from ``operands_bf16`` for fast;
-split takes ``(2, ...)`` hi/lo stacks of each), and masks ragged edges
-itself.
+A kernel takes the reflect-padded 1-D wave ``(L,)`` or ``(B, L)`` (f32, or
+int16 scaled by 2^-15 as it is loaded) and masks ragged edges itself.  The
+parity and fast kernels take their operands as a ``MelOperands`` record
+from ``prepare_operands``: C and S cut into slabs laid out as the kernel's
+shared-memory image, the last bin's columns kept apart, ``fb`` and its band
+supports, made once per rate and cached by the caller.  Given plain
+``(C, S, fb)`` (``(win, n_freq)``, ``(win, n_freq)``, ``(n_freq, n_mel)``;
+f32 for parity, bf16 from ``operands_bf16`` for fast) the wrapper prepares
+them per call.  Split takes the ``(2, ...)`` hi/lo stacks of each.
 
 ``mel_spectrogram_plain`` is the same function in torch ops, in every
 mode.  The wrapper ``mel_spectrogram_cuda`` takes it only for tensors on the
@@ -38,6 +42,7 @@ import os
 import shutil
 import subprocess
 import threading
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -122,13 +127,17 @@ def build() -> ctypes.CDLL:
                 os.remove(o)
         lib = ctypes.CDLL(so)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.msv_mel_spectrogram.argtypes = [
-            p, i, ll, ll, i, p, p, p, p, p, i, i, i, i, i, p,
-        ]
-        lib.msv_mel_spectrogram.restype = ctypes.c_int
-        for name in ("msv_mel_spectrogram_bf16", "msv_mel_spectrogram_split"):
-            getattr(lib, name).argtypes = lib.msv_mel_spectrogram.argtypes
+        wave = [p, i, ll, ll, i]  # wave, is_i16, stride, length, batch
+        shape = [i] * 5  # win, hop, n_frames, n_freq, n_mel
+        for name in ("msv_mel_spectrogram", "msv_mel_spectrogram_bf16"):
+            # slabs, tail, wts, bands, woff, tile_bands, out; n_tiles,
+            # n_wts, ks, nb, row
+            getattr(lib, name).argtypes = [*wave, *[p] * 7, *shape,
+                                           *[i] * 5, p]
             getattr(lib, name).restype = ctypes.c_int
+        # c, s, fb, bands, out
+        lib.msv_mel_spectrogram_split.argtypes = [*wave, *[p] * 5, *shape, p]
+        lib.msv_mel_spectrogram_split.restype = ctypes.c_int
         lib.msv_cuda_error_string.argtypes = [ctypes.c_int]
         lib.msv_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -195,6 +204,26 @@ def split_f32(x):
     return hi, round_bf16(x - hi)
 
 
+def split_tf32(x):
+    """The 3xTF32 pair of f32 ``x`` as f32 values, as the parity kernel
+    splits on the card (``cvt.rna.tf32.f32``): hi = x rounded to 10
+    explicit mantissa bits, nearest, ties away from zero; lo = the same
+    rounding of x - hi (exact in f32).  A product of two such values is
+    exact in f32; hi + lo carries about 21 mantissa bits of x, and a value
+    of 21 significant bits or fewer (an int16 sample times 2^-15) splits
+    exactly."""
+    bits = x.contiguous().view(torch.int32)
+
+    def rna(b):
+        # add half a tf32 unit to the magnitude bits, then truncate;
+        # infinities and NaNs pass through
+        special = (b & 0x7F800000) == 0x7F800000
+        return torch.where(special, b, (b + 0x1000) & -0x2000)
+
+    hi = rna(bits).view(torch.float32)
+    return hi, rna((x - hi).view(torch.int32)).view(torch.float32)
+
+
 def operands_split(c, s, fb):
     """The split mode's device operands: each f32 matrix of ``(C, S, fb)``
     as a ``(2, ...)`` bf16 stack of its (hi, lo) split, on the same device.
@@ -255,15 +284,134 @@ _OPERANDS = {
     "fast": (torch.bfloat16, 2, "operands_bf16"),
     "split": (torch.bfloat16, 3, "operands_split"),
 }
+# The slab layout of the modes whose kernels stage C/S through the ring
+# (csrc/mel_spectrogram.cu and mel_spectrogram_bf16.cu check it): rows per
+# slab, bins per frequency tile, padded row stride in elements.
+SLAB_LAYOUT = {"parity": (16, 128, 136), "fast": (16, 256, 264)}
+
+
+@dataclass(frozen=True, eq=False)
+class MelOperands:
+    """One mode's kernel operands, laid out once per rate by
+    ``prepare_operands``; ``mel_spectrogram_cuda`` takes it in place of
+    ``(c, s, fb)``."""
+
+    mode: str
+    c: torch.Tensor  # (win, n_freq), the mode's dtype (the plain version's)
+    s: torch.Tensor
+    fb: torch.Tensor  # (n_freq, n_mel), contiguous
+    bands: torch.Tensor  # (n_mel, 2) int32: mel_bands(fb)
+    # the filterbank over each band's bins: band m's weights for bins
+    # [lo, hi) are wts[woff[m] : woff[m] + hi - lo]
+    wts: torch.Tensor
+    woff: torch.Tensor  # (n_mel,) int32
+    # (n_tiles, 2) int32: the bands [ma, mb) that each frequency tile's bins
+    # meet (the last tile's include bin n_freq - 1)
+    tile_bands: torch.Tensor
+    # (n_tiles, n_k, 2, ks, row): slab (t, j) is rows [j*ks, (j+1)*ks) of
+    # bins [t*nb, (t+1)*nb) of C, then of S; zeros past win, past bin
+    # n_freq - 2 and in columns [nb, row)
+    slabs: torch.Tensor
+    tail: torch.Tensor  # (win, 2): C[:, n_freq-1] and S[:, n_freq-1]
+    ks: int
+    nb: int
+    row: int
+
+    @property
+    def win(self):
+        return self.c.shape[0]
+
+    @property
+    def n_freq(self):
+        return self.c.shape[1]
+
+    @property
+    def n_tiles(self):
+        return self.slabs.shape[0]
+
+
+def prepare_operands(c, s, fb, mode="parity"):
+    """The parity or fast kernel's operands as a ``MelOperands`` record,
+    from that mode's ``(C, S, fb)`` (f32 from ``operands_from_numpy``, or
+    bf16 from ``operands_bf16``), on their device.
+
+    C and S are cut into slabs of ``ks`` rows x ``nb`` bins
+    (``SLAB_LAYOUT``), each laid out as the kernel's ring stage in shared
+    memory: C's rows, then S's, at a padded row stride, every slab
+    contiguous and 16-byte aligned, so that one bulk copy stages it.  Tiles
+    cover bins ``[0, n_freq - 1)``; the last tile is zero-padded where
+    ``nb`` does not divide ``n_freq - 1`` (it does at every default rate:
+    n_freq - 1 = n_fft / 2).  Bin ``n_freq - 1``'s columns are kept apart
+    (``tail``): the last tile computes that bin with SIMT FMAs instead of a
+    K sweep of its own.  ``bands`` are ``mel_bands(fb)``, made here once
+    instead of at every launch, and ``wts`` the filterbank compacted to
+    each band's bins, contiguous per band.  Made once per rate and cached
+    by the caller; the record holds ``c``, ``s`` and ``fb`` too, for the
+    plain version."""
+    if mode not in SLAB_LAYOUT:
+        raise ValueError(f"prepare_operands takes mode 'parity' or 'fast', "
+                         f"got {mode!r} (split takes operands_split's stacks)")
+    dtype, _, maker = _OPERANDS[mode]
+    for name, t in (("c", c), ("s", s), ("fb", fb)):
+        if t.dtype != dtype or t.ndim != 2:
+            raise ValueError(
+                f"c, s and fb must all be 2-D {dtype} tensors in mode "
+                f"{mode!r} (make them with {maker}); {name} is {t.dtype} "
+                f"{tuple(t.shape)}")
+    win, n_freq = c.shape
+    if s.shape != c.shape or fb.shape[0] != n_freq or win < 1:
+        raise ValueError(f"c and s must be (win, n_freq) and fb (n_freq, "
+                         f"n_mel), got {tuple(c.shape)}, {tuple(s.shape)} "
+                         f"and {tuple(fb.shape)}")
+    if len({t.device for t in (c, s, fb)}) != 1:
+        raise ValueError("c, s and fb must be on one device")
+    ks, nb, row = SLAB_LAYOUT[mode]
+    n_bins = n_freq - 1
+    n_tiles = max(1, -(-n_bins // nb))
+    n_k = -(-win // ks)
+    body = torch.zeros((2, n_k * ks, n_tiles * nb), dtype=dtype,
+                       device=c.device)
+    body[0, :win, :n_bins] = c[:, :n_bins]
+    body[1, :win, :n_bins] = s[:, :n_bins]
+    slabs = torch.zeros((n_tiles, n_k, 2, ks, row), dtype=dtype,
+                        device=c.device)
+    slabs[..., :nb] = body.reshape(2, n_k, ks, n_tiles, nb).permute(
+        3, 1, 0, 2, 4)
+    tail = torch.stack([c[:, n_bins], s[:, n_bins]], dim=1).contiguous()
+    bands = mel_bands(fb)
+    widths = (bands[:, 1] - bands[:, 0]).long()
+    woff = torch.cumsum(widths, 0) - widths
+    band = torch.repeat_interleave(torch.arange(len(widths),
+                                                device=fb.device), widths)
+    pos = torch.arange(int(widths.sum()), device=fb.device)
+    wts = fb[bands[band, 0].long() + pos - woff[band], band].contiguous()
+    k0 = torch.arange(n_tiles, device=fb.device) * nb
+    k1 = torch.clamp(k0 + nb, max=n_bins)
+    k1[-1] = n_freq
+    lo, hi = bands[:, 0], bands[:, 1]
+    meets = ((lo < hi) & (lo < k1[:, None]) & (hi > k0[:, None]))
+    tile_bands = mel_bands(meets.T)
+    return MelOperands(mode, c, s, fb.contiguous(), bands, wts,
+                       woff.to(torch.int32), tile_bands, slabs, tail, ks, nb,
+                       row)
+
+
+def _check_wave(padded, win, hop, n_frames):
+    if padded.ndim not in (1, 2):
+        raise ValueError("padded must be (L,) or (B, L)")
+    if padded.dtype not in (torch.float32, torch.int16):
+        raise ValueError(f"padded must be float32 or int16, got {padded.dtype}")
+    if win < 1 or hop < 1 or n_frames < 1:
+        raise ValueError("win, hop and n_frames must be >= 1")
+    need = (n_frames - 1) * hop + win
+    if padded.shape[-1] < need:
+        raise ValueError(f"padded has {padded.shape[-1]} samples, "
+                         f"{n_frames} frames need {need}")
 
 
 def _check(padded, c, s, fb, win, hop, n_frames, mode):
     if mode not in MODES:
         raise ValueError(f"unknown precision mode: {mode!r}")
-    if padded.ndim not in (1, 2):
-        raise ValueError("padded must be (L,) or (B, L)")
-    if padded.dtype not in (torch.float32, torch.int16):
-        raise ValueError(f"padded must be float32 or int16, got {padded.dtype}")
     dtype, ndim, maker = _OPERANDS[mode]
     # a split stack mixed with a plain matrix raises here, as in msv_tpu
     for name, t in (("c", c), ("s", s), ("fb", fb)):
@@ -282,14 +430,22 @@ def _check(padded, c, s, fb, win, hop, n_frames, mode):
     if fb.shape[0] != n_freq:
         raise ValueError(f"fb must be (n_freq={n_freq}, n_mel), got "
                          f"{tuple(fb.shape)}")
-    if win < 1 or hop < 1 or n_frames < 1:
-        raise ValueError("win, hop and n_frames must be >= 1")
-    need = (n_frames - 1) * hop + win
-    if padded.shape[-1] < need:
-        raise ValueError(f"padded has {padded.shape[-1]} samples, "
-                         f"{n_frames} frames need {need}")
+    _check_wave(padded, win, hop, n_frames)
     if len({t.device for t in (padded, c, s, fb)}) != 1:
         raise ValueError("padded, c, s and fb must be on one device")
+
+
+def _check_record(padded, ops, win, hop, n_frames, mode):
+    if mode not in MODES:
+        raise ValueError(f"unknown precision mode: {mode!r}")
+    if ops.mode != mode:
+        raise ValueError(f"operands prepared for mode {ops.mode!r} given to "
+                         f"mode {mode!r}")
+    if ops.win != win:
+        raise ValueError(f"operands prepared for win={ops.win}, got {win}")
+    _check_wave(padded, win, hop, n_frames)
+    if ops.slabs.device != padded.device:
+        raise ValueError("padded and the operands must be on one device")
 
 
 def _check_out(out, shape, device):
@@ -300,20 +456,33 @@ def _check_out(out, shape, device):
             f"got {out.dtype} {tuple(out.shape)} on {out.device}")
 
 
-def mel_spectrogram_cuda(padded, c, s, fb, *, win, hop, n_frames,
+def mel_spectrogram_cuda(padded, *operands, win, hop, n_frames,
                          mode="parity", out=None):
     """Fused mel dB spectrogram: ``(n_frames, n_mel)``, or
     ``(B, n_frames, n_mel)`` for a ``(B, L)`` batch, float32.
 
     Frame k is ``padded[..., k*hop : k*hop + win]``.  ``mode`` picks the
-    kernel: "parity" takes f32 ``c``/``s``/``fb`` (``operands_from_numpy``),
-    "fast" their bf16 copies (``operands_bf16``), "split" their (hi, lo)
-    stacks (``operands_split``).  ``out``, if given, is a
-    contiguous float32 tensor of the result's shape that the kernel writes
-    (a row range of a larger plane, for instance) and that is returned.
+    kernel.  ``operands`` are one ``MelOperands`` record of that mode
+    (``prepare_operands``; parity and fast), or ``c, s, fb``: f32
+    (``operands_from_numpy``) for "parity", their bf16 copies
+    (``operands_bf16``) for "fast", which are then prepared for this call,
+    and their (hi, lo) stacks (``operands_split``) for "split".  ``out``, if
+    given, is a contiguous float32 tensor of the result's shape that the
+    kernel writes (a row range of a larger plane, for instance) and that is
+    returned.
     """
     global LAUNCHES
-    _check(padded, c, s, fb, win, hop, n_frames, mode)
+    if len(operands) == 1 and isinstance(operands[0], MelOperands):
+        ops = operands[0]
+        _check_record(padded, ops, win, hop, n_frames, mode)
+        c, s, fb = ops.c, ops.s, ops.fb
+    elif len(operands) == 3:
+        ops = None
+        c, s, fb = operands
+        _check(padded, c, s, fb, win, hop, n_frames, mode)
+    else:
+        raise TypeError("mel_spectrogram_cuda takes c, s, fb or one "
+                        "MelOperands record after padded")
     n_freq, n_mel = fb.shape[-2:]
     shape = (n_frames, n_mel) if padded.ndim == 1 else (
         padded.shape[0], n_frames, n_mel)
@@ -325,26 +494,37 @@ def mel_spectrogram_cuda(padded, c, s, fb, *, win, hop, n_frames,
         return db if out is None else out.copy_(db)
     if padded.device.type != "cuda":
         raise ValueError(f"unsupported device: {padded.device}")
-    for name, t in (("padded", padded), ("c", c), ("s", s), ("fb", fb)):
+    given = {"padded": padded}
+    if ops is None:
+        given.update(c=c, s=s, fb=fb)
+    for name, t in given.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     lib = build()
     wave = padded if padded.ndim == 2 else padded.unsqueeze(0)
     batch, length = wave.shape
-    bands = mel_bands(fb)
     if out is None:
         out = torch.empty(shape, dtype=torch.float32, device=wave.device)
+    if mode == "split":
+        bands = mel_bands(fb)  # held until the launch has been issued
+        args = (c.data_ptr(), s.data_ptr(), fb.data_ptr(), bands.data_ptr(),
+                out.data_ptr(), win, hop, n_frames, n_freq, n_mel)
+    else:
+        if ops is None:
+            ops = prepare_operands(c, s, fb, mode)
+        args = (ops.slabs.data_ptr(), ops.tail.data_ptr(),
+                ops.wts.data_ptr(), ops.bands.data_ptr(),
+                ops.woff.data_ptr(), ops.tile_bands.data_ptr(),
+                out.data_ptr(),
+                win, hop, n_frames, n_freq, n_mel,
+                ops.n_tiles, ops.wts.numel(), ops.ks, ops.nb, ops.row)
     fn = {"parity": lib.msv_mel_spectrogram,
           "fast": lib.msv_mel_spectrogram_bf16,
           "split": lib.msv_mel_spectrogram_split}[mode]
     with torch.cuda.device(wave.device):
         stream = torch.cuda.current_stream(wave.device).cuda_stream
-        err = fn(
-            wave.data_ptr(), int(wave.dtype == torch.int16), length, length,
-            batch, c.data_ptr(), s.data_ptr(), fb.data_ptr(),
-            bands.data_ptr(), out.data_ptr(),
-            win, hop, n_frames, n_freq, n_mel, stream,
-        )
+        err = fn(wave.data_ptr(), int(wave.dtype == torch.int16), length,
+                 length, batch, *args, stream)
     if err != 0:
         msg = lib.msv_cuda_error_string(err).decode()
         raise RuntimeError(f"mel_spectrogram kernel ({mode}) launch failed: "

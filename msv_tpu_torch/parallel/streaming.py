@@ -26,7 +26,8 @@ import numpy as np
 import torch
 
 from ..config import get_precision_mode
-from ..kernels.spectrogram_cuda import mel_spectrogram_cuda, operands_bf16
+from ..kernels.spectrogram_cuda import (MelOperands, mel_spectrogram_cuda,
+                                        operands_bf16, prepare_operands)
 from ..ops.decibel import amp_to_db
 from ..ops.framing import n_frames_for
 from ..ops.stft import dft_magnitude, frame_device
@@ -88,10 +89,20 @@ def padded_slice(src, a: int, b: int, half: int, n: int, dtype=np.int16):
 
 
 def _device_operands(c, s, mel_fb, device, mode, kernel=True):
-    """(C, S, fb) on ``device``: tensors are taken as they are, numpy arrays
-    are shipped as f32.  For the kernel they are ``mode``'s operands (f32
-    for fast mode are rounded to bf16 here); the torch-op route takes them
-    in f32.  ``mel_fb`` may be None (no filterbank)."""
+    """The operands on ``device``.  For the kernel, ``mode``'s prepared
+    record (``prepare_operands``), made once for all segments: ``c`` may be
+    that record already (``s`` and ``mel_fb`` then None; its device is the
+    one used), else tensors are
+    taken as they are, numpy arrays are shipped as f32, and f32 for fast
+    mode are rounded to bf16 here.  The torch-op route takes (C, S, fb) in
+    f32.  ``mel_fb`` may be None (no filterbank)."""
+    if isinstance(c, MelOperands):  # the segments go to its device
+        if not kernel or c.mode != mode:
+            raise ValueError(
+                f"operands prepared for the {c.mode!r} kernel do not fit "
+                f"this call (mode {mode!r}, "
+                f"{'kernel' if kernel else 'torch-op'} route)")
+        return c
     if device is None:
         if not isinstance(c, torch.Tensor):
             raise ValueError("streaming needs a device: pass device=, or "
@@ -107,7 +118,12 @@ def _device_operands(c, s, mel_fb, device, mode, kernel=True):
         return tuple(None if a is None else a.to(torch.float32) for a in ops)
     if mode == "fast" and ops[0].dtype != torch.bfloat16:
         ops = operands_bf16(*ops)
-    return ops
+    return prepare_operands(*ops, mode)
+
+
+def _fb_of(c, mel_fb):
+    """The filterbank: ``mel_fb``, or that of a prepared record ``c``."""
+    return c.fb if isinstance(c, MelOperands) else mel_fb
 
 
 def _check_route(mel_fb, impl, transfer, n_fft=None, window=None):
@@ -154,8 +170,8 @@ def _torch_segment(seg, ops, out, *, win, hop, chunk_frames, scale, window,
 def _run_segments(make_seg, seg_plan, n_frames, win, hop, ops, chunk_frames,
                   *, mode, keep_wav=False, scale=_PCM16_SCALE, window=None,
                   n_fft=None):
-    """Segment k's host slice -> device -> one kernel launch (with the
-    filterbank and no ``window``) or the torch-op step into rows
+    """Segment k's host slice -> device -> one kernel launch (``ops`` a
+    prepared record) or the torch-op step (``ops`` = (C, S, fb)) into rows
     [f0, f0 + seg_frames) of the output plane.
 
     On a card the host prepares segment k+1 while the device computes
@@ -165,13 +181,16 @@ def _run_segments(make_seg, seg_plan, n_frames, win, hop, ops, chunk_frames,
     copy before it rewrites that buffer.  Per-segment min/max stay on the
     device; one host sync at the end reads them.
     """
-    c, s, fb = ops
-    device = c.device
+    kernel = isinstance(ops, MelOperands)
+    if kernel:
+        device, n_out = ops.slabs.device, ops.fb.shape[-1]
+    else:
+        c, _, fb = ops
+        device = c.device
+        n_out = fb.shape[-1] if fb is not None else (
+            c.shape[1] if window is None else n_fft // 2 + 1)
     on_card = device.type == "cuda"
     n_total = sum(seg_plan) * chunk_frames
-    kernel = fb is not None and window is None
-    n_out = fb.shape[-1] if fb is not None else (
-        c.shape[1] if window is None else n_fft // 2 + 1)
     db = torch.empty((n_total, n_out), dtype=torch.float32, device=device)
     if window is not None:
         window = torch.from_numpy(np.ascontiguousarray(
@@ -209,7 +228,7 @@ def _run_segments(make_seg, seg_plan, n_frames, win, hop, ops, chunk_frames,
         else:
             seg = torch.from_numpy(seg_np)
         if kernel:
-            rows = mel_spectrogram_cuda(seg, c, s, fb, win=win, hop=hop,
+            rows = mel_spectrogram_cuda(seg, ops, win=win, hop=hop,
                                         n_frames=seg_frames, mode=mode,
                                         out=db[f0 : f0 + seg_frames])
         else:
@@ -273,12 +292,15 @@ def streaming_spec_db(
     (``set_precision_mode``), as in ``msv_tpu``; the torch-op route is f32
     in every mode.  ``device`` defaults to the device of ``c`` (a tensor).
     ``c``, ``s``, ``mel_fb`` may be numpy f32, or tensors that are the
-    mode's operands (f32, or bf16 for "fast").
+    mode's operands (f32, or bf16 for "fast"); for the kernel they are laid
+    out once (``prepare_operands``) for every segment.  ``c`` may also be
+    that prepared record of the mode (``s`` and ``mel_fb`` None), as the
+    session passes its cached one.
 
     ``keep_wav=True`` appends a 5th value: the reflect-padded, zero-tailed
     wave on the device, stitched from the shipped segments.
     """
-    kernel = _check_route(mel_fb, impl, transfer, n_fft, window)
+    kernel = _check_route(_fb_of(c, mel_fb), impl, transfer, n_fft, window)
     mode = get_precision_mode()
     ops = _device_operands(c, s, mel_fb, device, mode, kernel)
     # integer input is kept as the carrier: int16 raw PCM or the int32
@@ -311,7 +333,7 @@ def streaming_spec_db_mmap(path, win, hop, c, s, mel_fb=None,
     schedule as :func:`streaming_spec_db` on the same samples."""
     from ..io.audio import open_wav_mmap
 
-    kernel = _check_route(mel_fb, "dft", transfer)
+    kernel = _check_route(_fb_of(c, mel_fb), "dft", transfer)
     mode = get_precision_mode()
     ops = _device_operands(c, s, mel_fb, device, mode, kernel)
     mm, sr = open_wav_mmap(path)

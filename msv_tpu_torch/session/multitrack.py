@@ -39,7 +39,7 @@ from ..config import (FreqScale, SpecSetting, derive_stft_params,
 from ..kernels.pipeline import (render_grey_q, render_rgb,
                                 spec_pipeline_batched)
 from ..kernels.spectrogram_cuda import (mel_spectrogram_cuda, operands_bf16,
-                                        operands_from_numpy)
+                                        operands_from_numpy, prepare_operands)
 from ..parallel.streaming import streaming_spec_db
 from ..ops.dft import windowed_dft_matrices
 from ..ops.framing import n_frames_for, reflect_pad_center
@@ -274,6 +274,15 @@ class MultiTrack:
             ops[mode] = operands_bf16(*ops["parity"])
         return ops[mode]
 
+    def _sr_kernel_operands(self, sr: int, mode: str):
+        """The mel kernel's operands of rate ``sr`` in precision ``mode``,
+        laid out for it (``prepare_operands``) at the first use and kept."""
+        ops = self._operands[sr]
+        key = ("prepared", mode)
+        if key not in ops:
+            ops[key] = prepare_operands(*self._sr_operands(sr, mode), mode)
+        return ops[key]
+
     # ------------------------------------------------------- spectrograms
 
     def _prep_padded(self, track):
@@ -328,9 +337,11 @@ class MultiTrack:
         whole-file transfer."""
         src = (track._wav_int if track._wav_int is not None
                else np.asarray(track.wav, np.float32))
+        mode = get_precision_mode()
+        ops = ((self._sr_kernel_operands(track.sr, mode), None, None)
+               if self._use_mel else self._sr_operands(track.sr, mode))
         db, n_valid, smin, smax, wav_dev = streaming_spec_db(
-            src, track.win_length, track.hop_length,
-            *self._sr_operands(track.sr, get_precision_mode()),
+            src, track.win_length, track.hop_length, *ops,
             keep_wav=True, scale=track.scale,
         )
         self._env_states[id] = EnvelopeState.from_device(
@@ -374,7 +385,7 @@ class MultiTrack:
         else:
             with self.timer.stage("add_tracks.kernel_minmax"):
                 db_b = mel_spectrogram_cuda(
-                    wave, *self._sr_operands(sr, mode), **kw)
+                    wave, self._sr_kernel_operands(sr, mode), **kw)
                 frame = torch.arange(n_frames_pad, device=self.device)
                 fmask = (frame[None, :] < n_valid[:, None])[:, :, None]
                 smax = torch.where(fmask, db_b, -torch.inf).amax(dim=(1, 2))

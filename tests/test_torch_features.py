@@ -89,17 +89,18 @@ def test_fused_route_launches_the_mode_kernel(rng, monkeypatch):
     seen = []
     real = K.mel_spectrogram_cuda
 
-    def spy(padded, c, s, fb, **kw):
-        seen.append((tuple(padded.shape), kw["mode"], c.dtype))
-        return real(padded, c, s, fb, **kw)
+    def spy(padded, ops, **kw):
+        seen.append((tuple(padded.shape), kw["mode"], ops.mode,
+                     ops.slabs.dtype))
+        return real(padded, ops, **kw)
 
     monkeypatch.setattr(features, "mel_spectrogram_cuda", spy)
     wav = _noise(rng, 8000, batch=3)
     _port(wav, 8000, n_mel=32)
     _port(wav, 8000, n_mel=32, precision="parity")
     _port(wav, 8000, n_mel=32, log="power_db")
-    assert seen == [((3, 8200), "fast", torch.bfloat16),
-                    ((3, 8200), "parity", torch.float32)]
+    assert seen == [((3, 8200), "fast", "fast", torch.bfloat16),
+                    ((3, 8200), "parity", "parity", torch.float32)]
 
 
 def test_default_follows_explicit_global_precision(rng):

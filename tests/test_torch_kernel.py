@@ -326,9 +326,9 @@ def test_mel_bands_bound_each_filter():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("sr,win_ms", [(8000, 40.0), (22050, 40.0),
-                                       (48000, 40.0),   # 3 frames per lane
+                                       (48000, 40.0),   # 4 m-tiles
                                        (48000, 60.0),   # 2
-                                       (48000, 80.0)])  # 1
+                                       (48000, 80.0)])  # 2
 def test_cuda_kernel_matches_plain_on_the_card(sr, win_ms):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -338,23 +338,91 @@ def test_cuda_kernel_matches_plain_on_the_card(sr, win_ms):
     i16 = (rng.standard_normal((2, 3 * sr)) * 3000).astype(np.int16)
     f32 = i16.astype(np.float32) * np.float32(2.0**-15)
     n_frames = n_frames_for(i16.shape[1], win, hop)
-    ops = K.operands_from_numpy(c, s, fb, "cuda")
+    ops = K.prepare_operands(*K.operands_from_numpy(c, s, fb, "cuda"))
     out = {}
     for name, wav in (("i16", i16), ("f32", f32)):
         padded = np.stack([reflect_pad_center(w, win) for w in wav])
         x = torch.from_numpy(padded).cuda()
         before = K.LAUNCHES
-        out[name] = K.mel_spectrogram_cuda(x, *ops, win=win, hop=hop,
+        out[name] = K.mel_spectrogram_cuda(x, ops, win=win, hop=hop,
                                            n_frames=n_frames)
         assert K.LAUNCHES == before + 1
-    plain = K.mel_spectrogram_plain(x, *ops, win=win, hop=hop,
-                                    n_frames=n_frames)
-    one = K.mel_spectrogram_cuda(x[1], *ops, win=win, hop=hop,
+    plain = K.mel_spectrogram_plain(x, ops.c, ops.s, ops.fb, win=win,
+                                    hop=hop, n_frames=n_frames)
+    one = K.mel_spectrogram_cuda(x[1], ops, win=win, hop=hop,
                                  n_frames=n_frames)
     torch.cuda.synchronize()
     assert torch.equal(out["i16"], out["f32"])
     assert torch.equal(one, out["f32"][1])  # batch rows are independent
     torch.testing.assert_close(out["f32"], plain, atol=ATOL, rtol=RTOL)
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module: its f32_agree rule, swept tones and f64
+    witness."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_one_m_tile_on_the_card():
+    """A 120 ms window at 48 kHz (one m-tile a block) on chip_smoke's swept
+    tones, by chip_smoke's f32_agree rule as the split kernel's card test:
+    int16 bit-equal to f32, batch rows independent."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cs = _chip_smoke()
+    win, hop, c, s, fb = _setup(48000, 120.0)
+    i16 = cs.make_signal(np.random.default_rng(48000), 48000, 3.0, 2)
+    n_frames = n_frames_for(i16.shape[1], win, hop)
+    ops = K.prepare_operands(*K.operands_from_numpy(c, s, fb, "cuda"))
+    padded = np.stack([reflect_pad_center(w, win) for w in i16])
+    x = {"i16": torch.from_numpy(padded).cuda(),
+         "f32": torch.from_numpy(padded.astype(np.float32)
+                                 * np.float32(2.0**-15)).cuda()}
+    kw = dict(win=win, hop=hop, n_frames=n_frames)
+    out = {k: K.mel_spectrogram_cuda(v, ops, **kw) for k, v in x.items()}
+    one = K.mel_spectrogram_cuda(x["f32"][1], ops, **kw)
+    plain = K.mel_spectrogram_plain(x["f32"], ops.c, ops.s, ops.fb, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out["i16"], out["f32"])
+    assert torch.equal(one, out["f32"][1])
+    cs.check_f32(out["f32"], plain, "parity kernel 48 kHz 120 ms")
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_one_bin_bands_of_white_noise_vs_f64():
+    """White noise through a 120 ms window at 48 kHz: 1392 bands, many of
+    one DFT bin, some 70 dB under their frame's peak.  The kernel and its
+    plain version (cuBLAS f32) are each held to an f64 witness of the same
+    operands by chip_smoke's f32_agree rule."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cs = _chip_smoke()
+    win, hop, c, s, fb = _setup(48000, 120.0)
+    i16 = (np.random.default_rng(48000).standard_normal((2, 3 * 48000))
+           * 3000).astype(np.int16)
+    n_frames = n_frames_for(i16.shape[1], win, hop)
+    padded = np.stack([reflect_pad_center(w, win) for w in i16])
+    ops = K.prepare_operands(*K.operands_from_numpy(c, s, fb, "cuda"))
+    x = torch.from_numpy(padded).cuda()
+    kw = dict(win=win, hop=hop, n_frames=n_frames)
+    got = K.mel_spectrogram_cuda(x, ops, **kw).cpu()
+    plain = K.mel_spectrogram_plain(x, ops.c, ops.s, ops.fb, **kw).cpu()
+    wit = cs.f64_witness(padded, ops.c, ops.s, ops.fb, **kw).float()
+    for name, y in (("kernel", got), ("plain", plain)):
+        err, note = cs.check_f32(y, wit, f"{name} vs the f64 witness")
+        print(f"white noise 48 kHz 120 ms, {name} vs f64: max|err| "
+              f"{err:.3g} dB ({note})")
 
 
 @pytest.mark.gpu
@@ -370,18 +438,19 @@ def test_fast_kernel_matches_plain_on_the_card(sr, win_ms):
     i16 = (rng.standard_normal((2, 3 * sr)) * 3000).astype(np.int16)
     f32 = i16.astype(np.float32) * np.float32(2.0**-15)
     n_frames = n_frames_for(i16.shape[1], win, hop)
-    ops = K.operands_bf16(*K.operands_from_numpy(c, s, fb, "cuda"))
+    ops = K.prepare_operands(
+        *K.operands_bf16(*K.operands_from_numpy(c, s, fb, "cuda")), "fast")
     out = {}
     for name, wav in (("i16", i16), ("f32", f32)):
         padded = np.stack([reflect_pad_center(w, win) for w in wav])
         x = torch.from_numpy(padded).cuda()
         before = K.LAUNCHES_BY_MODE["fast"]
-        out[name] = K.mel_spectrogram_cuda(x, *ops, win=win, hop=hop,
+        out[name] = K.mel_spectrogram_cuda(x, ops, win=win, hop=hop,
                                            n_frames=n_frames, mode="fast")
         assert K.LAUNCHES_BY_MODE["fast"] == before + 1
-    plain = K.mel_spectrogram_plain(x, *ops, win=win, hop=hop,
-                                    n_frames=n_frames, mode="fast")
-    one = K.mel_spectrogram_cuda(x[1], *ops, win=win, hop=hop,
+    plain = K.mel_spectrogram_plain(x, ops.c, ops.s, ops.fb, win=win,
+                                    hop=hop, n_frames=n_frames, mode="fast")
+    one = K.mel_spectrogram_cuda(x[1], ops, win=win, hop=hop,
                                  n_frames=n_frames, mode="fast")
     torch.cuda.synchronize()
     assert torch.equal(out["i16"], out["f32"])
@@ -389,3 +458,63 @@ def test_fast_kernel_matches_plain_on_the_card(sr, win_ms):
     d = (out["f32"] - plain).abs().flatten()
     assert d.max().item() < GREY_STEP
     assert d.kthvalue(int(np.ceil(0.99 * d.numel()))).values.item() < 0.01
+
+
+def _padded_tile_setup(name):
+    """Operands whose n_freq - 1 is no multiple of either kernel's tile
+    width (128 bins for parity, 256 for fast), so the last tile is
+    zero-padded: 8 kHz at a 10 ms window and f_overlap=3 (n_fft 384, 192
+    bins), and Whisper's 400-point DFT at 16 kHz (200 bins).  At the
+    session's own settings n_fft / 2 is a multiple of 256, f_overlap=3
+    included."""
+    from msv_tpu_torch.ops.mel import calc_mel_fb
+    from msv_tpu_torch.ops.windows import hann
+
+    if name == "f_overlap3":
+        sr = 8000
+        p = derive_stft_params(sr, SpecSetting(win_ms=10.0, f_overlap=3))
+        c, s = windowed_dft_matrices(default_stft_window(p.win_length,
+                                                         p.n_fft), p.n_fft)
+        return sr, p.win_length, p.hop_length, c, s, calc_mel_fb_default(
+            sr, p.n_fft)
+    sr, win, hop, n_fft = 16000, 400, 160, 400
+    c, s = windowed_dft_matrices(hann(win, False), n_fft)
+    return sr, win, hop, c, s, calc_mel_fb(sr, n_fft, 80, 0.0, None,
+                                           "slaney", np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["parity", "fast"])
+@pytest.mark.parametrize("setup", ["f_overlap3", "n_fft400"])
+def test_cuda_kernels_match_plain_with_a_padded_last_tile(setup, mode):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sr, win, hop, c, s, fb = _padded_tile_setup(setup)
+    ops = K.operands_from_numpy(c, s, fb, "cuda")
+    if mode == "fast":
+        ops = K.operands_bf16(*ops)
+    prep = K.prepare_operands(*ops, mode)
+    assert prep.n_tiles * prep.nb > prep.n_freq - 1  # a padded last tile
+    rng = np.random.default_rng(sr)
+    i16 = (rng.standard_normal((2, 2 * sr)) * 3000).astype(np.int16)
+    n_frames = n_frames_for(i16.shape[1], win, hop)
+    padded = np.stack([reflect_pad_center(w, win) for w in i16])
+    x = {"i16": torch.from_numpy(padded).cuda(),
+         "f32": torch.from_numpy(padded.astype(np.float32)
+                                 * np.float32(2.0**-15)).cuda()}
+    before = K.LAUNCHES_BY_MODE[mode]
+    got = {k: K.mel_spectrogram_cuda(v, prep, win=win, hop=hop,
+                                     n_frames=n_frames, mode=mode)
+           for k, v in x.items()}
+    assert K.LAUNCHES_BY_MODE[mode] == before + 2
+    plain = K.mel_spectrogram_plain(x["f32"], *ops, win=win, hop=hop,
+                                    n_frames=n_frames, mode=mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got["i16"], got["f32"])
+    if mode == "parity":
+        torch.testing.assert_close(got["f32"], plain, atol=ATOL, rtol=RTOL)
+    else:
+        d = (got["f32"] - plain).abs().flatten()
+        assert d.max().item() < GREY_STEP
+        assert d.kthvalue(int(np.ceil(0.99 * d.numel()))).values.item() < 0.01

@@ -226,13 +226,14 @@ def test_long_track_image_within_one_step(long_sessions):
 def test_fast_mode_session_takes_the_bf16_operands(tmp_path, monkeypatch,
                                                    rng):
     """Under set_precision_mode("fast") every session launch, one-shot or
-    streamed, gets mode="fast" and the bf16 operands."""
+    streamed, gets mode="fast" and the bf16 operands, prepared for it."""
     seen = []
     real = K.mel_spectrogram_cuda
 
-    def spy(padded, c, s, fb, **kw):
-        seen.append((kw["mode"], c.dtype, s.dtype, fb.dtype))
-        return real(padded, c, s, fb, **kw)
+    def spy(padded, ops, **kw):
+        seen.append((kw["mode"], ops.mode, ops.c.dtype, ops.slabs.dtype,
+                     ops.fb.dtype))
+        return real(padded, ops, **kw)
 
     monkeypatch.setattr(tmt, "mel_spectrogram_cuda", spy)
     monkeypatch.setattr(tstream, "mel_spectrogram_cuda", spy)
@@ -247,7 +248,7 @@ def test_fast_mode_session_takes_the_bf16_operands(tmp_path, monkeypatch,
     with precision_mode_scope("fast"):
         mt.add_tracks([0, 1], paths)
     bf = torch.bfloat16
-    assert seen == [("fast", bf, bf, bf)] * 2  # one group, one segment
+    assert seen == [("fast", "fast", bf, bf, bf)] * 2  # a group, a segment
     assert mt._state[1].n_frames_pad == 4096  # the streamed one
     parity = msv_tpu_torch.MultiTrack(device="cpu")
     parity.add_tracks([0, 1], paths)

@@ -1,0 +1,285 @@
+"""The parity and fast kernels' prepared operands and the parity kernel's
+3xTF32 arithmetic, on the CPU.
+
+* ``prepare_operands`` lays C and S out as the kernels' ring stages: its
+  slabs un-tile to C and S bit-exactly, with zeros in the padding; the last
+  bin's columns are kept apart, so tiles cover n_freq - 1 bins (no launch
+  walks K for a tile of one bin); ``bands`` are ``mel_bands(fb)``; every
+  slab is a 16-byte multiple.
+* ``split_tf32`` rounds as ``cvt.rna.tf32.f32`` does, and a 16-bit sample
+  splits exactly.
+* A 3xTF32 emulation of the parity function (three f32 matmuls over tf32
+  hi/lo values, whose products are exact in f32) is held to msv_tpu's
+  parity pipeline on JAX's CPU backend by chip_smoke's ``f32_agree`` rule,
+  on chip_smoke's swept tones at the six default rates and on white noise
+  through a 120 ms window at 48 kHz (one-bin bands 70 dB under their
+  frame's peak).
+
+The kernels themselves run on the card only (tests/test_torch_kernel.py).
+"""
+
+import importlib.util
+import os
+import types
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from msv_tpu_torch.config import SpecSetting, derive_stft_params  # noqa: E402
+from msv_tpu_torch.kernels import spectrogram_cuda as K  # noqa: E402
+from msv_tpu_torch.ops.dft import windowed_dft_matrices  # noqa: E402
+from msv_tpu_torch.ops.framing import n_frames_for, reflect_pad_center  # noqa: E402
+from msv_tpu_torch.ops.mel import calc_mel_fb_default  # noqa: E402
+from msv_tpu_torch.ops.stft import frame_device  # noqa: E402
+from msv_tpu_torch.ops.windows import default_stft_window  # noqa: E402
+
+RATES = [8000, 16000, 22050, 24000, 44100, 48000]
+MODES = ["parity", "fast"]
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module: its f32_agree rule and swept tones."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(_ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+@pytest.fixture(scope="module")
+def cs():
+    return _chip_smoke()
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX package's parity pipeline (absent on the card)."""
+    jnp = pytest.importorskip("jax.numpy")
+    from msv_tpu.kernels import pipeline
+
+    return types.SimpleNamespace(jnp=jnp, pipeline=pipeline)
+
+
+def _setup(sr, setting=SpecSetting()):
+    p = derive_stft_params(sr, setting)
+    c, s = windowed_dft_matrices(default_stft_window(p.win_length, p.n_fft),
+                                 p.n_fft)
+    return p.win_length, p.hop_length, c, s, calc_mel_fb_default(sr, p.n_fft)
+
+
+def _operands(sr, mode, setting=SpecSetting()):
+    win, hop, c, s, fb = _setup(sr, setting)
+    ops = K.operands_from_numpy(c, s, fb)
+    return K.operands_bf16(*ops) if mode == "fast" else ops
+
+
+def _untile(prep):
+    """(2, win_p, n_tiles * nb) C and S from the slabs' columns [0, nb)."""
+    t, k, _, ks, _ = prep.slabs.shape
+    body = prep.slabs[..., : prep.nb].permute(2, 1, 3, 0, 4)
+    return body.reshape(2, k * ks, t * prep.nb)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("sr", RATES)
+def test_prepare_operands_untiles_exactly(sr, mode):
+    c, s, fb = _operands(sr, mode)
+    prep = K.prepare_operands(c, s, fb, mode)
+    win, n_freq = c.shape
+    ks, nb, row = K.SLAB_LAYOUT[mode]
+    assert (prep.mode, prep.ks, prep.nb, prep.row) == (mode, ks, nb, row)
+    assert prep.slabs.dtype == c.dtype and prep.slabs.is_contiguous()
+    # tiles cover n_freq - 1 bins, none of them padded, at every default rate
+    assert (n_freq - 1) % nb == 0 and prep.n_tiles * nb == n_freq - 1
+    body = _untile(prep)
+    assert torch.equal(body[0, :win, : n_freq - 1], c[:, :-1])
+    assert torch.equal(body[1, :win, : n_freq - 1], s[:, :-1])
+    assert not body[:, win:].any()  # rows past win
+    assert not prep.slabs[..., nb:].any()  # the row padding
+    assert torch.equal(prep.tail, torch.stack([c[:, -1], s[:, -1]], dim=1))
+    assert prep.tail.is_contiguous() and prep.tail.shape == (win, 2)
+    assert torch.equal(prep.bands, K.mel_bands(fb))
+    assert torch.equal(prep.fb, fb) and prep.fb.is_contiguous()
+    # the compact filterbank: each band's weights over its own bins
+    for m, (lo, hi) in enumerate(prep.bands.tolist()):
+        w0 = int(prep.woff[m])
+        assert torch.equal(prep.wts[w0 : w0 + hi - lo], fb[lo:hi, m])
+    assert prep.wts.numel() == int((prep.bands[:, 1] - prep.bands[:, 0])
+                                   .sum())
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("sr", RATES)
+def test_slabs_are_whole_16_byte_runs(sr, mode):
+    prep = K.prepare_operands(*_operands(sr, mode), mode)
+    slab_bytes = prep.slabs[0, 0].numel() * prep.slabs.element_size()
+    assert slab_bytes == 2 * prep.ks * prep.row * prep.slabs.element_size()
+    assert slab_bytes % 16 == 0 and prep.slabs.data_ptr() % 16 == 0
+    # slab q = (t, j) starts q * slab_bytes in: a whole number of 16 bytes
+    assert prep.slabs.stride(1) * prep.slabs.element_size() == slab_bytes
+    assert prep.slabs.shape[1] == -(-prep.win // prep.ks)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_padded_last_tile_untiles_exactly(mode):
+    """8 kHz at a 10 ms window and f_overlap=3: n_fft 384, 192 bins, no
+    multiple of either tile width, so the last tile is zero-padded."""
+    c, s, fb = _operands(8000, mode, SpecSetting(win_ms=10.0, f_overlap=3))
+    prep = K.prepare_operands(c, s, fb, mode)
+    win, n_freq = c.shape
+    assert n_freq - 1 == 192
+    assert prep.n_tiles == -(-(n_freq - 1) // prep.nb)
+    assert prep.n_tiles * prep.nb > n_freq - 1
+    body = _untile(prep)
+    assert torch.equal(body[0, :win, : n_freq - 1], c[:, :-1])
+    assert torch.equal(body[1, :win, : n_freq - 1], s[:, :-1])
+    assert not body[:, :, n_freq - 1 :].any() and not body[:, win:].any()
+    assert torch.equal(prep.tail, torch.stack([c[:, -1], s[:, -1]], dim=1))
+
+
+def _rna_reference(x):
+    """tf32 rounding (10 explicit mantissa bits, nearest, ties away from
+    zero) in float64 arithmetic, independent of the bit trick."""
+    x = np.asarray(x, np.float64)
+    m, e = np.frexp(x)  # x = m * 2^e, 0.5 <= |m| < 1
+    q = np.sign(m) * np.floor(np.abs(m) * 2.0**11 + 0.5)
+    return (q * 2.0 ** (e - 11)).astype(np.float32)
+
+
+def test_split_tf32_rounds_as_cvt_rna():
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal(4096).astype(np.float32) * np.float32(1e3)
+    bits = x.view(np.uint32) & np.uint32(0xFFFFE000)
+    # exact ties (half a tf32 unit), both signs, and values one bit off
+    x[:512] = (bits[:512] | np.uint32(0x1000)).view(np.float32)
+    x[512:768] = (bits[512:768] | np.uint32(0x0FFF)).view(np.float32)
+    x[768:1024] = (bits[768:1024] | np.uint32(0x1001)).view(np.float32)
+    x[1024:1100] = bits[1024:1100].view(np.float32)  # already tf32
+    edge = np.array([0.0, -0.0, 1.0, -1.0, 2.0**-126, 1.5 * 2.0**-130,
+                     np.inf, -np.inf], np.float32)
+    x = np.concatenate([x, edge])
+    hi, lo = (t.numpy() for t in K.split_tf32(torch.from_numpy(x)))
+    fin = np.isfinite(x)
+    np.testing.assert_array_equal(hi[fin], _rna_reference(x[fin]))
+    np.testing.assert_array_equal(hi[~fin], x[~fin])
+    np.testing.assert_array_equal(lo[fin], _rna_reference(
+        x[fin].astype(np.float64) - hi[fin].astype(np.float64)))
+    # ties round away from zero
+    t = x[:512]
+    assert (np.abs(hi[:512]) > np.abs(t)).all()
+    # hi has 11 significant bits at most, lo too, and hi + lo is within
+    # 2^-21 of x
+    assert not (hi.view(np.uint32) & 0x1FFF).any()
+    assert not (lo.view(np.uint32) & 0x1FFF).any()
+    err = np.abs(hi[fin].astype(np.float64) + lo[fin] - x[fin])
+    assert (err <= np.abs(x[fin]) * 2.0**-21).all()
+
+
+def test_int16_samples_split_exactly():
+    x = (np.arange(-32768, 32768, dtype=np.int32).astype(np.float32)
+         * np.float32(2.0**-15))
+    hi, lo = K.split_tf32(torch.from_numpy(x))
+    assert torch.equal(hi + lo, torch.from_numpy(x))
+    # the products of two splits are exact in f32: 11 x 11 bits
+    a, b = hi[::97].double(), lo[::89].double()
+    n = min(len(a), len(b))
+    assert torch.equal((hi[::97][:n] * lo[::89][:n]).double(), a[:n] * b[:n])
+
+
+def tf32x3_parity(padded, c, s, fb, *, win, hop, n_frames):
+    """The parity kernel's function as it computes it on the card, in torch
+    ops: each DFT product as xh*ch + xl*ch + xh*cl over ``split_tf32``
+    values (three f32 matmuls; every product is exact in f32), the f32
+    magnitude, the f32 mel product and the kernel's dB."""
+    x = padded.to(torch.float32)
+    if padded.dtype == torch.int16:
+        x = x * 2.0**-15
+    fh, fl = K.split_tf32(frame_device(x, win, hop, n_frames))
+    (ch, cl), (sh, sl) = K.split_tf32(c), K.split_tf32(s)
+    re = fh @ ch + fl @ ch + fh @ cl
+    im = fh @ sh + fl @ sh + fh @ sl
+    mel = torch.sqrt(re * re + im * im) @ fb
+    return torch.where(mel > 1e-18, torch.log(mel) * (20.0 / np.log(10.0)),
+                       -360.0)
+
+
+def _jax_parity(jx, padded, c, s, fb, win, hop, n_frames):
+    jnp = jx.jnp
+    rows = np.atleast_2d(padded).astype(np.float32)
+    if padded.dtype == np.int16:
+        rows = rows * np.float32(2.0**-15)
+    out = [np.asarray(jx.pipeline.spec_pipeline(
+        jnp.asarray(r), jnp.asarray(c), jnp.asarray(s), jnp.asarray(fb),
+        jnp.int32(n_frames), win=win, hop=hop, n_frames=n_frames,
+        use_mel=True, mode="parity")[0]) for r in rows]
+    return torch.from_numpy(np.stack(out))
+
+
+def _hold_to_jax(cs, jx, i16, sr, setting=SpecSetting()):
+    win, hop, c, s, fb = _setup(sr, setting)
+    n_frames = n_frames_for(i16.shape[1], win, hop)
+    padded = np.stack([reflect_pad_center(w, win) for w in i16])
+    f32 = padded.astype(np.float32) * np.float32(2.0**-15)
+    ops = K.operands_from_numpy(c, s, fb)
+    kw = dict(win=win, hop=hop, n_frames=n_frames)
+    got = tf32x3_parity(torch.from_numpy(f32), *ops, **kw)
+    got16 = tf32x3_parity(torch.from_numpy(padded), *ops, **kw)
+    assert torch.equal(got, got16)  # int16 splits exactly
+    want = _jax_parity(jx, f32, c, s, fb, win, hop, n_frames)
+    agree, close = cs.f32_agree(got, want)
+    floor_share = (agree & ~close).float().mean().item()
+    err = (got - want).abs()
+    print(f"3xTF32 vs JAX parity, {sr} Hz: max {err.max().item():.3g} dB, "
+          f"{int((~close).sum())} bins by the f32 floor")
+    assert bool(agree.all()) and floor_share <= cs.FLOOR_SHARE
+
+
+@pytest.mark.parametrize("sr", RATES)
+def test_tf32x3_parity_matches_jax_on_swept_tones(sr, cs, jx):
+    i16 = cs.make_signal(np.random.default_rng(sr), sr, 1.0, 2)
+    _hold_to_jax(cs, jx, i16, sr)
+
+
+def test_tf32x3_parity_matches_jax_on_white_noise_one_bin_bands(cs, jx):
+    """A 120 ms window at 48 kHz: 1392 bands, many of one DFT bin, on white
+    noise (the case that broke the split kernel's first card test)."""
+    i16 = (np.random.default_rng(48000).standard_normal((2, 48000))
+           * 8000).astype(np.int16)
+    _hold_to_jax(cs, jx, i16, 48000, SpecSetting(win_ms=120.0))
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_cpu_route_takes_a_prepared_record(mode, rng):
+    ops = _operands(8000, mode)
+    win, hop = 320, 80
+    padded = torch.from_numpy(reflect_pad_center(
+        (rng.standard_normal(4000) * 0.3).astype(np.float32), win))
+    kw = dict(win=win, hop=hop, n_frames=n_frames_for(4000, win, hop),
+              mode=mode)
+    prep = K.prepare_operands(*ops, mode)
+    before = (K.LAUNCHES, dict(K.LAUNCHES_BY_MODE))
+    assert torch.equal(K.mel_spectrogram_cuda(padded, prep, **kw),
+                       K.mel_spectrogram_plain(padded, *ops, **kw))
+    assert (K.LAUNCHES, K.LAUNCHES_BY_MODE) == before
+    other = "fast" if mode == "parity" else "parity"
+    with pytest.raises(ValueError, match="prepared for mode"):
+        K.mel_spectrogram_cuda(padded, prep, **dict(kw, mode=other))
+    with pytest.raises(ValueError, match="prepared for win"):
+        K.mel_spectrogram_cuda(padded, prep, **dict(kw, win=win - 1))
+    with pytest.raises(TypeError):
+        K.mel_spectrogram_cuda(padded, prep, ops[2], **kw)
+
+
+@pytest.mark.parametrize("case", ["split", "bf16 in parity", "f32 in fast",
+                                  "fb rows"])
+def test_prepare_operands_rejects_what_no_kernel_takes(case):
+    c, s, fb = _operands(8000, "parity")
+    args = {"split": ((c, s, fb), "split"),
+            "bf16 in parity": (K.operands_bf16(c, s, fb), "parity"),
+            "f32 in fast": ((c, s, fb), "fast"),
+            "fb rows": ((c, s, fb[1:]), "parity")}[case]
+    with pytest.raises(ValueError):
+        K.prepare_operands(*args[0], args[1])
