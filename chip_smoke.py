@@ -7,7 +7,8 @@ Phases, each printing its lines:
   1. device   the card's name and power limit (nvidia-smi), torch, CUDA and
               nvcc versions;
   2. build    compiles the three mel dB kernels (f32 parity in 3xTF32,
-              bf16 fast, split-f32) from csrc/ into one library with nvcc,
+              bf16 fast, split-f32 on wgmma) from csrc/ into one library
+              with nvcc,
               and prints -Xptxas -v's registers and spills of each
               instantiation;
   3. kernel   the parity kernel (on operands laid out once by
@@ -26,7 +27,8 @@ Phases, each printing its lines:
               under 5% of bins more than 0.47 dB apart (deep nulls swing
               further); times of both kernels and the plain version;
   3c. split   (run after phase 3b, on its own seeded stream) the split-f32
-              kernel against its plain version (mode="split") at phase 3's
+              kernel (on a record laid out once by prepare_operands) against
+              its plain version (mode="split") at phase 3's
               shapes (f32_agree), int16 bit-equal to f32; against the parity
               kernel p99 < 0.01 dB and under 0.1% of bins more than 0.47 dB
               apart; on tests/test_pallas_kernel.py's two-tone signal at 16
@@ -733,8 +735,9 @@ def phase_split(K, rng):
     for sr in RATES:
         win, hop, ops = operands(sr, "cuda")
         ops16, ops_s = K.operands_bf16(*ops), K.operands_split(*ops)
-        rec, rec16 = (K.prepare_operands(*ops, "parity"),
-                      K.prepare_operands(*ops16, "fast"))
+        rec, rec16, rec_s = (K.prepare_operands(*ops, "parity"),
+                             K.prepare_operands(*ops16, "fast"),
+                             K.prepare_operands(*ops_s, "split"))
         i16 = make_signal(rng, sr, SECONDS, 2)
         n_frames = n_frames_for(i16.shape[1], win, hop)
         padded = np.stack([reflect_pad_center(x, win) for x in i16])
@@ -748,7 +751,7 @@ def phase_split(K, rng):
             kw = dict(win=win, hop=hop, n_frames=n_frames)
 
             def split(dtype="f32"):
-                return K.mel_spectrogram_cuda(x[dtype], *ops_s, mode="split",
+                return K.mel_spectrogram_cuda(x[dtype], rec_s, mode="split",
                                               **kw)
 
             def plain():
@@ -791,7 +794,7 @@ def phase_split(K, rng):
                 headline = (ms, plain_ms, f"{sr} Hz, B=1, f32, "
                             f"{n_frames} frames x {n_mel} mel",
                             *bound(K, "split", x["f32"], ops_s, n_frames))
-        del wave, ops, ops16, ops_s, rec, rec16
+        del wave, ops, ops16, ops_s, rec, rec16, rec_s
         torch.cuda.empty_cache()
 
     for sr in (16000, 48000):  # the JAX test's own signal and bounds
@@ -838,16 +841,16 @@ def split_ab(K, rng, minutes=30, seg=32768):
     wave = wave.to(torch.float32) * 2.0**-15
     segs = [wave[i * seg * hop : i * seg * hop + seg * hop + (win - hop)]
             for i in range(n_segs)]
-    # the parity and fast kernels take their operands prepared once
-    mode_ops = {"parity": (K.prepare_operands(*ops, "parity"),),
-                "split": K.operands_split(*ops),
-                "fast": (K.prepare_operands(*K.operands_bf16(*ops), "fast"),)}
+    # every kernel takes its operands prepared once
+    mode_ops = {"parity": K.prepare_operands(*ops, "parity"),
+                "split": K.prepare_operands(*K.operands_split(*ops), "split"),
+                "fast": K.prepare_operands(*K.operands_bf16(*ops), "fast")}
     outs = {m: torch.empty((n_segs * seg, ops[2].shape[1]), device="cuda")
             for m in mode_ops}
 
     def run(mode):
         for i, x in enumerate(segs):
-            K.mel_spectrogram_cuda(x, *mode_ops[mode], win=win, hop=hop,
+            K.mel_spectrogram_cuda(x, mode_ops[mode], win=win, hop=hop,
                                    n_frames=seg, mode=mode,
                                    out=outs[mode][i * seg : (i + 1) * seg])
 

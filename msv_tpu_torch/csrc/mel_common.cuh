@@ -1,21 +1,23 @@
 // Device helpers shared by the three fused mel dB kernels:
 // mel_spectrogram.cu (f32 parity mode, 3xTF32), mel_spectrogram_bf16.cu (bf16
-// fast mode) and mel_spectrogram_split.cu (split-f32 mode).  All stage
-// samples, compute the DFT magnitude of a tile of frequency bins into shared
-// memory, then run a sparse-band mel accumulation and the dB: the split
-// kernel with accumulate_bands and db_epilogue below, the parity and fast
-// kernels with mel_tile (the same sums, from shared-memory band tables,
-// stores coalesced, dB written by the tile that ends a band).
+// fast mode) and mel_spectrogram_split.cu (split-f32 mode, wgmma).  All
+// stage samples, compute the DFT magnitude of a tile of frequency bins into
+// shared memory, then run mel_tile: a sparse-band mel accumulation from
+// shared-memory band tables, stores coalesced, the dB written by the tile
+// that ends a band (in split form: each product as three bf16 products
+// over hi/lo planes of the magnitude and the filterbank).
 //
-// The parity and fast kernels also share the staging ring of C/S slabs
-// (bulk copies completing on mbarriers, below) and the leftover bin: their
-// operands come from kernels/spectrogram_cuda.py::prepare_operands, which
-// cuts C and S into slabs of KS rows x NB bins laid out as the ring stage's
-// shared-memory image (C rows, then S rows, at a padded row stride), each
-// slab one contiguous, 16-byte aligned run of bytes, and keeps the last
-// column of C and S (bin n_freq - 1 = n_fft / 2) apart.  Tiles then cover
-// n_freq - 1 = 2^k bins, and the last one computes the leftover bin with
-// SIMT FMAs over the kept columns: no launch walks K for a tile of one bin.
+// They share the staging ring of C/S slabs (bulk copies completing on
+// mbarriers, below) and the leftover bin: their operands come from
+// kernels/spectrogram_cuda.py::prepare_operands, which cuts C and S into
+// slabs of KS rows x NB bins laid out as the ring stage's shared-memory
+// image (parity and fast: C rows, then S rows, at a padded row stride;
+// split: the planes Ch, Cl, Sh, Sl in the 8 x 8 core matrices a wgmma
+// descriptor reads), each slab one contiguous, 16-byte aligned run of
+// bytes, and keeps the last column of C and S (bin n_freq - 1 = n_fft / 2)
+// apart.  Tiles then cover n_freq - 1 = 2^k bins, and the last one computes
+// the leftover bin with SIMT FMAs over the kept columns: no launch walks K
+// for a tile of one bin.
 
 #pragma once
 
@@ -44,12 +46,18 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-__device__ __forceinline__ float load_weight(const float* p) {
-  return __ldg(p);
+// A split-f32 pair as one word, the bf16 hi part in the low half, the lo
+// part in the high half, and back as floats (hi, lo).
+__device__ __forceinline__ uint32_t split_pack(float x) {
+  const __nv_bfloat16 h = __float2bfloat16_rn(x);
+  const __nv_bfloat162 p =
+      __halves2bfloat162(h, __float2bfloat16_rn(x - __bfloat162float(h)));
+  return *reinterpret_cast<const uint32_t*>(&p);
 }
 
-__device__ __forceinline__ float load_weight(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+__device__ __forceinline__ float2 split_unpack(uint32_t p) {
+  return make_float2(__uint_as_float(p << 16),
+                     __uint_as_float(p & 0xffff0000u));
 }
 
 // d += a . b on the tensor cores: one m16n8k16 tile, bf16 in, f32
@@ -77,114 +85,13 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(addr));
 }
 
-// The split-f32 pair of x as floats: hi = bf16_rn(x), lo = bf16_rn(x - hi)
-// (hi + lo carries about 16 mantissa bits of x).
-__device__ __forceinline__ float2 split_f32(float x) {
-  const float hi = __bfloat162float(__float2bfloat16_rn(x));
-  return make_float2(hi, __bfloat162float(__float2bfloat16_rn(x - hi)));
-}
-
-// out[f][m] (+)= sum over band m's bins in tile [k0, k0 + kt) of
-// mag[k - k0][f] * fb[k][m], for the TF frames of the block (nf valid).
-// A Slaney band covers a contiguous run of bins (`bands` gives [lo, hi) per
-// band), so only those bins are multiplied: about 2*n_freq FMAs a frame
-// instead of n_freq*n_mel, and the skipped products are exact zeros.  Each
-// (frame, band) sum has one owner thread, lane f % 32 of warp m % WARPS,
-// adding bins in increasing order: no atomics and deterministic.  The tile
-// holding a band's first bin stores, later tiles add.
-// SPLIT: fb is the bf16 hi plane, the lo plane follows it (n_freq * n_mel
-// further), and each bin adds mh*fbh + mh*fbl + ml*fbh with (mh, ml) the
-// split of the f32 magnitude: bf16 products, exact in f32, lo*lo dropped.
-template <int TF, bool SPLIT = false, typename MagT, typename FbT>
-__device__ __forceinline__ void accumulate_bands(
-    const MagT* mag, const FbT* __restrict__ fb, const int* __restrict__ bands,
-    float* o, int k0, int kt, int n_freq, int n_mel, int nf, int lane,
-    int warp) {
-  constexpr int FPL = (TF + 31) / 32;  // frames per lane
-  const long long plane = static_cast<long long>(n_freq) * n_mel;
-  for (int m = warp; m < n_mel; m += WARPS) {
-    const int lo = __ldg(bands + 2 * m);
-    const int ks = max(lo, k0);
-    const int ke = min(__ldg(bands + 2 * m + 1), min(k0 + kt, n_freq));
-    if (ks >= ke) continue;
-    float part[FPL];
-#pragma unroll
-    for (int h = 0; h < FPL; ++h) part[h] = 0.0f;
-    for (int k = ks; k < ke; ++k) {
-      const long long gi = static_cast<long long>(k) * n_mel + m;
-      const float wgt = load_weight(fb + gi);
-      float wlo = 0.0f;
-      if constexpr (SPLIT) wlo = load_weight(fb + plane + gi);
-#pragma unroll
-      for (int h = 0; h < FPL; ++h) {
-        const int f = h * 32 + lane;
-        if (f < TF) {
-          const float x = to_f32(mag[(k - k0) * TF + f]);
-          if constexpr (SPLIT) {
-            const float2 xs = split_f32(x);
-            part[h] = fmaf(xs.x, wgt, part[h]);
-            part[h] = fmaf(xs.x, wlo, part[h]);
-            part[h] = fmaf(xs.y, wgt, part[h]);
-          } else {
-            part[h] = fmaf(x, wgt, part[h]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < FPL; ++h) {
-      const int f = h * 32 + lane;
-      if (f < nf) {
-        float* dst = o + static_cast<long long>(f) * n_mel + m;
-        *dst = lo >= k0 ? part[h] : *dst + part[h];
-      }
-    }
-  }
-}
-
-// The mel sums in `o` rewritten as dB, over the entries this thread owns:
-// 20*ln(x)/ln(10) where x > 1e-18, else -360; bands with no support sum
-// to 0.
-template <int TF>
-__device__ __forceinline__ void db_epilogue(float* o,
-                                            const int* __restrict__ bands,
-                                            int n_mel, int nf, int lane,
-                                            int warp) {
-  constexpr int FPL = (TF + 31) / 32;
-  for (int m = warp; m < n_mel; m += WARPS) {
-    const bool any = __ldg(bands + 2 * m) < __ldg(bands + 2 * m + 1);
-#pragma unroll
-    for (int h = 0; h < FPL; ++h) {
-      const int f = h * 32 + lane;
-      if (f < nf) {
-        float* dst = o + static_cast<long long>(f) * n_mel + m;
-        const float x = any ? *dst : 0.0f;
-        *dst = x > kAmin ? logf(x) * kDbScale : kDbFloor;
-      }
-    }
-  }
-}
-
-// The card's opt-in shared memory per block, from which each kernel picks
-// the largest tile that fits.
-inline int smem_optin_limit(size_t* cap) {
-  int dev = 0, limit = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(
-        &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  }
-  *cap = static_cast<size_t>(limit);
-  return static_cast<int>(err);
-}
-
 // ---------------------------------------------------------------------------
 // The staging ring: C/S slabs copied by the copy engine, one bulk copy per
-// slab, each completing on its stage's mbarrier.  The fast kernel runs
-// WARPS consumer warps and one producer warp that keeps the ring full; the
-// parity kernel, whose registers a ninth warp would cut to 168 a thread
-// (three warps on one of the SM's four 16K-register partitions), refills
-// from thread 0 after a barrier.
+// slab, each completing on its stage's mbarrier.  The fast and split
+// kernels run WARPS consumer warps and one producer warp that keeps the
+// ring full; the parity kernel, whose registers a ninth warp would cut to
+// 168 a thread (three warps on one of the SM's four 16K-register
+// partitions), refills from thread 0 after a barrier.
 
 constexpr int kSlabRows = 16;   // C/S rows per slab (prepare_operands' KS)
 constexpr int kMaxStages = 8;   // ring stages at most
@@ -331,9 +238,10 @@ struct Ring {
   }
 };
 
-// A prepare_operands record as the parity and fast kernels read it (E: f32
-// or bf16): the C/S slabs, the kept columns of bin n_freq - 1 ((win, 2)),
-// the compact filterbank, the bands' [lo, hi) and their offsets into it.
+// A prepare_operands record as the kernels read it (E: f32, bf16, or, for
+// split, 32-bit words of two bf16): the C/S slabs, the kept columns of bin
+// n_freq - 1 ((win, 2) of E), the compact filterbank, the bands' [lo, hi)
+// and their offsets into it.
 template <typename E>
 struct Prepared {
   const E* slabs;
@@ -346,7 +254,8 @@ struct Prepared {
 };
 
 // The band tables (bands, woff, wts) as the mel pass reads them, from
-// shared memory.
+// shared memory.  The split kernel's weights are 32-bit words: the bf16 hi
+// part in the low half, the lo part in the high half.
 template <typename E>
 struct BandTables {
   const int* bands;
@@ -477,10 +386,15 @@ __device__ __forceinline__ float2 leftover_bin(const SampleT* chunk, int hs,
 }
 
 // ---------------------------------------------------------------------------
-// The parity and fast kernels' mel pass, over one frequency tile, bins
-// [k0, k0 + kt): accumulate_bands' sums with the filterbank of
-// prepare_operands staged in shared memory (each band's weights contiguous:
-// bin k of band m at wts[woff[m] + k - lo]).  Lane l takes bands ma + l,
+// The mel pass over one frequency tile, bins [k0, k0 + kt): out[f][m] (+)=
+// sum over band m's bins k in the tile of mag[k - k0][f] * fb[k][m].  A
+// Slaney band covers a contiguous run of bins (`bands` gives [lo, hi) per
+// band), so only those bins are multiplied: about 2*n_freq FMAs a frame
+// instead of n_freq*n_mel, and the skipped products are exact zeros.  The
+// filterbank of prepare_operands is staged in shared memory, each band's
+// weights contiguous: bin k of band m at wts[woff[m] + k - lo].  SPLIT:
+// magnitudes and weights are packed hi/lo pairs (split_pack) and each bin
+// adds mh*wl + ml*wh + mh*wh: bf16 products, exact in f32, lo*lo dropped.  Lane l takes bands ma + l,
 // ma + l + 32, ... of the tile's range [ma, mb), warp w frames w, w + 8,
 // ...: a warp's stores of one frame are consecutive bands, 128 contiguous
 // bytes.  Each (frame, band) sum has one owner thread adding bins in
@@ -495,7 +409,7 @@ __host__ __device__ constexpr int mag_stride() {
   return TF + 4 / static_cast<int>(sizeof(MagT));
 }
 
-template <int TF, typename MagT, typename WT>
+template <int TF, bool SPLIT = false, typename MagT, typename WT>
 __device__ __forceinline__ void mel_tile(const MagT* mag,
                                          const BandTables<WT>& tb, int ma,
                                          int mb, float* o, int k0, int kt,
@@ -511,8 +425,17 @@ __device__ __forceinline__ void mel_tile(const MagT* mag,
     const MagT* x = mag - k0 * MS;             // x[k * MS + f]
     for (int f = warp; f < nf; f += WARPS) {
       float part = 0.0f;
-      for (int k = ks; k < ke; ++k)
-        part = fmaf(to_f32(x[k * MS + f]), to_f32(w[k]), part);
+      for (int k = ks; k < ke; ++k) {
+        if constexpr (SPLIT) {
+          const float2 xs = split_unpack(x[k * MS + f]);
+          const float2 ws = split_unpack(w[k]);
+          part = fmaf(xs.x, ws.y, part);  // small terms first
+          part = fmaf(xs.y, ws.x, part);
+          part = fmaf(xs.x, ws.x, part);
+        } else {
+          part = fmaf(to_f32(x[k * MS + f]), to_f32(w[k]), part);
+        }
+      }
       float* dst = o + static_cast<long long>(f) * n_mel + m;
       const float v = lo >= k0 ? part : *dst + part;
       *dst = hi > k1 ? v : (v > kAmin ? logf(v) * kDbScale : kDbFloor);

@@ -1,34 +1,43 @@
-"""What bounds the parity and fast mel kernels on the card: source variants
-of both, each built and timed beside the sources as they are.
+"""What bounds the three mel kernels on the card: source variants of each,
+built and timed beside the sources as they are.
 
 Run from the repository root on a machine with a CUDA card and nvcc::
 
     python -m msv_tpu_torch.kernels.probe [--seconds 240] [--reps 5]
+        [--modes parity fast split] [--variants base no_ring ...]
 
 Each variant is a copy of ``csrc/`` with one textual change, built with
 ``nvcc`` (the package's flags) into ``build/msv_tpu_torch/probe/<variant>/``
-and loaded on its own.  Both kernels are called with the same prepared
+and loaded on its own.  The kernels are called with the same prepared
 operands on 240 s of noise at 48 and 8 kHz, B = 1, f32 input, and timed by
-CUDA events (median of ``reps`` after a warm-up).  Only ``base`` computes
-the right numbers; the others exist for their times:
+CUDA events (median of ``reps`` after a warm-up).  ``base``, ``no_fence``,
+``int_split``, ``mma_sync`` and ``no_fadd`` compute the right numbers (their
+largest distance from the plain version is printed); the others exist for
+their times:
 
 * ``base``: the sources as they are;
 * ``no_fence``: no ``fence.proxy.async`` before each bulk copy;
 * ``no_ring``: no copy and no wait, every slab read from stage 0 as it
   lies: the products alone;
-* ``no_mma``: no ``mma`` (the compiler then drops the loads and splits that
-  feed them): staging, ring, barriers and the mel pass alone;
-* ``bare``: neither ring nor ``mma``: sample staging, the mel pass and the
-  dB epilogue alone;
+* ``no_mma``: no ``mma`` or ``wgmma`` (the compiler then drops the loads
+  and splits that feed them): staging, ring, barriers and the mel pass
+  alone;
+* ``bare``: neither ring nor products: sample staging, the leftover bin and
+  the mel pass alone;
 * ``int_split`` (parity): tf32 rounding by integer add and mask instead of
   ``cvt.rna.tf32.f32`` (the same values for finite inputs);
 * ``no_split`` (parity): no split at all, each value passed as its own hi
   and lo;
-* ``one_pass`` (parity): only the hi*hi products, a third of the ``mma``;
+* ``one_pass`` (parity, split): only the hi*hi products, a third of them;
+* ``mma_sync`` (split): the products by ``mma.sync.m16n8k16`` instead of
+  ``wgmma`` (``MSV_SPLIT_WGMMA=0``), everything else the same;
+* ``no_fadd`` (split): each tile's products accumulated in the tensor
+  cores over the whole window instead of per-slab sums added by FADD;
 * ``bare_no_bands``, ``bare_no_stage``, ``bare_no_store``,
   ``bare_no_log``: ``bare`` without the mel pass, without the sample
   staging, without the mel pass's stores, or with them but without the dB.
 
+A variant that does not touch a mode's sources is not timed for that mode.
 With ``--sass`` it also prints the opcode counts of each kernel's f32,
 four-m-tile instantiation in ``base`` (``cuobjdump -sass``).
 
@@ -74,6 +83,8 @@ VARIANTS = {
          "const uint32_t (&b)[2]) {\n  return;\n"),
         ("mel_common.cuh", "uint32_t b0, uint32_t b1) {\n",
          "uint32_t b0, uint32_t b1) {\n  return;\n"),
+        ("mel_spectrogram_split.cu", "uint64_t desc, int keep) {\n",
+         "uint64_t desc, int keep) {\n  return;\n"),
     ],
 }
 _CVT = ('  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(hi) : "f"(x));\n'
@@ -89,7 +100,17 @@ VARIANTS["no_split"] = [("mel_spectrogram.cu", _CVT,
 VARIANTS["one_pass"] = [
     ("mel_spectrogram.cu",
      "              mma_tf32(part[m][mt][nt], al, bh[m][nt]);\n"
-     "              mma_tf32(part[m][mt][nt], ah, bl[m][nt]);\n", "")]
+     "              mma_tf32(part[m][mt][nt], ah, bl[m][nt]);\n", ""),
+    ("mel_spectrogram_split.cu",
+     "  wgmma_m64n128k16(d, ah, b_desc(b_lo), keep);\n"
+     "  wgmma_m64n128k16(d, al, b_desc(b_hi), 1);\n", "")]
+VARIANTS["mma_sync"] = [("mel_spectrogram_split.cu",
+                         "#define MSV_SPLIT_WGMMA 1", "#define MSV_SPLIT_WGMMA 0")]
+VARIANTS["no_fadd"] = [("mel_spectrogram_split.cu",
+                        "constexpr bool kStageFadd = true;",
+                        "constexpr bool kStageFadd = false;")]
+# the variants whose output is the kernel's function
+RIGHT = ("base", "no_fence", "int_split", "mma_sync", "no_fadd")
 _BANDS = "  const int k1 = k0 + kt;\n"
 VARIANTS["bare_no_bands"] = VARIANTS["bare"] + [
     ("mel_common.cuh", _BANDS, _BANDS + "  return;\n")]
@@ -102,11 +123,17 @@ VARIANTS["bare_no_log"] = VARIANTS["bare"] + [
 VARIANTS["bare_no_stage"] = VARIANTS["bare"] + [
     ("mel_spectrogram.cu", "  for (int r = warp; r < rows; r += WARPS) {",
      "  for (int r = warp; r < 0; r += WARPS) {"),
-    ("mel_spectrogram_bf16.cu",
-     "  for (int r = warp; r < rows && warp < WARPS; r += WARPS) {",
-     "  for (int r = warp; r < 0; r += WARPS) {")]
+    *((f, "  for (int r = warp; r < rows && warp < WARPS; r += WARPS) {",
+       "  for (int r = warp; r < 0; r += WARPS) {")
+      for f in ("mel_spectrogram_bf16.cu", "mel_spectrogram_split.cu"))]
 
-_SOURCES = ("mel_spectrogram.cu", "mel_spectrogram_bf16.cu")
+_SOURCES = {m: os.path.basename(K.SOURCES[m]) for m in K.MODES}
+
+
+def touches(name, mode):
+    """Whether variant ``name`` changes what mode ``mode`` is built from."""
+    return name == "base" or any(
+        f in (_SOURCES[mode], "mel_common.cuh") for f, _, _ in VARIANTS[name])
 
 
 def sass_opcodes(obj, kernel):
@@ -136,7 +163,7 @@ def _variant_dir(name):
     d = os.path.join(PROBE_DIR, name)
     shutil.rmtree(d, ignore_errors=True)
     os.makedirs(d)
-    for f in (*_SOURCES, "mel_common.cuh"):
+    for f in (*_SOURCES.values(), "mel_common.cuh"):
         shutil.copy(os.path.join(_CSRC, f), d)
     for f, old, new in VARIANTS[name]:
         path = os.path.join(d, f)
@@ -150,34 +177,41 @@ def _variant_dir(name):
     return d
 
 
-def build_all(names):
-    """One library per variant; all nvcc runs at once."""
+def build_all(names, modes, verbose=False):
+    """One library per variant, of the modes it touches; all nvcc runs at
+    once."""
     jobs = []
+    built = {name: [m for m in modes if touches(name, m)] for name in names}
     for name in names:
         d = _variant_dir(name)
-        objs = [os.path.join(d, f + ".o") for f in _SOURCES]
-        for src, obj in zip(_SOURCES, objs):
+        for m in built[name]:
+            src = _SOURCES[m]
             jobs.append(subprocess.Popen(
-                [K._nvcc(), *K.NVCC_FLAGS, "-c", "-o", obj,
-                 os.path.join(d, src)],
+                [K._nvcc(), *K.NVCC_FLAGS, "-c", "-o",
+                 os.path.join(d, src + ".o"), os.path.join(d, src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     for p in jobs:
         out = p.communicate()[0]
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed: {' '.join(p.args)}\n{out}")
+        if verbose:
+            print(out)
     libs = {}
     for name in names:
+        if not built[name]:
+            continue
         d = os.path.join(PROBE_DIR, name)
         so = os.path.join(d, "libprobe.so")
         subprocess.run([K._nvcc(), "-shared", "-o", so,
-                        *(os.path.join(d, f + ".o") for f in _SOURCES)],
+                        *(os.path.join(d, _SOURCES[m] + ".o")
+                          for m in built[name])],
                        check=True, capture_output=True)
         lib = ctypes.CDLL(so)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for fn in ("msv_mel_spectrogram", "msv_mel_spectrogram_bf16"):
-            getattr(lib, fn).argtypes = [p, i, ll, ll, i, *[p] * 7,
-                                         *[i] * 10, p]
-            getattr(lib, fn).restype = ctypes.c_int
+        for m in built[name]:
+            fn = getattr(lib, K.ENTRY_POINTS[m])
+            fn.argtypes = [p, i, ll, ll, i, *[p] * 7, *[i] * 10, p]
+            fn.restype = ctypes.c_int
         libs[name] = lib
     return libs
 
@@ -195,6 +229,8 @@ def _operands(sr, mode):
                                 "cuda")
     if mode == "fast":
         ops = K.operands_bf16(*ops)
+    elif mode == "split":
+        ops = K.operands_split(*ops)
     return p.win_length, p.hop_length, K.prepare_operands(*ops, mode)
 
 
@@ -219,19 +255,25 @@ def main():
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--rates", type=int, nargs="+", default=[48000, 8000])
     ap.add_argument("--variants", nargs="+", default=list(VARIANTS))
+    ap.add_argument("--modes", nargs="+", default=list(K.MODES),
+                    choices=K.MODES)
     ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--ptxas", action="store_true",
+                    help="print nvcc's output (registers, spills)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("probe: no CUDA device")
     from ..ops.framing import n_frames_for, reflect_pad_center
 
-    libs = build_all(args.variants)
+    libs = build_all(args.variants, args.modes, args.ptxas)
     if args.sass:
-        for src, kernel in (("mel_spectrogram.cu", "mel_db_tf32_kernelIfLi4E"),
-                            ("mel_spectrogram_bf16.cu",
-                             "mel_db_bf16_kernelIfLi4E")):
-            ops = sass_opcodes(os.path.join(PROBE_DIR, "base", src + ".o"),
-                               kernel)
+        for mode, kernel in (("parity", "mel_db_tf32_kernelIfLi4E"),
+                             ("fast", "mel_db_bf16_kernelIfLi4E"),
+                             ("split", "mel_db_split_kernelIfLi4E")):
+            if mode not in args.modes:
+                continue
+            ops = sass_opcodes(os.path.join(PROBE_DIR, "base",
+                                            _SOURCES[mode] + ".o"), kernel)
             print(f"[sass] {kernel}: {sum(ops.values())} instructions; "
                   + ", ".join(f"{k} {v}" for k, v in ops.most_common(25)))
     rng = np.random.default_rng(20261016)
@@ -239,15 +281,19 @@ def main():
     for sr in args.rates:
         n = int(args.seconds * sr)
         wav = (0.1 * rng.standard_normal(n)).astype(np.float32)
-        for mode in ("parity", "fast"):
+        for mode in args.modes:
             win, hop, ops = _operands(sr, mode)
             n_frames = n_frames_for(n, win, hop)
+            n_mel = ops.fb.shape[-1]
             x = torch.from_numpy(reflect_pad_center(wav, win)).cuda()
-            out = torch.empty((n_frames, ops.fb.shape[1]), device="cuda")
-            base = None
+            out = torch.empty((n_frames, n_mel), device="cuda")
+            want = K.mel_spectrogram_plain(x, ops.c, ops.s, ops.fb, win=win,
+                                           hop=hop, n_frames=n_frames,
+                                           mode=mode)
             for name in args.variants:
-                fn = getattr(libs[name], "msv_mel_spectrogram" + (
-                    "_bf16" if mode == "fast" else ""))
+                if not touches(name, mode):
+                    continue
+                fn = getattr(libs[name], K.ENTRY_POINTS[mode])
                 stream = torch.cuda.current_stream().cuda_stream
 
                 def run():
@@ -257,22 +303,23 @@ def main():
                              ops.woff.data_ptr(), ops.tile_bands.data_ptr(),
                              out.data_ptr(), win, hop,
                              n_frames,
-                             ops.n_freq, ops.fb.shape[1], ops.n_tiles,
-                             ops.wts.numel(), ops.ks, ops.nb, ops.row,
+                             ops.n_freq, n_mel, ops.n_tiles,
+                             ops.wts.shape[0], ops.ks, ops.nb, ops.row,
                              stream)
                     if err:
                         raise RuntimeError(f"{name} {mode}: error {err}")
 
+                out.fill_(float("nan"))
                 ms = time_ms(run, args.reps)
-                if name == "base":
-                    base = out.clone()
-                    ok = bool(torch.isfinite(base).all())
-                else:
-                    ok = None
+                note = ""
+                if name in RIGHT:
+                    err = (out - want).abs()
+                    note = (f" (finite: {bool(torch.isfinite(out).all())}, "
+                            f"max |err| vs plain {err.max().item():.3g} dB, "
+                            f"bins over 0.01 dB: {int((err > 0.01).sum())})")
                 results[f"{name}/{mode}/{sr}"] = ms
                 print(f"[probe] {name:10s} {mode:6s} {sr:5d} Hz B=1 "
-                      f"{n_frames} frames: {ms:.3f} ms"
-                      + ("" if ok is None else f" (finite: {ok})"))
+                      f"{n_frames} frames: {ms:.3f} ms{note}", flush=True)
     print(json.dumps(results))
 
 

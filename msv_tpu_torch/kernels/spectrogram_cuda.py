@@ -11,24 +11,24 @@ in its three modes:
   ``mma.sync``);
 * ``mode="split"``: split-f32, each f32 product as three bf16 tensor-core
   products over (hi, lo) pairs (``msv_tpu_torch/csrc/
-  mel_spectrogram_split.cu``; operands from ``operands_split``).
+  mel_spectrogram_split.cu``, ``wgmma``; operands from ``operands_split``).
 
 Each source's header says what bounds it on an H100 and how its design
-answers that; all include ``csrc/mel_common.cuh``, their shared mel band
-accumulation and dB epilogue, and the parity and fast kernels' staging ring
-and leftover bin.  They are built with ``nvcc`` at first use into one
-library under ``build/msv_tpu_torch/`` beside the package, keyed on the
-hash of the sources and the header, and loaded as a plain C library.
+answers that; all include ``csrc/mel_common.cuh``: the staging ring of C/S
+slabs, the leftover bin and the mel pass with its dB.  They are built with
+``nvcc`` at first use into one library under ``build/msv_tpu_torch/``
+beside the package, keyed on the hash of the sources and the header, and
+loaded as a plain C library.
 
 A kernel takes the reflect-padded 1-D wave ``(L,)`` or ``(B, L)`` (f32, or
-int16 scaled by 2^-15 as it is loaded) and masks ragged edges itself.  The
-parity and fast kernels take their operands as a ``MelOperands`` record
-from ``prepare_operands``: C and S cut into slabs laid out as the kernel's
+int16 scaled by 2^-15 as it is loaded) and masks ragged edges itself.  Each
+kernel takes its operands as a ``MelOperands`` record from
+``prepare_operands``: C and S cut into slabs laid out as the kernel's
 shared-memory image, the last bin's columns kept apart, ``fb`` and its band
 supports, made once per rate and cached by the caller.  Given plain
 ``(C, S, fb)`` (``(win, n_freq)``, ``(win, n_freq)``, ``(n_freq, n_mel)``;
-f32 for parity, bf16 from ``operands_bf16`` for fast) the wrapper prepares
-them per call.  Split takes the ``(2, ...)`` hi/lo stacks of each.
+f32 for parity, bf16 from ``operands_bf16`` for fast, the ``(2, ...)`` hi/lo
+stacks of ``operands_split`` for split) the wrapper prepares them per call.
 
 ``mel_spectrogram_plain`` is the same function in torch ops, in every
 mode.  The wrapper ``mel_spectrogram_cuda`` takes it only for tensors on the
@@ -59,13 +59,17 @@ SOURCES = {
     "fast": os.path.join(_PKG_DIR, "csrc", "mel_spectrogram_bf16.cu"),
     "split": os.path.join(_PKG_DIR, "csrc", "mel_spectrogram_split.cu"),
 }
-# Device code every source includes (band accumulation, dB epilogue).
+# Device code every source includes (the ring, the leftover bin, the mel pass).
 HEADER = os.path.join(_PKG_DIR, "csrc", "mel_common.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "msv_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 MODES = ("parity", "fast", "split")
+# mode -> the library's entry point
+ENTRY_POINTS = {"parity": "msv_mel_spectrogram",
+                "fast": "msv_mel_spectrogram_bf16",
+                "split": "msv_mel_spectrogram_split"}
 # Kernel launches made by mel_spectrogram_cuda (the CPU route does not
 # count): the total, and by precision mode (the kernel it launched).
 LAUNCHES = 0
@@ -129,15 +133,12 @@ def build() -> ctypes.CDLL:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         wave = [p, i, ll, ll, i]  # wave, is_i16, stride, length, batch
         shape = [i] * 5  # win, hop, n_frames, n_freq, n_mel
-        for name in ("msv_mel_spectrogram", "msv_mel_spectrogram_bf16"):
+        for name in ENTRY_POINTS.values():
             # slabs, tail, wts, bands, woff, tile_bands, out; n_tiles,
             # n_wts, ks, nb, row
             getattr(lib, name).argtypes = [*wave, *[p] * 7, *shape,
                                            *[i] * 5, p]
             getattr(lib, name).restype = ctypes.c_int
-        # c, s, fb, bands, out
-        lib.msv_mel_spectrogram_split.argtypes = [*wave, *[p] * 5, *shape, p]
-        lib.msv_mel_spectrogram_split.restype = ctypes.c_int
         lib.msv_cuda_error_string.argtypes = [ctypes.c_int]
         lib.msv_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -284,10 +285,27 @@ _OPERANDS = {
     "fast": (torch.bfloat16, 2, "operands_bf16"),
     "split": (torch.bfloat16, 3, "operands_split"),
 }
-# The slab layout of the modes whose kernels stage C/S through the ring
-# (csrc/mel_spectrogram.cu and mel_spectrogram_bf16.cu check it): rows per
-# slab, bins per frequency tile, padded row stride in elements.
-SLAB_LAYOUT = {"parity": (16, 128, 136), "fast": (16, 256, 264)}
+# The slab layout each kernel stages through the ring (its source checks
+# it): rows per slab, bins per frequency tile, and the padded row stride in
+# elements (parity, fast) or, for split, the side of the 8 x 8 core matrices
+# its planes are cut into.
+SLAB_LAYOUT = {"parity": (16, 128, 136), "fast": (16, 256, 264),
+               "split": (16, 128, 8)}
+
+
+def _check_operand_types(c, s, fb, mode):
+    """Raise unless c, s and fb are of ``mode``'s dtype and rank (a split
+    stack mixed with a plain matrix raises here, as in msv_tpu)."""
+    if mode not in MODES:
+        raise ValueError(f"unknown precision mode: {mode!r}")
+    dtype, ndim, maker = _OPERANDS[mode]
+    for name, t in (("c", c), ("s", s), ("fb", fb)):
+        if t.dtype != dtype or t.ndim != ndim or (ndim == 3
+                                                  and t.shape[0] != 2):
+            raise ValueError(
+                f"c, s and fb must all be {'(2, ...) ' if ndim == 3 else ''}"
+                f"{ndim}-D {dtype} tensors in mode {mode!r} (make them with "
+                f"{maker}); {name} is {t.dtype} {tuple(t.shape)}")
 
 
 @dataclass(frozen=True, eq=False)
@@ -297,33 +315,41 @@ class MelOperands:
     ``(c, s, fb)``."""
 
     mode: str
-    c: torch.Tensor  # (win, n_freq), the mode's dtype (the plain version's)
+    # (win, n_freq), the mode's dtype (the plain version's); split: the
+    # (2, win, n_freq) hi/lo stack
+    c: torch.Tensor
     s: torch.Tensor
-    fb: torch.Tensor  # (n_freq, n_mel), contiguous
+    fb: torch.Tensor  # (n_freq, n_mel), contiguous; split: (2, n_freq, n_mel)
     bands: torch.Tensor  # (n_mel, 2) int32: mel_bands(fb)
     # the filterbank over each band's bins: band m's weights for bins
-    # [lo, hi) are wts[woff[m] : woff[m] + hi - lo]
+    # [lo, hi) are wts[woff[m] : woff[m] + hi - lo]; split: (n_wts, 2),
+    # each weight as its (hi, lo) pair
     wts: torch.Tensor
     woff: torch.Tensor  # (n_mel,) int32
     # (n_tiles, 2) int32: the bands [ma, mb) that each frequency tile's bins
     # meet (the last tile's include bin n_freq - 1)
     tile_bands: torch.Tensor
-    # (n_tiles, n_k, 2, ks, row): slab (t, j) is rows [j*ks, (j+1)*ks) of
-    # bins [t*nb, (t+1)*nb) of C, then of S; zeros past win, past bin
-    # n_freq - 2 and in columns [nb, row)
+    # parity, fast: (n_tiles, n_k, 2, ks, row): slab (t, j) is rows
+    # [j*ks, (j+1)*ks) of bins [t*nb, (t+1)*nb) of C, then of S; zeros past
+    # win, past bin n_freq - 2 and in columns [nb, row).
+    # split: (n_tiles, n_k, 4, ks/8, nb/8, 8, 8): slab (t, j) as the planes
+    # Ch, Cl, Sh, Sl, each cut into 8 x 8 core matrices: element [p, a, b,
+    # r, q] is row j*ks + 8*a + r, bin t*nb + 8*b + q of plane p
     slabs: torch.Tensor
-    tail: torch.Tensor  # (win, 2): C[:, n_freq-1] and S[:, n_freq-1]
+    # (win, 2): C[:, n_freq-1] and S[:, n_freq-1]; split: (win, 4), that
+    # column of Ch, Cl, Sh, Sl
+    tail: torch.Tensor
     ks: int
     nb: int
     row: int
 
     @property
     def win(self):
-        return self.c.shape[0]
+        return self.c.shape[-2]
 
     @property
     def n_freq(self):
-        return self.c.shape[1]
+        return self.c.shape[-1]
 
     @property
     def n_tiles(self):
@@ -331,35 +357,32 @@ class MelOperands:
 
 
 def prepare_operands(c, s, fb, mode="parity"):
-    """The parity or fast kernel's operands as a ``MelOperands`` record,
-    from that mode's ``(C, S, fb)`` (f32 from ``operands_from_numpy``, or
-    bf16 from ``operands_bf16``), on their device.
+    """One kernel's operands as a ``MelOperands`` record, from that mode's
+    ``(C, S, fb)`` (f32 from ``operands_from_numpy``, bf16 from
+    ``operands_bf16``, or the hi/lo stacks of ``operands_split``), on their
+    device.
 
     C and S are cut into slabs of ``ks`` rows x ``nb`` bins
     (``SLAB_LAYOUT``), each laid out as the kernel's ring stage in shared
-    memory: C's rows, then S's, at a padded row stride, every slab
-    contiguous and 16-byte aligned, so that one bulk copy stages it.  Tiles
+    memory, every slab contiguous and 16-byte aligned, so that one bulk
+    copy stages it.  Parity and fast: C's rows, then S's, at a padded row
+    stride.  Split: the four planes Ch, Cl, Sh, Sl, each as 8 x 8 core
+    matrices of 128 contiguous bytes (bins contiguous within a row of 8),
+    first along the bins, then the two groups of 8 rows: the order a
+    ``wgmma`` shared-memory descriptor reads without swizzle.  Tiles
     cover bins ``[0, n_freq - 1)``; the last tile is zero-padded where
     ``nb`` does not divide ``n_freq - 1`` (it does at every default rate:
     n_freq - 1 = n_fft / 2).  Bin ``n_freq - 1``'s columns are kept apart
     (``tail``): the last tile computes that bin with SIMT FMAs instead of a
     K sweep of its own.  ``bands`` are ``mel_bands(fb)``, made here once
-    instead of at every launch, and ``wts`` the filterbank compacted to
-    each band's bins, contiguous per band.  Made once per rate and cached
-    by the caller; the record holds ``c``, ``s`` and ``fb`` too, for the
-    plain version."""
-    if mode not in SLAB_LAYOUT:
-        raise ValueError(f"prepare_operands takes mode 'parity' or 'fast', "
-                         f"got {mode!r} (split takes operands_split's stacks)")
-    dtype, _, maker = _OPERANDS[mode]
-    for name, t in (("c", c), ("s", s), ("fb", fb)):
-        if t.dtype != dtype or t.ndim != 2:
-            raise ValueError(
-                f"c, s and fb must all be 2-D {dtype} tensors in mode "
-                f"{mode!r} (make them with {maker}); {name} is {t.dtype} "
-                f"{tuple(t.shape)}")
-    win, n_freq = c.shape
-    if s.shape != c.shape or fb.shape[0] != n_freq or win < 1:
+    instead of at every launch (for split over the union of the hi and lo
+    planes' support), and ``wts`` the filterbank compacted to each band's
+    bins, contiguous per band (for split each weight as its (hi, lo) pair).
+    Made once per rate and cached by the caller; the record holds ``c``,
+    ``s`` and ``fb`` too, for the plain version."""
+    _check_operand_types(c, s, fb, mode)
+    win, n_freq = c.shape[-2:]
+    if s.shape != c.shape or fb.shape[-2] != n_freq or win < 1:
         raise ValueError(f"c and s must be (win, n_freq) and fb (n_freq, "
                          f"n_mel), got {tuple(c.shape)}, {tuple(s.shape)} "
                          f"and {tuple(fb.shape)}")
@@ -369,22 +392,31 @@ def prepare_operands(c, s, fb, mode="parity"):
     n_bins = n_freq - 1
     n_tiles = max(1, -(-n_bins // nb))
     n_k = -(-win // ks)
-    body = torch.zeros((2, n_k * ks, n_tiles * nb), dtype=dtype,
+    if mode == "split":
+        n_k += n_k % 2  # its slab loop runs in pairs: one more zero slab
+    # the planes the ring carries: C, S, or Ch, Cl, Sh, Sl
+    planes = torch.cat([t.reshape(-1, win, n_freq) for t in (c, s)])
+    n_p = planes.shape[0]
+    body = torch.zeros((n_p, n_k * ks, n_tiles * nb), dtype=c.dtype,
                        device=c.device)
-    body[0, :win, :n_bins] = c[:, :n_bins]
-    body[1, :win, :n_bins] = s[:, :n_bins]
-    slabs = torch.zeros((n_tiles, n_k, 2, ks, row), dtype=dtype,
-                        device=c.device)
-    slabs[..., :nb] = body.reshape(2, n_k, ks, n_tiles, nb).permute(
-        3, 1, 0, 2, 4)
-    tail = torch.stack([c[:, n_bins], s[:, n_bins]], dim=1).contiguous()
+    body[:, :win, :n_bins] = planes[:, :, :n_bins]
+    if mode == "split":
+        slabs = body.reshape(n_p, n_k, ks // row, row, n_tiles, nb // row,
+                             row).permute(4, 1, 0, 2, 5, 3, 6).contiguous()
+    else:
+        slabs = torch.zeros((n_tiles, n_k, n_p, ks, row), dtype=c.dtype,
+                            device=c.device)
+        slabs[..., :nb] = body.reshape(n_p, n_k, ks, n_tiles, nb).permute(
+            3, 1, 0, 2, 4)
+    tail = planes[:, :, n_bins].T.contiguous()
     bands = mel_bands(fb)
     widths = (bands[:, 1] - bands[:, 0]).long()
     woff = torch.cumsum(widths, 0) - widths
     band = torch.repeat_interleave(torch.arange(len(widths),
                                                 device=fb.device), widths)
     pos = torch.arange(int(widths.sum()), device=fb.device)
-    wts = fb[bands[band, 0].long() + pos - woff[band], band].contiguous()
+    wts = fb[..., bands[band, 0].long() + pos - woff[band], band]
+    wts = (wts.T if mode == "split" else wts).contiguous()
     k0 = torch.arange(n_tiles, device=fb.device) * nb
     k1 = torch.clamp(k0 + nb, max=n_bins)
     k1[-1] = n_freq
@@ -410,24 +442,12 @@ def _check_wave(padded, win, hop, n_frames):
 
 
 def _check(padded, c, s, fb, win, hop, n_frames, mode):
-    if mode not in MODES:
-        raise ValueError(f"unknown precision mode: {mode!r}")
-    dtype, ndim, maker = _OPERANDS[mode]
-    # a split stack mixed with a plain matrix raises here, as in msv_tpu
-    for name, t in (("c", c), ("s", s), ("fb", fb)):
-        if t.dtype != dtype or t.ndim != ndim or (ndim == 3
-                                                  and t.shape[0] != 2):
-            raise ValueError(
-                f"c, s and fb must all be {'(2, ...) ' if ndim == 3 else ''}"
-                f"{ndim}-D {dtype} tensors in mode {mode!r} (make them with "
-                f"{maker}); {name} is {t.dtype} {tuple(t.shape)}")
-    if ndim == 3:
-        c, s, fb = c[0], s[0], fb[0]
-    n_freq = c.shape[1]
-    if c.shape != (win, n_freq) or s.shape != (win, n_freq):
+    _check_operand_types(c, s, fb, mode)
+    n_freq = c.shape[-1]
+    if c.shape[-2:] != (win, n_freq) or s.shape != c.shape:
         raise ValueError(f"c and s must be (win={win}, n_freq), got "
                          f"{tuple(c.shape)} and {tuple(s.shape)}")
-    if fb.shape[0] != n_freq:
+    if fb.shape[-2] != n_freq:
         raise ValueError(f"fb must be (n_freq={n_freq}, n_mel), got "
                          f"{tuple(fb.shape)}")
     _check_wave(padded, win, hop, n_frames)
@@ -463,10 +483,10 @@ def mel_spectrogram_cuda(padded, *operands, win, hop, n_frames,
 
     Frame k is ``padded[..., k*hop : k*hop + win]``.  ``mode`` picks the
     kernel.  ``operands`` are one ``MelOperands`` record of that mode
-    (``prepare_operands``; parity and fast), or ``c, s, fb``: f32
-    (``operands_from_numpy``) for "parity", their bf16 copies
-    (``operands_bf16``) for "fast", which are then prepared for this call,
-    and their (hi, lo) stacks (``operands_split``) for "split".  ``out``, if
+    (``prepare_operands``), or ``c, s, fb``, which are then prepared for
+    this call: f32 (``operands_from_numpy``) for "parity", their bf16
+    copies (``operands_bf16``) for "fast", their (hi, lo) stacks
+    (``operands_split``) for "split".  ``out``, if
     given, is a contiguous float32 tensor of the result's shape that the
     kernel writes (a row range of a larger plane, for instance) and that is
     returned.
@@ -505,26 +525,18 @@ def mel_spectrogram_cuda(padded, *operands, win, hop, n_frames,
     batch, length = wave.shape
     if out is None:
         out = torch.empty(shape, dtype=torch.float32, device=wave.device)
-    if mode == "split":
-        bands = mel_bands(fb)  # held until the launch has been issued
-        args = (c.data_ptr(), s.data_ptr(), fb.data_ptr(), bands.data_ptr(),
-                out.data_ptr(), win, hop, n_frames, n_freq, n_mel)
-    else:
-        if ops is None:
-            ops = prepare_operands(c, s, fb, mode)
-        args = (ops.slabs.data_ptr(), ops.tail.data_ptr(),
-                ops.wts.data_ptr(), ops.bands.data_ptr(),
-                ops.woff.data_ptr(), ops.tile_bands.data_ptr(),
-                out.data_ptr(),
-                win, hop, n_frames, n_freq, n_mel,
-                ops.n_tiles, ops.wts.numel(), ops.ks, ops.nb, ops.row)
-    fn = {"parity": lib.msv_mel_spectrogram,
-          "fast": lib.msv_mel_spectrogram_bf16,
-          "split": lib.msv_mel_spectrogram_split}[mode]
+    if ops is None:
+        ops = prepare_operands(c, s, fb, mode)
+    fn = getattr(lib, ENTRY_POINTS[mode])
     with torch.cuda.device(wave.device):
         stream = torch.cuda.current_stream(wave.device).cuda_stream
         err = fn(wave.data_ptr(), int(wave.dtype == torch.int16), length,
-                 length, batch, *args, stream)
+                 length, batch, ops.slabs.data_ptr(), ops.tail.data_ptr(),
+                 ops.wts.data_ptr(), ops.bands.data_ptr(),
+                 ops.woff.data_ptr(), ops.tile_bands.data_ptr(),
+                 out.data_ptr(), win, hop, n_frames, n_freq, n_mel,
+                 ops.n_tiles, ops.wts.shape[0], ops.ks, ops.nb, ops.row,
+                 stream)
     if err != 0:
         msg = lib.msv_cuda_error_string(err).decode()
         raise RuntimeError(f"mel_spectrogram kernel ({mode}) launch failed: "

@@ -14,7 +14,10 @@ lo.hi).  Tolerances:
   120 dB / 255 grey step), under a twentieth of fast mode's max, p99 < 0.01
   dB;
 * the int16 route equals the f32 route exactly: a 16-bit sample splits
-  exactly into (hi, lo).
+  exactly into (hi, lo);
+* a ``prepare_operands(mode="split")`` record gives the same bits as the
+  hi/lo stacks it was made from (its layout is pinned in
+  tests/test_torch_tf32.py).
 
 The CUDA kernel is held to the plain version on the card only:
 python -m pytest --noconftest -m gpu tests/test_torch_split.py
@@ -94,10 +97,13 @@ def _pallas_modes(jx, sr, rng):
     ref = {mode: _pallas(jx, padded, ops, mode=mode, **kw)
            for mode, ops in (("split", (c4, s4, fb4)),
                              ("parity", (c3, s3, fb3)), ("fast", bf))}
-    got = K.mel_spectrogram_cuda(
-        torch.from_numpy(padded), *K.operands_split(
-            *K.operands_from_numpy(c, s, fb)),
-        win=win, hop=hop, n_frames=n_frames, mode="split").numpy()
+    stacks = K.operands_split(*K.operands_from_numpy(c, s, fb))
+    call = dict(win=win, hop=hop, n_frames=n_frames, mode="split")
+    got = K.mel_spectrogram_cuda(torch.from_numpy(padded), *stacks,
+                                 **call).numpy()
+    ref["record"] = K.mel_spectrogram_cuda(
+        torch.from_numpy(padded), K.prepare_operands(*stacks, "split"),
+        **call).numpy()
     return got, ref
 
 
@@ -136,6 +142,14 @@ def test_plain_split_matches_pallas_split_interpret(sr, modes):
     d = np.abs(got - ref["split"])
     print(f"split plain vs Pallas split, {sr} Hz: max {d.max():.3g} dB")
     np.testing.assert_allclose(got, ref["split"], atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("sr", [16000, 48000])
+def test_split_record_on_cpu_equals_stacks_route(sr, modes):
+    got, ref = modes[sr]
+    np.testing.assert_array_equal(ref["record"], got)
+    np.testing.assert_allclose(ref["record"], ref["split"], atol=ATOL,
+                               rtol=RTOL)
 
 
 @pytest.mark.parametrize("sr", [16000, 48000])
@@ -207,9 +221,51 @@ def test_mixed_split_and_plain_operands_raise(case):
 def test_split_bands_cover_both_planes():
     _, _, c, s, fb = _setup(8000)
     fb[3, 2] = 1e-30  # hi and lo both keep it: inside the support
-    split = K.operands_split(*K.operands_from_numpy(c, s, fb))[2]
-    assert torch.equal(K.mel_bands(split),
+    stacks = K.operands_split(*K.operands_from_numpy(c, s, fb))
+    assert torch.equal(K.mel_bands(stacks[2]),
                        K.mel_bands(torch.from_numpy(fb)))
+    assert torch.equal(K.prepare_operands(*stacks, "split").bands,
+                       K.mel_bands(torch.from_numpy(fb)))
+
+
+@pytest.mark.parametrize("mode", ["parity", "fast"])
+def test_record_of_another_mode_given_to_split_raises(mode, rng):
+    win, hop, c, s, fb = _setup(8000)
+    ops = K.operands_from_numpy(c, s, fb)
+    rec = K.prepare_operands(*(K.operands_bf16(*ops) if mode == "fast"
+                               else ops), mode)
+    padded = torch.from_numpy(reflect_pad_center(
+        (rng.standard_normal(4000) * 0.3).astype(np.float32), win))
+    kw = dict(win=win, hop=hop, n_frames=n_frames_for(4000, win, hop))
+    with pytest.raises(ValueError, match="prepared for mode"):
+        K.mel_spectrogram_cuda(padded, rec, mode="split", **kw)
+    split = K.prepare_operands(*K.operands_split(*ops), "split")
+    with pytest.raises(ValueError, match="prepared for mode"):
+        K.mel_spectrogram_cuda(padded, split, mode=mode, **kw)
+    with pytest.raises(ValueError, match="prepared for win"):
+        K.mel_spectrogram_cuda(padded, split, mode="split",
+                               **dict(kw, win=win - 16))
+
+
+def test_split_record_int16_route_equals_f32_route_and_out(rng):
+    """The record on the CPU: int16 bit-equal to f32, and ``out=`` a row
+    range of a larger plane."""
+    win, hop, c, s, fb = _setup(22050)
+    i16 = (rng.standard_normal((3, 22050 // 4)) * 8000).astype(np.int16)
+    f32 = i16.astype(np.float32) * np.float32(2.0**-15)
+    n_frames = n_frames_for(i16.shape[1], win, hop)
+    rec = K.prepare_operands(
+        *K.operands_split(*K.operands_from_numpy(c, s, fb)), "split")
+    kw = dict(win=win, hop=hop, n_frames=n_frames, mode="split")
+    got = [K.mel_spectrogram_cuda(
+        torch.from_numpy(np.stack([reflect_pad_center(w, win) for w in wav])),
+        rec, **kw) for wav in (i16, f32)]
+    assert torch.equal(got[0], got[1])
+    plane = torch.full((5, n_frames, fb.shape[1]), 7.0)
+    x = torch.from_numpy(np.stack([reflect_pad_center(w, win) for w in f32]))
+    assert K.mel_spectrogram_cuda(x, rec, out=plane[1:4], **kw) is not None
+    assert torch.equal(plane[1:4], got[1])
+    assert bool((plane[0] == 7.0).all()) and bool((plane[4] == 7.0).all())
 
 
 def test_split_cpu_route_is_not_counted_as_a_launch(rng):
@@ -294,3 +350,91 @@ def test_split_kernel_matches_plain_on_the_card(sr, win_ms):
     assert torch.equal(out["i16"], out["f32"])
     assert torch.equal(one, out["f32"][1])
     cs.check_f32(out["f32"], plain, f"split kernel {sr} Hz {win_ms} ms")
+
+
+def _card_case(name):
+    """(sr, win, hop, c, s, fb, seconds, rows): shapes the frame and bin
+    tiling must mask."""
+    if name == "odd hop":  # 44.1 kHz: hop 441, 111 slabs padded to 112
+        return (44100, *_setup(44100)[:5], 3.0, 2)
+    if name == "n_fft 400":  # Whisper's DFT: 200 bins, a padded last tile
+        from msv_tpu_torch.ops.mel import calc_mel_fb
+        from msv_tpu_torch.ops.windows import hann
+
+        c, s = windowed_dft_matrices(hann(400, False), 400)
+        return (16000, 400, 160, c, s, calc_mel_fb(
+            16000, 400, 80, 0.0, None, "slaney", np.float32), 2.0, 2)
+    if name == "few frames":  # 37 frames: under one frame tile
+        return (8000, *_setup(8000)[:5], 0.36, 2)
+    assert name == "ragged batch of 3"  # 24 kHz, 301 frames: 4 tiles + 45
+    return (24000, *_setup(24000)[:5], 3.0, 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["odd hop", "n_fft 400", "few frames",
+                                  "ragged batch of 3"])
+def test_split_kernel_takes_a_record_on_the_card(case):
+    """The prepared record on the card against the plain version
+    (f32_agree): int16 bit-equal to f32, two launches bit-identical, one
+    launch counted per call, ``out=`` a row range of a larger plane."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cs = _chip_smoke()
+    sr, win, hop, c, s, fb, seconds, rows = _card_case(case)
+    stacks = K.operands_split(*K.operands_from_numpy(c, s, fb, "cuda"))
+    rec = K.prepare_operands(*stacks, "split")
+    if case == "n_fft 400":
+        assert rec.n_tiles * rec.nb > rec.n_freq - 1  # a padded last tile
+    i16 = cs.make_signal(np.random.default_rng(sr), sr, seconds, rows)
+    n_frames = n_frames_for(i16.shape[1], win, hop)
+    if case == "few frames":
+        assert n_frames < 64
+    padded = np.stack([reflect_pad_center(w, win) for w in i16])
+    x = {"i16": torch.from_numpy(padded).cuda(),
+         "f32": torch.from_numpy(padded.astype(np.float32)
+                                 * np.float32(2.0**-15)).cuda()}
+    kw = dict(win=win, hop=hop, n_frames=n_frames, mode="split")
+    before = K.LAUNCHES_BY_MODE["split"]
+    got = {k: K.mel_spectrogram_cuda(v, rec, **kw) for k, v in x.items()}
+    assert K.LAUNCHES_BY_MODE["split"] == before + 2
+    again = K.mel_spectrogram_cuda(x["f32"], rec, **kw)
+    plane = torch.full((rows + 2, n_frames, fb.shape[1]), 7.0, device="cuda")
+    K.mel_spectrogram_cuda(x["f32"], rec, out=plane[1 : rows + 1], **kw)
+    assert K.LAUNCHES_BY_MODE["split"] == before + 4
+    plain = K.mel_spectrogram_plain(x["f32"], *stacks, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got["i16"], got["f32"])
+    assert torch.equal(again, got["f32"])
+    assert torch.equal(plane[1 : rows + 1], got["f32"])
+    assert bool((plane[0] == 7.0).all()) and bool((plane[-1] == 7.0).all())
+    cs.check_f32(got["f32"], plain, f"split kernel, {case}")
+
+
+@pytest.mark.gpu
+def test_split_kernel_one_bin_bands_of_white_noise_vs_f64():
+    """White noise through a 120 ms window at 48 kHz (one-bin bands 70 dB
+    under their frame's peak): the kernel adds each slab's tensor-core sums
+    by FADD, so it, like its plain version, is held to an f64 witness of
+    the same split operands by chip_smoke's f32_agree rule."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cs = _chip_smoke()
+    win, hop, c, s, fb = _setup(48000, 120.0)
+    i16 = (np.random.default_rng(48000).standard_normal((2, 3 * 48000))
+           * 8000).astype(np.int16)
+    n_frames = n_frames_for(i16.shape[1], win, hop)
+    padded = np.stack([reflect_pad_center(w, win) for w in i16])
+    ops = K.operands_from_numpy(c, s, fb, "cuda")
+    stacks = K.operands_split(*ops)
+    x = torch.from_numpy(padded).cuda()
+    kw = dict(win=win, hop=hop, n_frames=n_frames)
+    got = K.mel_spectrogram_cuda(x, K.prepare_operands(*stacks, "split"),
+                                 mode="split", **kw).cpu()
+    plain = K.mel_spectrogram_plain(x, *stacks, mode="split", **kw).cpu()
+    wit = cs.f64_witness(padded, *ops, **kw).float()
+    for name, y in (("kernel", got), ("plain", plain)):
+        err, note = cs.check_f32(y, wit, f"split {name} vs the f64 witness")
+        print(f"white noise 48 kHz 120 ms, split {name} vs f64: max|err| "
+              f"{err:.3g} dB ({note})")

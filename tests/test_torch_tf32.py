@@ -1,11 +1,12 @@
-"""The parity and fast kernels' prepared operands and the parity kernel's
-3xTF32 arithmetic, on the CPU.
+"""The three kernels' prepared operands and the parity kernel's 3xTF32
+arithmetic, on the CPU.
 
 * ``prepare_operands`` lays C and S out as the kernels' ring stages: its
-  slabs un-tile to C and S bit-exactly, with zeros in the padding; the last
-  bin's columns are kept apart, so tiles cover n_freq - 1 bins (no launch
-  walks K for a tile of one bin); ``bands`` are ``mel_bands(fb)``; every
-  slab is a 16-byte multiple.
+  slabs un-tile to C and S (for split: to the four hi/lo planes, out of the
+  8 x 8 core matrices a wgmma descriptor reads) bit-exactly, with zeros in
+  the padding; the last bin's columns are kept apart, so tiles cover
+  n_freq - 1 bins (no launch walks K for a tile of one bin); ``bands`` are
+  ``mel_bands(fb)``; every slab is a 16-byte multiple.
 * ``split_tf32`` rounds as ``cvt.rna.tf32.f32`` does, and a 16-bit sample
   splits exactly.
 * A 3xTF32 emulation of the parity function (three f32 matmuls over tf32
@@ -36,7 +37,7 @@ from msv_tpu_torch.ops.stft import frame_device  # noqa: E402
 from msv_tpu_torch.ops.windows import default_stft_window  # noqa: E402
 
 RATES = [8000, 16000, 22050, 24000, 44100, 48000]
-MODES = ["parity", "fast"]
+MODES = ["parity", "fast", "split"]
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -73,14 +74,46 @@ def _setup(sr, setting=SpecSetting()):
 def _operands(sr, mode, setting=SpecSetting()):
     win, hop, c, s, fb = _setup(sr, setting)
     ops = K.operands_from_numpy(c, s, fb)
+    if mode == "split":
+        return K.operands_split(*ops)
     return K.operands_bf16(*ops) if mode == "fast" else ops
 
 
+def _planes(c, s):
+    """The planes the ring carries: C, S, or Ch, Cl, Sh, Sl."""
+    return [*c.reshape(-1, *c.shape[-2:]), *s.reshape(-1, *s.shape[-2:])]
+
+
 def _untile(prep):
-    """(2, win_p, n_tiles * nb) C and S from the slabs' columns [0, nb)."""
-    t, k, _, ks, _ = prep.slabs.shape
-    body = prep.slabs[..., : prep.nb].permute(2, 1, 3, 0, 4)
-    return body.reshape(2, k * ks, t * prep.nb)
+    """(planes, win_p, n_tiles * nb) from the slabs.  Parity and fast: the
+    rows' columns [0, nb).  Split: element by element out of the core
+    matrices, written apart from prepare_operands' reshape: slab (t, j)
+    holds row j*ks + 8*a + r, bin t*nb + 8*b + q of plane p at byte offset
+    ((((p*2 + a) * (nb/8) + b) * 8 + r) * 8 + q) * 2."""
+    if prep.mode != "split":
+        t, k, _, ks, _ = prep.slabs.shape
+        body = prep.slabs[..., : prep.nb].permute(2, 1, 3, 0, 4)
+        return body.reshape(2, k * ks, t * prep.nb)
+    n_t, n_k = prep.slabs.shape[:2]
+    flat = prep.slabs.reshape(n_t, n_k, -1).float().numpy()
+    ks, nb = prep.ks, prep.nb
+    out = np.empty((4, n_k * ks, n_t * nb), np.float32)
+    p, row, col = np.meshgrid(np.arange(4), np.arange(ks), np.arange(nb),
+                              indexing="ij")
+    a, r, b, q = row // 8, row % 8, col // 8, col % 8
+    off = (((p * (ks // 8) + a) * (nb // 8) + b) * 8 + r) * 8 + q
+    for t in range(n_t):
+        for j in range(n_k):
+            out[:, j * ks : (j + 1) * ks, t * nb : (t + 1) * nb] = (
+                flat[t, j][off])
+    return torch.from_numpy(out).to(prep.slabs.dtype)
+
+
+def _n_slabs(prep):
+    """Slabs per tile: the window's rows in slabs of ks; split pads them to
+    an even number (its slab loop runs in pairs)."""
+    n_k = -(-prep.win // prep.ks)
+    return n_k + n_k % 2 if prep.mode == "split" else n_k
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -88,27 +121,34 @@ def _untile(prep):
 def test_prepare_operands_untiles_exactly(sr, mode):
     c, s, fb = _operands(sr, mode)
     prep = K.prepare_operands(c, s, fb, mode)
-    win, n_freq = c.shape
+    win, n_freq = c.shape[-2:]
     ks, nb, row = K.SLAB_LAYOUT[mode]
     assert (prep.mode, prep.ks, prep.nb, prep.row) == (mode, ks, nb, row)
+    assert (prep.win, prep.n_freq) == (win, n_freq)
     assert prep.slabs.dtype == c.dtype and prep.slabs.is_contiguous()
     # tiles cover n_freq - 1 bins, none of them padded, at every default rate
     assert (n_freq - 1) % nb == 0 and prep.n_tiles * nb == n_freq - 1
     body = _untile(prep)
-    assert torch.equal(body[0, :win, : n_freq - 1], c[:, :-1])
-    assert torch.equal(body[1, :win, : n_freq - 1], s[:, :-1])
+    planes = _planes(c, s)
+    assert body.shape[0] == len(planes) == (4 if mode == "split" else 2)
+    for got, want in zip(body, planes):
+        assert torch.equal(got[:win, : n_freq - 1], want[:, :-1])
     assert not body[:, win:].any()  # rows past win
-    assert not prep.slabs[..., nb:].any()  # the row padding
-    assert torch.equal(prep.tail, torch.stack([c[:, -1], s[:, -1]], dim=1))
-    assert prep.tail.is_contiguous() and prep.tail.shape == (win, 2)
+    if mode != "split":
+        assert not prep.slabs[..., nb:].any()  # the row padding
+    assert torch.equal(prep.tail,
+                       torch.stack([p[:, -1] for p in planes], dim=1))
+    assert prep.tail.is_contiguous() and prep.tail.shape == (win, len(planes))
     assert torch.equal(prep.bands, K.mel_bands(fb))
     assert torch.equal(prep.fb, fb) and prep.fb.is_contiguous()
-    # the compact filterbank: each band's weights over its own bins
+    # the compact filterbank: each band's weights over its own bins (split:
+    # as (hi, lo) pairs)
     for m, (lo, hi) in enumerate(prep.bands.tolist()):
         w0 = int(prep.woff[m])
-        assert torch.equal(prep.wts[w0 : w0 + hi - lo], fb[lo:hi, m])
-    assert prep.wts.numel() == int((prep.bands[:, 1] - prep.bands[:, 0])
-                                   .sum())
+        want = fb[:, lo:hi, m].T if mode == "split" else fb[lo:hi, m]
+        assert torch.equal(prep.wts[w0 : w0 + hi - lo], want)
+    assert prep.wts.is_contiguous() and prep.wts.shape[0] == int(
+        (prep.bands[:, 1] - prep.bands[:, 0]).sum())
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -116,11 +156,18 @@ def test_prepare_operands_untiles_exactly(sr, mode):
 def test_slabs_are_whole_16_byte_runs(sr, mode):
     prep = K.prepare_operands(*_operands(sr, mode), mode)
     slab_bytes = prep.slabs[0, 0].numel() * prep.slabs.element_size()
-    assert slab_bytes == 2 * prep.ks * prep.row * prep.slabs.element_size()
+    # C and S rows at the padded stride, or four planes of whole core
+    # matrices (128 bytes each)
+    elems = (4 * prep.ks * prep.nb if mode == "split"
+             else 2 * prep.ks * prep.row)
+    assert slab_bytes == elems * prep.slabs.element_size()
     assert slab_bytes % 16 == 0 and prep.slabs.data_ptr() % 16 == 0
+    if mode == "split":
+        assert prep.row == 8 and prep.ks % 8 == 0 and prep.nb % 8 == 0
+        assert prep.tail.data_ptr() % 8 == 0 and prep.wts.data_ptr() % 4 == 0
     # slab q = (t, j) starts q * slab_bytes in: a whole number of 16 bytes
     assert prep.slabs.stride(1) * prep.slabs.element_size() == slab_bytes
-    assert prep.slabs.shape[1] == -(-prep.win // prep.ks)
+    assert prep.slabs.shape[1] == _n_slabs(prep)
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -129,15 +176,17 @@ def test_padded_last_tile_untiles_exactly(mode):
     multiple of either tile width, so the last tile is zero-padded."""
     c, s, fb = _operands(8000, mode, SpecSetting(win_ms=10.0, f_overlap=3))
     prep = K.prepare_operands(c, s, fb, mode)
-    win, n_freq = c.shape
+    win, n_freq = c.shape[-2:]
     assert n_freq - 1 == 192
     assert prep.n_tiles == -(-(n_freq - 1) // prep.nb)
     assert prep.n_tiles * prep.nb > n_freq - 1
     body = _untile(prep)
-    assert torch.equal(body[0, :win, : n_freq - 1], c[:, :-1])
-    assert torch.equal(body[1, :win, : n_freq - 1], s[:, :-1])
+    planes = _planes(c, s)
+    for got, want in zip(body, planes):
+        assert torch.equal(got[:win, : n_freq - 1], want[:, :-1])
     assert not body[:, :, n_freq - 1 :].any() and not body[:, win:].any()
-    assert torch.equal(prep.tail, torch.stack([c[:, -1], s[:, -1]], dim=1))
+    assert torch.equal(prep.tail,
+                       torch.stack([p[:, -1] for p in planes], dim=1))
 
 
 def _rna_reference(x):
@@ -264,7 +313,7 @@ def test_cpu_route_takes_a_prepared_record(mode, rng):
     assert torch.equal(K.mel_spectrogram_cuda(padded, prep, **kw),
                        K.mel_spectrogram_plain(padded, *ops, **kw))
     assert (K.LAUNCHES, K.LAUNCHES_BY_MODE) == before
-    other = "fast" if mode == "parity" else "parity"
+    other = "fast" if mode == "parity" else "parity"  # a record of `mode`
     with pytest.raises(ValueError, match="prepared for mode"):
         K.mel_spectrogram_cuda(padded, prep, **dict(kw, mode=other))
     with pytest.raises(ValueError, match="prepared for win"):
@@ -274,12 +323,19 @@ def test_cpu_route_takes_a_prepared_record(mode, rng):
 
 
 @pytest.mark.parametrize("case", ["split", "bf16 in parity", "f32 in fast",
-                                  "fb rows"])
+                                  "fb rows", "stacks in parity",
+                                  "bf16 in split", "split fb rows",
+                                  "no such mode"])
 def test_prepare_operands_rejects_what_no_kernel_takes(case):
     c, s, fb = _operands(8000, "parity")
+    stacks = K.operands_split(c, s, fb)
     args = {"split": ((c, s, fb), "split"),
             "bf16 in parity": (K.operands_bf16(c, s, fb), "parity"),
             "f32 in fast": ((c, s, fb), "fast"),
-            "fb rows": ((c, s, fb[1:]), "parity")}[case]
+            "fb rows": ((c, s, fb[1:]), "parity"),
+            "stacks in parity": (stacks, "parity"),
+            "bf16 in split": (K.operands_bf16(c, s, fb), "split"),
+            "split fb rows": ((*stacks[:2], stacks[2][:, 1:]), "split"),
+            "no such mode": ((c, s, fb), "exact")}[case]
     with pytest.raises(ValueError):
         K.prepare_operands(*args[0], args[1])
