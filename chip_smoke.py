@@ -74,8 +74,24 @@ Phases, each printing its lines:
               ms) and on 64 x 10 s at 16 kHz (25/10 ms): one fast launch per
               call by default, one parity launch with precision="parity",
               each against its plain version (fast: max < 0.47 dB, p99 <
-              0.01 dB; parity: f32_agree).
-Each path of phases 3c-6 is driven with the launch counts set to 0 just
+              0.01 dB; parity: f32_agree);
+  7. residency with the process's TF32 flags on: an unbounded session of
+              phase 4's seven WAVs renders phase 4's images exactly, and
+              sizes the budget at 3.5 times one rendered 48 kHz track's
+              device bytes; under that budget (the main path) add_tracks,
+              a spill of a grouped track that frees its plane's device
+              memory, a full-width spectrogram and waveform sweep equal to
+              phase 4's images with the resident bytes within the budget
+              after each render; the streamed hour of phase 5 spilled (plane
+              and adopted wave freed) and re-uploaded, its crop and waveform
+              crop equal before and after; adaptive crops of the 48 kHz
+              track (three adjacent 1200-px crops equal to their union, a
+              zoomed-out crop through the cached build equal to the
+              slice-local one) and of the hour (block=False pending, the
+              whole background build, cached == slice-local); the 10 s
+              track's adaptive plane against the CPU port's (within 60 dB of
+              the frame peak: max < 0.47 dB, p99 < 0.01 dB).
+Each path of phases 3c-7 is driven with the launch counts set to 0 just
 before it and read just after; comparisons run outside those windows.  The
 second-to-last line is a JSON object describing each kernel (its bound is
 computed from this run's shapes against the H100 SXM's published peaks);
@@ -410,7 +426,7 @@ def write_session_wavs(rng, d):
     return paths, p10
 
 
-def phase_session(K, rng):
+def phase_session(K, rng, work):
     from msv_tpu_torch import (FreqScale, MultiTrack, SpecSetting,
                                precision_mode_scope)
     from msv_tpu_torch.io import _native_audio as NA
@@ -419,7 +435,9 @@ def phase_session(K, rng):
     from msv_tpu_torch.session.multitrack import FRAME_BUCKET
     from msv_tpu_torch.utils import round_up_to
 
-    with tempfile.TemporaryDirectory(prefix="msv_chip_smoke_") as d:
+    # the WAVs stay in ``work`` for phase 7
+    with tempfile.TemporaryDirectory(prefix="msv_chip_smoke_", dir=work,
+                                     delete=False) as d:
         t0 = time.perf_counter()
         paths, p10 = write_session_wavs(rng, d)
         print(f"[session] wrote {len(paths)} x {SECONDS:.0f} s stereo PCM16 "
@@ -445,8 +463,9 @@ def phase_session(K, rng):
               f"add_tracks launched the kernel {K.LAUNCHES} times for "
               f"{len(groups)} groups")
         t0 = time.perf_counter()
+        imgs = {}
         for i in ids:
-            img = mt.get_spec_image(i, 100.0, 500)
+            img = imgs[i] = mt.get_spec_image(i, 100.0, 500)
             check(img.shape == (500, int(100 * SECONDS), 3)
                   and img.dtype == np.uint8,
                   f"track {i} image {img.shape} {img.dtype}")
@@ -644,7 +663,8 @@ def phase_session(K, rng):
               f"{os.path.relpath(NA.LIBRARY)} (built from msv_tpu_torch/"
               f"native/) decoded {NA.DECODES['native']} file(s), numpy "
               f"fallback {NA.DECODES['numpy']}")
-        return launches, fast_launches, lin_launches
+        return ((launches, fast_launches, lin_launches),
+                (paths, p10, imgs, wav_imgs))
 
 
 def phase_fast(K, rng):
@@ -911,7 +931,7 @@ def one_shot(K, src, scale, win, hop, n_frames, ops):
                                   n_frames=n_frames)
 
 
-def phase_streaming(K, rng, minutes=60, stereo_s=480.0):
+def phase_streaming(K, rng, work, minutes=60, stereo_s=480.0):
     from msv_tpu_torch import (MultiTrack, precision_mode_scope,
                                streaming_spec_db, streaming_spec_db_mmap)
     from msv_tpu_torch.io.audio import write_wav
@@ -921,7 +941,9 @@ def phase_streaming(K, rng, minutes=60, stereo_s=480.0):
     from msv_tpu_torch.render.envelope import EnvelopeState
     from msv_tpu_torch.session.multitrack import STREAMING_FRAME_THRESHOLD
 
-    with tempfile.TemporaryDirectory(prefix="msv_chip_stream_") as d:
+    # the hour stays in ``work`` for phase 7
+    with tempfile.TemporaryDirectory(prefix="msv_chip_stream_", dir=work,
+                                     delete=False) as d:
         t0 = time.perf_counter()
         hour = os.path.join(d, "hour_48k_mono.wav")
         write_hour_wav(rng, hour, minutes=minutes)
@@ -1109,7 +1131,7 @@ def phase_streaming(K, rng, minutes=60, stereo_s=480.0):
               f"{lerr:.3g} dB ({lnote}); dB range [{lmin:.3f}, {lmax:.3f}]")
         del ldb, one, padded
         torch.cuda.empty_cache()
-        return launches, fast_launches, lin_launches
+        return (launches, fast_launches, lin_launches), hour
 
 
 def phase_features(K, rng):
@@ -1180,6 +1202,238 @@ def phase_features(K, rng):
     return launches
 
 
+def synced(fn):
+    """(fn(), host seconds) around a device sync on each side."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_residency(K, smi, song, hour):
+    """7: the session's device-memory budget and adaptive renders, run with
+    the process's TF32 flags on (the sessions' GEMMs turn them off)."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        return _residency(K, smi, song, hour)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def _residency(K, smi, song, hour):
+    from msv_tpu_torch import MultiTrack, SpecSetting
+    from msv_tpu_torch.ops import multires
+    from msv_tpu_torch.parallel.streaming import _seg_plan_for
+    from msv_tpu_torch.session.multitrack import AudioTrack
+    from msv_tpu_torch.utils.errors import AdaptiveBuildPending
+
+    paths, p10, imgs, wav_imgs = song
+    ids = list(range(len(paths)))
+    mem = torch.cuda.memory_allocated
+
+    # the unbounded session: phase 4's images with TF32 on, its peak, and
+    # one rendered 48 kHz track's bytes (tests/test_hbm_budget.py's sizing)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = mem()
+    ref = MultiTrack(device="cuda")
+    _, ref_add_s = synced(lambda: ref.add_tracks(ids, paths))
+    add_stages = {"unbounded": ref.timer.summary()}
+    for i in ids:
+        check(np.array_equal(ref.get_spec_image(i, 100.0, 500), imgs[i])
+              and np.array_equal(ref.get_wav_image(i, 100.0, 200, -1.0, 1.0),
+                                 wav_imgs[i]),
+              f"track {i}: unbounded session with TF32 on != phase 4")
+    torch.cuda.synchronize()
+    peak_ref = torch.cuda.max_memory_allocated() - base
+    per = ref.hbm_stats()["per_track_bytes"][ids[-1]]
+    budget = 3 * per + per // 2
+    groups = {}
+    for i, t in ref.tracks.items():
+        groups.setdefault((t.sr, ref._state[i].n_frames_pad, t.wire),
+                          []).append(i)
+    grouped = [g for g in groups.values() if len(g) > 1]
+    check(len(grouped) == 1, f"expected one two-track group: {groups}")
+    del ref
+    torch.cuda.empty_cache()
+
+    # ---- the main path: the budgeted song session, then the hour
+    torch.cuda.synchronize()
+    reset_counts(K)
+    torch.cuda.reset_peak_memory_stats()
+    base = mem()
+    mt = MultiTrack(device="cuda", hbm_budget_bytes=budget)
+    _, add_s = synced(lambda: mt.add_tracks(ids, paths))
+    add_stages["budgeted"] = mt.timer.summary()
+    check(mt.hbm_stats()["resident_bytes"] <= budget, "resident after add")
+    # a grouped track that was never spilled: its plane is its own
+    g = [i for i in grouped[0] if isinstance(mt._state[i].spec_db,
+                                             torch.Tensor)]
+    check(g, f"no grouped track resident after add: {mt.hbm_stats()}")
+    plane = mt._state[g[0]].spec_db.untyped_storage().nbytes()
+    before = mem()
+    _, spill_g_s = synced(lambda: mt._spill_track(g[0]))
+    freed_g = before - mem()
+    check(freed_g >= plane, f"spilling grouped track {g[0]} freed {freed_g}"
+          f" of its {plane} bytes")
+    reup_s = res_s = None
+    for i in ids:
+        spilled = not isinstance(mt._state[i].spec_db, torch.Tensor)
+        im, dt = synced(lambda: mt.get_spec_image(i, 100.0, 500))
+        if spilled and reup_s is None:
+            reup_s = dt
+        check(np.array_equal(im, imgs[i]), f"budgeted track {i} image")
+        check(np.array_equal(mt.get_wav_image(i, 100.0, 200, -1.0, 1.0),
+                             wav_imgs[i]), f"budgeted track {i} waveform")
+        check(mt.hbm_stats()["resident_bytes"] <= budget,
+              f"resident bytes over the budget after track {i}")
+    _, res_s = synced(lambda: mt.get_spec_image(ids[-1], 100.0, 500))
+    stats = mt.hbm_stats()
+    check(stats["spills"] > 0 and stats["reuploads"] > 0 and reup_s,
+          f"no spill or re-upload: {stats}")
+    peak_budget = torch.cuda.max_memory_allocated() - base
+    plane48 = mt._state[ids[-1]].spec_db.untyped_storage().nbytes()
+    _, spill48_s = synced(lambda: mt._spill_track(ids[-1]))
+
+    # the hour: spill and re-upload of the 0.5 GB plane and adopted wave
+    mh = MultiTrack(device="cuda")
+    mh.add_tracks([0], [hour])
+    view = (0, 100.0, 500, 321.68, 333.68)
+    crop0 = mh.get_spec_image_crop(*view)
+    wcrop0 = mh.get_wav_image_crop(0, 100.0, 200, -1.0, 1.0, *view[3:])
+    env = mh._env_states[0]
+    check(env.origin == "adopted", f"hour envelope {env.origin}")
+    hbytes = (mh._state[0].spec_db.untyped_storage().nbytes()
+              + env.dev.untyped_storage().nbytes())
+    del env
+    before = mem()
+    _, spill_h_s = synced(lambda: mh._spill_track(0))
+    freed_h = before - mem()
+    check(freed_h >= hbytes, f"hour spill freed {freed_h} of {hbytes}")
+    crop1, reup_h_s = synced(lambda: mh.get_spec_image_crop(*view))
+    wcrop1 = mh.get_wav_image_crop(0, 100.0, 200, -1.0, 1.0, *view[3:])
+    check(np.array_equal(crop1, crop0) and np.array_equal(wcrop1, wcrop0)
+          and mh._env_states[0].origin == "upload",
+          "hour images after spill and re-upload")
+
+    # adaptive on the 48 kHz song track: stitching, cached == slice-local
+    tid = ids[-1]
+    parts, local_s, a = [], [], SECONDS / 4  # 60 s into a 240 s track
+    for s0 in (a, a + 3.0, a + 6.0):
+        im, dt = synced(lambda: mt.get_adaptive_spec_image_crop(
+            tid, 400.0, 500, s0, s0 + 3.0, wire="rgb"))
+        parts.append(im)
+        local_s.append(dt)
+    union = mt.get_adaptive_spec_image_crop(tid, 400.0, 500, a, a + 9.0,
+                                            wire="rgb")
+    check(all(p.shape == (500, 1200, 3) for p in parts)
+          and np.array_equal(np.concatenate(parts, axis=1), union),
+          "three adjacent adaptive crops != the crop over their union")
+    zoomed_out = (tid, 10.0, 500, 0.0, SECONDS + 1.0)
+    local = mt.get_adaptive_spec_image_crop(*zoomed_out)
+    mt.ADAPTIVE_MAX_FRAMES = 4096  # this session only: the cached path
+    try:
+        cached, song_build_s = synced(
+            lambda: mt.get_adaptive_spec_image_crop(*zoomed_out))
+        check(mt._adaptive_db[tid].full is not None, "no cached plane")
+        n_seg48 = -(-mt._adaptive_db[tid].nf // mt.ADAPTIVE_CHUNK)
+        check(np.array_equal(cached, local),
+              "cached adaptive render != the slice-local one")
+    finally:
+        del mt.ADAPTIVE_MAX_FRAMES
+    check(mt.hbm_stats()["resident_bytes"] <= budget,
+          "resident bytes over the budget after the adaptive build")
+
+    # adaptive on the hour: the whole background build
+    t0 = time.perf_counter()
+    try:
+        mh.get_adaptive_spec_image_crop(0, 1.0, 300, 0.0, 3601.0,
+                                        block=False)
+        check(False, "block=False served an hour it had not built")
+    except AdaptiveBuildPending as e:
+        pending = (e.built, e.total)
+    prog = mh.adaptive_build_progress()
+    full_h = mh.get_adaptive_spec_image_crop(0, 1.0, 300, 0.0, 3601.0)
+    torch.cuda.synchronize()
+    hour_build_s = time.perf_counter() - t0
+    hb = mh._adaptive_db[0]
+    check(hb.full is not None and hb.full.shape[0] == hb.nf
+          and bool(torch.isfinite(hb.full).all()) and full_h.shape[0] == 300,
+          "hour adaptive plane")
+    hlocal = mh.get_adaptive_spec_image_crop(*view)
+    mh.ADAPTIVE_MAX_FRAMES = 64
+    try:
+        check(np.array_equal(mh.get_adaptive_spec_image_crop(*view), hlocal),
+              "hour: cached adaptive crop != slice-local crop")
+    finally:
+        del mh.ADAPTIVE_MAX_FRAMES
+    launches = read_counts(K)
+    # ---- end of the main path
+    n_seg = len(_seg_plan_for(mh._state[0].n_frames, 4096, 8))
+    check(launches == counts(len(groups) + n_seg),
+          f"residency launches {launches}")
+
+    # a 10 s track's adaptive plane on the card against the CPU port's:
+    # within DEEP_DB of the frame's peak, max <= 0.47 dB and p99 <= 0.01 dB
+    # (tests/test_torch_multires.py's bound)
+    wav10 = AudioTrack(p10, SpecSetting()).wav
+    a10, _ = multires.multires_mel_spec_db(wav10, 44100, device="cuda")
+    c10, _ = multires.multires_mel_spec_db(wav10, 44100, device="cpu")
+    a10 = a10.cpu()
+    near = c10 >= c10.amax(dim=-1, keepdim=True) - DEEP_DB
+    err = (a10 - c10).abs()
+    e_max, e_p99 = err[near].max().item(), quantile(err[near], 0.99)
+    agree = bool(f32_agree(a10, c10)[0].all())
+    check(e_max <= GREY_STEP and e_p99 <= 0.01,
+          f"10 s adaptive plane vs CPU: max {e_max} dB, p99 {e_p99} dB")
+
+    mib = 2.0**20
+    print(f"[residency] {smi}; budget {budget / mib:.1f} MiB (3.5 x the "
+          f"48 kHz "
+          f"track's {per / mib:.1f} MiB); add (7 tracks, "
+          f"{len(groups)} launches) {add_s:.3f} s; spill of grouped track "
+          f"{g[0]} freed {freed_g / mib:.1f} MiB of its {plane / mib:.1f} MiB"
+          f" plane in {spill_g_s * 1e3:.1f} ms; sweep of 7 spectrogram and "
+          f"waveform images equal to phase 4's, resident <= budget after "
+          f"each; spills {stats['spills']}, re-uploads {stats['reuploads']}")
+    print(f"[residency] add, host clock: unbounded {ref_add_s:.3f} s, "
+          f"budgeted {add_s:.3f} s; stages: " + "; ".join(
+              f"{k} " + json.dumps({n[len("add_tracks."):]: round(v["total_s"],
+                                                                 4)
+                                    for n, v in st.items()
+                                    if n.startswith("add_tracks.")})
+              for k, st in add_stages.items()))
+    print(f"[residency] full-width 500x{int(100 * SECONDS)} render: resident "
+          f"{res_s:.3f} s, re-upload {reup_s:.3f} s; spill of the 48 kHz "
+          f"plane ({plane48 / mib:.1f} MiB) {spill48_s * 1e3:.1f} ms; peak "
+          f"max_memory_allocated over add + sweep: budgeted "
+          f"{peak_budget / mib:.1f} MiB, unbounded {peak_ref / mib:.1f} MiB")
+    print(f"[residency] hour: spill of plane + adopted wave freed "
+          f"{freed_h / mib:.1f} MiB in {spill_h_s:.3f} s; re-upload crop "
+          f"render {reup_h_s:.3f} s; crop and waveform crop equal before "
+          f"and after (waveform from the uploaded carrier)")
+    stages = {k: v["total_s"] for k, v in mt.timer.summary().items()
+              if k.startswith("adaptive")}
+    print(f"[adaptive] 48 kHz {SECONDS:.0f} s track: three adjacent 1200-px "
+          f"crops == "
+          f"their union; slice-local crops {local_s[0]:.3f} / "
+          f"{local_s[1]:.3f} / {local_s[2]:.3f} s; cached build + "
+          f"render ({n_seg48} segments of {mt.ADAPTIVE_CHUNK}) "
+          f"{song_build_s:.3f} s,"
+          f" == slice-local; stages, host clock: {json.dumps(stages)}")
+    print(f"[adaptive] hour: block=False pending at {pending[0]}/"
+          f"{pending[1]} frames (progress {prog}); whole background build "
+          f"+ render {hour_build_s:.3f} s; cached crop == slice-local; 10 s "
+          f"track vs CPU within {DEEP_DB:.0f} dB of the frame peak: max "
+          f"{e_max:.3g} dB p99 {e_p99:.3g} dB (f32_agree everywhere: "
+          f"{agree})")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
@@ -1191,20 +1445,24 @@ def main():
     rng = np.random.default_rng(SEED)
     heads = {}
     errs = {}
-    errs["parity"], heads["parity"] = phase_kernel(K, rng)
-    session = phase_session(K, rng)
-    # the later phases draw from their own streams (no check depends on
-    # the signals drawn: see f32_agree)
-    errs["fast"], heads["fast"] = phase_fast(K,
-                                             np.random.default_rng(SEED + 1))
-    errs["split"], heads["split"], split_path, _ = phase_split(
-        K, np.random.default_rng(SEED + 4))
-    paths = [*session, *phase_streaming(K, np.random.default_rng(SEED + 2)),
-             phase_features(K, np.random.default_rng(SEED + 3)), split_path]
+    with tempfile.TemporaryDirectory(prefix="msv_chip_smoke_") as work:
+        errs["parity"], heads["parity"] = phase_kernel(K, rng)
+        session, song = phase_session(K, rng, work)
+        # the later phases draw from their own streams (no check depends
+        # on the signals drawn: see f32_agree)
+        errs["fast"], heads["fast"] = phase_fast(
+            K, np.random.default_rng(SEED + 1))
+        errs["split"], heads["split"], split_path, _ = phase_split(
+            K, np.random.default_rng(SEED + 4))
+        streaming, hour = phase_streaming(K, np.random.default_rng(SEED + 2),
+                                          work)
+        paths = [*session, *streaming,
+                 phase_features(K, np.random.default_rng(SEED + 3)),
+                 split_path, phase_residency(K, smi, song, hour)]
     launches = {m: sum(p[m] for p in paths) for m in K.MODES}
     print(f"[launches] main-path launches by path (session, fast session, "
           f"linear session, streaming, fast streaming, linear streaming, "
-          f"features, split A/B): {paths}")
+          f"features, split A/B, residency): {paths}")
     kernels = []
     for mode, name, line in (("parity", "mel_spectrogram", 411),
                              ("fast", "mel_spectrogram_bf16", 411),

@@ -4,17 +4,21 @@ A port of the ``msv_tpu`` package to one NVIDIA H100: decode audio ->
 centered STFT -> Slaney mel -> dB through hand-written CUDA kernels
 (``kernels/spectrogram_cuda.py``: f32 parity, bf16 fast and split-f32), or
 the linear scale as PyTorch ops, streamed in segments for long files, then
-globally-normalized grey -> Lanczos3 resize -> colormapped RGB images and
-min/max waveform images as PyTorch ops; and the log-mel ML frontend
-(``features.py``) on the same kernels.  Module paths
-mirror ``msv_tpu`` so each counterpart is easy to find; every function
-takes tensors on an explicit ``device``.
+globally-normalized grey -> Lanczos3 resize -> colormapped RGB images,
+min/max waveform images and adaptive multi-resolution images
+(``ops/multires.py``) as PyTorch ops, under a session device-memory budget;
+and the log-mel ML frontend (``features.py``) on the same kernels.
+Module paths mirror ``msv_tpu`` so each counterpart is easy to find;
+every function takes tensors on an explicit ``device``.
 """
 
 from .config import (FreqScale, SpecSetting, StftParams, derive_stft_params,
-                     precision_mode_scope, set_precision_mode)
+                     get_precision_mode, get_session_hbm_budget,
+                     precision_mode_scope, set_precision_mode,
+                     set_session_hbm_budget)
 from .features import log_mel_spectrogram, log_mel_spectrogram_ragged
 from .parallel import streaming_spec_db, streaming_spec_db_mmap
+from .render.colormap import get_colormap
 from .session import AudioTrack, MultiTrack
 
 __all__ = [
@@ -24,10 +28,14 @@ __all__ = [
     "SpecSetting",
     "StftParams",
     "derive_stft_params",
+    "get_colormap",
+    "get_precision_mode",
+    "get_session_hbm_budget",
     "log_mel_spectrogram",
     "log_mel_spectrogram_ragged",
     "precision_mode_scope",
     "set_precision_mode",
+    "set_session_hbm_budget",
     "streaming_spec_db",
     "streaming_spec_db_mmap",
 ]

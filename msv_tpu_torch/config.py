@@ -15,10 +15,13 @@ The per-track parameter derivation follows ``AudioTrack::new`` (lib.rs:43-46)
 Note the guarantee ``win_length % hop_length == 0``.
 """
 
+import threading
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass
 from enum import Enum
 
 import numpy as np
+import torch
 
 from .utils import next_pow2
 
@@ -147,6 +150,53 @@ def precision_mode_is_explicit() -> bool:
     return _PRECISION_MODE_EXPLICIT
 
 
+# The torch form of msv_tpu's matmul precision rule.  Parity GEMMs are true
+# f32: TF32 off in cuBLAS and cuDNN for the duration of the block, whatever
+# the process has set.  The flags are process-wide, so nested and concurrent
+# blocks (a render thread and a background adaptive build) share one count:
+# the first to enter saves the caller's flags, the last to leave restores
+# them.
+_F32_LOCK = threading.Lock()
+_F32_DEPTH = 0
+_F32_SAVED = (False, False)
+
+
+@contextmanager
+def _true_f32():
+    global _F32_DEPTH, _F32_SAVED
+    with _F32_LOCK:
+        if _F32_DEPTH == 0:
+            _F32_SAVED = (torch.backends.cuda.matmul.allow_tf32,
+                          torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _F32_DEPTH += 1
+    try:
+        yield
+    finally:
+        with _F32_LOCK:
+            _F32_DEPTH -= 1
+            if _F32_DEPTH == 0:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = _F32_SAVED
+
+
+def precision_for(mode: str):
+    """A context manager for the torch-op GEMMs of precision ``mode``:
+    "parity" runs them in true f32 (TF32 off, the caller's flags restored
+    on exit); "fast" leaves the process's flags as they are."""
+    if mode == "parity":
+        return _true_f32()
+    if mode == "fast":
+        return nullcontext()
+    raise ValueError(f"unknown precision mode: {mode!r}")
+
+
+def matmul_precision():
+    """:func:`precision_for` of the session-wide mode."""
+    return precision_for(_PRECISION_MODE)
+
+
 # Image downlink wire format for get_spec_image/get_spec_image_crop.
 #   "grey8":  device ships the resized grey quantized to u8; the host
 #             paints RGB via a 256-entry LUT: 3x fewer device->host bytes
@@ -169,3 +219,50 @@ def set_image_wire(wire: str) -> None:
 
 def get_image_wire() -> str:
     return _IMAGE_WIRE
+
+
+# dB-export downlink format for get_spec_db.  "f32" is the raw, bit-exact
+# fetch and the only wire ported; msv_tpu's packed wires ("q16", "q12",
+# "q10", "q8") raise NotImplementedError.
+_DB_WIRE = "f32"
+_PACKED_DB_WIRES = ("q16", "q12", "q10", "q8")
+
+
+def check_db_wire(wire: str) -> None:
+    """Raise for a dB wire the port does not take."""
+    if wire in _PACKED_DB_WIRES:
+        raise NotImplementedError(
+            f"dB wire {wire!r} is not ported (ROADMAP queue 1 item 12: "
+            f"wire codec); use 'f32'")
+    if wire != "f32":
+        raise ValueError(f"unknown dB wire format: {wire!r}")
+
+
+def set_db_wire(wire: str) -> None:
+    global _DB_WIRE
+    check_db_wire(wire)
+    _DB_WIRE = wire
+
+
+def get_db_wire() -> str:
+    return _DB_WIRE
+
+
+# Session device-memory budget: the bytes the cached per-track state (dB
+# planes, envelope buffers, adaptive builds) may hold on the device before
+# the least-recently-rendered track spills to the host.  None = unbounded,
+# the reference's keep-everything behaviour (lib.rs:80).  An hour at 48 kHz
+# is a 0.5 GB dB plane.  Per-session override:
+# MultiTrack(hbm_budget_bytes=...).
+_SESSION_HBM_BUDGET: int | None = None
+
+
+def set_session_hbm_budget(n_bytes: int | None) -> None:
+    global _SESSION_HBM_BUDGET
+    if n_bytes is not None and n_bytes < 0:
+        raise ValueError(f"hbm budget must be >= 0 or None, got {n_bytes}")
+    _SESSION_HBM_BUDGET = n_bytes
+
+
+def get_session_hbm_budget() -> int | None:
+    return _SESSION_HBM_BUDGET

@@ -24,7 +24,8 @@ import functools
 import numpy as np
 import torch
 
-from .config import get_precision_mode, precision_mode_is_explicit
+from .config import (get_precision_mode, precision_for,
+                     precision_mode_is_explicit)
 from .kernels.spectrogram_cuda import (mel_spectrogram_cuda, operands_bf16,
                                        operands_from_numpy, prepare_operands,
                                        round_bf16)
@@ -42,18 +43,19 @@ def _features_core(padded_b, c, s, fb, *, win, hop, n_frames, log, mode,
     """Frames -> DFT GEMM pair -> |X| or |X|^2 -> mel GEMM -> ``log``, as
     torch ops over a (B, L) batch.  ``mode="fast"`` rounds each GEMM's
     operands to bf16 (f32 accumulation), as the TPU's single-pass MXU
-    precision does."""
+    precision does; parity is true f32 (``precision_for``)."""
     rnd = round_bf16 if mode == "fast" else (lambda x: x)
-    frames = rnd(frame_device(padded_b, win, hop, n_frames))
-    re = frames @ rnd(c)
-    im = frames @ rnd(s)
-    if spec == "power":
-        # mel on the POWER spectrum (|X|^2 @ fb), librosa's
-        # melspectrogram(power=2.0); not the square of the magnitude-mel
-        x = re * re + im * im
-    else:
-        x = torch.sqrt(re * re + im * im)
-    mel = rnd(x) @ rnd(fb)
+    with precision_for(mode):
+        frames = rnd(frame_device(padded_b, win, hop, n_frames))
+        re = frames @ rnd(c)
+        im = frames @ rnd(s)
+        if spec == "power":
+            # mel on the POWER spectrum (|X|^2 @ fb), librosa's
+            # melspectrogram(power=2.0); not the square of the magnitude-mel
+            x = re * re + im * im
+        else:
+            x = torch.sqrt(re * re + im * im)
+        mel = rnd(x) @ rnd(fb)
     if log == "amp_db":
         if spec == "power":
             return power_to_db(mel)  # power-domain: 10*log10 IS amp dB

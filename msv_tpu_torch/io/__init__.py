@@ -1,6 +1,7 @@
-"""Audio decode (host numpy + the native C++ decoder), copied from
-``msv_tpu.io``."""
+"""Audio decode (host numpy + the native C++ decoder) and the PNG and FLAC
+encoders, copied from ``msv_tpu.io``."""
 
 from .audio import open_audio_mono_ex, write_wav
+from .png import encode_png, write_png
 
-__all__ = ["open_audio_mono_ex", "write_wav"]
+__all__ = ["encode_png", "open_audio_mono_ex", "write_png", "write_wav"]

@@ -13,18 +13,29 @@
     -> horizontal Lanczos GEMM or banded gather -> clamp
     -> colormap (rgb) or quantized grey (grey8/grey16)
 
-The GEMMs are f32 ``torch.matmul``; parity needs TF32 off on the card
-(``MultiTrack`` sets it).  The session's mel route does not come here: it
-runs the fused kernels of ``kernels/spectrogram_cuda.py``.
+The GEMMs are f32 ``torch.matmul`` under ``precision_for("parity")`` in
+every mode (msv_tpu renders at HIGHEST in every mode; its fast-mode
+spectrogram GEMMs are single-pass, the port's stay f32): TF32 off for the
+call, the caller's flags restored after.  The vertical resize GEMM runs
+over fixed ``RENDER_BLOCK``-column blocks, so a frame's column meets one
+cuBLAS kernel whatever the plane's width: a render of a slice-local plane
+then equals the same columns of a wider plane bit for bit (adaptive crops
+stitch).  The session's mel route does not come here: it runs the fused
+kernels of ``kernels/spectrogram_cuda.py``.
 """
 
 import torch
 
+from ..config import precision_for
 from ..ops.decibel import amp_to_db
 from ..ops.stft import dft_magnitude
 from ..render.colormap import grey_to_rgb_planar
 from ..render.grey import spec_to_grey
 from ..render.resize import _apply_banded_cols
+from ..utils.debug import check_nan
+
+# Column block of the vertical resize GEMM (see the module docstring).
+RENDER_BLOCK = 2048
 
 
 def spec_pipeline(padded, c, s, mel_fb, n_valid, *, win, hop, n_frames,
@@ -52,9 +63,11 @@ def spec_pipeline(padded, c, s, mel_fb, n_valid, *, win, hop, n_frames,
     if padded.dtype in (torch.int16, torch.int32):
         # integer carrier: exact power-of-two scale on the device
         padded = padded.to(torch.float32) * scale
-    spec = dft_magnitude(padded, c, s, win=win, hop=hop, n_frames=n_frames)
-    if use_mel:
-        spec = spec @ mel_fb
+    with precision_for("parity"):  # true f32 in every mode
+        spec = dft_magnitude(padded, c, s, win=win, hop=hop,
+                             n_frames=n_frames)
+        if use_mel:
+            spec = spec @ mel_fb
     db = amp_to_db(spec)
     n_valid = torch.as_tensor(n_valid, device=db.device)
     frame = torch.arange(n_frames, device=db.device)
@@ -79,16 +92,34 @@ def spec_pipeline_batched(padded_b, c, s, mel_fb, n_valid, *, win, hop,
                          scale=scale)
 
 
+def blocked_matmul(a, b, block):
+    """``a @ b`` for a (M, K) and b (K, N), over fixed ``block``-column
+    blocks of b (the last zero-padded to the block): every block is one GEMM
+    of one shape and one contiguous layout, so a column's result does not
+    depend on N."""
+    k, n = b.shape
+    nb = -(-n // block)
+    bb = torch.nn.functional.pad(b, (0, nb * block - n))
+    bb = bb.reshape(k, nb, block).transpose(0, 1).contiguous()
+    out = a.new_empty((nb, a.shape[0], block))
+    for i in range(nb):
+        torch.matmul(a, bb[i], out=out[i])
+    return out.transpose(0, 1).reshape(a.shape[0], nb * block)[:, :n]
+
+
 def _resized_grey(spec_db, max_db, min_db, wv, wh_or_weights, *, height,
                   banded):
     grey = spec_to_grey(spec_db, max_db, min_db, height=height)  # (H, W)
-    x = torch.clamp(wv @ grey, 0.0, 1.0)
-    if banded:
-        left, wb = wh_or_weights
-        y = _apply_banded_cols(x, left, wb)
-    else:
-        y = x @ wh_or_weights.T
-    return torch.clamp(y, 0.0, 1.0)
+    with precision_for("parity"):
+        x = torch.clamp(blocked_matmul(wv, grey, RENDER_BLOCK), 0.0, 1.0)
+        if banded:
+            left, wb = wh_or_weights
+            y = _apply_banded_cols(x, left, wb)
+        else:
+            y = x @ wh_or_weights.T
+    y = torch.clamp(y, 0.0, 1.0)
+    check_nan(y, "the spectrogram render")
+    return y
 
 
 def render_rgb(spec_db, max_db, min_db, wv, wh_or_weights, *, height, banded):

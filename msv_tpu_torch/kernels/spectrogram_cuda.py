@@ -47,7 +47,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..config import precision_for
 from ..ops.stft import frame_device
+from ..utils.debug import check_nan
 
 _AMIN = 1e-18
 _DB_SCALE = 20.0 / math.log(10.0)
@@ -256,6 +258,12 @@ def mel_spectrogram_plain(padded, c, s, fb, *, win, hop, n_frames,
     if x.dtype == torch.int16:
         x = x.to(torch.float32) * 2.0**-15
     frames = frame_device(x, win, hop, n_frames)
+    with precision_for("parity"):  # every mode's products are f32 GEMMs
+        mel = _plain_mel(frames, c, s, fb, mode)
+    return torch.where(mel > _AMIN, torch.log(mel) * _DB_SCALE, _DB_FLOOR)
+
+
+def _plain_mel(frames, c, s, fb, mode):
     if mode == "split":
         if c.ndim == 2:
             c, s, fb = operands_split(c, s, fb)
@@ -265,8 +273,7 @@ def mel_spectrogram_plain(padded, c, s, fb, *, win, hop, n_frames,
         re = fh @ ch + fh @ cl + fl @ ch
         im = fh @ sh + fh @ sl + fl @ sh
         mh, ml = split_f32(torch.sqrt(re * re + im * im))
-        mel = mh @ fbh + mh @ fbl + ml @ fbh
-        return torch.where(mel > _AMIN, torch.log(mel) * _DB_SCALE, _DB_FLOOR)
+        return mh @ fbh + mh @ fbl + ml @ fbh
     c, s, fb = (t.to(torch.float32) for t in (c, s, fb))
     if mode == "fast":
         frames, c, s, fb = (round_bf16(t) for t in (frames, c, s, fb))
@@ -275,8 +282,7 @@ def mel_spectrogram_plain(padded, c, s, fb, *, win, hop, n_frames,
     mag = torch.sqrt(re * re + im * im)
     if mode == "fast":
         mag = round_bf16(mag)
-    mel = mag @ fb
-    return torch.where(mel > _AMIN, torch.log(mel) * _DB_SCALE, _DB_FLOOR)
+    return mag @ fb
 
 
 # mode -> (operand dtype, operand rank, the maker named in errors)
@@ -511,6 +517,7 @@ def mel_spectrogram_cuda(padded, *operands, win, hop, n_frames,
     if padded.device.type == "cpu":
         db = mel_spectrogram_plain(padded, c, s, fb, win=win, hop=hop,
                                    n_frames=n_frames, mode=mode)
+        check_nan(db, f"the {mode} mel kernel's plain version")
         return db if out is None else out.copy_(db)
     if padded.device.type != "cuda":
         raise ValueError(f"unsupported device: {padded.device}")
@@ -543,4 +550,5 @@ def mel_spectrogram_cuda(padded, *operands, win, hop, n_frames,
                            f"{msg}")
     LAUNCHES += 1
     LAUNCHES_BY_MODE[mode] += 1
+    check_nan(out, f"the {mode} mel kernel")
     return out

@@ -25,7 +25,7 @@ samples.
 import numpy as np
 import torch
 
-from ..config import get_precision_mode
+from ..config import get_precision_mode, precision_for
 from ..kernels.spectrogram_cuda import (MelOperands, mel_spectrogram_cuda,
                                         operands_bf16, prepare_operands)
 from ..ops.decibel import amp_to_db
@@ -149,21 +149,24 @@ def _torch_segment(seg, ops, out, *, win, hop, chunk_frames, scale, window,
     """msv_tpu's per-chunk streaming step as torch ops, into the rows
     ``out`` of one segment: frames -> DFT GEMM pair (``window`` None) or
     |rfft| of the windowed frames zero-padded to ``n_fft`` -> [mel GEMM]
-    -> amp_to_db, ``chunk_frames`` frames at a time."""
+    -> amp_to_db, ``chunk_frames`` frames at a time, in true f32 in every
+    precision mode (TF32 off for the call)."""
     c, s, fb = ops
     x = seg.to(torch.float32) * scale if seg.dtype == torch.int16 else seg
-    for f0 in range(0, out.shape[0], chunk_frames):
-        nf = min(chunk_frames, out.shape[0] - f0)
-        if window is not None:
-            # |X| does not depend on where the zero pad sits: a right pad
-            # replaces the centered one
-            frames = frame_device(x[f0 * hop:], win, hop, nf)
-            wf = torch.nn.functional.pad(frames * window, (0, n_fft - win))
-            mag = torch.fft.rfft(wf, dim=-1).abs()
-        else:
-            mag = dft_magnitude(x[f0 * hop:], c, s, win=win, hop=hop,
-                                n_frames=nf)
-        out[f0 : f0 + nf] = amp_to_db(mag if fb is None else mag @ fb)
+    with precision_for("parity"):
+        for f0 in range(0, out.shape[0], chunk_frames):
+            nf = min(chunk_frames, out.shape[0] - f0)
+            if window is not None:
+                # |X| does not depend on where the zero pad sits: a right
+                # pad replaces the centered one
+                frames = frame_device(x[f0 * hop:], win, hop, nf)
+                wf = torch.nn.functional.pad(frames * window,
+                                             (0, n_fft - win))
+                mag = torch.fft.rfft(wf, dim=-1).abs()
+            else:
+                mag = dft_magnitude(x[f0 * hop:], c, s, win=win, hop=hop,
+                                    n_frames=nf)
+            out[f0 : f0 + nf] = amp_to_db(mag if fb is None else mag @ fb)
     return out
 
 

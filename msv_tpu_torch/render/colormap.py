@@ -31,6 +31,21 @@ COLORMAP = np.array(
 WAVECOLOR = np.array([200, 21, 103, 255], dtype=np.uint8)  # display.rs:22
 
 
+def get_colormap() -> bytes:
+    """Flattened 30-byte colormap for host/GUI consumers (lib.rs:473-480)."""
+    return COLORMAP.tobytes()
+
+
+def colorbar(width: int = 50, height: int = 500, device="cuda") -> np.ndarray:
+    """Colorbar image (display.rs:120-126 renders one as a visual test;
+    here a helper for the viewer's dB scale, row 0 = the top/loudest
+    stop), mapped on ``device``.  Returns (height, width, 3) u8."""
+    grey = torch.from_numpy(
+        np.linspace(1.0, 0.0, height, dtype=np.float32)[:, None]).to(device)
+    rgb = grey_to_rgb_array(grey).cpu().numpy()  # (height, 1, 3)
+    return np.repeat(rgb, width, axis=1)
+
+
 @functools.lru_cache(maxsize=4)
 def _host_lut(bits: int) -> np.ndarray:
     """(2^bits, 3) u8 LUT: LUT[q] == the reference colormap evaluated at
@@ -78,3 +93,9 @@ def grey_to_rgb_planar(grey):
         # Rust .round() as u8: half away from zero (values are >= 0 here).
         planes.append(torch.floor(v + 0.5).to(torch.uint8))
     return torch.stack(planes, dim=0)
+
+
+def grey_to_rgb_array(grey):
+    """Map grey f32 in [0, 1] (any shape) -> u8 RGB (shape + (3,)), on the
+    tensor's device; the interleaved form of :func:`grey_to_rgb_planar`."""
+    return torch.movedim(grey_to_rgb_planar(grey), 0, -1)

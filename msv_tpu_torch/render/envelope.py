@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..utils import next_pow2, round_up_to
+from ..utils.debug import check_nan
 from ..utils.rounding import rust_round_np
 from .colormap import WAVECOLOR
 
@@ -286,6 +287,20 @@ class EnvelopeState:
         self._init_caches()
         return self
 
+    def device_nbytes(self) -> int:
+        """Device bytes this state holds: the wave and every cached device
+        table (pooled block min/max, sparse-table levels, column-window
+        index pairs), by storage, for the session's device-memory budget.
+        The full-width column windows are host arrays and not counted."""
+        with self._cache_lock:
+            held = [self.dev]
+            if self._pooled is not None:
+                held.extend(self._pooled)
+            for cached in (self._sparse_cache, self._dev_col_cache):
+                for pair in cached.values():
+                    held.extend(pair)
+        return sum(t.untyped_storage().nbytes() for t in held)
+
     def pooled(self):
         with self._cache_lock:
             if self._pooled is None:
@@ -535,6 +550,8 @@ def wav_to_image(
         mx, mn = _pooled_window_minmax(_as_f32(dev, state.scale), bmax, bmin,
                                        starts_d, ends_d, m)
 
+    check_nan(mx, "the waveform render")
+    check_nan(mn, "the waveform render")
     top, bottom = _envelope_rows(mx, mn, amp_min, amp_max, int(nheight))
     tb = torch.stack([top, bottom]).cpu().numpy()  # one fetch round trip
     return _paint_envelope(tb[0, :out_cols], tb[1, :out_cols], int(nheight))

@@ -7,11 +7,21 @@ goes through the fused CUDA kernel of the session's precision mode
 (``kernels/spectrogram_cuda.py``: the f32 kernel under "parity", the bf16
 kernel under "fast"); on the linear scale through ``spec_pipeline_batched``
 (torch ops, f32).  Tracks that share a bucket ``(sr, n_frames_pad, wire)``
-go as one batched call, and a track over STREAMING_FRAME_THRESHOLD frames
-goes alone through segmented streaming (``parallel/streaming.py``), whose
-device wave the track keeps for its waveform images.  Renders are torch ops
-over the cached device dB planes and device waves
-(``render/envelope.py`` for the waveform).
+go as one batched call (each track then owns a copy of its plane), and a
+track over STREAMING_FRAME_THRESHOLD frames goes alone through segmented
+streaming (``parallel/streaming.py``), whose device wave the track keeps
+for its waveform images.  Renders are torch ops over the cached device dB
+planes and device waves (``render/envelope.py`` for the waveform), and
+adaptive multi-resolution crops over slice-local or background-built
+planes (``ops/multires.py``).
+
+Device memory: ``hbm_budget_bytes`` (or config.set_session_hbm_budget)
+bounds the cached per-track device state.  Past it the least-recently-used
+track's dB plane spills to a host f32 array (bit-exact; re-uploaded by its
+next render) and its envelope and adaptive buffers drop (rebuilt lazily).
+Residency changes take the track's lock, and a render works on its own
+reference to the device plane, so a concurrent spill never pulls a plane
+from under it.
 
 Behavioural contracts kept from msv_tpu:
   * dB window: max_db = min(global_max, 0), min_db = max(global_min,
@@ -21,9 +31,8 @@ Behavioural contracts kept from msv_tpu:
     the linear scale (lib.rs:231-248, f32).
   * channel sum (not mean) to mono (lib.rs:42); window = hann/n_fft.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item, or is absent): packed dB wires, adaptive renders and the
-device-memory budget.
+Not ported yet: the packed dB wires of ``get_spec_db`` ("q16", "q12",
+"q10", "q8" raise ``NotImplementedError`` naming ROADMAP queue 1 item 12).
 """
 
 import functools
@@ -34,8 +43,9 @@ import threading
 import numpy as np
 import torch
 
-from ..config import (FreqScale, SpecSetting, derive_stft_params,
-                      get_image_wire, get_precision_mode)
+from ..config import (FreqScale, SpecSetting, check_db_wire,
+                      derive_stft_params, get_db_wire, get_image_wire,
+                      get_precision_mode, get_session_hbm_budget)
 from ..kernels.pipeline import (render_grey_q, render_rgb,
                                 spec_pipeline_batched)
 from ..kernels.spectrogram_cuda import (mel_spectrogram_cuda, operands_bf16,
@@ -44,6 +54,8 @@ from ..parallel.streaming import streaming_spec_db
 from ..ops.dft import windowed_dft_matrices
 from ..ops.framing import n_frames_for, reflect_pad_center
 from ..ops.mel import calc_mel_fb_default, hz_to_mel, mel_to_hz
+from ..ops.multires import (adaptive_auto_n_mel, adaptive_frame_count,
+                            multires_mel_spec_db_range, range_sample_window)
 from ..ops.windows import default_stft_window
 from ..render.colormap import paint_grey_wire
 from ..render.envelope import EnvelopeState, wav_to_image
@@ -55,7 +67,7 @@ from ..render.resize import (
     resize_weights_range,
 )
 from ..utils import round_up_to
-from ..utils.errors import TrackNotFoundError
+from ..utils.errors import AdaptiveBuildPending, MsvError, TrackNotFoundError
 from ..utils.profiling import StageTimer, get_logger
 from ..utils.rounding import trunc_int
 
@@ -130,13 +142,37 @@ def _dev_horizontal_weights(w_valid: int, nwidth: int, w_total: int,
 
 @functools.lru_cache(maxsize=128)
 def _dev_horizontal_weights_crop(w_valid: int, full_width: int, c0: int,
-                                 c1: int, device: torch.device):
+                                 c1: int, device: torch.device,
+                                 base: int = 0):
     """Banded weights for output columns [c0, c1) of the full-width resize,
     built O(viewport): a crop is pixel-identical to slicing the full
-    image."""
+    image.  ``base`` shifts the indices for renders over an input slice
+    starting at that frame (the adaptive slice-local path)."""
     left, wb = resize_weights_range(w_valid, full_width, c0, c1)
-    return (torch.from_numpy(left).to(device),
+    return (torch.from_numpy(left - base).to(device),
             torch.from_numpy(wb).to(device))
+
+
+class _AdaptiveBuild:
+    """State of one track's background full-adaptive-dB build: segment
+    results land in ``parts`` (``built`` = frames completed so far),
+    ``full`` is the final device plane, ``cancel`` stops a build whose
+    track/setting was invalidated mid-flight."""
+
+    __slots__ = ("n_mel", "nf", "parts", "built", "full", "error",
+                 "cancel", "done", "thread", "lock")
+
+    def __init__(self, n_mel: int, nf: int):
+        self.n_mel = n_mel
+        self.nf = nf
+        self.parts = []
+        self.built = 0
+        self.full = None
+        self.error = None
+        self.cancel = threading.Event()
+        self.done = threading.Event()
+        self.thread = None
+        self.lock = threading.Lock()
 
 
 class AudioTrack:
@@ -190,6 +226,27 @@ class AudioTrack:
         """Duration in f32 seconds (lib.rs:178: len as f32 / sr as f32)."""
         return float(np.float32(self.n_samples) / np.float32(self.sr))
 
+    def wav_slice(self, s0: int, s1: int) -> np.ndarray:
+        """f32 mono samples [s0, s1) — O(slice) even for integer carriers
+        (never materializes the full lazy f32)."""
+        if self._mono_f32 is not None:
+            return self._mono_f32[s0:s1]
+        return self._wav_int[s0:s1].astype(np.float32) * np.float32(
+            self.scale
+        )
+
+    def wav_slice_raw(self, s0: int, s1: int):
+        """(samples[s0:s1], unit scale) in the track's narrowest exact
+        form: the integer carrier when one exists (half the host->device
+        bytes; the conversion on the device is exact), else f32."""
+        if self._wav_int is not None:
+            return self._wav_int[s0:s1], self.scale
+        return self._mono_f32[s0:s1], 1.0
+
+    def reload(self, setting: SpecSetting) -> None:
+        """Re-derive params after a setting change (lib.rs:57-61)."""
+        self.__init__(self.path, setting, channel=self.channel)
+
     @property
     def wire(self) -> str:
         """The kernel's input type for this track: PCM16 carriers (shift
@@ -202,9 +259,15 @@ class AudioTrack:
 
 
 class _TrackState:
-    """Device-side artifacts for one track."""
+    """Device-side artifacts for one track.  ``spec_db`` is a tensor on the
+    session's device, or a host f32 array while spilled; ``lock`` guards
+    every change of residency."""
 
-    __slots__ = ("spec_db", "n_frames", "n_frames_pad", "n_out", "smin", "smax")
+    __slots__ = ("spec_db", "n_frames", "n_frames_pad", "n_out", "smin",
+                 "smax", "lock")
+
+    def __init__(self):
+        self.lock = threading.Lock()
 
 
 class MultiTrack:
@@ -212,10 +275,21 @@ class MultiTrack:
 
     ``device`` defaults to "cuda" and is never replaced silently: without a
     card the constructor raises.  ``device="cpu"`` runs the kernels' plain
-    PyTorch versions (tests).
+    PyTorch versions (tests).  ``hbm_budget_bytes`` bounds the device bytes
+    of the cached per-track state (module docstring); None (default, or
+    config.set_session_hbm_budget) is unbounded.
     """
 
-    def __init__(self, setting: SpecSetting | None = None, device="cuda"):
+    # Slice-local adaptive renders compute their frame support at 3 window
+    # scales per request; past this support the render reads the per-track
+    # full adaptive plane, built once in the background.
+    ADAPTIVE_MAX_FRAMES = 1 << 16
+    # Frames per segment of that build: device memory of one segment's
+    # frames at a time.
+    ADAPTIVE_CHUNK = 8192
+
+    def __init__(self, setting: SpecSetting | None = None, device="cuda",
+                 hbm_budget_bytes: int | None = None):
         self.setting = setting or SpecSetting()
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -224,9 +298,6 @@ class MultiTrack:
                     "MultiTrack(device='cuda'): no CUDA device is available; "
                     "pass device='cpu' for the plain PyTorch path"
                 )
-            # parity: the render GEMMs must run true f32, not TF32
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
         elif self.device.type != "cpu":
             raise ValueError(f"unsupported device: {self.device}")
         self.tracks: dict[int, AudioTrack] = {}
@@ -238,6 +309,16 @@ class MultiTrack:
         # the first waveform render, or adopted from streaming
         self._env_states: dict[int, EnvelopeState] = {}
         self._env_lock = threading.Lock()
+        self._adaptive_db: dict[int, _AdaptiveBuild] = {}
+        self._adaptive_lock = threading.Lock()  # guards the dict
+        self.hbm_budget_bytes = (hbm_budget_bytes if hbm_budget_bytes
+                                 is not None else get_session_hbm_budget())
+        self._lru: dict[int, int] = {}  # id -> last-use tick
+        self._lru_clock = 0
+        self._hbm_spills = 0
+        self._hbm_reuploads = 0
+        # guards the LRU and the counters, and serializes budget passes
+        self._budget_lock = threading.Lock()
         self.max_db = -np.inf
         self.min_db = np.inf
         self.max_sec = 0.0
@@ -393,7 +474,9 @@ class MultiTrack:
                 mm = torch.stack([smin, smax]).cpu().numpy()  # one sync
         for b, id in enumerate(ids):
             st = _TrackState()
-            st.spec_db = db_b[b]
+            # a plane of its own: a view would keep the group's storage
+            # alive through a spill of this track
+            st.spec_db = db_b[b].clone() if len(ids) > 1 else db_b[b]
             st.n_frames = preps[b][1]
             st.n_frames_pad = n_frames_pad
             st.n_out = int(db_b.shape[2])
@@ -438,7 +521,9 @@ class MultiTrack:
             for id, track in zip(id_list, new):
                 self._ensure_sr_operands(track)
                 # a re-added id is a new file: drop the old envelope buffer
+                # and adaptive plane
                 self._env_states.pop(id, None)
+                self._drop_adaptive(id)
                 self.tracks[id] = track
             # recompute (not just raise) max_sec: replacing the longest
             # track with a shorter file must lower it
@@ -449,6 +534,9 @@ class MultiTrack:
             self.id_max_sec, self.max_sec = best_id, best_sec
         with self.timer.stage("add_tracks.spec"):
             self._compute_specs(list(id_list))
+        for id in id_list:
+            self._touch(id)  # newest tracks evict last
+        self._enforce_hbm_budget()
         return self._update_db_state()
 
     def remove_track(self, id: int) -> bool:
@@ -457,6 +545,9 @@ class MultiTrack:
         del self.tracks[id]
         self._state.pop(id, None)
         self._env_states.pop(id, None)
+        self._drop_adaptive(id)
+        with self._budget_lock:
+            self._lru.pop(id, None)
         if self.id_max_sec == id:
             best_id, best_sec = 0, 0.0
             for tid, t in self.tracks.items():
@@ -500,24 +591,126 @@ class MultiTrack:
             / hz_to_mel(f32(sr) / f32(2.0))
         )
 
+    # ------------------------------------------ device-memory budget / LRU
+
+    def _touch(self, id: int) -> None:
+        with self._budget_lock:
+            self._lru_clock += 1
+            self._lru[id] = self._lru_clock
+
+    def _track_device_bytes(self, id: int) -> int:
+        """Device bytes held for one track, by storage: its dB plane, its
+        envelope state and its adaptive plane."""
+        total = 0
+        st = self._state.get(id)
+        if st is not None and isinstance(st.spec_db, torch.Tensor):
+            total += st.spec_db.untyped_storage().nbytes()
+        env = self._env_states.get(id)
+        if env is not None:
+            total += env.device_nbytes()
+        with self._adaptive_lock:
+            b = self._adaptive_db.get(id)
+        if b is not None:
+            with b.lock:
+                if b.full is not None:
+                    total += b.full.untyped_storage().nbytes()
+        return total
+
+    def hbm_stats(self) -> dict:
+        """Device-memory accounting: the budget, the bytes held in all and
+        per track, and the spill and re-upload counts."""
+        per = {tid: self._track_device_bytes(tid) for tid in list(self.tracks)}
+        with self._budget_lock:
+            spills, reuploads = self._hbm_spills, self._hbm_reuploads
+        return {
+            "budget_bytes": self.hbm_budget_bytes,
+            "resident_bytes": sum(per.values()),
+            "per_track_bytes": per,
+            "spills": spills,
+            "reuploads": reuploads,
+        }
+
+    def _spill_track(self, id: int) -> None:
+        """Move one track's dB plane to the host (bit-exact f32) and drop
+        its rebuildable device buffers.  The next render re-uploads the
+        same plane; the envelope and adaptive state rebuild lazily.  Runs
+        under the budget lock."""
+        st = self._state.get(id)
+        if st is not None:
+            with st.lock, self.timer.stage("residency.spill"):
+                if isinstance(st.spec_db, torch.Tensor):
+                    st.spec_db = st.spec_db.cpu().numpy()
+        with self._env_lock:
+            self._env_states.pop(id, None)
+        self._drop_adaptive(id)
+        self._hbm_spills += 1
+        self._log.debug("device-memory budget: spilled track %d", id)
+
+    def _enforce_hbm_budget(self, exclude=()) -> None:
+        """Spill least-recently-used tracks until the device total fits the
+        budget.  A render holding its own reference to a plane keeps it
+        alive: a spill drops only the session's reference."""
+        budget = self.hbm_budget_bytes
+        if budget is None:
+            return
+        with self._budget_lock:
+            per = {tid: self._track_device_bytes(tid)
+                   for tid in list(self.tracks)}
+            total = sum(per.values())
+            if total <= budget:
+                return
+            order = sorted((tid for tid in per if tid not in exclude),
+                           key=lambda t: self._lru.get(t, 0))
+            for tid in order:
+                if total <= budget:
+                    break
+                if per[tid] <= 0:
+                    continue
+                self._spill_track(tid)
+                total -= per[tid]
+
+    def _ensure_resident(self, id: int):
+        """(state, plane): the track's state and its dB plane on the
+        device, re-uploading a spilled plane (and making room by LRU).
+        Renders use the returned plane, never ``state.spec_db``, which a
+        concurrent spill may swap for a host array."""
+        st = self._state[id]
+        self._touch(id)
+        with st.lock:
+            plane = st.spec_db
+            uploaded = not isinstance(plane, torch.Tensor)
+            if uploaded:
+                with self.timer.stage("residency.reupload"):
+                    plane = torch.from_numpy(plane).to(self.device)
+                st.spec_db = plane
+        if uploaded:
+            with self._budget_lock:
+                self._hbm_reuploads += 1
+            self._enforce_hbm_budget(exclude=(id,))
+        return st, plane
+
     # ------------------------------------------------------------ renders
 
-    def get_spec_db(self, id: int, wire: str = "f32") -> np.ndarray:
+    def get_spec_db(self, id: int, wire: str | None = None) -> np.ndarray:
         """The dB spectrogram -> float32 (n_frames, n_out), fetched exactly:
         n_out is n_mel on the mel scale, n_fft // 2 + 1 on the linear one.
-        msv_tpu's packed wires ("q16"/"q12"/"q10"/"q8") are not
-        ported."""
-        if wire != "f32":
-            raise NotImplementedError(
-                f"dB wire {wire!r} is not ported yet (ROADMAP queue 1: "
-                f"wire codec); use wire='f32'"
-            )
+        ``wire`` defaults to config.get_db_wire(); only "f32" is ported
+        (msv_tpu's packed wires raise NotImplementedError).  A spilled
+        plane is served from the host without a re-upload."""
+        wire = wire or get_db_wire()
+        check_db_wire(wire)
         self._track(id)  # raises TrackNotFoundError for unknown ids
         st = self._state[id]
-        return st.spec_db[: st.n_frames].cpu().numpy()
+        self._touch(id)
+        with st.lock:
+            plane = st.spec_db
+        if isinstance(plane, torch.Tensor):  # a copy on the CPU as well
+            return plane[: st.n_frames].to("cpu", copy=True).numpy()
+        return plane[: st.n_frames].copy()
 
-    def _run_render(self, st, wv, wh, *, height, banded, wire):
-        """Device render + host finalize for the image getters.
+    def _run_render(self, plane, wv, wh, *, height, banded, wire):
+        """Device render of a dB plane + host finalize for the image
+        getters.
 
         wire="rgb": colormap applied on device to the f32 grey, 3 bytes/px
         fetched.  "grey8"/"grey16": fetch the quantized grey and paint RGB
@@ -526,7 +719,7 @@ class MultiTrack:
         max_db, min_db = self.max_db, self.min_db
         if wire == "rgb":
             with self.timer.stage("render.device_d2h"):
-                img = render_rgb(st.spec_db, max_db, min_db, wv, wh,
+                img = render_rgb(plane, max_db, min_db, wv, wh,
                                  height=height, banded=banded).cpu().numpy()
             # device output is channel-planar (3, H, W); interleave on host
             with self.timer.stage("render.host"):
@@ -535,7 +728,7 @@ class MultiTrack:
             raise ValueError(f"unknown image wire format: {wire!r}")
         bits = {"grey8": 8, "grey16": 16}[wire]
         with self.timer.stage("render.device_d2h"):
-            q = render_grey_q(st.spec_db, max_db, min_db, wv, wh,
+            q = render_grey_q(plane, max_db, min_db, wv, wh,
                               height=height, banded=banded, bits=bits)
             q = q.cpu().numpy()
         with self.timer.stage("render.host"):
@@ -551,7 +744,7 @@ class MultiTrack:
         format (config.set_image_wire).
         """
         track = self._track(id)
-        st = self._state[id]
+        st, plane = self._ensure_resident(id)
         f32 = np.float32
         nwidth = trunc_int(f32(px_per_sec) * f32(track.n_samples) / f32(track.sr))
         if nwidth == 0 or nheight == 0:
@@ -563,8 +756,11 @@ class MultiTrack:
             st.n_frames, nwidth, st.n_frames_pad, self.device
         )
         with self.timer.stage("get_spec_image.render"):
-            return self._run_render(st, wv, wh, height=height, banded=banded,
-                                    wire=wire or get_image_wire())
+            out = self._run_render(plane, wv, wh, height=height,
+                                   banded=banded,
+                                   wire=wire or get_image_wire())
+        self._enforce_hbm_budget(exclude=(id,))
+        return out
 
     def get_spec_image_crop(
         self,
@@ -579,7 +775,7 @@ class MultiTrack:
         ``get_spec_image(...)[:, c0:c1]`` where c0/c1 are the columns
         covering [start_sec, end_sec), without rendering the full width."""
         track = self._track(id)
-        st = self._state[id]
+        st, plane = self._ensure_resident(id)
         full_w, c0, c1 = _crop_cols(track, px_per_sec, start_sec, end_sec)
         if c1 <= c0 or nheight == 0:
             return np.zeros((nheight, 0, 3), dtype=np.uint8)
@@ -589,8 +785,209 @@ class MultiTrack:
         wh = _dev_horizontal_weights_crop(st.n_frames, full_w, c0, c1,
                                           self.device)
         with self.timer.stage("get_spec_image.render"):
-            return self._run_render(st, wv, wh, height=height, banded=True,
-                                    wire=wire or get_image_wire())
+            out = self._run_render(plane, wv, wh, height=height, banded=True,
+                                   wire=wire or get_image_wire())
+        self._enforce_hbm_budget(exclude=(id,))
+        return out
+
+    # ------------------------------------------------------- adaptive renders
+
+    def _drop_adaptive(self, id: int) -> None:
+        """Invalidate a track's cached or in-flight adaptive plane: a build
+        running when its track is replaced, removed or spilled, or the
+        setting changes, stops at its next segment and never publishes."""
+        with self._adaptive_lock:
+            build = self._adaptive_db.pop(id, None)
+        if build is not None:
+            build.cancel.set()
+
+    def _adaptive_full_db(self, id: int, track, n_mel: int, nf: int,
+                          need_hi: int | None = None, block: bool = True):
+        """The track's full adaptive plane (nf, n_mel) on the device, built
+        in ADAPTIVE_CHUNK-frame segments of the slice-local form (each
+        bit-equal to that slice of a whole-track computation, so cached
+        renders stitch with slice-local ones) by a background thread.
+
+        ``block=True`` waits for the build.  ``block=False`` returns at
+        once: the built prefix when it covers ``need_hi`` frames (the
+        render reads no frame past it), else raises
+        :class:`AdaptiveBuildPending` with (built, total) progress.  A
+        build's error is raised to the next caller, and the build dropped
+        so that a later call retries.
+        """
+        with self._adaptive_lock:
+            build = self._adaptive_db.get(id)
+            if build is not None and build.n_mel != n_mel:
+                build.cancel.set()  # basis changed: rebuild
+                build = None
+            if build is None:
+                build = _AdaptiveBuild(n_mel, nf)
+                self._adaptive_db[id] = build
+                build.thread = threading.Thread(
+                    target=self._adaptive_builder, name=f"adaptive-{id}",
+                    args=(build, track, n_mel, nf), daemon=True,
+                )
+                build.thread.start()
+        if block:
+            build.done.wait()
+        if build.error is not None:
+            with self._adaptive_lock:
+                if self._adaptive_db.get(id) is build:
+                    del self._adaptive_db[id]
+            raise build.error
+        if build.full is not None:
+            return build.full
+        if block:
+            # done, no error, no plane: a concurrent replace, remove, spill
+            # or set_setting cancelled the build, and the caller's track or
+            # setting is stale; nothing is pending
+            raise MsvError(
+                "adaptive full-dB build was invalidated by a concurrent "
+                "session mutation; re-issue the render"
+            )
+        with build.lock:
+            if build.full is not None:  # published since the check above
+                return build.full
+            built = build.built
+            parts = list(build.parts)
+        if need_hi is not None and built >= need_hi and parts:
+            return parts[0] if len(parts) == 1 else torch.cat(parts, 0)
+        raise AdaptiveBuildPending(built, nf)
+
+    def adaptive_build_progress(self) -> dict:
+        """Per-track progress of in-flight background adaptive builds:
+        {id: {"built": frames, "total": frames}}; finished and absent
+        tracks are left out."""
+        out = {}
+        with self._adaptive_lock:
+            items = list(self._adaptive_db.items())
+        for tid, b in items:
+            if not b.done.is_set():
+                out[tid] = {"built": b.built, "total": b.nf}
+        return out
+
+    def _adaptive_builder(self, build, track, n_mel, nf):
+        """Background segment loop of one track's full adaptive plane.  On
+        a card each segment is finished before it is published, so a
+        prefix render on any stream reads finished rows."""
+        on_card = self.device.type == "cuda"
+        try:
+            with self.timer.stage("adaptive.full_build"):
+                for g0 in range(0, nf, self.ADAPTIVE_CHUNK):
+                    if build.cancel.is_set():
+                        return  # invalidated mid-build: no stale publish
+                    g1 = min(nf, g0 + self.ADAPTIVE_CHUNK)
+                    s0, s1 = range_sample_window(
+                        track.n_samples, track.sr, self.setting, g0, g1
+                    )
+                    seg, scale = track.wav_slice_raw(s0, s1)
+                    db, _ = multires_mel_spec_db_range(
+                        seg, track.sr, g0, g1, setting=self.setting,
+                        slice_start=s0, n_samples=track.n_samples,
+                        n_mel=n_mel, scale=scale, device=self.device,
+                    )
+                    if on_card:
+                        torch.cuda.current_stream(self.device).synchronize()
+                    with build.lock:
+                        build.parts.append(db)
+                        build.built = g1
+                full = (build.parts[0] if len(build.parts) == 1
+                        else torch.cat(build.parts, 0))
+                if on_card:
+                    torch.cuda.current_stream(self.device).synchronize()
+            with build.lock:
+                if not build.cancel.is_set():
+                    build.full = full
+                # the segments are a second copy of the plane once `full`
+                # exists: publish and clear at once, so a prefix reader
+                # sees one or the other
+                build.parts.clear()
+        except Exception as e:  # raised to the next caller
+            build.error = e
+        finally:
+            build.done.set()
+
+    def get_adaptive_spec_image_crop(
+        self,
+        id: int,
+        px_per_sec: float,
+        nheight: int,
+        start_sec: float,
+        end_sec: float,
+        n_mel: int | None = None,
+        wire: str | None = None,
+        block: bool = True,
+    ) -> np.ndarray:
+        """Adaptive multi-resolution viewport render (ops/multires.py):
+        transients take their detail from short analysis windows,
+        stationary harmonics from long ones.
+
+        Column math mirrors :meth:`get_spec_image_crop`, so adjacent crops
+        stitch pixel-exactly; frames are computed slice-locally
+        (O(viewport), bit-equal to slicing a whole-track computation) and
+        normalized with the session-global dB range.
+
+        Zoomed out past ADAPTIVE_MAX_FRAMES of support, the render reads
+        the per-track full plane built in the background: ``block=True``
+        waits for the build; ``block=False`` serves from the built prefix
+        when it covers this viewport, else raises
+        :class:`AdaptiveBuildPending` with (built, total) progress.
+        """
+        track = self._track(id)
+        self._touch(id)
+        if n_mel is None:
+            # shared-basis auto band count (empty low-frequency mel rows
+            # at the smallest scale render as black banding otherwise)
+            n_mel = adaptive_auto_n_mel(track.sr, self.setting)
+        full_w, c0, c1 = _crop_cols(track, px_per_sec, start_sec, end_sec)
+        if c1 <= c0 or nheight == 0:
+            return np.zeros((nheight, 0, 3), dtype=np.uint8)
+        _check_render_dims(c1 - c0, nheight, "get_adaptive_spec_image_crop")
+
+        nf = adaptive_frame_count(track.n_samples, track.sr, self.setting)
+        left, wb = resize_weights_range(nf, full_w, c0, c1)
+        band = wb.shape[1]
+        f_lo = int(left.min())
+        # banded-apply width: every (left + band) read stays in-bounds
+        f_need = int(left.max()) - f_lo + band
+        if f_need > self.ADAPTIVE_MAX_FRAMES:
+            # zoomed out past the slice-local budget: the full plane, read
+            # at absolute frame indices; reads past its end clamp under
+            # zero weights
+            base = 0
+            need_hi = min(nf, int(left.max()) + band)
+            plane = self._adaptive_full_db(id, track, n_mel, nf,
+                                           need_hi=need_hi, block=block)
+        else:
+            base = f_lo
+            f_hi = min(nf, f_lo + f_need)
+            s0, s1 = range_sample_window(
+                track.n_samples, track.sr, self.setting, f_lo, f_hi
+            )
+            seg, scale = track.wav_slice_raw(s0, s1)
+            with self.timer.stage("adaptive.spec"):
+                plane, _ = multires_mel_spec_db_range(
+                    seg, track.sr, f_lo, f_hi, setting=self.setting,
+                    slice_start=s0, n_samples=track.n_samples, n_mel=n_mel,
+                    scale=scale, device=self.device,
+                )
+
+        # the adaptive view is mel-scaled by construction, so cross-track
+        # alignment uses the MEL ratio even in a linear-scale session
+        f32 = np.float32
+        up = float(
+            hz_to_mel(f32(self.max_sr) / f32(2.0))
+            / hz_to_mel(f32(track.sr) / f32(2.0))
+        )
+        height = grey_height(n_mel, up)
+        wv = _dev_vertical_weights(height, nheight, self.device)
+        wh = _dev_horizontal_weights_crop(nf, full_w, c0, c1, self.device,
+                                          base=base)
+        with self.timer.stage("adaptive.render"):
+            out = self._run_render(plane, wv, wh, height=height, banded=True,
+                                   wire=wire or get_image_wire())
+        self._enforce_hbm_budget(exclude=(id,))
+        return out
 
     # ------------------------------------------------------- waveform images
 
@@ -598,6 +995,7 @@ class MultiTrack:
         """The track's envelope state, its wave shipped to the device at the
         first waveform render (integer carriers as they are: no f32 copy on
         the host)."""
+        self._touch(id)
         st = self._env_states.get(id)
         if st is None:
             # double-checked: two concurrent renders of a fresh track must
@@ -610,6 +1008,7 @@ class MultiTrack:
                         track._wav_int, n=track.n_samples,
                         scale=track.scale, device=self.device)
                     self._env_states[id] = st
+            self._enforce_hbm_budget(exclude=(id,))
         return st
 
     def get_wav_image(self, id: int, px_per_sec: float, nheight: int,
@@ -622,8 +1021,10 @@ class MultiTrack:
         _check_render_dims(nwidth, nheight, "get_wav_image")
         st = self._env_state_for(id, track)
         with self.timer.stage("get_wav_image.render"):
-            return wav_to_image(None, nwidth, nheight, (amp_min, amp_max),
-                                state=st)
+            out = wav_to_image(None, nwidth, nheight, (amp_min, amp_max),
+                               state=st)
+        self._enforce_hbm_budget(exclude=(id,))
+        return out
 
     def get_wav_image_crop(self, id: int, px_per_sec: float, nheight: int,
                            amp_min: float, amp_max: float, start_sec: float,
@@ -640,16 +1041,20 @@ class MultiTrack:
                            "get_wav_image_crop")
         st = self._env_state_for(id, track)
         with self.timer.stage("get_wav_image.render"):
-            return wav_to_image(None, nwidth, nheight, (amp_min, amp_max),
-                                state=st, col_range=(c0, c1))
+            out = wav_to_image(None, nwidth, nheight, (amp_min, amp_max),
+                               state=st, col_range=(c0, c1))
+        self._enforce_hbm_budget(exclude=(id,))
+        return out
 
     def get_grey(self, id: int) -> np.ndarray:
         """The normalized grey image (display.rs:44-54)."""
         track = self._track(id)
-        st = self._state[id]
+        st, plane = self._ensure_resident(id)
         height = grey_height(st.n_out, self._up_ratio(track.sr))
-        g = spec_to_grey(st.spec_db, self.max_db, self.min_db, height=height)
-        return g[:, : st.n_frames].cpu().numpy()
+        g = spec_to_grey(plane, self.max_db, self.min_db, height=height)
+        out = g[:, : st.n_frames].cpu().numpy()
+        self._enforce_hbm_budget(exclude=(id,))
+        return out
 
     # ------------------------------------------------------------ getters
 
@@ -696,7 +1101,8 @@ class MultiTrack:
         """Change settings and reload every track (AudioTrack::reload,
         lib.rs:57-61 — declared but never wired in the reference; here it is
         the live settings path).  Every cache goes: dB planes, envelope
-        states and operands.  Returns whether the dB range changed."""
+        states, adaptive planes (in-flight builds are cancelled) and
+        operands.  Returns whether the dB range changed."""
         self.setting = setting
         ids = sorted(self.tracks)
         paths = [self.tracks[i].path for i in ids]
@@ -704,6 +1110,8 @@ class MultiTrack:
         self.tracks.clear()
         self._state.clear()
         self._env_states.clear()
+        for tid in list(self._adaptive_db):
+            self._drop_adaptive(tid)
         self._operands.clear()
         self.max_db, self.min_db = -np.inf, np.inf
         self.max_sec, self.id_max_sec, self.max_sr = 0.0, 0, 0
@@ -737,9 +1145,10 @@ class MultiTrack:
             json.dump(manifest, f, indent=1)
 
     @classmethod
-    def load_session(cls, path: str, device="cuda") -> "MultiTrack":
-        """A session on ``device`` from a v1 or v2 manifest of
-        :meth:`save_session` (or of msv_tpu's)."""
+    def load_session(cls, path: str, device="cuda",
+                     hbm_budget_bytes: int | None = None) -> "MultiTrack":
+        """A session on ``device`` (with ``hbm_budget_bytes``) from a v1 or
+        v2 manifest of :meth:`save_session` (or of msv_tpu's)."""
         with open(path) as f:
             m = json.load(f)
         s = m["setting"]
@@ -750,7 +1159,7 @@ class MultiTrack:
             freq_scale=FreqScale(s["freq_scale"]),
             db_range=s["db_range"],
         )
-        mt = cls(setting, device=device)
+        mt = cls(setting, device=device, hbm_budget_bytes=hbm_budget_bytes)
         ids = sorted(int(k) for k in m["tracks"])
         if ids:
             ent = [m["tracks"][str(i)] for i in ids]

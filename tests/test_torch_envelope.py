@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# the JAX reference: absent where the card-only tests run
+pytest.importorskip("jax")
 
 import msv_tpu  # noqa: E402
 import msv_tpu_torch  # noqa: E402

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# the JAX reference: absent where the card-only tests run
+pytest.importorskip("jax")
 
 from msv_tpu import config as jcfg  # noqa: E402
 from msv_tpu.ops import decibel as jdb  # noqa: E402
@@ -35,6 +37,8 @@ VERBATIM = [
     "ops/windows.py",
     "ops/mel.py",
     "ops/framing.py",
+    "io/png.py",
+    "io/flac_encode.py",
 ]
 
 # Copies with named line edits: (original line, line in the copy).
@@ -232,3 +236,225 @@ def test_no_port_source_mentions_jax():
             if "jax" in _read(path).lower():
                 hits.append(os.path.relpath(path, REPO))
     assert hits == []
+
+
+def test_png_and_flac_encoders_round_trip(tmp_path, rng):
+    from msv_tpu.io import flac_encode as jflac
+    from msv_tpu_torch.io import encode_png, flac_encode, write_png
+
+    img = rng.integers(0, 256, (7, 5, 3), dtype=np.uint8)
+    path = str(tmp_path / "x.png")
+    write_png(path, img)
+    with open(path, "rb") as f:
+        assert f.read() == encode_png(img)
+    x = (rng.standard_normal((2, 3000)) * 0.2).astype(np.float32)
+    a, b = str(tmp_path / "a.flac"), str(tmp_path / "b.flac")
+    flac_encode.write_flac(a, x, 8000)
+    jflac.write_flac(b, x, 8000)
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        assert fa.read() == fb.read()
+
+
+def test_colormap_helpers_equal_jax(rng):
+    from msv_tpu.render import colormap as jcm
+    from msv_tpu_torch.render import colormap as tcm
+
+    assert tcm.get_colormap() == jcm.get_colormap()
+    import msv_tpu_torch
+    assert msv_tpu_torch.get_colormap() == jcm.get_colormap()
+    np.testing.assert_array_equal(tcm.colorbar(device="cpu"), jcm.colorbar())
+    np.testing.assert_array_equal(tcm.colorbar(7, 33, device="cpu"),
+                                  jcm.colorbar(7, 33))
+    g = rng.uniform(0.0, 1.0, (4, 9, 11)).astype(np.float32)
+    g[0, 0, :3] = [0.0, 0.9, 1.0]
+    np.testing.assert_array_equal(
+        tcm.grey_to_rgb_array(torch.from_numpy(g)).numpy(),
+        np.asarray(jcm.grey_to_rgb_array(g)))
+
+
+def _tf32():
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+
+def test_parity_torch_op_routes_run_with_tf32_off(monkeypatch, rng):
+    """With the process's TF32 flags on, every parity torch-op route runs
+    with both off and gives them back on."""
+    from msv_tpu_torch import features
+    from msv_tpu_torch.kernels import pipeline
+    from msv_tpu_torch.kernels import spectrogram_cuda as K
+    from msv_tpu_torch.ops import multires
+    from msv_tpu_torch.parallel import streaming
+
+    seen = {}
+
+    def spy(mod, name, route):
+        real = getattr(mod, name)
+
+        def wrapped(*a, **kw):
+            seen.setdefault(route, []).append(_tf32())
+            return real(*a, **kw)
+
+        monkeypatch.setattr(mod, name, wrapped)
+
+    spy(pipeline, "dft_magnitude", "spec_pipeline")
+    spy(pipeline, "blocked_matmul", "render")
+    spy(streaming, "dft_magnitude", "streaming")
+    spy(features, "frame_device", "features")
+    spy(multires, "frame_device", "multires")
+    spy(K, "_plain_mel", "plain kernel")
+    saved = _tf32()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        sr, win, hop, n_fft = 8000, 320, 80, 512
+        c, s = (torch.from_numpy(m) for m in t_dft(
+            default_stft_window(win, n_fft), n_fft))
+        fb = torch.rand(n_fft // 2 + 1, 40)
+        x = torch.from_numpy((rng.standard_normal(8000) * 0.3)
+                             .astype(np.float32))
+        for mode in ("parity", "fast"):
+            pipeline.spec_pipeline(x, c, s, fb, 90, win=win, hop=hop,
+                                   n_frames=96, use_mel=True, mode=mode)
+        db = torch.rand(64, 40) * -100
+        wv = torch.rand(30, 50)
+        pipeline.render_rgb(db, 0.0, -100.0, wv, torch.rand(20, 64),
+                            height=50, banded=False)
+        pipeline.render_grey_q(db, 0.0, -100.0, wv, torch.rand(20, 64),
+                               height=50, banded=False, bits=8)
+        streaming.streaming_spec_db(
+            (rng.standard_normal(40000) * 3000).astype(np.int16), win, hop,
+            c, s, None)
+        features.log_mel_spectrogram(x[None], sr, n_mel=32, log="power_db",
+                                     precision="parity")
+        multires.multires_mel_spec_db(x.numpy(), sr, n_mel=32, device="cpu")
+        K.mel_spectrogram_cuda(x, c, s, fb, win=win, hop=hop, n_frames=90)
+        assert sorted(seen) == ["features", "multires", "plain kernel",
+                                "render", "spec_pipeline", "streaming"]
+        for route, flags in seen.items():
+            assert set(flags) == {(False, False)}, route
+        assert _tf32() == (True, True)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def test_precision_scope_nests_across_threads():
+    """Two overlapping parity blocks in two threads: TF32 stays off until
+    the last one leaves, then the caller's flags come back."""
+    import threading
+
+    saved = _tf32()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        inside, go = threading.Event(), threading.Event()
+
+        def other():
+            with tcfg.precision_for("parity"):
+                inside.set()
+                go.wait(10)
+
+        th = threading.Thread(target=other)
+        th.start()
+        assert inside.wait(10)
+        with tcfg.precision_for("parity"):
+            assert _tf32() == (False, False)
+        assert _tf32() == (False, False)  # the other block is still in
+        go.set()
+        th.join(10)
+        assert not th.is_alive()
+        assert _tf32() == (True, saved[1])
+        with tcfg.matmul_precision():  # the session mode: parity
+            assert _tf32()[0] is False
+        with tcfg.precision_for("fast"):
+            assert _tf32()[0] is True
+        with pytest.raises(ValueError):
+            tcfg.precision_for("bf16")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def test_no_session_writes_the_process_tf32_flags():
+    import msv_tpu_torch
+
+    saved = _tf32()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        msv_tpu_torch.MultiTrack(device="cpu")
+        assert _tf32()[0] is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved[0]
+
+
+def test_db_wire_config(tmp_path, monkeypatch):
+    import msv_tpu_torch
+    from msv_tpu_torch.io.audio import write_wav
+
+    assert tcfg.get_db_wire() == jcfg.get_db_wire() == "f32"
+    tcfg.set_db_wire("f32")
+    for packed in ("q16", "q12", "q10", "q8"):
+        jcfg.set_db_wire(packed)  # msv_tpu takes them ...
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue 1 item 12"):
+            tcfg.set_db_wire(packed)  # ... the port names its item
+    jcfg.set_db_wire("f32")
+    for bad in ("f16", "q4", ""):
+        with pytest.raises(ValueError):
+            tcfg.set_db_wire(bad)
+    with pytest.raises(ValueError):
+        jcfg.set_db_wire("f16")
+    assert tcfg.get_db_wire() == "f32"
+    # get_spec_db's default wire is the config's
+    path = str(tmp_path / "t.wav")
+    write_wav(path, np.zeros((1, 4000), np.float32), 8000)
+    mt = msv_tpu_torch.MultiTrack(device="cpu")
+    mt.add_tracks([0], [path])
+    assert mt.get_spec_db(0).dtype == np.float32
+    monkeypatch.setattr(tcfg, "_DB_WIRE", "q10")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        mt.get_spec_db(0)
+    assert mt.get_spec_db(0, wire="f32").shape[0] > 0
+
+
+def test_nan_checks_and_device_trace(tmp_path, monkeypatch):
+    from msv_tpu_torch.kernels import pipeline
+    from msv_tpu_torch.kernels import spectrogram_cuda as K
+    from msv_tpu_torch.utils import debug
+
+    win, hop, n_fft = 320, 80, 512
+    c, s = (torch.from_numpy(m) for m in t_dft(
+        default_stft_window(win, n_fft), n_fft))
+    fb = torch.rand(n_fft // 2 + 1, 40)
+    x = torch.zeros(4000)
+    # the dB epilogue maps a NaN sum to its floor, so a faulty launch is
+    # what leaves a NaN in the plane: stand one in
+    real = K.mel_spectrogram_plain
+
+    def faulty(*a, **kw):
+        out = real(*a, **kw)
+        out[2, 3] = float("nan") if a[0].abs().sum() == 0 else out[2, 3]
+        return out
+
+    monkeypatch.setattr(K, "mel_spectrogram_plain", faulty)
+    db = torch.rand(64, 40) * -100
+    db[3, 4] = float("nan")
+    wv, wh = torch.rand(30, 50), torch.rand(20, 64)
+    K.mel_spectrogram_cuda(x, c, s, fb, win=win, hop=hop, n_frames=40)
+    pipeline.render_rgb(db, 0.0, -100.0, wv, wh, height=50, banded=False)
+    debug.enable_nan_checks(True)
+    try:
+        with pytest.raises(FloatingPointError, match="mel kernel"):
+            K.mel_spectrogram_cuda(x, c, s, fb, win=win, hop=hop,
+                                   n_frames=40)
+        with pytest.raises(FloatingPointError, match="spectrogram render"):
+            pipeline.render_rgb(db, 0.0, -100.0, wv, wh, height=50,
+                                banded=False)
+        K.mel_spectrogram_cuda(torch.ones(4000), c, s, fb, win=win,
+                               hop=hop, n_frames=40)
+    finally:
+        debug.enable_nan_checks(False)
+    with debug.device_trace(str(tmp_path / "trace")):
+        K.mel_spectrogram_cuda(torch.zeros(4000), c, s, fb, win=win,
+                               hop=hop, n_frames=40)
+    assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0

@@ -24,6 +24,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# the JAX reference: absent where the card-only tests run
+pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
 import msv_tpu  # noqa: E402

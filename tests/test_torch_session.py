@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# the JAX reference: absent where the card-only tests run
+pytest.importorskip("jax")
 
 import msv_tpu  # noqa: E402
 import msv_tpu_torch  # noqa: E402
@@ -209,7 +211,11 @@ def test_unported_paths_raise_not_implemented(sessions):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         msv_tpu_torch.streaming_spec_db(np.zeros(4000, np.int16), 320, 80,
                                         c, s, fb, transfer="pack")
-    assert not hasattr(port, "get_adaptive_spec_image_crop")
+    # adaptive renders are ported (tests/test_torch_multires.py); the packed
+    # dB wires are not, whether asked for per call or by the config
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        msv_tpu_torch.config.set_db_wire("q10")
+    assert msv_tpu_torch.config.get_db_wire() == "f32"
 
 
 def test_default_device_needs_a_card():
