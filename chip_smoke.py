@@ -55,7 +55,10 @@ Phases, each printing its lines:
               set_setting(linear) on the seven tracks (no mel kernel
               launch), a full-width linear image and a crop, the 10 s track
               against the CPU session on the linear scale (f32_agree, one
-              u8 step); a save_session / load_session round trip; which
+              u8 step); the seven tracks on the linear scale under
+              precision_mode_scope("fast") (TF32 GEMMs, no launch), under
+              FAST_SHARE of bins more than 0.47 dB from the parity linear
+              planes; a save_session / load_session round trip; which
               audio decoder ran;
   5. stream   long tracks: a 60-minute 48 kHz mono PCM16 WAV and an
               8-minute 44.1 kHz stereo PCM16 WAV (the int32 carrier) open
@@ -90,8 +93,31 @@ Phases, each printing its lines:
               slice-local one) and of the hour (block=False pending, the
               whole background build, cached == slice-local); the 10 s
               track's adaptive plane against the CPU port's (within 60 dB of
-              the frame peak: max < 0.47 dB, p99 < 0.01 dB).
-Each path of phases 3c-7 is driven with the launch counts set to 0 just
+              the frame peak: max < 0.47 dB, p99 < 0.01 dB);
+  8. frontends the command line (msv_tpu_torch.cli.main in this process)
+              and the web viewer on phases 4 and 5's WAVs: render of the
+              seven songs with --save-db (6 parity launches), --fast (6
+              fast) and --freq-scale linear (none), each PNG and dB plane
+              equal to a direct session's; encode_png of one full-width
+              image timed alone; render --start/--end of the hour over 12 s
+              across its third segment boundary (one launch per segment);
+              render --adaptive --save-db of the 48 kHz song (plane against
+              multires_mel_spec_db by f32_agree, PNG equal to the render of
+              its plane); features --kind logmel of the 44.1 kHz song (the
+              card's resample within 2e-5 of the CPU's, one fast launch,
+              the .npy equal to log_mel_spectrogram); resample --sr 16000
+              of the 8-minute stereo file (equal to resample_streamed);
+              serve_viewer on the seven songs and the hour on a loopback
+              port (its load, /api/setting linear and back to mel, POST
+              /api/add and /api/channel of the 8-minute file each counted),
+              every image response equal to a direct session's with the
+              same history, the zoomed-out adaptive crop of the hour 202
+              then 200, a cache hit without a render, a Range request,
+              /api/pitch 501, request latencies over 20 distinct 1200-column
+              crops (misses) and again (hits); then python -m msv_tpu_torch
+              render and view in processes of their own, and a missing file
+              (exit 1, "error:").
+Each path of phases 3c-8 is driven with the launch counts set to 0 just
 before it and read just after; comparisons run outside those windows.  The
 second-to-last line is a JSON object describing each kernel (its bound is
 computed from this run's shapes against the H100 SXM's published peaks);
@@ -108,6 +134,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -254,6 +281,36 @@ def check_f32(got, want, what):
           f"{what}: {bad} bins disagree (max |err| {err.max().item()} dB); "
           f"{note}")
     return err.max().item(), note
+
+
+def png_pixels(data):
+    """The pixels of a PNG that io/png.py wrote ((H, W, C) uint8; 8-bit
+    grey, RGB or RGBA, filter byte 0 on every scanline), from its bytes or
+    its path, decoded with zlib alone (the card's machine has no PIL)."""
+    import struct
+    import zlib
+
+    if isinstance(data, str):
+        with open(data, "rb") as f:
+            data = f.read()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG")
+    pos, idat, head = 8, [], None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if tag == b"IHDR":
+            head = struct.unpack(">IIBB", body[:10])
+        elif tag == b"IDAT":
+            idat.append(body)
+    w, h, depth, ctype = head
+    check(depth == 8 and ctype in (0, 2, 6), f"PNG depth {depth} type {ctype}")
+    ch = {0: 1, 2: 3, 6: 4}[ctype]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    raw = raw.reshape(h, 1 + w * ch)
+    check(bool((raw[:, 0] == 0).all()), "PNG scanline filter is not 0")
+    img = raw[:, 1:].reshape(h, w, ch)
+    return img[..., 0] if ch == 1 else img
 
 
 def f64_witness(padded, c, s, fb, win, hop, n_frames):
@@ -638,6 +695,30 @@ def phase_session(K, rng, work):
               f"({lnote}), max image step {lpx}; stage seconds, host clock: "
               f"{json.dumps(stages)}")
 
+        # ---- the linear scale in fast mode: TF32 GEMMs, no kernel launch
+        torch.cuda.synchronize()
+        reset_counts(K)
+        t0 = time.perf_counter()
+        with precision_mode_scope("fast"):
+            ml = MultiTrack(linear, device="cuda")
+            ml.add_tracks(ids, paths)
+        torch.cuda.synchronize()
+        lfast_s = time.perf_counter() - t0
+        lfast_launches = read_counts(K)
+        # ---- end of the fast linear path
+        check(lfast_launches == counts(), f"the fast linear session launched "
+              f"a mel kernel: {lfast_launches}")
+        lshares = [((ml._state[i].spec_db - mt._state[i].spec_db)
+                    [: mt._state[i].n_frames].abs() > GREY_STEP)
+                   .float().mean().item() for i in ids]
+        check(max(lshares) < FAST_SHARE, f"fast linear session vs parity: "
+              f"shares {lshares} of bins more than {GREY_STEP} dB apart")
+        print(f"[session] linear scale in fast mode (TF32 GEMMs): add "
+              f"({len(ids)} tracks, no kernel launch) {lfast_s:.3f} s; vs the "
+              f"parity linear planes share>{GREY_STEP} {min(lshares):.4f}-"
+              f"{max(lshares):.4f} (bound {FAST_SHARE})")
+        del ml
+
         path = os.path.join(d, "session.json")
         mt.save_session(path)
         back = MultiTrack.load_session(path, device="cuda")
@@ -663,7 +744,7 @@ def phase_session(K, rng, work):
               f"{os.path.relpath(NA.LIBRARY)} (built from msv_tpu_torch/"
               f"native/) decoded {NA.DECODES['native']} file(s), numpy "
               f"fallback {NA.DECODES['numpy']}")
-        return ((launches, fast_launches, lin_launches),
+        return ((launches, fast_launches, lin_launches, lfast_launches),
                 (paths, p10, imgs, wav_imgs))
 
 
@@ -1131,7 +1212,7 @@ def phase_streaming(K, rng, work, minutes=60, stereo_s=480.0):
               f"{lerr:.3g} dB ({lnote}); dB range [{lmin:.3f}, {lmax:.3f}]")
         del ldb, one, padded
         torch.cuda.empty_cache()
-        return (launches, fast_launches, lin_launches), hour
+        return (launches, fast_launches, lin_launches), (hour, eight)
 
 
 def phase_features(K, rng):
@@ -1434,6 +1515,467 @@ def _residency(K, smi, song, hour):
     return launches
 
 
+def free_port():
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def http(url, payload=None, headers=None, timeout=600):
+    """(status, body bytes, seconds) of one GET, or of one POST of the JSON
+    ``payload``; an HTTP error answers with its status and body."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers=headers or {},
+                                 method="GET" if data is None else "POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            code, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read()
+    return code, body, time.perf_counter() - t0
+
+
+def wait_loaded(base, deadline_s, proc=None):
+    """Poll /api/tracks until the viewer's startup load has finished."""
+    import urllib.error
+
+    deadline = time.time() + deadline_s
+    while True:
+        check(proc is None or proc.poll() is None,
+              f"the viewer process exited: {proc and proc.returncode}")
+        try:
+            code, body, _ = http(base + "/api/tracks", timeout=30)
+        except (urllib.error.URLError, ConnectionError):
+            code = None
+        if code == 200:
+            tracks = json.loads(body)
+            check(tracks.get("error") is None, f"viewer load: {tracks}")
+            if not tracks.get("loading") and tracks["tracks"]:
+                return tracks
+        check(time.time() < deadline, f"the viewer at {base} did not load")
+        time.sleep(0.05)
+
+
+def run_cli(args):
+    """msv_tpu_torch.cli.main(args) in this process (so its launches are
+    counted), its standard output kept apart: (exit code, output, wall
+    seconds ending in a device sync)."""
+    import contextlib
+    import io
+
+    from msv_tpu_torch import cli
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(args)
+    torch.cuda.synchronize()
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def counted(K, fn):
+    """(fn(), the launches fn made): counts set to 0 just before, read just
+    after."""
+    torch.cuda.synchronize()
+    reset_counts(K)
+    out = fn()
+    return out, read_counts(K)
+
+
+def phase_frontends(K, smi, song, hour, eight, work):
+    """8: the command line and the web viewer, as users run them."""
+    from msv_tpu_torch import (FreqScale, MultiTrack, SpecSetting,
+                               log_mel_spectrogram, precision_mode_scope)
+    from msv_tpu_torch.cli import adaptive_image
+    from msv_tpu_torch.config import derive_stft_params
+    from msv_tpu_torch.io.audio import (open_audio_file, open_audio_mono_ex,
+                                        open_wav_mmap)
+    from msv_tpu_torch.io.png import encode_png
+    from msv_tpu_torch.ops.framing import n_frames_for
+    from msv_tpu_torch.ops.multires import multires_mel_spec_db
+    from msv_tpu_torch.ops.resample import resample, resample_streamed
+    from msv_tpu_torch.parallel.streaming import _seg_plan_for
+    from msv_tpu_torch.viewer import serve_viewer
+
+    import re
+
+    from msv_tpu_torch.io import png as png_mod
+
+    paths, p10, imgs, wav_imgs = song
+    ids = list(range(len(paths)))
+    stem = {p: os.path.splitext(os.path.basename(p))[0]
+            for p in (*paths, p10, hour, eight)}
+    d = tempfile.mkdtemp(prefix="msv_chip_front_", dir=work)
+    legs, wall, add_s, write_s = [], {}, {}, {}
+    real_write = png_mod.write_png
+
+    def cli_leg(name, args, want):
+        """One counted CLI run; its wall time, the add time it prints and
+        the seconds its write_png calls took (PNG encode and file write)."""
+        out = os.path.join(d, name.replace(" ", "_").replace("-", ""))
+        spent = [0.0]
+
+        def timed_write(*a, **kw):
+            t0 = time.perf_counter()
+            real_write(*a, **kw)
+            spent[0] += time.perf_counter() - t0
+
+        png_mod.write_png = timed_write  # the CLI imports it per call
+        try:
+            (rc, log, wall[name]), n = counted(
+                K, lambda: run_cli([*args, "-o", out]))
+        finally:
+            png_mod.write_png = real_write
+        check(rc == 0, f"{name}: exit {rc}; {log}")
+        check(n == want, f"{name}: launches {n}, expected {want}")
+        m = re.search(r"loaded \d+ tracks in ([\d.]+)s", log)
+        add_s[name], write_s[name] = m and float(m.group(1)), spent[0]
+        legs.append((f"cli {name}", n))
+        return out
+
+    def split(name):
+        """'wall s (add a s, write_png w s = share of the wall)'."""
+        a = "" if add_s[name] is None else f"add {add_s[name]:.3f} s, "
+        return (f"{wall[name]:.3f} s ({a}write_png {write_s[name]:.3f} s = "
+                f"{write_s[name] / wall[name]:.1%})")
+
+    def png(out, name):
+        return png_pixels(os.path.join(out, name))
+
+    # ---- 1. render of the seven songs: parity with --save-db, fast, linear
+    out = cli_leg("render", ["render", *paths, "--save-db", "--wav-height",
+                             "200"], counts(6))
+    ref = MultiTrack(device="cuda")
+    ref.add_tracks(ids, paths)
+    for i, p in enumerate(paths):
+        check(np.array_equal(png(out, f"spec_{stem[p]}.png"), imgs[i])
+              and np.array_equal(png(out, f"wav_{stem[p]}.png"), wav_imgs[i]),
+              f"render: track {i}'s PNGs != the session's images")
+        check(np.array_equal(np.load(os.path.join(out, f"db_{stem[p]}.npy")),
+                             ref.get_spec_db(i)),
+              f"render --save-db: track {i} != get_spec_db")
+    del ref
+    t0 = time.perf_counter()
+    encoded = encode_png(imgs[0])
+    png_s = time.perf_counter() - t0
+    out = cli_leg("render --fast", ["render", *paths, "--fast", "--no-wav"],
+                  counts(fast=6))
+    with precision_mode_scope("fast"):
+        mf = MultiTrack(device="cuda")
+        mf.add_tracks(ids, paths)
+    for i, p in enumerate(paths):
+        check(np.array_equal(png(out, f"spec_{stem[p]}.png"),
+                             mf.get_spec_image(i, 100.0, 500)),
+              f"render --fast: track {i} != the fast session's image")
+    del mf
+    linear = SpecSetting(freq_scale=FreqScale.LINEAR)
+    out = cli_leg("render linear", ["render", *paths, "--freq-scale",
+                                    "linear", "--no-wav"], counts())
+    ml = MultiTrack(linear, device="cuda")
+    ml.add_tracks(ids, paths)
+    for i, p in enumerate(paths):
+        check(np.array_equal(png(out, f"spec_{stem[p]}.png"),
+                             ml.get_spec_image(i, 100.0, 500)),
+              f"render --freq-scale linear: track {i} != the session's")
+    del ml
+    torch.cuda.empty_cache()
+
+    # ---- 2. a crop of the hour across a segment boundary
+    # 12 s from 5 s before the whole second under the third segment
+    # boundary (the hour: 983.04 s, so 978-990 s)
+    hp = derive_stft_params(48000, SpecSetting())
+    n_hour = len(open_wav_mmap(hour)[0])
+    hour_s = n_hour / 48000
+    plan = _seg_plan_for(n_frames_for(n_hour, hp.win_length, hp.hop_length),
+                         4096, 8)
+    starts = np.cumsum(plan)[:-1] * 4096 * hp.hop_length / 48000
+    c0 = float(np.floor(starts[min(2, len(starts) - 1)])) - 5.0
+    c1 = c0 + 12.0
+    cross = [b for b in starts if c0 < b < c1]
+    check(len(cross) == 1, f"segment starts {starts} in [{c0}, {c1})")
+    out = cli_leg("render hour crop", ["render", hour, "--start", f"{c0:g}",
+                                       "--end", f"{c1:g}"], counts(len(plan)))
+    mh = MultiTrack(device="cuda")
+    mh.add_tracks([0], [hour])
+    check(np.array_equal(png(out, f"spec_{stem[hour]}.png"),
+                         mh.get_spec_image_crop(0, 100.0, 500, c0, c1))
+          and np.array_equal(png(out, f"wav_{stem[hour]}.png"),
+                             mh.get_wav_image_crop(0, 100.0, 150, -1.0, 1.0,
+                                                   c0, c1)),
+          f"render --start {c0:g} --end {c1:g} != the session's crops")
+    del mh
+
+    # ---- 3. the adaptive render of the 48 kHz song
+    out = cli_leg("render --adaptive", ["render", paths[-1], "--adaptive",
+                                        "--save-db"], counts())
+    db = torch.from_numpy(np.load(os.path.join(
+        out, f"db_adaptive_{stem[paths[-1]]}.npy"))).cuda()
+    wav48 = open_audio_mono_ex(paths[-1])[0]
+    whole, _ = multires_mel_spec_db(wav48, 48000, device="cuda")
+    a_err, a_note = check_f32(db, whole, "render --adaptive: plane vs the "
+                              "whole form")
+    check(np.array_equal(png(out, f"spec_adaptive_{stem[paths[-1]]}.png"),
+                         adaptive_image(db, len(wav48), 48000, 100.0, 500,
+                                        120.0)[0]),
+          "render --adaptive: PNG != the render of its plane")
+    del db, whole
+
+    # ---- 4. features --kind logmel, and resample
+    out = cli_leg("features", ["features", paths[4]], counts(fast=1))
+    wav441 = open_audio_mono_ex(paths[4])[0]
+    x = resample(wav441, 44100, 16000)
+    x_cpu = resample(wav441, 44100, 16000, device="cpu")
+    r_err = (x.cpu() - x_cpu).abs().max().item()
+    check(r_err <= 2e-5 * max(1.0, x_cpu.abs().max().item()),
+          f"resample on the card vs the CPU: {r_err}")
+    feats = np.load(os.path.join(out, f"feats_logmel_{stem[paths[4]]}.npy"))
+    check(np.array_equal(feats, log_mel_spectrogram(x, 16000).cpu().numpy()),
+          "features --kind logmel != log_mel_spectrogram of the resample")
+    out = cli_leg("resample", ["resample", eight, "--sr", "16000", "--bits",
+                               "32"], counts())
+    y, sr = open_audio_file(os.path.join(out, f"{stem[eight]}_sr16000.wav"))
+    want = resample_streamed(open_audio_file(eight)[0], 44100, 16000)
+    check(sr == 16000 and np.array_equal(y, want),
+          "resample --sr 16000 != resample_streamed on the card")
+    print(f"[frontends] {smi}; CLI render of {len(paths)} songs (--save-db, "
+          f"200-row waveforms), wall: {split('render')} (6 parity launches);"
+          f" --fast --no-wav {split('render --fast')} (6 fast); --freq-scale "
+          f"linear --no-wav {split('render linear')} (no launch); PNGs and dB"
+          f" planes equal to the sessions'; encode_png of one "
+          f"500x{int(100 * SECONDS)} spectrogram (level 2) {png_s:.3f} s "
+          f"({len(encoded) / 2**20:.1f} MiB)")
+    print(f"[frontends] render --start {c0:g} --end {c1:g} of the hour "
+          f"(segment boundary at {cross[0]:.2f} s): "
+          f"{split('render hour crop')} ({len(plan)} parity launches), equal "
+          f"to the session's crops; render --adaptive --save-db of the 48 kHz"
+          f" song {split('render --adaptive')}, plane vs the whole form "
+          f"max|err| {a_err:.3g} dB ({a_note}), PNG == the render of its "
+          f"plane; features --kind logmel of the 44.1 kHz song "
+          f"{wall['features']:.3f} s (1 fast launch), the card's resample vs "
+          f"the CPU's max|err| {r_err:.3g}, .npy == log_mel_spectrogram; "
+          f"resample --sr 16000 of the 8-minute stereo file "
+          f"{wall['resample']:.3f} s, == resample_streamed")
+
+    # ---- 5. the web viewer on the seven songs and the hour
+    vpaths = [*paths, hour]
+    hid, eid = len(paths), len(paths) + 1
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    def start_viewer():
+        threading.Thread(target=serve_viewer, args=(vpaths, port),
+                         kwargs={"device": "cuda"}, daemon=True).start()
+        return wait_loaded(base, 300)
+
+    t0 = time.perf_counter()
+    _, n = counted(K, start_viewer)
+    load_s = time.perf_counter() - t0
+    direct = MultiTrack(device="cuda")
+    direct.add_tracks(list(range(len(vpaths))), vpaths)
+    check(n == counts(6 + len(plan)), f"viewer load: launches {n}")
+    legs.append(("viewer load", n))
+
+    def image(path):
+        code, body, dt = http(base + path)
+        check(code == 200, f"{path}: HTTP {code} {body[:200]!r}")
+        return png_pixels(body), dt
+
+    full_s = []
+    for i in ids:
+        im, dt = image(f"/api/spec/{i}?px_per_sec=100&height=500")
+        check(np.array_equal(im, direct.get_spec_image(i, 100.0, 500)),
+              f"/api/spec/{i} != the session's image")
+        full_s.append(dt)
+    views = [(len(paths) - 1, SECONDS / 4, SECONDS / 4 + 12.0), (hid, c0, c1)]
+
+    def crops_equal(what, tids=None):
+        for tid, s0, s1 in views:
+            if tids is not None and tid not in tids:
+                continue
+            q = f"px_per_sec=100&height=500&start={s0}&end={s1}"
+            im, _ = image(f"/api/spec_crop/{tid}?{q}")
+            check(np.array_equal(im, direct.get_spec_image_crop(
+                tid, 100.0, 500, s0, s1)), f"{what}: spec_crop/{tid}")
+
+    crops_equal("viewer")
+    for tid, s0, s1 in views:
+        q = f"px_per_sec=100&height=500&start={s0}&end={s1}"
+        im, _ = image(f"/api/wav_crop/{tid}?px_per_sec=100&height=200"
+                      f"&amp_min=-1&amp_max=1&start={s0}&end={s1}")
+        check(np.array_equal(im, direct.get_wav_image_crop(
+            tid, 100.0, 200, -1.0, 1.0, s0, s1)), f"wav_crop/{tid}")
+        im, _ = image(f"/api/adaptive_crop/{tid}?{q}")
+        check(np.array_equal(im, direct.get_adaptive_spec_image_crop(
+            tid, 100.0, 500, s0, s1)), f"adaptive_crop/{tid}")
+    zoomed = (f"/api/adaptive_crop/{hid}?px_per_sec=1&height=300&start=0"
+              f"&end={hour_s + 1:g}")
+    t0 = time.perf_counter()
+    code, body, _ = http(base + zoomed)
+    check(code == 202 and json.loads(body)["pending"],
+          f"zoomed-out adaptive crop of the hour: HTTP {code} {body[:200]!r}")
+    while code == 202:
+        check(time.perf_counter() - t0 < 300, "the hour's adaptive build")
+        time.sleep(0.05)
+        code, body, _ = http(base + zoomed)
+    build_s = time.perf_counter() - t0
+    check(code == 200 and np.array_equal(
+        png_pixels(body), direct.get_adaptive_spec_image_crop(
+            hid, 1.0, 300, 0.0, hour_s + 1)), "zoomed-out adaptive crop")
+
+    def stats():
+        return json.loads(http(base + "/api/stats")[1])
+
+    st0 = stats()
+    image(f"/api/spec_crop/{views[0][0]}?px_per_sec=100&height=500"
+          f"&start={views[0][1]}&end={views[0][2]}")
+    st1 = stats()
+    check(st1["render_cache"]["hits"] == st0["render_cache"]["hits"] + 1
+          and st1["stage_timings"]["get_spec_image.render"]["calls"]
+          == st0["stage_timings"]["get_spec_image.render"]["calls"]
+          and "hbm" in st1 and st1["hbm"]["resident_bytes"] > 0,
+          f"render cache: {st0['render_cache']} -> {st1['render_cache']}")
+    a, b = 1_000_000, 1_065_535
+    code, body, _ = http(base + f"/api/audio/{hid}",
+                         headers={"Range": f"bytes={a}-{b}"})
+    with open(hour, "rb") as f:
+        f.seek(a)
+        check(code == 206 and body == f.read(b - a + 1),
+              f"/api/audio Range: HTTP {code}")
+
+    set_s = {}
+    for scale, want in (("linear", counts()),
+                        ("mel", counts(6 + len(plan)))):
+        t0 = time.perf_counter()
+        (code, body, _), n = counted(K, lambda: http(
+            base + "/api/setting", {"freq_scale": scale}))
+        set_s[scale] = time.perf_counter() - t0
+        check(code == 200 and n == want,
+              f"POST /api/setting {scale}: HTTP {code}, launches {n}")
+        legs.append((f"viewer setting {scale}", n))
+        direct.set_setting(linear if scale == "linear" else SpecSetting())
+        crops_equal(f"after /api/setting {scale}")
+
+    views.append((eid, 30.0, 42.0))
+    mut_s = {}
+    for what, route, body_, chans in (
+            ("add", "/api/add", {"id": eid, "path": eight}, [None]),
+            ("channel", "/api/channel", {"id": eid, "channel": 1}, [1])):
+        t0 = time.perf_counter()
+        (code, body, _), n = counted(K, lambda: http(base + route, body_))
+        mut_s[what] = time.perf_counter() - t0
+        direct.add_tracks([eid], [eight], channels=chans)
+        n_e = len(_seg_plan_for(direct._state[eid].n_frames, 4096, 8))
+        check(code == 200 and n == counts(n_e),
+              f"POST {route}: HTTP {code}, launches {n} ({n_e} segments)")
+        legs.append((f"viewer {what}", n))
+        crops_equal(f"after POST {route}", tids=(eid,))
+    code, _, _ = http(base + "/api/remove", {"id": eid})
+    direct.remove_track(eid)
+    tracks = json.loads(http(base + "/api/tracks")[1])["tracks"]
+    check(code == 200 and [t["id"] for t in tracks] == [*ids, hid],
+          f"POST /api/remove: HTTP {code}, tracks {tracks}")
+    code, body, _ = http(base + "/api/pitch/0")
+    check(code == 501 and json.loads(body) == {
+        "error": "not ported: /api/pitch"}, f"/api/pitch: HTTP {code}")
+
+    lat = {}
+    crop_urls = [f"/api/spec_crop/{hid}?px_per_sec=100&height=500"
+                 f"&start={a:g}&end={a + 12:g}" for a in
+                 (np.round(100 + np.arange(20) * (hour_s - 200) / 20))]
+    for kind in ("miss", "hit"):
+        st0 = stats()
+        got = [image(u) for u in crop_urls]
+        lat[kind] = [dt for _, dt in got]
+        st1 = stats()
+        check(st1["render_cache"]["hits"] - st0["render_cache"]["hits"]
+              == (20 if kind == "hit" else 0), f"crop sweep ({kind}): hits")
+        if kind == "miss":  # the session's render time per request
+            r0, r1 = (x["stage_timings"]["get_spec_image.render"]
+                      for x in (st0, st1))
+            render_ms = ((r1["total_s"] - r0["total_s"])
+                         / (r1["calls"] - r0["calls"]) * 1e3)
+            t0 = time.perf_counter()
+            crop_png = encode_png(got[-1][0])
+            encode_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[viewer] {smi}; serve_viewer load of {len(paths)} songs + the "
+          f"hour {load_s:.3f} s ({6 + len(plan)} parity launches); "
+          f"{len(ids)} full-width 500x{int(100 * SECONDS)} /api/spec "
+          f"requests: median {statistics.median(full_s):.3f} s, max "
+          f"{max(full_s):.3f} s; spec, waveform and adaptive crops equal the "
+          f"direct session's; the hour's zoomed-out adaptive crop 202, then "
+          f"200 after {build_s:.3f} s; repeat crop: a cache hit, no render; "
+          f"Range bytes equal the file's; /api/setting linear "
+          f"{set_s['linear']:.3f} s (no launch), mel {set_s['mel']:.3f} s "
+          f"({6 + len(plan)} launches); /api/add of the 8-minute stereo file "
+          f"{mut_s['add']:.3f} s, /api/channel 1 {mut_s['channel']:.3f} s, "
+          f"/api/remove; /api/pitch 501")
+    print("[viewer] 20 distinct 1200-column crops of the hour, request "
+          "latency: " + "; ".join(
+              f"{k} p50 {np.percentile(v, 50) * 1e3:.1f} ms p90 "
+              f"{np.percentile(v, 90) * 1e3:.1f} ms" for k, v in lat.items())
+          + f"; per miss, the session's render {render_ms:.1f} ms (mean), "
+          f"encode_png of one crop {encode_ms:.1f} ms "
+          f"({len(crop_png) / 2**20:.2f} MiB)")
+    del direct
+    torch.cuda.empty_cache()
+
+    # ---- 6. the entry points as users run them, in processes of their own
+    root = os.path.dirname(os.path.abspath(__file__))
+    sub = os.path.join(d, "sub")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "msv_tpu_torch", "render", p10,
+                        "-o", sub], capture_output=True, text=True,
+                       timeout=300, cwd=root)
+    sub_s = time.perf_counter() - t0
+    check(r.returncode == 0, f"python -m msv_tpu_torch render: {r.stderr}")
+    rc, _, _ = run_cli(["render", p10, "-o", os.path.join(d, "inproc")])
+    for name in (f"spec_{stem[p10]}.png", f"wav_{stem[p10]}.png"):
+        check(rc == 0 and np.array_equal(png(sub, name),
+                                         png(os.path.join(d, "inproc"), name)),
+              f"python -m msv_tpu_torch render: {name} != in-process")
+    vport = free_port()
+    with open(os.path.join(d, "view.err"), "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "msv_tpu_torch", "view", p10, "--port",
+             str(vport)], stdout=subprocess.DEVNULL, stderr=err, cwd=root)
+        try:
+            t0 = time.perf_counter()
+            wait_loaded(f"http://127.0.0.1:{vport}", 300, proc)
+            view_s = time.perf_counter() - t0
+            code, body, _ = http(f"http://127.0.0.1:{vport}/api/spec_crop/0?"
+                                 "px_per_sec=100&height=500&start=2&end=8")
+            m10 = MultiTrack(device="cuda")
+            m10.add_tracks([0], [p10])
+            check(code == 200 and np.array_equal(
+                png_pixels(body), m10.get_spec_image_crop(0, 100.0, 500, 2.0,
+                                                          8.0)),
+                  "python -m msv_tpu_torch view: crop != the session's")
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    r = subprocess.run([sys.executable, "-m", "msv_tpu_torch", "render",
+                        os.path.join(d, "missing.wav"), "-o", d],
+                       capture_output=True, text=True, timeout=300, cwd=root)
+    check(r.returncode == 1 and r.stderr.startswith("error:"),
+          f"render of a missing file: exit {r.returncode}, {r.stderr!r}")
+    print(f"[frontends] python -m msv_tpu_torch render of the 10 s track "
+          f"(own process) {sub_s:.3f} s, PNGs == in-process; view (own "
+          f"process) loaded in {view_s:.3f} s, crop == the session's, "
+          f"terminated; render of a missing file: exit 1, "
+          f"{r.stderr.strip().splitlines()[0]!r}")
+    return legs
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
@@ -1454,15 +1996,19 @@ def main():
             K, np.random.default_rng(SEED + 1))
         errs["split"], heads["split"], split_path, _ = phase_split(
             K, np.random.default_rng(SEED + 4))
-        streaming, hour = phase_streaming(K, np.random.default_rng(SEED + 2),
-                                          work)
-        paths = [*session, *streaming,
-                 phase_features(K, np.random.default_rng(SEED + 3)),
-                 split_path, phase_residency(K, smi, song, hour)]
-    launches = {m: sum(p[m] for p in paths) for m in K.MODES}
-    print(f"[launches] main-path launches by path (session, fast session, "
-          f"linear session, streaming, fast streaming, linear streaming, "
-          f"features, split A/B, residency): {paths}")
+        streaming, (hour, eight) = phase_streaming(
+            K, np.random.default_rng(SEED + 2), work)
+        paths = list(zip(
+            ("session", "fast session", "linear session",
+             "fast linear session", "streaming", "fast streaming",
+             "linear streaming", "features", "split A/B", "residency"),
+            (*session, *streaming,
+             phase_features(K, np.random.default_rng(SEED + 3)),
+             split_path, phase_residency(K, smi, song, hour))))
+        paths += phase_frontends(K, smi, song, hour, eight, work)
+    launches = {m: sum(n[m] for _, n in paths) for m in K.MODES}
+    print("[launches] main-path launches by path (parity, fast, split): "
+          + json.dumps({name: [n[m] for m in K.MODES] for name, n in paths}))
     kernels = []
     for mode, name, line in (("parity", "mel_spectrogram", 411),
                              ("fast", "mel_spectrogram_bf16", 411),

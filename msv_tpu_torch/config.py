@@ -16,7 +16,7 @@ Note the guarantee ``win_length % hop_length == 0``.
 """
 
 import threading
-from contextlib import contextmanager, nullcontext
+from contextlib import contextmanager
 from dataclasses import dataclass
 from enum import Enum
 
@@ -84,9 +84,11 @@ def derive_stft_params(sr: int, setting: SpecSetting) -> StftParams:
 #             parity tests and default sessions.
 #   "fast":   bf16 operands with f32 accumulation, as msv_tpu's fast
 #             mode: the session and streaming launch the bf16 kernel
-#             (csrc/mel_spectrogram_bf16.cu).  Most bins stay within one
-#             grey step (120 dB / 255 = 0.47 dB) of parity; bins more than
-#             ~50 dB under a frame's loudest component can swing further.
+#             (csrc/mel_spectrogram_bf16.cu); the linear scale's torch-op
+#             GEMMs run in TF32 (``precision_for("fast")``).  Most bins
+#             stay within one grey step (120 dB / 255 = 0.47 dB) of
+#             parity; bins more than ~50 dB under a frame's loudest
+#             component can swing further.
 _PRECISION_MODE = "parity"
 _PRECISION_MODE_EXPLICIT = False
 
@@ -151,45 +153,79 @@ def precision_mode_is_explicit() -> bool:
 
 
 # The torch form of msv_tpu's matmul precision rule.  Parity GEMMs are true
-# f32: TF32 off in cuBLAS and cuDNN for the duration of the block, whatever
-# the process has set.  The flags are process-wide, so nested and concurrent
-# blocks (a render thread and a background adaptive build) share one count:
-# the first to enter saves the caller's flags, the last to leave restores
-# them.
-_F32_LOCK = threading.Lock()
-_F32_DEPTH = 0
-_F32_SAVED = (False, False)
+# f32: TF32 off in cuBLAS and cuDNN for the duration of the block.  Fast
+# GEMMs take TF32 (what msv_tpu's DEFAULT precision is on an f32 dot on an
+# Ampere-or-later GPU): TF32 on for the block.  Either way the caller's
+# flags come back when the last block closes.  The flags are process-wide,
+# so blocks of the two modes never overlap: blocks of one mode nest and
+# overlap freely across threads (one count per mode; the first to enter
+# saves the caller's flags, the last to leave restores them), and a thread
+# that wants the other mode waits until every open block has closed, in
+# the order threads asked.  Opening the other mode inside a block on the
+# same thread raises RuntimeError (it would wait for itself).
+_TF32_FLAGS = {"parity": False, "fast": True}
+_SCOPE_COND = threading.Condition()
+_SCOPE_OPEN = {"parity": 0, "fast": 0}
+_SCOPE_QUEUE: list = []  # (mode, id) of each waiting thread, by arrival
+_SCOPE_SAVED = (False, False)
+_SCOPE_HELD = threading.local()  # this thread's open blocks by mode
+
+
+def _may_enter(ticket, mode) -> bool:
+    """A waiting thread enters when no block of the other mode is open and
+    every thread that asked before it wants the same mode."""
+    other = "fast" if mode == "parity" else "parity"
+    if _SCOPE_OPEN[other]:
+        return False
+    ahead = _SCOPE_QUEUE[:_SCOPE_QUEUE.index(ticket)]
+    return all(m == mode for m, _ in ahead)
 
 
 @contextmanager
-def _true_f32():
-    global _F32_DEPTH, _F32_SAVED
-    with _F32_LOCK:
-        if _F32_DEPTH == 0:
-            _F32_SAVED = (torch.backends.cuda.matmul.allow_tf32,
-                          torch.backends.cudnn.allow_tf32)
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-        _F32_DEPTH += 1
+def _tf32_scope(mode: str):
+    global _SCOPE_SAVED
+    held = _SCOPE_HELD.__dict__.setdefault("depth", {"parity": 0, "fast": 0})
+    other = "fast" if mode == "parity" else "parity"
+    if held[other]:
+        raise RuntimeError(
+            f"precision_for({mode!r}) inside an open precision_for({other!r})"
+            f" on the same thread: the TF32 flags are process-wide")
+    with _SCOPE_COND:
+        if not held[mode]:  # nested blocks join their thread's own
+            ticket = (mode, object())  # unequal to every other ticket
+            _SCOPE_QUEUE.append(ticket)
+            try:
+                _SCOPE_COND.wait_for(lambda: _may_enter(ticket, mode))
+            finally:
+                _SCOPE_QUEUE.remove(ticket)
+                _SCOPE_COND.notify_all()
+        if not _SCOPE_OPEN[mode]:
+            _SCOPE_SAVED = (torch.backends.cuda.matmul.allow_tf32,
+                            torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = _TF32_FLAGS[mode]
+            torch.backends.cudnn.allow_tf32 = _TF32_FLAGS[mode]
+        _SCOPE_OPEN[mode] += 1
+    held[mode] += 1
     try:
         yield
     finally:
-        with _F32_LOCK:
-            _F32_DEPTH -= 1
-            if _F32_DEPTH == 0:
+        held[mode] -= 1
+        with _SCOPE_COND:
+            _SCOPE_OPEN[mode] -= 1
+            if not _SCOPE_OPEN[mode]:
                 (torch.backends.cuda.matmul.allow_tf32,
-                 torch.backends.cudnn.allow_tf32) = _F32_SAVED
+                 torch.backends.cudnn.allow_tf32) = _SCOPE_SAVED
+                _SCOPE_COND.notify_all()
 
 
 def precision_for(mode: str):
     """A context manager for the torch-op GEMMs of precision ``mode``:
-    "parity" runs them in true f32 (TF32 off, the caller's flags restored
-    on exit); "fast" leaves the process's flags as they are."""
-    if mode == "parity":
-        return _true_f32()
-    if mode == "fast":
-        return nullcontext()
-    raise ValueError(f"unknown precision mode: {mode!r}")
+    "parity" runs them in true f32 (TF32 off), "fast" in TF32 (TF32 on);
+    the caller's flags come back on exit.  Blocks of the two modes never
+    overlap in time (see above)."""
+    if mode not in _TF32_FLAGS:
+        raise ValueError(f"unknown precision mode: {mode!r}")
+    return _tf32_scope(mode)
 
 
 def matmul_precision():

@@ -43,9 +43,11 @@ def _features_core(padded_b, c, s, fb, *, win, hop, n_frames, log, mode,
     """Frames -> DFT GEMM pair -> |X| or |X|^2 -> mel GEMM -> ``log``, as
     torch ops over a (B, L) batch.  ``mode="fast"`` rounds each GEMM's
     operands to bf16 (f32 accumulation), as the TPU's single-pass MXU
-    precision does; parity is true f32 (``precision_for``)."""
+    precision does; the GEMMs themselves are true f32 in both modes
+    (``precision_for("parity")``), so fast mode's numbers are those bf16
+    operands' and no TF32 rounding comes on top."""
     rnd = round_bf16 if mode == "fast" else (lambda x: x)
-    with precision_for(mode):
+    with precision_for("parity"):
         frames = rnd(frame_device(padded_b, win, hop, n_frames))
         re = frames @ rnd(c)
         im = frames @ rnd(s)

@@ -13,10 +13,11 @@
     -> horizontal Lanczos GEMM or banded gather -> clamp
     -> colormap (rgb) or quantized grey (grey8/grey16)
 
-The GEMMs are f32 ``torch.matmul`` under ``precision_for("parity")`` in
-every mode (msv_tpu renders at HIGHEST in every mode; its fast-mode
-spectrogram GEMMs are single-pass, the port's stay f32): TF32 off for the
-call, the caller's flags restored after.  The vertical resize GEMM runs
+The spectrogram GEMMs run under ``precision_for(mode)``: true f32 (TF32
+off) in parity, TF32 in fast, as msv_tpu's take the mode's matmul
+precision.  The render GEMMs run under ``precision_for("parity")`` in every
+mode (msv_tpu renders at HIGHEST in every mode).  Either scope gives the
+caller's flags back after the call.  The vertical resize GEMM runs
 over fixed ``RENDER_BLOCK``-column blocks, so a frame's column meets one
 cuBLAS kernel whatever the plane's width: a render of a slice-local plane
 then equals the same columns of a wider plane bit for bit (adaptive crops
@@ -46,7 +47,7 @@ def spec_pipeline(padded, c, s, mel_fb, n_valid, *, win, hop, n_frames,
     ``n_frames`` is the bucketed frame count; ``n_valid`` the true one (an
     int, or a tensor of one per row).  Rows >= n_valid come from zero
     padding and are left out of the min/max.  ``mode`` must be given, as in
-    msv_tpu; every mode computes true f32 here (TF32 off).  ``scale`` is the
+    msv_tpu: parity computes true f32 (TF32 off), fast TF32.  ``scale`` is the
     exact f32 value of one integer-carrier unit when ``padded`` is
     int16/int32; ignored for f32 input.  ``mel_fb`` is read only when
     ``use_mel``.
@@ -63,7 +64,7 @@ def spec_pipeline(padded, c, s, mel_fb, n_valid, *, win, hop, n_frames,
     if padded.dtype in (torch.int16, torch.int32):
         # integer carrier: exact power-of-two scale on the device
         padded = padded.to(torch.float32) * scale
-    with precision_for("parity"):  # true f32 in every mode
+    with precision_for(mode):
         spec = dft_magnitude(padded, c, s, win=win, hop=hop,
                              n_frames=n_frames)
         if use_mel:

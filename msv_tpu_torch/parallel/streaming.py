@@ -145,15 +145,15 @@ def _check_route(mel_fb, impl, transfer, n_fft=None, window=None):
 
 
 def _torch_segment(seg, ops, out, *, win, hop, chunk_frames, scale, window,
-                   n_fft):
+                   n_fft, mode):
     """msv_tpu's per-chunk streaming step as torch ops, into the rows
     ``out`` of one segment: frames -> DFT GEMM pair (``window`` None) or
     |rfft| of the windowed frames zero-padded to ``n_fft`` -> [mel GEMM]
-    -> amp_to_db, ``chunk_frames`` frames at a time, in true f32 in every
-    precision mode (TF32 off for the call)."""
+    -> amp_to_db, ``chunk_frames`` frames at a time, under
+    ``precision_for(mode)`` (parity: true f32; fast: TF32)."""
     c, s, fb = ops
     x = seg.to(torch.float32) * scale if seg.dtype == torch.int16 else seg
-    with precision_for("parity"):
+    with precision_for(mode):
         for f0 in range(0, out.shape[0], chunk_frames):
             nf = min(chunk_frames, out.shape[0] - f0)
             if window is not None:
@@ -237,7 +237,8 @@ def _run_segments(make_seg, seg_plan, n_frames, win, hop, ops, chunk_frames,
         else:
             rows = _torch_segment(seg, ops, db[f0 : f0 + seg_frames],
                                   win=win, hop=hop, chunk_frames=chunk_frames,
-                                  scale=scale, window=window, n_fft=n_fft)
+                                  scale=scale, window=window, n_fft=n_fft,
+                                  mode=mode)
         # rows at or after n_frames are zero-tail frames: not in the range
         n_valid = max(0, min(n_frames - f0, seg_frames))
         if n_valid:
@@ -292,8 +293,8 @@ def streaming_spec_db(
     (exact: power-of-two scales).
 
     The kernel follows the session's precision mode
-    (``set_precision_mode``), as in ``msv_tpu``; the torch-op route is f32
-    in every mode.  ``device`` defaults to the device of ``c`` (a tensor).
+    (``set_precision_mode``), as in ``msv_tpu``, and so does the torch-op
+    route: true f32 in parity, TF32 in fast.  ``device`` defaults to the device of ``c`` (a tensor).
     ``c``, ``s``, ``mel_fb`` may be numpy f32, or tensors that are the
     mode's operands (f32, or bf16 for "fast"); for the kernel they are laid
     out once (``prepare_operands``) for every segment.  ``c`` may also be

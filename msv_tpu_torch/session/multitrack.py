@@ -347,7 +347,9 @@ class MultiTrack:
     def _sr_operands(self, sr: int, mode: str) -> tuple:
         """The operands of rate ``sr`` in precision ``mode``; the bf16
         copies are made at the first fast-mode use and kept.  The linear
-        scale has no filterbank and computes in f32 in every mode."""
+        scale has no filterbank and keeps the f32 operands in every mode:
+        its route takes the session's mode as a GEMM precision (parity:
+        true f32; fast: TF32)."""
         ops = self._operands[sr]
         if not self._use_mel:
             return ops["parity"]

@@ -1,0 +1,468 @@
+"""The port's command line (``python -m msv_tpu_torch``, ``msv_tpu_torch/
+cli.py``) against msv_tpu's (``msv_tpu/cli.py``) on the same WAVs, on the
+CPU (``--device cpu``).
+
+Bounds: spectrogram PNGs (the grey8 wire) within one grey level of
+msv_tpu's (the kernel's ln-based dB flips some levels, ROADMAP "Two dB
+formulas"; a level flip moves a LUT colour by up to three u8 steps);
+waveform PNGs within one u8 step; mel dB exports within atol 2e-3 dB /
+rtol 1e-4, linear and adaptive planes by chip_smoke's ``f32_agree``; fast
+mode (bf16 operands here, f32 in msv_tpu on the CPU) on white noise by the
+fast-vs-parity bound of 99% of bins within one grey step (its images follow
+the global dB floor, which bf16 moves); resampled WAVs within tests/test_resample.py's atol
+2e-5.  The port's own outputs equal its library calls bit for bit.  The
+parser keeps every msv_tpu subcommand and option; ``--device`` is the one
+addition.  PNGs are decoded with zlib (``chip_smoke.png_pixels``).  The
+card test runs where the card is (``-m gpu``; no JAX there).
+"""
+
+import argparse
+import importlib
+import importlib.util
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import msv_tpu_torch  # noqa: E402
+from msv_tpu_torch import config as tcfg  # noqa: E402
+from msv_tpu_torch.cli import _build_parser, adaptive_image, main  # noqa: E402
+from msv_tpu_torch.io.audio import open_audio_file, write_wav  # noqa: E402
+from msv_tpu_torch.render.colormap import _host_lut  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+cs = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(cs)
+CPU = ["--device", "cpu"]
+
+
+@pytest.fixture(scope="module")
+def jcli():
+    """msv_tpu's command line (absent on the card's machine)."""
+    pytest.importorskip("jax")
+    return importlib.import_module("msv_tpu.cli")
+
+
+@pytest.fixture(autouse=True)
+def _port_mode_restored():
+    yield
+    tcfg.reset_precision_mode()
+
+
+def _noise(path, sr, seconds=1.0, seed=3):
+    """White noise: the signal of the fast-vs-parity bound (a tone's bins
+    50 dB under its frame's peak swing further in bf16)."""
+    x = np.random.default_rng(seed).standard_normal(int(seconds * sr)) * 0.3
+    write_wav(path, x.astype(np.float32)[None], sr)
+    return path
+
+
+def _tone(path, sr=8000, seconds=1.0, seed=7, channels=1):
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    x = (0.4 * np.sin(2 * np.pi * 440 * t)
+         + 0.02 * rng.standard_normal(len(t))).astype(np.float32)
+    if channels == 2:
+        x = np.stack([x, (0.5 * np.sin(2 * np.pi * 880 * t))
+                      .astype(np.float32)])
+    write_wav(path, x if x.ndim == 2 else x[None], sr)
+    return path
+
+
+@pytest.fixture()
+def wav_path(tmp_path):
+    return _tone(str(tmp_path / "tone.wav"))
+
+
+def grey_levels(img):
+    """Per pixel, the lowest and highest grey8 level whose LUT colour it is
+    (the top stop is flat, so several levels share one colour)."""
+    lut = _host_lut(8).astype(np.int64)
+    key = (lut[:, 0] << 16) | (lut[:, 1] << 8) | lut[:, 2]
+    px = img.astype(np.int64)
+    px = (px[..., 0] << 16) | (px[..., 1] << 8) | px[..., 2]
+    lo = np.full(px.shape, 1 << 30)
+    hi = np.full(px.shape, -1)
+    for q in range(256):
+        m = px == key[q]
+        lo[m] = np.minimum(lo[m], q)
+        hi[m] = np.maximum(hi[m], q)
+    assert (hi >= 0).all(), "pixel is not a grey8 LUT colour"
+    return lo, hi
+
+
+def level_gap(a, b):
+    """Grey-level distance between two grey8-wire images, per pixel."""
+    assert a.shape == b.shape and a.dtype == b.dtype == np.uint8
+    (alo, ahi), (blo, bhi) = grey_levels(a), grey_levels(b)
+    return np.maximum(np.maximum(alo - bhi, blo - ahi), 0)
+
+
+def close_u8(a, b, steps=1):
+    assert a.shape == b.shape and a.dtype == b.dtype == np.uint8
+    assert np.abs(a.astype(np.int16) - b.astype(np.int16)).max() <= steps
+
+
+def _run_both(jcli, args, tmp_path, port_extra=CPU):
+    """The same command through both CLIs into out_port / out_jax."""
+    outs = {}
+    for name, fn, extra in (("port", main, port_extra),
+                            ("jax", jcli.main, [])):
+        out = str(tmp_path / f"out_{name}")
+        assert fn([*args, "-o", out, *extra]) == 0, name
+        outs[name] = out
+    return outs
+
+
+def _png(d, name):
+    return cs.png_pixels(os.path.join(d, name))
+
+
+# ------------------------------------------------------------- the parser
+
+
+def _actions(parser):
+    return {a.dest: (tuple(a.option_strings), a.default, a.choices and
+                     list(a.choices), a.help, a.nargs, a.type, a.required,
+                     a.metavar) for a in parser._actions
+            if a.dest not in ("help", "device")}
+
+
+def _subparsers(parser):
+    return next(a for a in parser._actions
+                if isinstance(a, argparse._SubParsersAction))
+
+
+PORTED_DEVICE = ("render", "view", "info", "resample", "features")
+
+
+@pytest.mark.parametrize("cmd", [
+    "render", "info", "analyze", "hpss", "transcribe", "separate", "stretch",
+    "trim", "resample", "align", "denoise", "declick", "specedit", "filter",
+    "gain", "features", "reconstruct", "serve", "view"])
+def test_parser_keeps_every_subcommand_and_option(cmd, jcli):
+    port = _subparsers(_build_parser()).choices[cmd]
+    ref = _subparsers(jcli._build_parser()).choices[cmd]
+    assert _actions(port) == _actions(ref)
+    assert port.description == ref.description
+    has = any(a.dest == "device" for a in port._actions)
+    assert has == (cmd in PORTED_DEVICE)
+    if has:
+        dev = next(a for a in port._actions if a.dest == "device")
+        assert dev.default == "cuda" and list(dev.choices) == ["cuda", "cpu"]
+    assert port.prog.startswith("msv_tpu_torch ")
+
+
+# ---------------------------------------------------------------- render
+
+
+def test_render_defaults_match_jax(wav_path, tmp_path, jcli, capsys):
+    args = ["render", wav_path, "--px-per-sec", "50", "--height", "100"]
+    outs = _run_both(jcli, args, tmp_path)
+    spec = {k: _png(d, "spec_tone.png") for k, d in outs.items()}
+    wav = {k: _png(d, "wav_tone.png") for k, d in outs.items()}
+    assert spec["port"].shape == (100, 50, 3)
+    assert level_gap(spec["port"], spec["jax"]).max() <= 1
+    close_u8(wav["port"], wav["jax"])
+    # the PNGs are the session's images, bit for bit
+    mt = msv_tpu_torch.MultiTrack(device="cpu")
+    mt.add_tracks([0], [wav_path])
+    np.testing.assert_array_equal(spec["port"],
+                                  mt.get_spec_image(0, 50.0, 100))
+    np.testing.assert_array_equal(
+        wav["port"], mt.get_wav_image(0, 50.0, 150, -1.0, 1.0))
+    assert "loaded 1 tracks" in capsys.readouterr().out
+
+
+def test_render_time_crop_equals_slice_and_jax(wav_path, tmp_path, jcli):
+    full = str(tmp_path / "full")
+    assert main(["render", wav_path, "-o", full, "--px-per-sec", "80",
+                 *CPU]) == 0
+    args = ["render", wav_path, "--px-per-sec", "80", "--start", "0.25",
+            "--end", "0.75"]
+    outs = _run_both(jcli, args, tmp_path)
+    c0, c1 = int(80 * 0.25), int(80 * 0.75)
+    crop = _png(outs["port"], "spec_tone.png")
+    np.testing.assert_array_equal(crop, _png(full, "spec_tone.png")[:, c0:c1])
+    np.testing.assert_array_equal(_png(outs["port"], "wav_tone.png"),
+                                  _png(full, "wav_tone.png")[:, c0:c1])
+    assert level_gap(crop, _png(outs["jax"], "spec_tone.png")).max() <= 1
+    close_u8(_png(outs["port"], "wav_tone.png"),
+             _png(outs["jax"], "wav_tone.png"))
+
+
+def test_render_time_crop_out_of_range(wav_path, tmp_path, capsys):
+    out = str(tmp_path / "oob")
+    assert main(["render", wav_path, "-o", out, "--start", "100", "--end",
+                 "200", *CPU]) == 0
+    assert not os.path.exists(os.path.join(out, "spec_tone.png"))
+    assert "nothing to render" in capsys.readouterr().out
+
+
+def test_render_save_db_matches_jax(wav_path, tmp_path, jcli, capsys):
+    args = ["render", wav_path, "--px-per-sec", "50", "--height", "60",
+            "--save-db", "--no-wav"]
+    outs = _run_both(jcli, args, tmp_path)
+    got = np.load(os.path.join(outs["port"], "db_tone.npy"))
+    want = np.load(os.path.join(outs["jax"], "db_tone.npy"))
+    assert got.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=2e-3, rtol=1e-4)
+    assert not os.path.exists(os.path.join(outs["port"], "wav_tone.png"))
+    mt = msv_tpu_torch.MultiTrack(device="cpu")
+    mt.add_tracks([0], [wav_path])
+    np.testing.assert_array_equal(got, mt.get_spec_db(0))
+    assert "(wire f32)" in capsys.readouterr().out
+
+
+def test_render_adaptive_matches_jax(wav_path, tmp_path, jcli):
+    args = ["render", wav_path, "--adaptive", "--n-mel", "48",
+            "--px-per-sec", "40", "--height", "80", "--save-db"]
+    outs = _run_both(jcli, args, tmp_path)
+    got = np.load(os.path.join(outs["port"], "db_adaptive_tone.npy"))
+    want = np.load(os.path.join(outs["jax"], "db_adaptive_tone.npy"))
+    assert got.shape == want.shape and got.shape[1] == 48
+    cs.check_f32(torch.from_numpy(got), torch.from_numpy(want),
+                 "adaptive plane")
+    img = _png(outs["port"], "spec_adaptive_tone.png")
+    assert img.shape == _png(outs["jax"], "spec_adaptive_tone.png").shape
+    # the PNG is the adaptive render of the exported plane, and the plane
+    # is the whole-track form's
+    want_img, _ = adaptive_image(torch.from_numpy(got), 8000, 8000, 40.0,
+                                 80, 120.0)
+    np.testing.assert_array_equal(img, want_img)
+    whole, _ = msv_tpu_torch.ops.multires_mel_spec_db(
+        open_audio_file(wav_path)[0][0], 8000, n_mel=48, device="cpu")
+    np.testing.assert_array_equal(got, whole.numpy())
+    close_u8(img, _png(outs["jax"], "spec_adaptive_tone.png"), steps=3)
+
+
+def test_render_fast_matches_jax_and_scopes_the_mode(tmp_path, jcli):
+    wav_path = _noise(str(tmp_path / "tone.wav"), 8000)
+    args = ["render", wav_path, "--px-per-sec", "50", "--height", "100",
+            "--fast", "--save-db", "--no-wav"]
+    outs = _run_both(jcli, args, tmp_path)
+    assert tcfg.get_precision_mode() == "parity"  # --fast held for the run
+    assert not tcfg.precision_mode_is_explicit()
+    # bf16 operands move the deepest bin, so the global dB floor, and with
+    # it every grey level: the planes are compared, not the images
+    img = _png(outs["port"], "spec_tone.png")
+    assert img.shape == _png(outs["jax"], "spec_tone.png").shape
+    got = np.load(os.path.join(outs["port"], "db_tone.npy"))
+    want = np.load(os.path.join(outs["jax"], "db_tone.npy"))
+    assert (np.abs(got - want) <= cs.GREY_STEP).mean() >= 0.99
+    with tcfg.precision_mode_scope("fast"):
+        mt = msv_tpu_torch.MultiTrack(device="cpu")
+        mt.add_tracks([0], [wav_path])
+    np.testing.assert_array_equal(got, mt.get_spec_db(0))
+    np.testing.assert_array_equal(img, mt.get_spec_image(0, 50.0, 100))
+
+
+def test_render_linear_matches_jax(wav_path, tmp_path, jcli):
+    args = ["render", wav_path, "--px-per-sec", "50", "--height", "100",
+            "--freq-scale", "linear", "--save-db"]
+    outs = _run_both(jcli, args, tmp_path)
+    got = np.load(os.path.join(outs["port"], "db_tone.npy"))
+    want = np.load(os.path.join(outs["jax"], "db_tone.npy"))
+    assert got.shape == want.shape == (101, 257)
+    cs.check_f32(torch.from_numpy(got), torch.from_numpy(want),
+                 "linear plane")
+    assert level_gap(_png(outs["port"], "spec_tone.png"),
+                     _png(outs["jax"], "spec_tone.png")).max() <= 1
+
+
+def test_render_engine_flags(wav_path, tmp_path, capsys):
+    imgs = {}
+    for engine in ("auto", "pallas"):
+        out = str(tmp_path / engine)
+        assert main(["render", wav_path, "-o", out, "--engine", engine,
+                     "--no-wav", "--px-per-sec", "40", "--height", "80",
+                     *CPU]) == 0
+        imgs[engine] = _png(out, "spec_tone.png")
+    np.testing.assert_array_equal(imgs["auto"], imgs["pallas"])
+    capsys.readouterr()
+    out = str(tmp_path / "xla")
+    assert main(["render", wav_path, "-o", out, "--engine", "xla",
+                 *CPU]) == 1
+    err = capsys.readouterr().err
+    assert err.startswith("error:") and "one mel engine" in err
+    assert not os.path.exists(os.path.join(out, "spec_tone.png"))
+
+
+@pytest.mark.parametrize("wire", ["q16", "q12", "q10", "q8"])
+def test_render_packed_db_wire_is_an_error(wire, wav_path, tmp_path,
+                                           capsys):
+    assert main(["render", wav_path, "-o", str(tmp_path), "--save-db",
+                 "--db-wire", wire, *CPU]) == 1
+    err = capsys.readouterr().err
+    assert err.startswith("error:") and "queue 1 item 12" in err
+
+
+def test_render_channel_and_png_level(tmp_path, jcli):
+    p = _tone(str(tmp_path / "st.wav"), channels=2)
+    args = ["render", p, "--channel", "1", "--png-level", "6",
+            "--px-per-sec", "50", "--height", "60"]
+    outs = _run_both(jcli, args, tmp_path)
+    assert level_gap(_png(outs["port"], "spec_st_ch1.png"),
+                     _png(outs["jax"], "spec_st_ch1.png")).max() <= 1
+    mt = msv_tpu_torch.MultiTrack(device="cpu")
+    mt.add_tracks([0], [p], channels=[1])
+    np.testing.assert_array_equal(_png(outs["port"], "wav_st_ch1.png"),
+                                  mt.get_wav_image(0, 50.0, 150, -1.0, 1.0))
+
+
+# ------------------------------------------------------- info and errors
+
+
+def test_info_matches_jax(wav_path, jcli, capsys):
+    assert main(["info", wav_path, *CPU]) == 0
+    port = capsys.readouterr().out
+    assert jcli.main(["info", wav_path]) == 0
+    assert port == capsys.readouterr().out
+    assert "sr=8000" in port and "win=320" in port
+
+
+def test_info_loudness_is_not_ported(wav_path, capsys):
+    assert main(["info", wav_path, "--loudness", *CPU]) == 1
+    err = capsys.readouterr().err
+    assert err.startswith("error:") and "not ported" in err
+
+
+def test_missing_file_error(tmp_path, capsys):
+    assert main(["render", str(tmp_path / "no.wav"), "-o", str(tmp_path),
+                 *CPU]) == 1
+    assert capsys.readouterr().err.startswith("error:")
+
+
+@pytest.mark.parametrize("cmd", ["render", "info", "resample", "features",
+                                 "view"])
+def test_no_card_is_an_error_without_device_cpu(cmd, wav_path, tmp_path,
+                                                capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default route runs there")
+    extra = {"resample": ["--sr", "16000"], "view": ["--port", "0"]}
+    args = [cmd, wav_path, *extra.get(cmd, [])]
+    if cmd not in ("info", "view"):
+        args += ["-o", str(tmp_path / "o")]
+    assert main(args) == 1
+    err = capsys.readouterr().err
+    assert err.startswith("error: no CUDA device") and "--device cpu" in err
+    assert not os.path.exists(str(tmp_path / "o"))
+
+
+@pytest.mark.parametrize("cmd", [
+    "analyze", "hpss", "separate", "transcribe", "stretch", "trim", "align",
+    "denoise", "declick", "specedit", "filter", "gain", "reconstruct"])
+def test_analysis_subcommands_are_not_ported(cmd, wav_path, capsys):
+    assert main([cmd, wav_path]) == 1
+    cap = capsys.readouterr()
+    assert cap.err == f"error: {cmd} is not ported yet\n" and not cap.out
+
+
+@pytest.mark.parametrize("kind", ["mfcc", "whisper", "onsets"])
+def test_features_other_kinds_are_not_ported(kind, wav_path, tmp_path,
+                                             capsys):
+    assert main(["features", wav_path, "-o", str(tmp_path), "--kind", kind,
+                 *CPU]) == 1
+    err = capsys.readouterr().err
+    assert err.startswith("error:") and "not ported" in err
+
+
+# ------------------------------------------------- resample and features
+
+
+def test_resample_matches_jax(tmp_path, jcli):
+    p = _tone(str(tmp_path / "st.wav"), sr=44100, seconds=2.0, channels=2)
+    args = ["resample", p, "--sr", "16000", "--bits", "32"]
+    outs = _run_both(jcli, args, tmp_path)
+    y, sr = open_audio_file(os.path.join(outs["port"], "st_sr16000.wav"))
+    want, _ = open_audio_file(os.path.join(outs["jax"], "st_sr16000.wav"))
+    assert sr == 16000 and y.shape == want.shape == (2, 32000)
+    np.testing.assert_allclose(y, want, atol=2e-5, rtol=0)
+    x, _ = open_audio_file(p)
+    from msv_tpu_torch.ops.resample import resample_streamed
+
+    np.testing.assert_array_equal(
+        y, resample_streamed(x, 44100, 16000, device="cpu"))
+    # --channel picks one source channel; PCM16 by default
+    out = str(tmp_path / "one")
+    assert main(["resample", p, "--sr", "8000", "--channel", "1", "-o", out,
+                 *CPU]) == 0
+    y1, sr1 = open_audio_file(os.path.join(out, "st_ch1_sr8000.wav"))
+    assert sr1 == 8000 and y1.shape[0] == 1
+    spec = np.abs(np.fft.rfft(y1[0] * np.hanning(y1.shape[1])))
+    assert abs(spec.argmax() * 8000 / y1.shape[1] - 880.0) < 2.0
+    with pytest.raises(SystemExit):
+        main(["resample", p])  # --sr required
+
+
+def test_features_logmel_matches_jax(tmp_path, jcli):
+    p = _noise(str(tmp_path / "tone.wav"), 22050)
+    outs = _run_both(jcli, ["features", p, "--kind", "logmel"], tmp_path)
+    got = np.load(os.path.join(outs["port"], "feats_logmel_tone.npy"))
+    want = np.load(os.path.join(outs["jax"], "feats_logmel_tone.npy"))
+    assert got.dtype == np.float32 and got.shape == want.shape == (101, 128)
+    # fast (bf16 operands) against msv_tpu's f32 on the CPU
+    assert (np.abs(got - want) <= cs.GREY_STEP).mean() >= 0.99
+    # the direct op path: the device resample, then the default frontend
+    from msv_tpu_torch.ops.resample import resample
+
+    x = resample(open_audio_file(p)[0][0], 22050, 16000, device="cpu")
+    np.testing.assert_array_equal(
+        got, msv_tpu_torch.log_mel_spectrogram(x, 16000).numpy())
+    # already at the target rate: no resample
+    p16 = _tone(str(tmp_path / "t16.wav"), sr=16000)
+    out = str(tmp_path / "f16")
+    assert main(["features", p16, "-o", out, "--n-mel", "64", *CPU]) == 0
+    np.testing.assert_array_equal(
+        np.load(os.path.join(out, "feats_logmel_t16.npy")),
+        msv_tpu_torch.log_mel_spectrogram(open_audio_file(p16)[0][0], 16000,
+                                          n_mel=64, device="cpu").numpy())
+
+
+def test_module_entry_point_runs(wav_path, tmp_path):
+    """``python -m msv_tpu_torch`` as a user runs it."""
+    out = str(tmp_path / "o")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-m", "msv_tpu_torch", "render",
+                        wav_path, "-o", out, "--device", "cpu",
+                        "--px-per-sec", "50", "--height", "100"],
+                       capture_output=True, text=True, timeout=120,
+                       cwd=str(tmp_path), env=env)
+    assert r.returncode == 0, r.stderr
+    mt = msv_tpu_torch.MultiTrack(device="cpu")
+    mt.add_tracks([0], [wav_path])
+    np.testing.assert_array_equal(cs.png_pixels(
+        os.path.join(out, "spec_tone.png")), mt.get_spec_image(0, 50.0, 100))
+    r = subprocess.run([sys.executable, "-m", "msv_tpu_torch", "render",
+                        str(tmp_path / "missing.wav"), "--device", "cpu"],
+                       capture_output=True, text=True, timeout=120,
+                       cwd=str(tmp_path), env=env)
+    assert r.returncode == 1 and r.stderr.startswith("error:")
+    assert "Traceback" not in r.stderr
+
+
+@pytest.mark.gpu
+def test_render_on_the_card(tmp_path):
+    """``render`` of a 10 s WAV on the card: one parity launch, PNGs
+    within one grey level of the CPU run's, waveforms equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from msv_tpu_torch.kernels import spectrogram_cuda as K
+
+    p = _tone(str(tmp_path / "ten.wav"), sr=44100, seconds=10.0)
+    outs = {}
+    before = K.LAUNCHES_BY_MODE["parity"]
+    for dev in ("cuda", "cpu"):
+        outs[dev] = str(tmp_path / dev)
+        assert main(["render", p, "-o", outs[dev], "--device", dev]) == 0
+    assert K.LAUNCHES_BY_MODE["parity"] == before + 1
+    assert level_gap(_png(outs["cuda"], "spec_ten.png"),
+                     _png(outs["cpu"], "spec_ten.png")).max() <= 1
+    np.testing.assert_array_equal(_png(outs["cuda"], "wav_ten.png"),
+                                  _png(outs["cpu"], "wav_ten.png"))

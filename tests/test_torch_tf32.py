@@ -17,6 +17,17 @@ arithmetic, on the CPU.
   frame's peak).
 
 The kernels themselves run on the card only (tests/test_torch_kernel.py).
+
+And the precision scopes of the torch-op GEMMs (``config.precision_for``):
+"fast" turns TF32 on as "parity" turns it off, each giving the caller's
+flags back; scopes of the two modes never overlap across threads (the
+other mode waits, in arrival order) and raise on one thread; the linear
+routes (``spec_pipeline``, ``spec_pipeline_batched``, streaming's torch
+step, the session) run in the scope of their mode, while the routes that
+emulate bf16 (``_features_core``, the kernels' plain versions) stay in
+true f32; a linear session in fast mode equals msv_tpu's on the CPU within
+tests/test_torch_linear.py's bounds (TF32 flags change nothing on the CPU,
+so this pins the plumbing, not the card's numbers).
 """
 
 import importlib.util
@@ -339,3 +350,304 @@ def test_prepare_operands_rejects_what_no_kernel_takes(case):
             "no such mode": ((c, s, fb), "exact")}[case]
     with pytest.raises(ValueError):
         K.prepare_operands(*args[0], args[1])
+
+
+# ------------------------------------------------------ precision scopes
+
+
+def _tf32():
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+
+@pytest.fixture()
+def caller_flags():
+    """The caller's flags for a test: matmul off, cudnn on (a mix neither
+    scope sets), restored after."""
+    saved = _tf32()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    yield (False, True)
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+def _in_thread(fn):
+    import threading
+
+    th = threading.Thread(target=fn, daemon=True)
+    th.start()
+    return th
+
+
+def test_fast_scope_turns_tf32_on_nests_and_restores(caller_flags):
+    import threading
+
+    from msv_tpu_torch.config import precision_for
+
+    with precision_for("fast"):
+        assert _tf32() == (True, True)
+        with precision_for("fast"):
+            assert _tf32() == (True, True)
+        assert _tf32() == (True, True)
+    assert _tf32() == caller_flags
+    # overlapping fast blocks in two threads: on until the last one leaves
+    inside, go = threading.Event(), threading.Event()
+
+    def other():
+        with precision_for("fast"):
+            inside.set()
+            go.wait(10)
+
+    th = _in_thread(other)
+    assert inside.wait(10)
+    with precision_for("fast"):
+        assert _tf32() == (True, True)
+    assert _tf32() == (True, True)  # the other block is still open
+    go.set()
+    th.join(10)
+    assert not th.is_alive()
+    assert _tf32() == caller_flags
+
+
+@pytest.mark.parametrize("first", ["parity", "fast"])
+def test_other_mode_waits_for_open_scopes(first, caller_flags):
+    """A scope of the other mode opened in a second thread waits while the
+    first is open; each reads its own mode's flags for as long as it is
+    open, and the caller's come back after both."""
+    import threading
+
+    from msv_tpu_torch.config import precision_for
+
+    second = "fast" if first == "parity" else "parity"
+    want = {"parity": (False, False), "fast": (True, True)}
+    entered, seen = threading.Event(), []
+
+    def other():
+        with precision_for(second):
+            entered.set()
+            seen.append(_tf32())
+
+    with precision_for(first):
+        th = _in_thread(other)
+        assert not entered.wait(0.3)  # waits for the open scope
+        assert _tf32() == want[first]
+    th.join(10)
+    assert not th.is_alive() and entered.is_set()
+    assert seen == [want[second]]
+    assert _tf32() == caller_flags
+
+
+def test_waiting_mode_goes_before_later_arrivals(caller_flags):
+    """Arrival order: while a fast scope waits for an open parity scope, a
+    parity scope asked for later (not nested) waits behind it, so a stream
+    of parity renders cannot starve a fast add."""
+    import threading
+    import time
+
+    from msv_tpu_torch.config import _SCOPE_QUEUE, precision_for
+
+    order = []
+
+    def run(mode, tag):
+        with precision_for(mode):
+            order.append(tag)
+
+    with precision_for("parity"):
+        order.append("first parity")
+        fast = _in_thread(lambda: run("fast", "fast"))
+        deadline = time.time() + 10
+        while not _SCOPE_QUEUE and time.time() < deadline:
+            time.sleep(0.01)
+        late = _in_thread(lambda: run("parity", "late parity"))
+        time.sleep(0.2)
+        with precision_for("parity"):  # nested: joins its own block
+            order.append("nested parity")
+    for th in (fast, late):
+        th.join(10)
+        assert not th.is_alive()
+    assert order == ["first parity", "nested parity", "fast", "late parity"]
+    assert _tf32() == caller_flags
+
+
+@pytest.mark.parametrize("outer", ["parity", "fast"])
+def test_other_mode_on_the_same_thread_raises(outer, caller_flags):
+    from msv_tpu_torch.config import precision_for
+
+    inner = "fast" if outer == "parity" else "parity"
+    with precision_for(outer):
+        with pytest.raises(RuntimeError, match="same thread"):
+            with precision_for(inner):
+                pass
+        with precision_for(outer):  # the block is intact
+            pass
+    assert _tf32() == caller_flags
+    with precision_for(inner):  # and the other mode opens afterwards
+        assert _tf32()[0] is (inner == "fast")
+    with pytest.raises(ValueError):
+        precision_for("bf16")
+
+
+def test_scopes_under_thread_stress(caller_flags):
+    """Sixteen threads open parity and fast scopes in turns under a short
+    switch interval: every block reads its own mode's flags the whole time
+    it is open, and the caller's flags come back at the end."""
+    import sys
+    import threading
+
+    from msv_tpu_torch import config as tcfg
+
+    want = {"parity": (False, False), "fast": (True, True)}
+    errors = []
+
+    def worker(k):
+        for i in range(40):
+            mode = "fast" if (i + k) % 3 == 0 else "parity"
+            with tcfg.precision_for(mode):
+                for _ in range(3):
+                    if _tf32() != want[mode]:
+                        errors.append((k, i, mode, _tf32()))
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        ths = [_in_thread(lambda k=k: worker(k)) for k in range(16)]
+        for th in ths:
+            th.join(60)
+        assert not any(th.is_alive() for th in ths)
+    finally:
+        sys.setswitchinterval(old)
+    assert errors == []
+    assert tcfg._SCOPE_OPEN == {"parity": 0, "fast": 0}
+    assert tcfg._SCOPE_QUEUE == []
+    assert _tf32() == caller_flags
+
+
+def test_linear_routes_run_in_their_mode_s_scope(monkeypatch, rng,
+                                                 caller_flags):
+    """spec_pipeline, spec_pipeline_batched and streaming's torch step open
+    precision_for(mode) around their GEMMs: TF32 on in fast, off in
+    parity."""
+    from msv_tpu_torch import config as tcfg
+    from msv_tpu_torch.kernels import pipeline
+    from msv_tpu_torch.parallel import streaming
+
+    seen, scopes = [], []
+
+    def spy_flags(mod):
+        real = mod.dft_magnitude
+
+        def wrapped(*a, **kw):
+            seen.append(_tf32())
+            return real(*a, **kw)
+
+        monkeypatch.setattr(mod, "dft_magnitude", wrapped)
+
+    def spy_scope(mod):
+        def wrapped(mode):
+            scopes.append(mode)
+            return tcfg.precision_for(mode)
+
+        monkeypatch.setattr(mod, "precision_for", wrapped)
+
+    for mod in (pipeline, streaming):
+        spy_flags(mod)
+        spy_scope(mod)
+    win, hop, c, s, _ = _setup(8000)
+    c, s = torch.from_numpy(c), torch.from_numpy(s)
+    x = torch.from_numpy((rng.standard_normal((2, 8000)) * 0.3)
+                         .astype(np.float32))
+    want = {"parity": (False, False), "fast": (True, True)}
+    for mode in ("fast", "parity"):
+        seen.clear()
+        scopes.clear()
+        kw = dict(win=win, hop=hop, n_frames=96, use_mel=False, mode=mode)
+        pipeline.spec_pipeline(x[0], c, s, None, 90, **kw)
+        pipeline.spec_pipeline_batched(x, c, s, None, [90, 90], **kw)
+        with tcfg.precision_mode_scope(mode):
+            streaming.streaming_spec_db(
+                (rng.standard_normal(40000) * 3000).astype(np.int16), win,
+                hop, c, s, None)
+        assert scopes[:2] == [mode, mode] and set(scopes) == {mode}
+        assert len(seen) >= 3 and set(seen) == {want[mode]}, mode
+    assert _tf32() == caller_flags
+
+
+def test_bf16_emulating_routes_stay_true_f32(monkeypatch, rng):
+    """The routes that round their operands to bf16 keep their numbers:
+    _features_core and the kernels' plain versions run true f32 GEMMs in
+    fast mode too, whatever the process's flags."""
+    from msv_tpu_torch import features
+
+    seen = {}
+
+    def spy(mod, name, route):
+        real = getattr(mod, name)
+
+        def wrapped(*a, **kw):
+            seen.setdefault(route, []).append(_tf32())
+            return real(*a, **kw)
+
+        monkeypatch.setattr(mod, name, wrapped)
+
+    spy(features, "frame_device", "features")
+    spy(K, "_plain_mel", "plain kernel")
+    saved = _tf32()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        x = torch.from_numpy((rng.standard_normal((1, 8000)) * 0.3)
+                             .astype(np.float32))
+        features.log_mel_spectrogram(x, 8000, n_mel=32, log="power_db",
+                                     precision="fast")
+        ops = _operands(8000, "fast")
+        padded = torch.from_numpy(reflect_pad_center(x[0].numpy(), 320))
+        K.mel_spectrogram_cuda(padded, *ops, win=320, hop=80, n_frames=90,
+                               mode="fast")
+        assert sorted(seen) == ["features", "plain kernel"]
+        for route, flags in seen.items():
+            assert set(flags) == {(False, False)}, route
+        assert _tf32() == (True, True)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+@pytest.mark.parametrize("mode", ["fast", "parity"])
+def test_linear_session_in_fast_mode_matches_jax(mode, tmp_path, rng):
+    """A linear session under precision_mode_scope(mode) equals msv_tpu's
+    in the same mode on the CPU: planes by f32_agree, rgb images within one
+    u8 step, the dB range within atol/rtol."""
+    jax_pkg = pytest.importorskip("msv_tpu")
+    import msv_tpu_torch
+    from msv_tpu.config import precision_mode_scope as jax_scope
+    from msv_tpu_torch.io.audio import write_wav
+
+    cs = _chip_smoke()
+    paths = []
+    for i, sr in enumerate((8000, 16000)):
+        t = np.arange(int(1.5 * sr)) / sr
+        x = (0.4 * np.sin(2 * np.pi * (300 + 170 * i) * t)
+             + 0.02 * rng.standard_normal(len(t))).astype(np.float32)
+        paths.append(str(tmp_path / f"f{i}.wav"))
+        write_wav(paths[-1], x[None], sr)
+    ids = [0, 1]
+    with jax_scope(mode):
+        ref = jax_pkg.MultiTrack(jax_pkg.SpecSetting(
+            freq_scale=jax_pkg.FreqScale.LINEAR))
+        ref.add_tracks(ids, paths)
+    with msv_tpu_torch.precision_mode_scope(mode):
+        port = msv_tpu_torch.MultiTrack(msv_tpu_torch.SpecSetting(
+            freq_scale=msv_tpu_torch.FreqScale.LINEAR), device="cpu")
+        port.add_tracks(ids, paths)
+    for tid in ids:
+        got, want = port.get_spec_db(tid), ref.get_spec_db(tid)
+        assert got.shape == want.shape
+        cs.check_f32(torch.from_numpy(got), torch.from_numpy(np.array(want)),
+                     f"linear {mode} track {tid}")
+        a = port.get_spec_image(tid, 100.0, 80, wire="rgb").astype(np.int16)
+        b = ref.get_spec_image(tid, 100.0, 80, wire="rgb").astype(np.int16)
+        assert a.shape == b.shape and np.abs(a - b).max() <= 1
+    for g, w in ((port.get_max_db(), ref.get_max_db()),
+                 (port.get_min_db(), ref.get_min_db())):
+        assert abs(g - w) <= cs.ATOL + cs.RTOL * abs(w)

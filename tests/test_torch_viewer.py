@@ -1,0 +1,521 @@
+"""The port's web viewer (``msv_tpu_torch/viewer.py``) against msv_tpu's
+(``msv_tpu/viewer.py``), on the CPU: each server on an ephemeral loopback
+port over its own session of the same WAVs (the port's with
+``device="cpu"``), as tests/test_viewer.py's fixture does.
+
+Every image response equals the port session's own image bit for bit, and
+msv_tpu's response for the same URL within one grey level (spectrograms,
+the grey8 wire; tests/test_torch_cli.py's rule), one u8 step (waveforms)
+or three u8 steps (adaptive crops: their deep bins carry f32 noise through
+the blend, tests/test_torch_multires.py).  Also: the error paths and
+parameter bounds, Range requests, add/remove/channel/setting, the render
+cache's generation rule, a query fuzz, the analysis routes' 501, and a
+mirror of tests/test_viewer_contract.py on the port's page and routes (the
+page is msv_tpu's, byte for byte).
+"""
+
+import json
+import re
+import socket
+import threading
+import time
+import urllib.error
+import urllib.request
+from http.server import ThreadingHTTPServer
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# the JAX reference: absent where the card-only tests run
+pytest.importorskip("jax")
+
+import msv_tpu  # noqa: E402
+import msv_tpu.viewer as JV  # noqa: E402
+import msv_tpu_torch  # noqa: E402
+import msv_tpu_torch.viewer as V  # noqa: E402
+from test_torch_cli import _tone, close_u8, cs, level_gap  # noqa: E402
+from test_viewer_contract import _strip_js_literals  # noqa: E402
+
+SPEC = "/api/spec/0?px_per_sec=50&height=100"
+WAV = "/api/wav/0?px_per_sec=50&height=40"
+CROP = "/api/spec_crop/0?px_per_sec=80&height=90&start=0.2&end=0.7"
+WCROP = ("/api/wav_crop/0?px_per_sec=80&height=40&amp_min=-0.5&amp_max=0.5"
+         "&start=0.2&end=0.7")
+ACROP = "/api/adaptive_crop/0?px_per_sec=80&height=90&start=0.2&end=0.7"
+
+
+def _serve(mt, handler_base, **attrs):
+    lock = (V._RWLock if handler_base is V._Handler else JV._RWLock)()
+    handler = type("H", (handler_base,), {"session": mt, "lock": lock,
+                                          **attrs})
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    threading.Thread(target=srv.serve_forever, kwargs={"poll_interval": 0.02},
+                     daemon=True).start()
+    return srv, f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+@pytest.fixture()
+def wav_path(tmp_path):
+    return _tone(str(tmp_path / "a.wav"))
+
+
+@pytest.fixture()
+def port(wav_path):
+    mt = msv_tpu_torch.MultiTrack(device="cpu")
+    mt.add_tracks([0], [wav_path])
+    srv, url = _serve(mt, V._Handler)
+    yield url, mt
+    srv.shutdown()
+
+
+@pytest.fixture()
+def ref(wav_path):
+    mt = msv_tpu.MultiTrack()
+    mt.add_tracks([0], [wav_path])
+    srv, url = _serve(mt, JV._Handler)
+    yield url, mt
+    srv.shutdown()
+
+
+def _get(url, headers=None):
+    req = urllib.request.Request(url, headers=headers or {})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return r.status, r.read()
+
+
+def _post(url, payload):
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return r.status, json.loads(r.read())
+
+
+def _err(url, post=None):
+    with pytest.raises(urllib.error.HTTPError) as e:
+        _post(url, post) if post is not None else _get(url)
+    return e.value.code, e.value.read()
+
+
+def test_page_and_cacheable_routes_are_msv_tpu_s():
+    assert V._PAGE == JV._PAGE
+    assert V._CACHEABLE == JV._CACHEABLE
+
+
+@pytest.mark.parametrize("path,own", [
+    (SPEC, lambda mt: mt.get_spec_image(0, 50.0, 100)),
+    (WAV, lambda mt: mt.get_wav_image(0, 50.0, 40, -1.0, 1.0)),
+    (CROP, lambda mt: mt.get_spec_image_crop(0, 80.0, 90, 0.2, 0.7)),
+    (WCROP, lambda mt: mt.get_wav_image_crop(0, 80.0, 40, -0.5, 0.5, 0.2,
+                                             0.7)),
+    (ACROP, lambda mt: mt.get_adaptive_spec_image_crop(0, 80.0, 90, 0.2,
+                                                       0.7)),
+    ("/api/colorbar?width=12&height=60",
+     lambda mt: msv_tpu_torch.render.colormap.colorbar(12, 60,
+                                                       device="cpu")),
+])
+def test_images_equal_the_session_s_and_match_jax(path, own, port, ref):
+    code, body = _get(port[0] + path)
+    assert code == 200 and body[:8] == b"\x89PNG\r\n\x1a\n"
+    img = cs.png_pixels(body)
+    np.testing.assert_array_equal(img, own(port[1]))
+    want = cs.png_pixels(_get(ref[0] + path)[1])
+    if path.startswith(("/api/spec", "/api/spec_crop")):
+        assert level_gap(img, want).max() <= 1
+    else:
+        close_u8(img, want, steps=3 if "adaptive" in path else 1)
+
+
+def test_json_routes_match_jax(port, ref):
+    tracks = [json.loads(_get(u + "/api/tracks")[1]) for u in (port[0],
+                                                               ref[0])]
+    for key in ("max_db", "min_db"):
+        assert abs(tracks[0][key] - tracks[1][key]) <= 2e-3 + 1e-4 * abs(
+            tracks[1][key])
+        del tracks[0][key], tracks[1][key]
+    assert tracks[0] == tracks[1]
+    for path in ("/api/setting", "/api/freq/0?rel=0.37",
+                 "/api/freq/0?rel=0.5&mel=1"):
+        assert _get(port[0] + path)[1] == _get(ref[0] + path)[1], path
+    assert _get(port[0] + "/api/colormap") == _get(ref[0] + "/api/colormap")
+    code, body = _get(port[0] + "/")
+    assert code == 200 and body == _get(ref[0] + "/")[1]
+
+
+def test_stats(port):
+    _get(port[0] + CROP)
+    d = json.loads(_get(port[0] + "/api/stats")[1])
+    assert d["tracks"] == 1 and d["sr_cache"] == [8000]
+    assert d["hbm"] == json.loads(json.dumps(port[1].hbm_stats()))
+    assert d["render_cache"]["misses"] >= 1 and d["adaptive_builds"] == {}
+    assert "get_spec_image.render" in d["stage_timings"]
+
+
+def test_error_paths(port):
+    assert _err(port[0] + "/api/spec/99?px_per_sec=50&height=100")[0] == 500
+    assert _err(port[0] + "/nope")[0] == 404
+    for path in ("/api/audio/99", "/api/spec_crop/99?px_per_sec=50"
+                 "&height=100&start=0&end=0.1", "/api/freq/99?rel=0.5"):
+        code, body = _err(port[0] + path)
+        assert code == 500 and b"track 99 not found" in body, path
+    assert _err(port[0] + "/api/nope", post={})[0] == 404
+
+
+def test_param_bounds(port):
+    for path in [
+        "/api/spec/0?px_per_sec=10000000&height=100",
+        "/api/spec/0?px_per_sec=nan&height=100",
+        "/api/spec_crop/0?px_per_sec=50&height=100&start=-5&end=1",
+        "/api/spec_crop/0?px_per_sec=50&height=100&start=0&end=1e9",
+        "/api/wav/0?px_per_sec=50&height=40&amp_min=-inf&amp_max=1",
+        "/api/wav/0?px_per_sec=50&height=-1",
+    ]:
+        assert _err(port[0] + path)[0] == 500, path
+    assert _get(port[0] + SPEC)[0] == 200
+
+
+def test_audio_and_range_requests_match_jax(port, ref):
+    code, full = _get(port[0] + "/api/audio/0")
+    assert code == 200 and full == _get(ref[0] + "/api/audio/0")[1]
+    total = len(full)
+
+    def get_range(spec):
+        req = urllib.request.Request(port[0] + "/api/audio/0",
+                                     headers={"Range": f"bytes={spec}"})
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, r.headers.get("Content-Range"), r.read()
+
+    st, cr, body = get_range("13-4095")
+    assert st == 206 and body == full[13:4096]
+    assert cr == f"bytes 13-4095/{total}"
+    st, cr, body = get_range(f"{total - 999}-")
+    assert st == 206 and body == full[-999:]
+    st, cr, body = get_range("-500")
+    assert st == 206 and body == full[-500:]
+    assert get_range("0-43")[2] == full[:44]
+    assert _get(port[0] + "/api/audio/0", {"Range": "bytes=abc"}) == (200,
+                                                                      full)
+    assert _err_range(port[0], f"{total + 5}-{total + 9}") == 416
+
+
+def _err_range(url, spec):
+    req = urllib.request.Request(url + "/api/audio/0",
+                                 headers={"Range": f"bytes={spec}"})
+    with pytest.raises(urllib.error.HTTPError) as e:
+        urllib.request.urlopen(req, timeout=30)
+    return e.value.code
+
+
+def test_add_channel_remove(port, tmp_path):
+    url, mt = port
+    st = _tone(str(tmp_path / "st.wav"), channels=2)
+    assert _post(url + "/api/add", {"id": 5, "path": st})[1]["ok"]
+    d = json.loads(_get(url + "/api/tracks")[1])
+    assert [t["id"] for t in d["tracks"]] == [0, 5]
+    assert d["tracks"][1]["n_channels"] == 2
+    assert d["tracks"][1]["channel"] is None
+    assert _post(url + "/api/channel", {"id": 5, "channel": 1})[1]["ok"]
+    direct = msv_tpu_torch.MultiTrack(device="cpu")
+    direct.add_tracks([0, 5], [mt.get_path(0), st], channels=[None, 1])
+    np.testing.assert_array_equal(
+        cs.png_pixels(_get(url + WAV.replace("/0?", "/5?"))[1]),
+        direct.get_wav_image(5, 50.0, 40, -1.0, 1.0))
+    assert _err(url + "/api/channel", post={"id": 5, "channel": 2})[0] == 500
+    assert _post(url + "/api/remove", {"id": 5})[1]["ok"]
+    assert [t["id"] for t in json.loads(_get(url + "/api/tracks")[1])
+            ["tracks"]] == [0]
+    assert _err(url + "/api/add", post={"id": 6, "path": "/nope.wav"})[0] \
+        == 500
+    assert _err(url + "/api/remove", post={"id": 99})[0] == 500
+
+
+def test_setting_round_trip_equals_the_session(port):
+    url, mt = port
+    direct = msv_tpu_torch.MultiTrack(device="cpu")
+    direct.add_tracks([0], [mt.get_path(0)])
+    for scale in ("linear", "mel"):
+        assert _post(url + "/api/setting", {"freq_scale": scale})[1]["ok"]
+        direct.set_setting(msv_tpu_torch.SpecSetting(
+            freq_scale=msv_tpu_torch.FreqScale(scale)))
+        s = json.loads(_get(url + "/api/setting")[1])
+        assert s["freq_scale"] == scale and s["db_range"] == 120.0
+        for path, fn in ((SPEC, lambda m: m.get_spec_image(0, 50.0, 100)),
+                         (CROP, lambda m: m.get_spec_image_crop(
+                             0, 80.0, 90, 0.2, 0.7))):
+            np.testing.assert_array_equal(
+                cs.png_pixels(_get(url + path)[1]), fn(direct))
+    _post(url + "/api/setting", {"win_ms": 25.0, "t_overlap": 2})
+    s = json.loads(_get(url + "/api/setting")[1])
+    assert s["win_ms"] == 25.0 and s["t_overlap"] == 2
+    assert _err(url + "/api/setting", post={"t_overlap": 0})[0] == 500
+
+
+def test_render_cache_generation_rule(wav_path, monkeypatch):
+    """Identical requests render once; a mutation bumps the generation, so
+    the same URL renders fresh (VERDICT r3 #5's rule)."""
+    mt = msv_tpu_torch.MultiTrack(device="cpu")
+    mt.add_tracks([0], [wav_path])
+    calls = {"spec_crop": 0}
+    real = mt.get_spec_image_crop
+
+    def counting(*a, **k):
+        calls["spec_crop"] += 1
+        return real(*a, **k)
+
+    monkeypatch.setattr(mt, "get_spec_image_crop", counting)
+    srv, url = _serve(mt, V._Handler)
+    try:
+        bodies = [_get(url + CROP)[1] for _ in range(3)]
+        assert calls["spec_crop"] == 1 and bodies[0] == bodies[1] == \
+            bodies[2]
+        _get(url + CROP.replace("end=0.7", "end=0.8"))
+        assert calls["spec_crop"] == 2
+        st = json.loads(_get(url + "/api/stats")[1])["render_cache"]
+        assert st["hits"] == 2 and st["misses"] == 2
+        gen0 = json.loads(_get(url + "/api/tracks")[1])["gen"]
+        _post(url + "/api/setting", {"win_ms": 25.0})
+        _get(url + CROP)
+        assert calls["spec_crop"] == 3
+        assert json.loads(_get(url + "/api/tracks")[1])["gen"] > gen0
+    finally:
+        srv.shutdown()
+    c = V._RenderCache()
+    g = c.gen
+    c.bump_gen()  # a mutation lands while a render was in flight
+    c.put("/api/spec/0", "image/png", b"stale", gen=g)
+    assert c.get("/api/spec/0") is None
+    c.put("/api/spec/0", "image/png", b"fresh", gen=c.gen)
+    assert c.get("/api/spec/0") == ("image/png", b"fresh")
+
+
+@pytest.mark.parametrize("path", [
+    "/api/pitch/0", "/api/formants/0", "/api/onsets/0", "/api/beats/0",
+    "/api/segments/0", "/api/notes/0", "/api/key/0", "/api/analyze/0",
+    "/api/align/0?ref=0", "/api/loudness/0", "/api/process"])
+def test_analysis_routes_answer_not_ported(path, port):
+    post = {"id": 0, "op": "hpss"} if path == "/api/process" else None
+    code, body = _err(port[0] + path, post=post)
+    route = path.split("?")[0].rstrip("0").rstrip("/")
+    assert code == 501 and json.loads(body) == {
+        "error": f"not ported: {route}"}
+    assert _get(port[0] + SPEC)[0] == 200  # still serving
+
+
+def test_query_fuzz_never_kills_the_server(port, rng):
+    paths = ["/api/spec_crop/0", "/api/wav_crop/0", "/api/adaptive_crop/0",
+             "/api/freq/0", "/api/spec/0", "/api/wav/0", "/api/audio/0",
+             "/api/tracks", "/api/colorbar", "/api/pitch/0", "/api/nope/9"]
+    keys = ["px_per_sec", "height", "start", "end", "rel", "amp_min",
+            "amp_max", "mel", "width", "junk"]
+    for _ in range(60):
+        q = "&".join(
+            f"{keys[int(rng.integers(0, len(keys)))]}="
+            f"{['-1', '1e30', 'nan', 'abc', '0', str(rng.normal())][int(rng.integers(0, 6))]}"  # noqa: E501
+            for _ in range(int(rng.integers(0, 4))))
+        url = port[0] + paths[int(rng.integers(0, len(paths)))] + (
+            "?" + q if q else "")
+        try:
+            with urllib.request.urlopen(url, timeout=60) as r:
+                r.read(64)
+        except urllib.error.HTTPError as e:
+            assert 400 <= e.code < 600
+    code, body = _get(port[0] + "/api/spec_crop/0?px_per_sec=50&height=60"
+                      "&start=0&end=1")
+    assert code == 200 and body[:8] == b"\x89PNG\r\n\x1a\n"
+
+
+def test_adaptive_202_then_200(wav_path, monkeypatch):
+    """A zoomed-out adaptive crop whose background build has not covered
+    the viewport answers 202 + progress; polling converges to the PNG."""
+    from msv_tpu_torch.ops.multires import (adaptive_auto_n_mel,
+                                            adaptive_frame_count)
+    from msv_tpu_torch.session.multitrack import MultiTrack, _AdaptiveBuild
+
+    mt = MultiTrack(device="cpu")
+    mt.add_tracks([0], [wav_path])
+    monkeypatch.setattr(MultiTrack, "ADAPTIVE_MAX_FRAMES", 32)
+    monkeypatch.setattr(MultiTrack, "ADAPTIVE_CHUNK", 64)
+    srv, url = _serve(mt, V._Handler)
+    path = url + "/api/adaptive_crop/0?px_per_sec=30&height=60&start=0&end=1"
+    try:
+        tr = mt.tracks[0]
+        nf = adaptive_frame_count(tr.n_samples, tr.sr, mt.setting)
+        mt._adaptive_db[0] = _AdaptiveBuild(
+            adaptive_auto_n_mel(tr.sr, mt.setting), nf)
+        with urllib.request.urlopen(path, timeout=30) as r:
+            assert r.status == 202
+            assert json.loads(r.read()) == {"pending": True, "built": 0,
+                                            "total": nf}
+        st = json.loads(_get(url + "/api/stats")[1])
+        assert st["adaptive_builds"] == {"0": {"built": 0, "total": nf}}
+        mt._drop_adaptive(0)
+        deadline, png = time.time() + 60, None
+        while time.time() < deadline and png is None:
+            with urllib.request.urlopen(path, timeout=30) as r:
+                if r.status == 200:
+                    png = r.read()
+            time.sleep(0.05)
+        assert png is not None
+        monkeypatch.setattr(MultiTrack, "ADAPTIVE_MAX_FRAMES", 1 << 16)
+        np.testing.assert_array_equal(
+            cs.png_pixels(png),
+            mt.get_adaptive_spec_image_crop(0, 30.0, 60, 0.0, 1.0))
+    finally:
+        srv.shutdown()
+
+
+def test_add_root_restriction(tmp_path):
+    allowed = tmp_path / "allowed"
+    allowed.mkdir()
+    inside = _tone(str(allowed / "in.wav"))
+    outside = _tone(str(tmp_path / "out.wav"))
+    srv, url = _serve(msv_tpu_torch.MultiTrack(device="cpu"), V._Handler,
+                      add_root=str(allowed))
+    try:
+        assert _post(url + "/api/add", {"id": 0, "path": inside})[0] == 200
+        assert _err(url + "/api/add", post={"id": 1, "path": outside})[0] \
+            == 403
+        assert _err(url + "/api/add", post={
+            "id": 2, "path": str(allowed / ".." / "out.wav")})[0] == 403
+    finally:
+        srv.shutdown()
+
+
+def test_concurrent_renders_and_mutation(port, tmp_path):
+    """Renders run concurrently under the read lock and stay equal to the
+    session's images while an add (the write lock) interleaves."""
+    import concurrent.futures
+
+    url, mt = port
+    p2 = _tone(str(tmp_path / "c.wav"), seed=11)
+    want = {i: mt.get_spec_image(0, 40.0 + i, 60) for i in range(8)}
+
+    def render(i):
+        img = cs.png_pixels(_get(url + f"/api/spec/0?px_per_sec={40 + i}"
+                                       f"&height=60")[1])
+        assert _get(url + f"/api/adaptive_crop/0?px_per_sec={40 + i}"
+                          f"&height=50&start=0.1&end=0.9")[0] == 200
+        return img.shape == want[i].shape
+
+    with concurrent.futures.ThreadPoolExecutor(8) as ex:
+        renders = [ex.submit(render, i) for i in range(8)]
+        adder = ex.submit(_post, url + "/api/add", {"id": 7, "path": p2})
+        assert all(f.result(timeout=60) for f in renders)
+        assert adder.result(timeout=60)[0] == 200
+    assert {t["id"] for t in json.loads(_get(url + "/api/tracks")[1])
+            ["tracks"]} == {0, 7}
+    np.testing.assert_array_equal(
+        cs.png_pixels(_get(url + "/api/spec/7?px_per_sec=50&height=60")[1]),
+        mt.get_spec_image(7, 50.0, 60))
+
+
+def test_serve_viewer_binds_first_and_loads_in_the_background(wav_path):
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    threading.Thread(target=V.serve_viewer, args=([wav_path], port),
+                     kwargs={"device": "cpu"}, daemon=True).start()
+    base = f"http://127.0.0.1:{port}"
+    deadline, d = time.time() + 60, None
+    while time.time() < deadline:
+        try:
+            d = json.loads(_get(base + "/api/tracks")[1])
+        except (urllib.error.URLError, ConnectionError):
+            time.sleep(0.1)
+            continue
+        if d.get("tracks"):
+            break
+        assert d.get("loading") is True
+        time.sleep(0.1)
+    assert d and d["tracks"][0]["sr"] == 8000
+    mt = msv_tpu_torch.MultiTrack(device="cpu")
+    mt.add_tracks([0], [wav_path])
+    np.testing.assert_array_equal(
+        cs.png_pixels(_get(base + WCROP)[1]),
+        mt.get_wav_image_crop(0, 80.0, 40, -0.5, 0.5, 0.2, 0.7))
+
+
+def test_serve_viewer_without_a_card_raises(wav_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        V.serve_viewer([wav_path], 0)
+
+
+# ------------------------------------- the client <-> server contract
+
+
+CLIENT_EXEMPT = {"/api/spec", "/api/wav", "/api/colormap", "/api/stats"}
+
+
+def _client_endpoints():
+    eps = {m.group(0) for m in re.finditer(r"/api/[a-z_]+", V._PAGE)}
+    eps.discard("/api/")
+    for m in re.finditer(r"/api/\$\{(\w+)\}", V._PAGE):
+        for d in re.finditer(rf"(?:const|let|var)\s+{m.group(1)}\s*=([^;]*);",
+                             V._PAGE):
+            for q in re.finditer(r"'([a-z_]+)'", d.group(1)):
+                eps.add("/api/" + q.group(1))
+    return eps
+
+
+def _server_routes():
+    """Routes do_GET / do_POST serve, the 501 ones included."""
+    import inspect
+
+    src = (inspect.getsource(V._Handler.do_GET)
+           + inspect.getsource(V._Handler.do_POST))
+    pat = r'url\.path(?:\s*==\s*|\.startswith\()\s*"(/api/[a-z_]+)'
+    routes = {m.group(1).rstrip("/") for m in re.finditer(pat, src)}
+    return routes | {r.rstrip("/") for r in (*V._Handler.NOT_PORTED_GET,
+                                             *V._Handler.NOT_PORTED_POST)}
+
+
+def test_every_client_endpoint_has_a_server_route():
+    client = _client_endpoints()
+    assert client and not sorted(client - _server_routes())
+
+
+def test_every_server_route_is_used_or_exempted():
+    client, server = _client_endpoints(), _server_routes()
+    assert not sorted(server - client - CLIENT_EXEMPT)
+    assert not sorted(CLIENT_EXEMPT - server)
+    assert not sorted(CLIENT_EXEMPT & client)
+
+
+def test_cacheable_prefixes_are_real_routes():
+    server = _server_routes()
+    for prefix in V._CACHEABLE:
+        assert prefix.rstrip("/") in server, prefix
+
+
+def test_not_ported_routes_are_the_analysis_routes():
+    """The 501 routes are exactly msv_tpu's routes that the port does not
+    serve yet: every msv_tpu route is served or answers 501."""
+    import inspect
+
+    src = (inspect.getsource(JV._Handler.do_GET)
+           + inspect.getsource(JV._Handler.do_POST))
+    pat = r'url\.path(?:\s*==\s*|\.startswith\()\s*"(/api/[a-z_]+)'
+    jax_routes = {m.group(1).rstrip("/") for m in re.finditer(pat, src)}
+    assert jax_routes == _server_routes()
+    ported = _server_routes() - {r.rstrip("/") for r in (
+        *V._Handler.NOT_PORTED_GET, *V._Handler.NOT_PORTED_POST)}
+    assert ported == {
+        "/api/tracks", "/api/spec", "/api/wav", "/api/audio",
+        "/api/spec_crop", "/api/adaptive_crop", "/api/wav_crop",
+        "/api/colormap", "/api/setting", "/api/stats", "/api/colorbar",
+        "/api/freq", "/api/add", "/api/remove", "/api/channel"}
+
+
+def test_client_script_brackets_balance():
+    m = re.search(r"<script>(.*)</script>", V._PAGE, re.S)
+    code = _strip_js_literals(m.group(1))
+    pairs = {")": "(", "]": "[", "}": "{"}
+    stack = []
+    for ch in code:
+        if ch in "([{":
+            stack.append(ch)
+        elif ch in ")]}":
+            assert stack and stack.pop() == pairs[ch]
+    assert not stack
