@@ -116,8 +116,29 @@ Phases, each printing its lines:
               /api/pitch 501, request latencies over 20 distinct 1200-column
               crops (misses) and again (hits); then python -m msv_tpu_torch
               render and view in processes of their own, and a missing file
-              (exit 1, "error:").
-Each path of phases 3c-8 is driven with the launch counts set to 0 just
+              (exit 1, "error:");
+  9. analysis  (slice 8) filter of the hour and the 8-minute stereo file
+              (a 4th-order Butterworth band-pass and a high shelf),
+              forward and --zero-phase, each within 5e-5 of the input's
+              peak of scipy's f64 sosfilt / sosfiltfilt, and the 10 s track
+              card vs CPU within 2e-5; reconstruct of phase 8's mel export
+              of the 48 kHz song (32 iterations): spectral convergence
+              under the CPU's on the 10 s track + SC_MARGIN, the WAV equal
+              to griffin_lim on the card, two card runs bit-equal, one
+              iteration card vs CPU within 1e-4 of the peak; features
+              --kind mfcc, chroma, spectral, whisper, pcen, contrast,
+              tempogram, onsets, beats of the seven songs (resampled to 16
+              kHz), each .npy equal to the library call and the 10 s track
+              card vs CPU in parity within its port test's tolerance (mfcc: the
+              f32 dot-product error bound of its DCT); info --loudness
+              and gain --lufs -23 of the songs and the hour (the gained
+              song re-measures -23 LUFS), LUFS and LRA card vs CPU within
+              0.01 LU and the true peak within 1e-4 dB on the 10 s track;
+              phase 8's viewer: /api/onsets, /api/beats and /api/loudness
+              of the songs and the hour, each equal to the direct call,
+              the second request a cache hit, first-request p50/p90.  No
+              leg of phase 9 launches a mel kernel.
+Each path of phases 3c-9 is driven with the launch counts set to 0 just
 before it and read just after; comparisons run outside those windows.  The
 second-to-last line is a JSON object describing each kernel (its bound is
 computed from this run's shapes against the H100 SXM's published peaks);
@@ -1652,6 +1673,7 @@ def phase_frontends(K, smi, song, hour, eight, work):
     # ---- 1. render of the seven songs: parity with --save-db, fast, linear
     out = cli_leg("render", ["render", *paths, "--save-db", "--wav-height",
                              "200"], counts(6))
+    render_dir = out
     ref = MultiTrack(device="cuda")
     ref.add_tracks(ids, paths)
     for i, p in enumerate(paths):
@@ -1973,6 +1995,361 @@ def phase_frontends(K, smi, song, hour, eight, work):
           f"process) loaded in {view_s:.3f} s, crop == the session's, "
           f"terminated; render of a missing file: exit 1, "
           f"{r.stderr.strip().splitlines()[0]!r}")
+    return legs, {"render_dir": render_dir, "viewer": base,
+                  "viewer_ids": [*ids, hid]}
+
+
+# Phase 9's filter: a 4th-order Butterworth band-pass and a high shelf (five
+# sections, real and complex poles), as `filter` takes them.
+FILTER_ARGS = ["--bandpass", "200", "5000", "--shelf", "hi:3000:6"]
+# tests/test_filter.py:99's filtfilt bound, in units of the input's peak
+# (its input, unit noise, peaks near 4.5: the scaled bound is looser than
+# its own by that factor, and the port measures 5e-6 of the peak on
+# 20 s of these signals on the CPU)
+FILTER_BOUND = 5e-5
+# Griffin-Lim's spectral convergence on the card may exceed the port's CPU
+# run on the 10 s track (same signal family, other rate and length) by
+# this much: measured on the CPU, 10 s at 44.1 kHz against 60 s at 48 kHz
+# of make_signal, the two differ by under 0.01
+SC_MARGIN = 0.05
+# features on the card against --device cpu on the 10 s track, per kind, in
+# parity: tests/test_torch_features_more.py's (rtol, atol), onsets and
+# beats equal; mfcc by the dot-product bound of its DCT (phase 9: on this
+# track two f32 orders of the DCT of dB values near -60 differ by up to
+# 5.4e-4, over the 2e-4 that msv_tpu's test holds on its tone)
+CARD_FEATURE_BOUNDS = {"mfcc": (0, 2e-4), "chroma": (1e-4, 1e-6),
+                       "spectral": (1e-3, 1e-7), "whisper": (0, 3e-4),
+                       "pcen": (0, 2e-4), "contrast": (1e-3, 2e-3),
+                       "tempogram": (0, 5e-5), "onsets": None, "beats": None}
+
+
+def spectral_convergence(y, mag, sr, dev):
+    """||STFT(y)| - mag| / |mag| over their common frames (the session's
+    STFT, as Griffin-Lim's target magnitude)."""
+    from msv_tpu_torch.config import (SpecSetting, derive_stft_params,
+                                      precision_for)
+    from msv_tpu_torch.ops.stft import stft_magnitude
+
+    p = derive_stft_params(sr, SpecSetting())
+    with precision_for("parity"):
+        sy, n = stft_magnitude(np.ascontiguousarray(y, np.float32),
+                               p.win_length, p.hop_length, p.n_fft,
+                               device=dev)
+    n = min(n, mag.shape[0])
+    return (torch.linalg.vector_norm(sy[:n] - mag[:n])
+            / torch.linalg.vector_norm(mag[:n])).item()
+
+
+def target_magnitude(db, sr, dev):
+    """The linear magnitude `reconstruct` inverts from a mel dB export."""
+    from msv_tpu_torch.config import SpecSetting, derive_stft_params
+    from msv_tpu_torch.ops.decibel import db_to_amp
+    from msv_tpu_torch.ops.mel import calc_mel_fb_default
+    from msv_tpu_torch.ops.reconstruct import mel_to_linear
+
+    p = derive_stft_params(sr, SpecSetting())
+    amp = db_to_amp(torch.from_numpy(np.ascontiguousarray(db)).to(dev))
+    return mel_to_linear(amp, calc_mel_fb_default(sr, p.n_fft)), p
+
+
+def phase_analysis(K, smi, song, hour, eight, front, work, dev="cuda"):
+    """9: filter, reconstruct, the rest of the features, loudness and the
+    viewer's onsets, beats and loudness routes, as users run them."""
+    import re
+
+    import scipy.signal as ss
+
+    from msv_tpu_torch import AudioTrack, SpecSetting, precision_mode_scope
+    from msv_tpu_torch import features as F
+    from msv_tpu_torch.cli import (_build_parser, _feature,
+                                   _filter_sos_from_args)
+    from msv_tpu_torch.io.audio import open_audio_file, open_audio_mono_ex
+    from msv_tpu_torch.ops import loudness as L
+    from msv_tpu_torch.ops.filter import filtfilt, sosfilt_streamed
+    from msv_tpu_torch.ops.reconstruct import griffin_lim
+    from msv_tpu_torch.ops.resample import resample
+    from msv_tpu_torch.ops.rhythm import beat_track
+    from msv_tpu_torch.ops.stft import stft_magnitude
+
+    paths, p10, _, _ = song
+    stem = {q: os.path.splitext(os.path.basename(q))[0]
+            for q in (*paths, p10, hour, eight)}
+    d = tempfile.mkdtemp(prefix="msv_chip_analysis_", dir=work)
+    legs, wall = [], {}
+    dv = ["--device", dev]
+
+    def leg(name, args):
+        """One counted CLI run on the card: (output dir, its stdout); no
+        mel kernel launch on any of these paths."""
+        out = os.path.join(d, re.sub(r"\W+", "_", name))
+        (rc, log, wall[name]), n = counted(
+            K, lambda: run_cli([*args, *(["-o", out] if "-o" not in args
+                                         and args[0] != "info" else []),
+                                *dv]))
+        check(rc == 0, f"{name}: exit {rc}; {log}")
+        check(n == counts(), f"{name}: launches {n}, expected none")
+        legs.append((f"cli {name}", n))
+        return out, log
+
+    def synced_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # ---- 1. filter: the hour and the 8-minute stereo file, forward and
+    # zero-phase, against scipy's f64 filters on this machine's CPU
+    f_err, f_ref_s = {}, {}
+    for src in (hour, eight):
+        x, sr = open_audio_file(src)
+        sos = _filter_sos_from_args(_build_parser().parse_args(
+            ["filter", src, *FILTER_ARGS]), sr)
+        peak = float(np.abs(x).max())
+        for zp in (False, True):
+            name = f"filter {stem[src]}{' --zero-phase' if zp else ''}"
+            out, _ = leg(name, ["filter", src, *FILTER_ARGS, "--bits", "32",
+                                *(["--zero-phase"] if zp else [])])
+            y, _ = open_audio_file(os.path.join(out, f"{stem[src]}_filt.wav"))
+            t0 = time.perf_counter()
+            ref = np.stack([
+                ss.sosfiltfilt(sos, c.astype(np.float64),
+                               padlen=3 * (2 * len(sos) + 1)) if zp
+                else ss.sosfilt(sos, c.astype(np.float64)) for c in x])
+            f_ref_s[name] = time.perf_counter() - t0
+            f_err[name] = float(np.abs(y - ref).max()) / peak
+            check(y.shape == x.shape and f_err[name] <= FILTER_BOUND,
+                  f"{name}: max|err| {f_err[name]:.3g} of the input's peak "
+                  f"against scipy f64 (bound {FILTER_BOUND})")
+            del y, ref
+        del x
+    x10, sr10 = open_audio_file(p10)
+    sos10 = _filter_sos_from_args(_build_parser().parse_args(
+        ["filter", p10, *FILTER_ARGS]), sr10)
+    card_cpu = 0.0
+    for fn in (sosfilt_streamed, filtfilt):
+        for c in x10:
+            card_cpu = max(card_cpu, float(np.abs(
+                fn(sos10, c, device=dev) - fn(sos10, c, device="cpu")).max()))
+    check(card_cpu <= 2e-5, f"filter of the 10 s track, card vs CPU: "
+          f"{card_cpu}")
+    hx = open_audio_mono_ex(hour)[0]
+    sos_h = _filter_sos_from_args(_build_parser().parse_args(
+        ["filter", hour, *FILTER_ARGS]), 48000)
+    _, ff_s = synced_s(lambda: filtfilt(sos_h, hx, device=dev))
+    _, fw_s = synced_s(lambda: sosfilt_streamed(sos_h, hx, device=dev))
+    del hx
+    print(f"[filter] {smi}; " + "; ".join(
+        f"{k} {wall[k]:.3f} s (max|err| {f_err[k]:.3g} of the peak vs scipy "
+        f"f64, its {f_ref_s[k]:.1f} s on the host)" for k in f_err)
+        + f"; library calls on the hour: sosfilt_streamed {fw_s:.3f} s, "
+        f"filtfilt {ff_s:.3f} s (host extension and copies included); the "
+        f"10 s track card vs CPU max|err| {card_cpu:.3g}; bound "
+        f"{FILTER_BOUND} of the peak, no mel launch")
+
+    # ---- 2. reconstruct: phase 8's mel export of the 48 kHz song
+    db_path = os.path.join(front["render_dir"], f"db_{stem[paths[-1]]}.npy")
+    db = np.load(db_path)
+    out, log = leg("reconstruct", ["reconstruct", db_path, "--sr", "48000",
+                                   "-o", os.path.join(d, "recon.wav")])
+    y, sr = open_audio_file(os.path.join(d, "recon.wav"))
+    mag, p = target_magnitude(db, 48000, dev)
+    sc = spectral_convergence(y[0], mag, 48000, dev)
+    y1 = griffin_lim(mag, p.win_length, p.hop_length, p.n_fft)
+    y2, gl_s = synced_s(lambda: griffin_lim(mag, p.win_length, p.hop_length,
+                                            p.n_fft))
+    check(np.array_equal(y1, y2), "griffin_lim: two card runs differ")
+    check(y.shape == (1, (db.shape[0] - 1) * p.hop_length)
+          and float(np.abs(y - np.clip(y1, -1, 1)).max()) <= 2**-14,
+          "reconstruct's WAV != griffin_lim on the card")
+    w10 = open_audio_mono_ex(p10)[0]
+    r10 = os.path.join(d, "r10")
+    check(run_cli(["render", p10, "--save-db", "--no-wav", "-o", r10,
+                   "--device", "cpu"])[0] == 0, "render of the 10 s track")
+    db10 = np.load(os.path.join(r10, f"db_{stem[p10]}.npy"))
+    mag10, p10p = target_magnitude(db10, sr10, "cpu")
+    y10 = griffin_lim(mag10, p10p.win_length, p10p.hop_length, p10p.n_fft)
+    sc10 = spectral_convergence(y10, mag10, sr10, "cpu")
+    check(sc <= sc10 + SC_MARGIN, f"reconstruct: spectral convergence {sc:.4f}"
+          f" > the CPU's {sc10:.4f} on the 10 s track + {SC_MARGIN}")
+    # one iteration, card vs CPU: on the track's own |STFT|; on the mel
+    # inversion's estimate (bins clamped to 0, pinv rounding) the phase of
+    # near-zero bins of the re-analysis follows rounding, so that one is
+    # printed, not held
+    gl_err = {}
+    stft10 = stft_magnitude(w10, p10p.win_length, p10p.hop_length,
+                            p10p.n_fft, device="cpu")
+    for what, m in (("stft", stft10[0][:stft10[1]]), ("mel", mag10)):
+        one = [griffin_lim(m_, p10p.win_length, p10p.hop_length,
+                           p10p.n_fft, n_iter=1) for m_ in (m.to(dev), m)]
+        gl_err[what] = float(np.abs(one[0] - one[1]).max()
+                             / np.abs(one[1]).max())
+    check(gl_err["stft"] <= 1e-4, f"griffin_lim n_iter=1 of the 10 s "
+          f"track's |STFT|, card vs CPU: {gl_err['stft']:.3g} of the peak")
+    print(f"[reconstruct] {smi}; reconstruct of the 48 kHz song's --save-db"
+          f" export ({db.shape[0]} frames x {db.shape[1]} mel, 32 "
+          f"iterations) {wall['reconstruct']:.3f} s wall, griffin_lim alone "
+          f"{gl_s:.3f} s; spectral convergence {sc:.4f} (the CPU's on the "
+          f"10 s track {sc10:.4f}, margin {SC_MARGIN}); two card runs "
+          f"bit-equal; n_iter=1 card vs CPU on the 10 s track's |STFT| "
+          f"{gl_err['stft']:.3g} of the peak (bound 1e-4), on its mel "
+          f"inversion {gl_err['mel']:.3g}; no mel launch")
+    del y, y1, y2, mag, one
+
+    # ---- 3. features --kind: the seven songs at 16 kHz on the card, the
+    # 10 s track against --device cpu
+    ns = _build_parser().parse_args(["features", p10])
+    x16 = {dv_: resample(w10, sr10, 16000, device=dv_) for dv_ in
+           (dev, "cpu")}
+    with precision_mode_scope("parity"):
+        planes = [F.log_mel_spectrogram(x16[k], 16000, spec="power",
+                                        log="power_db") for k in (dev, "cpu")]
+    db_err, db_note = check_f32(planes[0].cpu(), planes[1],
+                                "the power dB plane of mfcc, pcen and onsets")
+    f_note, f_bad = [], []
+    for kind, bound in CARD_FEATURE_BOUNDS.items():
+        out, log = leg(f"features --kind {kind}",
+                       ["features", *paths, "--kind", kind])
+        got = np.load(os.path.join(out, f"feats_{kind}_{stem[paths[4]]}.npy"))
+        x = resample(open_audio_mono_ex(paths[4])[0], 44100, 16000,
+                     device=dev)
+        check(np.array_equal(got, _feature(kind, x, 16000, ns)[0].astype(
+            np.float32)), f"features --kind {kind} != the library call")
+        # in parity, where the port tests' tolerances hold (fast mode
+        # rounds to bf16 after each f32 GEMM, so an f32 summation order
+        # may move a value by one bf16 step)
+        with precision_mode_scope("parity"):
+            card, cpu = (_feature(kind, x16[k], 16000, ns)[0] for k in
+                         (dev, "cpu"))
+        check(card.shape == cpu.shape, f"{kind}: {card.shape} {cpu.shape}")
+        if bound is None:
+            ok, note = np.array_equal(card, cpu), "equal"
+        elif kind == "mfcc":
+            # an orthonormal DCT-II GEMM of the power dB plane: held to the
+            # forward error bound of its dot products (the planes' own
+            # difference, which f32_agree holds above, through |D|, plus
+            # twice gamma_n = n u / (1 - n u) of |D|^T |dB|: both f32
+            # GEMMs' rounding)
+            dct = np.abs(F._dct2_matrix(ns.n_mfcc, ns.n_mel)).astype(
+                np.float64)
+            dbs = [t.cpu().numpy().astype(np.float64) for t in planes]
+            n_u = ns.n_mel * 2.0**-24
+            lim = (np.abs(dbs[0] - dbs[1]) @ dct
+                   + 2 * n_u / (1 - n_u) * (np.abs(dbs[1]) @ dct))
+            dif = np.abs(card - cpu)
+            ok = bool((dif <= lim).all())
+            note = (f"max|err| {dif.max():.3g}, at most "
+                    f"{(dif / lim).max():.2f} of its dot-product bound")
+        else:
+            dif = np.abs(card - cpu)
+            off = dif > bound[1] + bound[0] * np.abs(cpu)
+            # contrast: chip_smoke's f32_agree share for deep valleys
+            ok = off.mean() <= (FLOOR_SHARE if kind == "contrast" else 0.0)
+            note = (f"max|err| {dif.max():.3g}, {off.sum()} of {off.size} "
+                    f"over rtol {bound[0]:g} atol {bound[1]:g}")
+        if not ok:
+            f_bad.append(f"{kind}: {note}")
+        f_note.append(f"{kind} {wall[f'features --kind {kind}']:.3f} s "
+                      f"(10 s track card vs CPU: {note})")
+    print(f"[features] {smi}; features --kind of the seven songs (resampled "
+          f"to 16 kHz on the card), wall: " + "; ".join(f_note)
+          + f"; each .npy == the library call; the power dB plane under "
+          f"mfcc and onsets, card vs CPU max|err| {db_err:.3g} dB "
+          f"({db_note}); no mel launch")
+
+    # ---- 4. loudness: info --loudness and gain of the songs and the hour
+    _, log = leg("info --loudness", ["info", *paths, hour, "--loudness"])
+    found = re.findall(r"loudness=([-\d.]+)LUFS", log)
+    check(len(found) == len(paths) + 1, f"info --loudness: {log}")
+    out, log = leg("gain", ["gain", *paths, hour, "--lufs", "-23"])
+    g48 = open_audio_file(os.path.join(out, f"{stem[paths[-1]]}_norm.wav"))[0]
+    lufs_g = L.integrated_loudness(g48, 48000, device=dev)
+    check(abs(lufs_g + 23.0) <= 0.05, f"gain --lufs -23: {lufs_g:.3f} LUFS")
+    hw = open_audio_file(hour)[0]
+    r_h, hour_s = synced_s(lambda: L.r128_stats(hw, 48000, device=dev))
+    del hw
+    l_err = {}
+    for name, fn, tol in (("lufs", L.integrated_loudness, 0.01),
+                          ("lra", L.loudness_range, 0.01),
+                          ("dbtp", L.true_peak, 1e-4)):
+        l_err[name] = abs(fn(x10, sr10, device=dev)
+                          - fn(x10, sr10, device="cpu"))
+        check(l_err[name] <= tol, f"{name} of the 10 s track, card vs CPU: "
+              f"{l_err[name]:.3g} (bound {tol})")
+    print(f"[loudness] {smi}; info --loudness of the seven songs and the "
+          f"hour {wall['info --loudness']:.3f} s wall; gain --lufs -23 "
+          f"{wall['gain']:.3f} s (the 48 kHz song re-measures "
+          f"{lufs_g:.3f} LUFS); r128_stats of the hour {hour_s:.3f} s "
+          f"({r_h}); 10 s track card vs CPU: LUFS {l_err['lufs']:.3g}, LRA "
+          f"{l_err['lra']:.3g}, true peak {l_err['dbtp']:.3g} dB; no mel "
+          f"launch")
+
+    # ---- 5. the viewer's onsets, beats and loudness routes (phase 8's
+    # server: the seven songs and the hour, on the card)
+    base, tids = front["viewer"], front["viewer_ids"]
+    hid = tids[-1]
+    # the viewer's mono views, decoded as its session decodes them
+    tracks = {t: AudioTrack(q, SpecSetting()) for t, q in
+              zip(tids, [*paths, hour])}
+
+    def direct(route, tid, s0, s1):
+        tr = tracks[tid]
+        sr_ = tr.sr
+        a = min(max(0, int(s0 * sr_)), tr.n_samples)
+        b = min(tr.n_samples, int(s1 * sr_), a + 120 * sr_)
+        w = tr.wav_slice(a, b)
+        if route == "onsets":  # the viewer's short-window rules
+            return {"t": [] if len(w) < sr_ // 10 else [
+                round(a / sr_ + float(v), 3)
+                for v in F.onset_detect(w, sr_, device=dev)]}
+        if len(w) < sr_:
+            return {"bpm": 0.0, "t": []}
+        bpm, beats = beat_track(w, sr_, device=dev)
+        return {"bpm": round(float(bpm), 1),
+                "t": [round(a / sr_ + float(v), 3) for v in beats]}
+
+    def stats():
+        return json.loads(http(base + "/api/stats")[1])["render_cache"]
+
+    lat, v_legs = {}, []
+    for route in ("onsets", "beats", "loudness"):
+        urls = [(t, f"/api/{route}/{t}" + ("" if route == "loudness" else
+                                           "?start=30&end=60")) for t in tids]
+        if route != "loudness":  # 10 windows of the hour
+            urls += [(hid, f"/api/{route}/{hid}?start={a:g}&end={a + 30:g}")
+                     for a in np.round(np.linspace(200, 3300, 10))]
+        lat[route] = []
+        (_, n) = counted(K, lambda: [lat[route].append(http(base + u)[2])
+                                     for _, u in urls])
+        check(n == counts(), f"/api/{route}: launches {n}")
+        v_legs.append((f"viewer {route}", n))
+        h0 = stats()["hits"]
+        for tid, u in urls:
+            code, body, _ = http(base + u)
+            got = json.loads(body)
+            if route == "loudness":
+                tr = tracks[tid]
+                want = L.r128_stats(tr.wav_slice(0, tr.n_samples), tr.sr,
+                                    device=dev)
+            else:
+                q = dict(kv.split("=") for kv in u.split("?")[1].split("&"))
+                want = direct(route, tid, float(q["start"]), float(q["end"]))
+            check(code == 200 and got == json.loads(json.dumps(want)),
+                  f"{u}: {got} != the direct call's {want}")
+        check(stats()["hits"] - h0 == len(urls), f"/api/{route}: the second "
+              "requests were not all cache hits")
+    legs += v_legs
+    check(not f_bad, "features on the 10 s track, card vs CPU in parity: "
+          + "; ".join(f_bad))
+    print(f"[viewer] {smi}; /api/onsets, /api/beats (30 s windows of the "
+          f"songs and the hour, then 10 windows of the hour) and "
+          f"/api/loudness (whole tracks: the seven songs and the hour), each "
+          f"response == the direct library call on the card, every second "
+          f"request a cache hit, no mel launch; first-request latency: "
+          + "; ".join(f"{r} p50 {np.percentile(v, 50) * 1e3:.1f} ms p90 "
+                      f"{np.percentile(v, 90) * 1e3:.1f} ms" for r, v in
+                      lat.items()))
+    torch.cuda.empty_cache()
     return legs
 
 
@@ -2005,7 +2382,9 @@ def main():
             (*session, *streaming,
              phase_features(K, np.random.default_rng(SEED + 3)),
              split_path, phase_residency(K, smi, song, hour))))
-        paths += phase_frontends(K, smi, song, hour, eight, work)
+        legs, front = phase_frontends(K, smi, song, hour, eight, work)
+        paths += legs
+        paths += phase_analysis(K, smi, song, hour, eight, front, work)
     launches = {m: sum(n[m] for _, n in paths) for m in K.MODES}
     print("[launches] main-path launches by path (parity, fast, split): "
           + json.dumps({name: [n[m] for m in K.MODES] for name, n in paths}))

@@ -7,7 +7,9 @@ the linear scale as PyTorch ops, streamed in segments for long files, then
 globally-normalized grey -> Lanczos3 resize -> colormapped RGB images,
 min/max waveform images and adaptive multi-resolution images
 (``ops/multires.py``) as PyTorch ops, under a session device-memory budget;
-and the log-mel ML frontend (``features.py``) on the same kernels.
+the log-mel ML frontend (``features.py``) on the same kernels, and the rest
+of the feature set, filtering, Griffin-Lim, loudness and rhythm as
+PyTorch ops.
 Module paths mirror ``msv_tpu`` so each counterpart is easy to find;
 every function takes tensors on an explicit ``device``.
 """
@@ -16,26 +18,53 @@ from .config import (FreqScale, SpecSetting, StftParams, derive_stft_params,
                      get_precision_mode, get_session_hbm_budget,
                      precision_mode_scope, set_precision_mode,
                      set_session_hbm_budget)
-from .features import log_mel_spectrogram, log_mel_spectrogram_ragged
+from .features import (chroma_filterbank, chroma_stft, delta,
+                       log_mel_spectrogram, log_mel_spectrogram_ragged, mfcc,
+                       onset_detect, onset_strength, pcen, spectral_contrast,
+                       spectral_features, whisper_log_mel)
+from .ops import (beat_track, butter_sos, filtfilt, firwin, griffin_lim,
+                  integrated_loudness, loudness_range, mel_to_linear,
+                  sosfilt, tempogram_from_envelope, true_peak)
 from .parallel import streaming_spec_db, streaming_spec_db_mmap
 from .render.colormap import get_colormap
 from .session import AudioTrack, MultiTrack
 
 __all__ = [
     "AudioTrack",
-    "FreqScale",
-    "MultiTrack",
-    "SpecSetting",
-    "StftParams",
+    "beat_track",
+    "butter_sos",
+    "chroma_filterbank",
+    "chroma_stft",
+    "delta",
     "derive_stft_params",
+    "filtfilt",
+    "firwin",
+    "FreqScale",
     "get_colormap",
     "get_precision_mode",
     "get_session_hbm_budget",
+    "griffin_lim",
+    "integrated_loudness",
     "log_mel_spectrogram",
     "log_mel_spectrogram_ragged",
+    "loudness_range",
+    "mel_to_linear",
+    "mfcc",
+    "MultiTrack",
+    "onset_detect",
+    "onset_strength",
+    "pcen",
     "precision_mode_scope",
     "set_precision_mode",
     "set_session_hbm_budget",
+    "sosfilt",
+    "SpecSetting",
+    "spectral_contrast",
+    "spectral_features",
+    "StftParams",
     "streaming_spec_db",
     "streaming_spec_db_mmap",
+    "tempogram_from_envelope",
+    "true_peak",
+    "whisper_log_mel",
 ]

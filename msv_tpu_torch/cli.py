@@ -8,12 +8,18 @@
     python -m msv_tpu_torch features a.wav --kind logmel -o outdir
     python -m msv_tpu_torch serve outdir  # static viewer for rendered PNGs
 
-``render``, ``view``, ``info``, ``resample`` and ``features`` take
-``--device`` (default ``cuda``): without a card they stop with an error
-and never fall back to the CPU on their own; ``--device cpu`` runs the
-kernels' plain PyTorch versions.  ``features`` computes ``--kind logmel``
-only, ``info`` has no ``--loudness`` yet, and the analysis and editing
-subcommands answer "not ported yet" (ROADMAP queue 1 items 5-9).
+    python -m msv_tpu_torch filter a.wav --bandpass 200 5000 -o outdir
+    python -m msv_tpu_torch gain a.wav --lufs -23 -o outdir
+    python -m msv_tpu_torch reconstruct outdir/db_a.npy --sr 48000
+
+``render``, ``view``, ``info``, ``resample``, ``features``, ``filter``,
+``gain`` and ``reconstruct`` take ``--device`` (default ``cuda``): without
+a card they stop with an error and never fall back to the CPU on their
+own; ``--device cpu`` runs the kernels' plain PyTorch versions.
+``features`` computes the kinds logmel, mfcc, chroma, spectral, whisper,
+pcen, contrast, onsets, tempogram and beats; its other kinds and the
+remaining analysis and editing subcommands answer "not ported yet"
+(ROADMAP queue 1 items 7-9).
 """
 
 import argparse
@@ -23,8 +29,10 @@ import time
 
 # Subcommands whose operations the port does not have yet.
 NOT_PORTED = ("analyze", "hpss", "separate", "transcribe", "stretch", "trim",
-              "align", "denoise", "declick", "specedit", "filter", "gain",
-              "reconstruct")
+              "align", "denoise", "declick", "specedit")
+# ``features --kind`` values the port computes.
+FEATURE_KINDS = ("logmel", "mfcc", "chroma", "spectral", "whisper", "pcen",
+                 "contrast", "onsets", "tempogram", "beats")
 
 
 def _add_device(p):
@@ -383,6 +391,7 @@ def _build_parser():
     fl.add_argument("--channel", type=int, default=None,
                     help="one source channel instead of all channels")
     fl.add_argument("--bits", type=int, choices=[16, 32], default=16)
+    _add_device(fl)
 
     gn = sub.add_parser(
         "gain",
@@ -410,6 +419,7 @@ def _build_parser():
                     "EBU R128 delivery: -1): reduce the gain so the "
                     "output's inter-sample peak stays at or under it")
     gn.add_argument("--bits", type=int, choices=[16, 32], default=16)
+    _add_device(gn)
 
     fe = sub.add_parser(
         "features",
@@ -482,6 +492,7 @@ def _build_parser():
     g.add_argument("--channel", type=int, default=None,
                    help="for audio input: roundtrip one source channel "
                    "instead of the channel sum")
+    _add_device(g)
 
     s = sub.add_parser("serve", help="serve rendered PNGs over HTTP")
     s.add_argument("dir")
@@ -593,19 +604,49 @@ def _render_adaptive(args, setting):
     return 0
 
 
+def _feature(kind, x, target, args):
+    """``features --kind`` of the device tensor ``x`` at ``target`` Hz:
+    (host array, extra text to print)."""
+    from . import features as F
+    from .ops import rhythm
+
+    if kind == "beats":
+        bpm, out = rhythm.beat_track(x, target)
+        return out, f"  {bpm:.1f} BPM"
+    if kind == "onsets":
+        return F.onset_detect(x, target), ""
+    if kind == "tempogram":
+        out = rhythm.tempogram_from_envelope(F.onset_strength(x, target),
+                                             100.0)
+    elif kind == "logmel":
+        out = F.log_mel_spectrogram(x, target, n_mel=args.n_mel)
+    elif kind == "mfcc":
+        out = F.mfcc(x, target, n_mfcc=args.n_mfcc, n_mel=args.n_mel)
+    elif kind == "chroma":
+        out = F.chroma_stft(x, target)
+    elif kind == "spectral":
+        out = F.spectral_features(x, target)
+    elif kind == "whisper":
+        out = F.whisper_log_mel(x, 16000)
+    elif kind == "pcen":
+        out = F.pcen(x, target, n_mel=args.n_mel)
+    else:  # contrast
+        out = F.spectral_contrast(x, target)
+    return out.cpu().numpy(), ""
+
+
 def _features_cmd(args):
     import numpy as np
     import torch
 
-    from .features import log_mel_spectrogram
     from .io.audio import open_audio_mono_ex
     from .ops.resample import resample
     from .utils.errors import MsvError
 
-    if args.kind != "logmel":
+    if args.kind not in FEATURE_KINDS:
         raise MsvError(f"features --kind {args.kind} is not ported yet "
-                       "(only --kind logmel is)")
-    target = args.target_sr
+                       f"(ported: {', '.join(FEATURE_KINDS)})")
+    target = 16000 if args.kind == "whisper" else args.target_sr
     if target < 1000:
         raise MsvError(f"--target-sr too low: {target}")
     os.makedirs(args.outdir, exist_ok=True)
@@ -617,11 +658,247 @@ def _features_cmd(args):
         else:
             x = torch.from_numpy(np.ascontiguousarray(wav, np.float32)).to(
                 args.device)
-        out = log_mel_spectrogram(x, target, n_mel=args.n_mel).cpu().numpy()
-        dest = os.path.join(args.outdir,
-                            f"feats_logmel_{_stem(f, args.channel)}.npy")
+        out, extra = _feature(args.kind, x, target, args)
+        dest = os.path.join(
+            args.outdir, f"feats_{args.kind}_{_stem(f, args.channel)}.npy")
         np.save(dest, out.astype(np.float32))
-        print(f"  {dest}  {out.shape}  ({time.perf_counter() - t0:.2f}s)")
+        print(f"  {dest}  {out.shape}{extra}  "
+              f"({time.perf_counter() - t0:.2f}s)")
+    return 0
+
+
+def _reconstruct_cmd(args):
+    """dB export -> audio (ops/reconstruct.py): `render --save-db` output,
+    or an audio file's own dB plane, back to a WAV by mel inversion and
+    Griffin-Lim on the device."""
+    import numpy as np
+    import torch
+
+    from .config import FreqScale, SpecSetting, derive_stft_params
+    from .io.audio import write_wav
+    from .ops.decibel import db_to_amp
+    from .ops.mel import calc_mel_fb_default
+    from .ops.reconstruct import griffin_lim, mel_to_linear
+    from .utils.errors import MsvError
+
+    setting = SpecSetting(
+        win_ms=args.win_ms,
+        t_overlap=args.t_overlap,
+        f_overlap=args.f_overlap,
+        freq_scale=FreqScale.MEL if args.freq_scale == "mel"
+        else FreqScale.LINEAR,
+    )
+    length = None
+    if args.input.endswith(".npy"):
+        if args.sr is None:
+            raise MsvError(
+                "--sr is required for .npy input (the export does not "
+                "record the sample rate; it is printed by `render` and "
+                "`info`)"
+            )
+        sr = args.sr
+        try:
+            db = np.load(args.input)
+        except (OSError, ValueError) as e:
+            raise MsvError(f"{args.input}: {e}") from e
+        if db.ndim != 2 or not np.issubdtype(db.dtype, np.floating):
+            raise MsvError(
+                f"{args.input}: expected a 2-D float dB array "
+                f"(n_frames, n_bands), got {db.dtype} {db.shape}"
+            )
+        db = np.ascontiguousarray(db, np.float32)
+    else:
+        from . import MultiTrack
+
+        mt = MultiTrack(setting, device=args.device)
+        mt.add_tracks([0], [args.input], channels=[args.channel])
+        sr = mt.tracks[0].sr
+        length = mt.tracks[0].n_samples
+        db = mt.get_spec_db(0, wire="f32")
+
+    p = derive_stft_params(sr, setting)
+    t0 = time.perf_counter()
+    amp = db_to_amp(torch.from_numpy(db).to(args.device))
+    if setting.freq_scale == FreqScale.MEL:
+        fb = calc_mel_fb_default(sr, p.n_fft)
+        if db.shape[1] != fb.shape[1]:
+            raise MsvError(
+                f"{args.input}: {db.shape[1]} bands but the mel filterbank "
+                f"for sr={sr} (win {p.win_length}, n_fft {p.n_fft}) has "
+                f"{fb.shape[1]} — wrong --sr, --win-ms/overlaps, or "
+                "--freq-scale for this export?"
+            )
+        mag = mel_to_linear(amp, fb)
+    else:
+        if db.shape[1] != p.n_fft // 2 + 1:
+            raise MsvError(
+                f"{args.input}: {db.shape[1]} bands but a linear-scale "
+                f"export for sr={sr} has {p.n_fft // 2 + 1} — wrong --sr, "
+                "--win-ms/overlaps, or --freq-scale for this export?"
+            )
+        mag = amp
+    try:
+        y = griffin_lim(mag, p.win_length, p.hop_length, p.n_fft,
+                        n_iter=args.n_iter, momentum=args.momentum,
+                        length=length)
+    except ValueError as e:
+        raise MsvError(str(e)) from e
+    dt = time.perf_counter() - t0
+    if args.normalize:
+        peak = float(np.abs(y).max())
+        if peak > 0.0:
+            y = y * np.float32(0.9 / peak)
+    stem = os.path.splitext(os.path.basename(args.input))[0]
+    stem = stem[3:] if stem.startswith("db_") else stem
+    out = args.out or f"recon_{stem}.wav"
+    write_wav(out, y[None, :], sr)
+    print(
+        f"  {out}  {len(y)} samples @ {sr} Hz ({len(y) / sr:.2f}s)  "
+        f"peak {float(np.abs(y).max()):.3f}  "
+        f"[{args.n_iter} GL iters in {dt:.2f}s]"
+    )
+    return 0
+
+
+def _filter_sos_from_args(args, sr):
+    """Assemble the SOS cascade a `filter` invocation asks for."""
+    import numpy as np
+
+    from .ops.filter import (butter_sos, high_shelf, low_shelf, notch,
+                             peaking_eq)
+    from .utils.errors import MsvError
+
+    rows = []
+    try:
+        if args.lowpass is not None:
+            rows.append(butter_sos(args.order, args.lowpass, "lowpass",
+                                   sr=sr))
+        if args.highpass is not None:
+            rows.append(butter_sos(args.order, args.highpass, "highpass",
+                                   sr=sr))
+        if args.bandpass is not None:
+            rows.append(butter_sos(args.order, tuple(args.bandpass),
+                                   "bandpass", sr=sr))
+        if args.bandstop is not None:
+            rows.append(butter_sos(args.order, tuple(args.bandstop),
+                                   "bandstop", sr=sr))
+        for spec in args.peak:
+            parts = spec.split(":")
+            if len(parts) not in (2, 3):
+                raise ValueError(f"--peak wants F0:GAIN_DB[:Q], got {spec!r}")
+            f0, gain = float(parts[0]), float(parts[1])
+            q = float(parts[2]) if len(parts) == 3 else 1.0
+            rows.append(peaking_eq(sr, f0, gain, q))
+        for spec in args.shelf:
+            parts = spec.split(":")
+            if len(parts) != 3 or parts[0] not in ("lo", "hi"):
+                raise ValueError(
+                    f"--shelf wants lo|hi:F0:GAIN_DB, got {spec!r}")
+            fn = low_shelf if parts[0] == "lo" else high_shelf
+            rows.append(fn(sr, float(parts[1]), float(parts[2])))
+        for spec in args.notch:
+            parts = spec.split(":")
+            if len(parts) not in (1, 2):
+                raise ValueError(f"--notch wants F0[:Q], got {spec!r}")
+            q = float(parts[1]) if len(parts) == 2 else 30.0
+            rows.append(notch(sr, float(parts[0]), q))
+    except ValueError as e:
+        raise MsvError(str(e)) from e
+    if not rows:
+        raise MsvError(
+            "filter: give at least one of --lowpass/--highpass/--bandpass/"
+            "--bandstop/--peak/--shelf/--notch")
+    return np.concatenate(rows, axis=0)
+
+
+def _filter_cmd(args):
+    import numpy as np
+
+    from .io.audio import open_audio_file, open_audio_mono_ex, write_wav
+    from .ops.filter import filtfilt, sosfilt_streamed
+    from .utils.errors import MsvError
+
+    os.makedirs(args.outdir, exist_ok=True)
+    for f in args.files:
+        if args.channel is None:
+            wav, sr = open_audio_file(f)  # (n_ch, T)
+        else:
+            mono, sr, _, _, _ = open_audio_mono_ex(f, channel=args.channel)
+            wav = np.asarray(mono, np.float32)[None]
+        sos = _filter_sos_from_args(args, sr)
+        t0 = time.perf_counter()
+        run = filtfilt if args.zero_phase else sosfilt_streamed
+        try:
+            out = np.stack([run(sos, ch, device=args.device) for ch in wav])
+        except ValueError as e:
+            raise MsvError(f"{f}: {e}") from e
+        dt = time.perf_counter() - t0
+        path = os.path.join(args.outdir, f"{_stem(f, args.channel)}_filt.wav")
+        write_wav(path, out, sr, bits=args.bits)
+        peak = float(np.max(np.abs(out))) if out.size else 0.0
+        print(f"  {path}  {len(sos)} section(s), {out.shape[0]} ch, "
+              f"out peak {peak:.4f}  ({dt:.2f}s)")
+    return 0
+
+
+def _gain_cmd(args):
+    import numpy as np
+
+    from .io.audio import open_audio_file, write_wav
+    from .ops.loudness import integrated_loudness, true_peak
+    from .utils.errors import MsvError
+
+    os.makedirs(args.outdir, exist_ok=True)
+    for f in args.files:
+        wav, sr = open_audio_file(f)  # (n_ch, T)
+        t0 = time.perf_counter()
+        if args.peak is not None:
+            if args.peak <= 0:
+                raise MsvError(f"--peak must be positive, got {args.peak}")
+            src = float(np.abs(wav).max())
+            if src == 0.0:
+                print(f"  {f}: silent, nothing written")
+                continue
+            g = args.peak / src
+            what = f"peak {src:.4f} -> {args.peak:g}"
+        else:
+            try:
+                lufs = integrated_loudness(wav, sr, device=args.device)
+            except ValueError as e:
+                raise MsvError(f"{f}: {e}") from e
+            if lufs == float("-inf"):
+                print(f"  {f}: below the -70 LUFS gate, nothing written")
+                continue
+            g = 10.0 ** ((args.lufs - lufs) / 20.0)
+            what = f"{lufs:.2f} -> {args.lufs:g} LUFS"
+        note_tp = ""
+        if args.max_dbtp is not None:
+            # scaling moves the true peak dB-for-dB, so one measurement
+            # of the INPUT gives the exact ceiling gain — no re-measure
+            tp_in = true_peak(wav, sr, device=args.device)
+            if tp_in != float("-inf"):
+                over = (tp_in + 20.0 * np.log10(g)) - args.max_dbtp
+                if over > 0.0:
+                    g *= 10.0 ** (-over / 20.0)
+                    note_tp = (f"  (true-peak limited: -{over:.2f} dB "
+                               f"to hit {args.max_dbtp:g} dBTP)")
+        out = wav * np.float32(g)
+        peak = float(np.abs(out).max())
+        note = ""
+        if peak > 0.999:
+            if args.limit:
+                out *= np.float32(0.999 / peak)
+                note = f"  (limited: gain {20 * np.log10(g):+.2f} dB " \
+                    f"-> {20 * np.log10(g * 0.999 / peak):+.2f} dB)"
+                peak = 0.999
+            else:
+                note = "  (WARNING: will clip; use --limit)"
+        dt = time.perf_counter() - t0
+        stem = os.path.splitext(os.path.basename(f))[0]
+        path = os.path.join(args.outdir, f"{stem}_norm.wav")
+        write_wav(path, out, sr, bits=args.bits)
+        print(f"  {path}  {what}, gain {20 * np.log10(g):+.2f} dB, "
+              f"out peak {peak:.4f}  ({dt:.2f}s){note_tp}{note}")
     return 0
 
 
@@ -660,16 +937,27 @@ def _info_cmd(args):
     from .io.audio import open_audio_file
     from .utils.errors import MsvError
 
-    if args.loudness:
-        raise MsvError("info --loudness is not ported yet (ops/loudness.py, "
-                       "ROADMAP queue 1 item 7)")
     for f in args.files:
         wav, sr = open_audio_file(f)
         p = derive_stft_params(sr, SpecSetting())
+        extra = ""
+        if args.loudness:
+            from .ops.loudness import r128_stats
+
+            try:
+                r = r128_stats(wav, sr, device=args.device)
+            except ValueError as e:
+                raise MsvError(f"{f}: {e}") from e
+            extra = (" loudness=-inf" if r["lufs"] is None
+                     else f" loudness={r['lufs']:.2f}LUFS")
+            if r["lra"] is not None:
+                extra += f" lra={r['lra']:.1f}LU"
+            extra += (" peak=-inf" if r["dbtp"] is None
+                      else f" peak={r['dbtp']:.2f}dBTP")
         print(
             f"{f}: sr={sr} ch={wav.shape[0]} samples={wav.shape[1]} "
             f"sec={wav.shape[1]/sr:.3f} win={p.win_length} "
-            f"hop={p.hop_length} n_fft={p.n_fft}"
+            f"hop={p.hop_length} n_fft={p.n_fft}" + extra
         )
     return 0
 
@@ -788,6 +1076,12 @@ def _main(argv=None):
         return _features_cmd(args)
     if args.cmd == "resample":
         return _resample_cmd(args)
+    if args.cmd == "reconstruct":
+        return _reconstruct_cmd(args)
+    if args.cmd == "filter":
+        return _filter_cmd(args)
+    if args.cmd == "gain":
+        return _gain_cmd(args)
 
     if args.cmd == "view":
         from . import FreqScale, SpecSetting

@@ -8,7 +8,8 @@ decibel.rs:33-56:
     power_to_db = 10 * out,  amin default 1e-36  (decibel.rs:8)
 
 The branch is the strict ``>`` (not >=), so it is ``torch.where`` on exactly
-that predicate.
+that predicate.  ``db_to_amp`` and ``db_to_power`` invert them on tensors;
+``a_weighting`` is msv_tpu's host builder of the IEC 61672-1 curve, copied.
 """
 
 import math
@@ -58,3 +59,38 @@ def power_to_db(x, ref_value=REF_DEFAULT, amin: float = AMIN_POWER_DEFAULT):
     """10*log10 with floor (decibel.rs:58-66, defaults decibel.rs:90-100).
     ``ref_value`` may be "max" (DeciBelRef::Max)."""
     return 10.0 * _log_for_db(x, ref_value, amin)
+
+
+def db_to_amp(x, ref_value: float = REF_DEFAULT):
+    """Inverse of amp_to_db (decibel.rs:102-104; unused by the reference app
+    but part of its public trait surface)."""
+    return ref_value * torch.pow(10.0, 0.05 * x)
+
+
+def db_to_power(x, ref_value: float = REF_DEFAULT):
+    """Inverse of power_to_db (decibel.rs:106-108)."""
+    return ref_value * torch.pow(10.0, 0.1 * x)
+
+
+def a_weighting(frequencies, min_db: float | None = -80.0):
+    """IEC 61672-1 A-weighting in dB for ``frequencies`` (Hz).
+
+    Host-side numpy constant builder (weights are per-bin constants; add
+    them to a power-dB spectrogram for perceptual weighting — the
+    librosa.A_weighting/perceptual_weighting equivalents; librosa is not
+    in this image, so the curve is pinned against the standard's anchor
+    values in tests/test_decibel.py: 0 dB at 1 kHz, -19.1 at 100 Hz,
+    -2.5 at 10 kHz).  ``min_db`` floors the rolloff (None = no floor).
+    """
+    import numpy as np
+
+    f2 = np.asarray(frequencies, dtype=np.float64) ** 2
+    c1, c2, c3, c4 = 20.6**2, 107.7**2, 737.9**2, 12194.0**2
+    ra = (c4 * f2**2) / (
+        (f2 + c1) * np.sqrt((f2 + c2) * (f2 + c3)) * (f2 + c4)
+    )
+    with np.errstate(divide="ignore"):
+        db = 20.0 * np.log10(ra) + 2.0
+    if min_db is not None:
+        db = np.maximum(db, min_db)
+    return db.astype(np.float32)

@@ -1,5 +1,6 @@
 """Windowed real DFT as a GEMM: the host builders of ``msv_tpu/ops/dft.py``
-(:26-96), and its inverse as two GEMMs (``inverse_rdft``, :99-124).
+(:26-96: the windowed pair, the end-padded pair, the numpy rfft oracle),
+and its inverse as two GEMMs (``inverse_rdft``, :99-124).
 
 The device computes  re = frames @ C,  im = frames @ S  with C, S of shape
 (win_length, n_freq) built here on the host (f64 twiddles, cast to f32).
@@ -46,6 +47,11 @@ def windowed_dft_matrices(window: np.ndarray, n_fft: int, dtype=np.float32):
     )
 
 
+def rdft_reference_np(frames: np.ndarray) -> np.ndarray:
+    """Oracle: numpy rfft of already windowed+padded frames (tests only)."""
+    return np.fft.rfft(frames, axis=-1)
+
+
 @functools.lru_cache(maxsize=32)
 def _irdft_matrices_cached(n_fft: int, dtype_str: str):
     n_freq = n_fft // 2 + 1
@@ -62,6 +68,22 @@ def _irdft_matrices_cached(n_fft: int, dtype_str: str):
     ci = (np.cos(phase) * w / n_fft).astype(dt)  # (n_fft, n_freq)
     si = (-np.sin(phase) * w / n_fft).astype(dt)
     return ci, si
+
+
+@functools.lru_cache(maxsize=16)
+def end_padded_rdft_matrices(n_rows: int, n_fft: int):
+    """Real-DFT matrices for END-zero-padded rows, (n_rows, n_freq) each.
+
+    Correlation-style analyses (YIN difference function, LPC
+    autocorrelation) need the signal anchored at index 0, unlike the
+    session's centered pad.  Standard rFFT sign convention:
+    ``rows @ C + 1j * rows @ S == np.fft.rfft(rows, n_fft)``.
+    """
+    j = np.arange(n_rows, dtype=np.float64)[:, None]
+    k = np.arange(n_fft // 2 + 1, dtype=np.float64)[None, :]
+    ang = 2.0 * np.pi * j * k / n_fft
+    return (np.cos(ang).astype(np.float32),
+            (-np.sin(ang)).astype(np.float32))
 
 
 def inverse_rdft(spec, n_fft: int):

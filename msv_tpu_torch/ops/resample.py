@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..config import precision_for
+from ..utils.device import as_f32
 
 
 @functools.lru_cache(maxsize=64)
@@ -92,11 +93,7 @@ def resample_poly(x, up: int, down: int, *, beta: float = 5.0, device=None):
         raise ValueError(f"up/down must be positive, got {up}/{down}")
     g = math.gcd(up, down)
     up, down = up // g, down // g
-    if isinstance(x, torch.Tensor):  # stays on its device unless told
-        x = x.to(device or x.device, torch.float32)
-    else:  # numpy goes to the card unless told
-        x = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
-            device or "cuda")
+    x = as_f32(x, device)
     if x.ndim == 0 or x.shape[-1] < 2:
         raise ValueError(f"need at least 2 samples, got {tuple(x.shape)}")
     if up == 1 and down == 1:

@@ -6,11 +6,12 @@ planes on the device.
 
     python -m msv_tpu_torch view a.wav b.wav --port 8080
 
-Every image route, the audio route, settings, track management and the
-stats route are ported.  The analysis routes (pitch, formants, onsets,
-beats, segments, notes, key, analyze, align, loudness) and POST
-/api/process answer 501 ``{"error": "not ported: <route>"}`` until their
-operations are ported (ROADMAP queue 1 items 5-9).
+Every image route, the audio route, settings, track management, the
+stats route and the onsets, beats and loudness routes are ported.  The
+other analysis routes (pitch, formants, segments, notes, key, analyze,
+align) and POST /api/process answer 501 ``{"error": "not ported:
+<route>"}`` until their operations are ported (ROADMAP queue 1 items
+7-9).
 """
 
 import io
@@ -755,10 +756,9 @@ class _Handler(BaseHTTPRequestHandler):
         return c
 
     # routes whose operations are not ported yet: 501 + {"error"}
-    NOT_PORTED_GET = ("/api/pitch/", "/api/formants/", "/api/onsets/",
-                      "/api/beats/", "/api/segments/", "/api/notes/",
-                      "/api/key/", "/api/analyze/", "/api/align/",
-                      "/api/loudness/")
+    NOT_PORTED_GET = ("/api/pitch/", "/api/formants/", "/api/segments/",
+                      "/api/notes/", "/api/key/", "/api/analyze/",
+                      "/api/align/")
     NOT_PORTED_POST = ("/api/process",)
 
     def _not_ported(self, path):
@@ -1107,6 +1107,78 @@ class _Handler(BaseHTTPRequestHandler):
                     else:
                         hz = mt.get_frequency_hz(tid, rel)
                 self._send(200, "application/json", json.dumps({"hz": hz}).encode())
+            elif url.path.startswith("/api/onsets/"):
+                # onset times over a bounded window (features.py
+                # spectral-flux novelty); viewport-sized like /api/pitch
+                # and LRU-cached under the same generation rules
+                from .features import onset_detect
+
+                tid = int(url.path.rsplit("/", 1)[1])
+                s0 = qf("start", 0.0, 0.0, 1e7)
+                s1 = qf("end", s0 + 30.0, 0.0, 1e7)
+                delta = qf("delta", 3.0, 0.1, 100.0)
+                with self.lock.read():
+                    tr = mt._track(tid)
+                    sr = tr.sr
+                    a = min(max(0, int(s0 * sr)), tr.n_samples)
+                    b = min(tr.n_samples, int(s1 * sr), a + 120 * sr)
+                    wav = tr.wav_slice(a, b)
+                if len(wav) < sr // 10:
+                    body = json.dumps({"t": []}).encode()
+                else:
+                    times = onset_detect(wav, sr, delta=delta,
+                                         device=mt.device)
+                    body = json.dumps({
+                        "t": [round(a / sr + float(v), 3) for v in times]
+                    }).encode()
+                self._cache().put(self.path, "application/json", body,
+                                  gen=self._req_gen)
+                self._send(200, "application/json", body)
+            elif url.path.startswith("/api/beats/"):
+                # tempo + beat grid over a bounded window (ops/rhythm.py:
+                # tempogram -> log-normal prior -> Ellis DP); viewport-
+                # sized and LRU-cached like /api/onsets
+                from .ops.rhythm import beat_track
+
+                tid = int(url.path.rsplit("/", 1)[1])
+                s0 = qf("start", 0.0, 0.0, 1e7)
+                s1 = qf("end", s0 + 30.0, 0.0, 1e7)
+                with self.lock.read():
+                    tr = mt._track(tid)
+                    sr = tr.sr
+                    a = min(max(0, int(s0 * sr)), tr.n_samples)
+                    b = min(tr.n_samples, int(s1 * sr), a + 120 * sr)
+                    wav = tr.wav_slice(a, b)
+                if len(wav) < sr:  # < 1 s: no meaningful tempo
+                    body = json.dumps({"bpm": 0.0, "t": []}).encode()
+                else:
+                    bpm, beats = beat_track(wav, sr, device=mt.device)
+                    body = json.dumps({
+                        "bpm": round(float(bpm), 1),
+                        "t": [round(a / sr + float(v), 3) for v in beats],
+                    }).encode()
+                self._cache().put(self.path, "application/json", body,
+                                  gen=self._req_gen)
+                self._send(200, "application/json", body)
+            elif url.path.startswith("/api/loudness/"):
+                # EBU R128 numbers of the track's mono view — the SAME
+                # signal /api/audio plays (channel sum or the selected
+                # channel), so they match what you hear: integrated
+                # LUFS, loudness range (LU), true peak (dBTP).
+                # On-demand (client button) + LRU-cached; the chunked
+                # K-weighting keeps memory bounded at any track length.
+                from .ops.loudness import r128_stats
+
+                tid = int(url.path.rsplit("/", 1)[1])
+                with self.lock.read():
+                    tr = mt._track(tid)
+                    wav = tr.wav_slice(0, tr.n_samples)
+                    sr = tr.sr
+                body = json.dumps(r128_stats(wav, sr,
+                                             device=mt.device)).encode()
+                self._cache().put(self.path, "application/json", body,
+                                  gen=self._req_gen)
+                self._send(200, "application/json", body)
             elif url.path.startswith(self.NOT_PORTED_GET):
                 self._not_ported(url.path)
             else:

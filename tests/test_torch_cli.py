@@ -20,6 +20,7 @@ import argparse
 import importlib
 import importlib.util
 import os
+import re
 import subprocess
 import sys
 
@@ -139,7 +140,8 @@ def _subparsers(parser):
                 if isinstance(a, argparse._SubParsersAction))
 
 
-PORTED_DEVICE = ("render", "view", "info", "resample", "features")
+PORTED_DEVICE = ("render", "view", "info", "resample", "features", "filter",
+                 "gain", "reconstruct")
 
 
 @pytest.mark.parametrize("cmd", [
@@ -327,10 +329,28 @@ def test_info_matches_jax(wav_path, jcli, capsys):
     assert "sr=8000" in port and "win=320" in port
 
 
-def test_info_loudness_is_not_ported(wav_path, capsys):
-    assert main(["info", wav_path, "--loudness", *CPU]) == 1
-    err = capsys.readouterr().err
-    assert err.startswith("error:") and "not ported" in err
+def test_info_loudness_is_not_ported(tmp_path, jcli, capsys):
+    """``info --loudness`` (ported since this test was named) prints
+    msv_tpu's line: LUFS and LRA within 0.01 LU, the true peak within
+    1e-4 dB (tests/test_loudness.py:192), before their rounding."""
+    p = _tone(str(tmp_path / "st.wav"), sr=16000, seconds=4.0, channels=2)
+    assert main(["info", p, "--loudness", *CPU]) == 0
+    port = capsys.readouterr().out
+    assert jcli.main(["info", p, "--loudness"]) == 0
+    want = capsys.readouterr().out
+    num = r"([-\d.]+)"
+    pat = rf"loudness={num}LUFS lra={num}LU peak={num}dBTP"
+    got, ref = re.search(pat, port), re.search(pat, want)
+    assert port[:port.index(" loudness=")] == want[:want.index(" loudness=")]
+    for a, b, tol in zip(got.groups(), ref.groups(), (0.01, 0.1, 0.01)):
+        assert abs(float(a) - float(b)) <= tol + 1e-9
+    x, sr = open_audio_file(p)
+    from msv_tpu.ops.loudness import r128_stats as j_r128
+    from msv_tpu_torch.ops.loudness import r128_stats
+
+    r, jr = r128_stats(x, sr, device="cpu"), j_r128(x, sr)
+    assert abs(r["lufs"] - jr["lufs"]) <= 0.01 + 1e-9
+    assert abs(r["dbtp"] - jr["dbtp"]) <= 0.01 + 1e-9
 
 
 def test_missing_file_error(tmp_path, capsys):
@@ -340,14 +360,16 @@ def test_missing_file_error(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("cmd", ["render", "info", "resample", "features",
-                                 "view"])
+                                 "view", "filter", "gain", "reconstruct"])
 def test_no_card_is_an_error_without_device_cpu(cmd, wav_path, tmp_path,
                                                 capsys):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default route runs there")
-    extra = {"resample": ["--sr", "16000"], "view": ["--port", "0"]}
+    extra = {"resample": ["--sr", "16000"], "view": ["--port", "0"],
+             "filter": ["--lowpass", "1000"],
+             "reconstruct": ["-o", str(tmp_path / "o" / "r.wav")]}
     args = [cmd, wav_path, *extra.get(cmd, [])]
-    if cmd not in ("info", "view"):
+    if cmd not in ("info", "view", "reconstruct"):
         args += ["-o", str(tmp_path / "o")]
     assert main(args) == 1
     err = capsys.readouterr().err
@@ -357,14 +379,16 @@ def test_no_card_is_an_error_without_device_cpu(cmd, wav_path, tmp_path,
 
 @pytest.mark.parametrize("cmd", [
     "analyze", "hpss", "separate", "transcribe", "stretch", "trim", "align",
-    "denoise", "declick", "specedit", "filter", "gain", "reconstruct"])
+    "denoise", "declick", "specedit"])
 def test_analysis_subcommands_are_not_ported(cmd, wav_path, capsys):
     assert main([cmd, wav_path]) == 1
     cap = capsys.readouterr()
     assert cap.err == f"error: {cmd} is not ported yet\n" and not cap.out
 
 
-@pytest.mark.parametrize("kind", ["mfcc", "whisper", "onsets"])
+@pytest.mark.parametrize("kind", ["f0", "f0v", "segments", "tonnetz", "key",
+                                  "mtspec", "reassigned", "lpcenv",
+                                  "formants"])
 def test_features_other_kinds_are_not_ported(kind, wav_path, tmp_path,
                                              capsys):
     assert main(["features", wav_path, "-o", str(tmp_path), "--kind", kind,
@@ -423,6 +447,157 @@ def test_features_logmel_matches_jax(tmp_path, jcli):
         np.load(os.path.join(out, "feats_logmel_t16.npy")),
         msv_tpu_torch.log_mel_spectrogram(open_audio_file(p16)[0][0], 16000,
                                           n_mel=64, device="cpu").numpy())
+
+
+def _clicks(path, sr=16000, seconds=6.0):
+    """A 120 BPM click train over a tone and a noise floor, stereo (onsets
+    and beats).  Without the floor, mel bands far from the tone sit 150 dB
+    or more under it, where f32 summation order and bf16 operands move dB
+    by tens (in msv_tpu's fast mode on a TPU as well)."""
+    t = np.arange(int(seconds * sr)) / sr
+    x = (0.05 * np.sin(2 * np.pi * 440 * t)
+         + 0.005 * np.random.default_rng(5).standard_normal(len(t)))
+    for t0 in np.arange(0.25, seconds - 0.5, 0.5):
+        i = int(t0 * sr)
+        x[i:i + 200] += 0.7 * np.hanning(200)
+    write_wav(path, np.stack([x, 0.5 * x]).astype(np.float32), sr)
+    return path
+
+
+# kind -> bound of the port's .npy against msv_tpu's, both in parity (the
+# session-wide mode set explicitly, which every feature follows):
+# tests/test_features.py's atol for whisper (:279), mfcc (:375) and pcen
+# (:689), rtol/atol for chroma (:574) and contrast (:814), the loosest
+# spectral column's rtol (:490-495), tests/test_rhythm.py:40's atol for the
+# tempogram; onsets and beats equal (host peak picking and the beat DP)
+FEATURE_BOUNDS = {"mfcc": (0, 2e-4), "chroma": (1e-4, 1e-6),
+                  "spectral": (1e-3, 1e-7), "whisper": (0, 3e-4),
+                  "pcen": (0, 2e-4), "contrast": (1e-3, 2e-3),
+                  "tempogram": (0, 5e-5), "onsets": None, "beats": None}
+
+
+@pytest.mark.parametrize("kind", sorted(FEATURE_BOUNDS))
+def test_features_kinds_match_jax(kind, tmp_path, jcli, capsys):
+    from msv_tpu import config as jcfg
+    from msv_tpu_torch.cli import _feature
+    from msv_tpu_torch.io.audio import open_audio_mono_ex
+
+    p = _clicks(str(tmp_path / "cl.wav"))
+    x = torch.from_numpy(np.ascontiguousarray(open_audio_mono_ex(p)[0]))
+    args = ["features", p, "--kind", kind, "--n-mel", "64"]
+    name = f"feats_{kind}_cl.npy"
+    ns = argparse.Namespace(n_mel=64, n_mfcc=13)
+    # the default precision (fast, bf16 operands): the library call
+    out = str(tmp_path / "fast")
+    assert main([*args, "-o", out, *CPU]) == 0
+    np.testing.assert_array_equal(
+        np.load(os.path.join(out, name)),
+        _feature(kind, x, 16000, ns)[0].astype(np.float32))
+    tcfg.set_precision_mode("parity")
+    jcfg.set_precision_mode("parity")
+    try:
+        outs = _run_both(jcli, args, tmp_path)
+    finally:
+        jcfg.reset_precision_mode()
+    got = np.load(os.path.join(outs["port"], name))
+    want = np.load(os.path.join(outs["jax"], name))
+    assert got.dtype == np.float32 and got.shape == want.shape
+    if FEATURE_BOUNDS[kind] is None:
+        np.testing.assert_array_equal(got, want)
+        assert len(got) >= 8
+    else:
+        rtol, atol = FEATURE_BOUNDS[kind]
+        off = np.abs(got - want) > atol + rtol * np.abs(want)
+        # contrast's valley is one bin of a band here; where that bin is
+        # 100 dB or more under the frame's tone, f32 summation order moves
+        # it by a few percent (chip_smoke's f32_agree rule for deep bins:
+        # at most FLOOR_SHARE of the values; measured one of 4207)
+        share = cs.FLOOR_SHARE if kind == "contrast" else 0.0
+        assert off.mean() <= share, np.abs(got - want)[off]
+    if kind == "beats":
+        bpm = re.findall(r"([\d.]+) BPM", capsys.readouterr().out)
+        assert len(bpm) == 3 and set(bpm) == {"120.0"}
+    np.testing.assert_array_equal(
+        got, _feature(kind, x, 16000, ns)[0].astype(np.float32))
+
+
+@pytest.mark.parametrize("zero_phase", [False, True])
+def test_filter_matches_jax(zero_phase, tmp_path, jcli):
+    p = _tone(str(tmp_path / "st.wav"), sr=16000, seconds=2.0, channels=2)
+    args = ["filter", p, "--bandpass", "200", "5000", "--shelf",
+            "hi:3000:6", "--peak", "1000:-3:2", "--bits", "32"]
+    if zero_phase:
+        args.append("--zero-phase")
+    outs = _run_both(jcli, args, tmp_path)
+    y, sr = open_audio_file(os.path.join(outs["port"], "st_filt.wav"))
+    want, _ = open_audio_file(os.path.join(outs["jax"], "st_filt.wav"))
+    assert sr == 16000 and y.shape == want.shape == (2, 32000)
+    # tests/test_filter.py's bounds: 2e-5 forward (:79), 5e-5 (:99)
+    assert np.abs(y - want).max() < (5e-5 if zero_phase else 2e-5)
+    from msv_tpu_torch.cli import _filter_sos_from_args
+    from msv_tpu_torch.ops.filter import filtfilt, sosfilt_streamed
+
+    ns = _build_parser().parse_args(args)
+    sos = _filter_sos_from_args(ns, sr)
+    x = open_audio_file(p)[0]
+    run = filtfilt if zero_phase else sosfilt_streamed
+    np.testing.assert_array_equal(y, np.stack([run(sos, c, device="cpu")
+                                               for c in x]))
+
+
+def test_filter_errors(wav_path, tmp_path, capsys):
+    for extra in ([], ["--lowpass", "9000"], ["--peak", "1000"],
+                  ["--shelf", "mid:100:3"]):
+        assert main(["filter", wav_path, "-o", str(tmp_path), *extra,
+                     *CPU]) == 1
+        assert capsys.readouterr().err.startswith("error:")
+
+
+def test_gain_matches_jax(tmp_path, jcli, capsys):
+    p = _tone(str(tmp_path / "st.wav"), sr=16000, seconds=3.0, channels=2)
+    for extra in ([], ["--lufs", "-14", "--max-dbtp", "-1"],
+                  ["--peak", "0.5"]):
+        args = ["gain", p, "--bits", "32", *extra]
+        outs = _run_both(jcli, args, tmp_path)
+        y, _ = open_audio_file(os.path.join(outs["port"], "st_norm.wav"))
+        want, _ = open_audio_file(os.path.join(outs["jax"], "st_norm.wav"))
+        # one scalar gain: 0.01 LU of loudness is 0.12% of amplitude
+        np.testing.assert_allclose(y, want, rtol=1.2e-3, atol=1e-7)
+    capsys.readouterr()
+
+
+def test_reconstruct_matches_jax(tmp_path, jcli):
+    """One Griffin-Lim iteration of msv_tpu's --save-db export within 1e-4
+    of the peak of msv_tpu's (tests/test_torch_reconstruct.py), mel and
+    linear; an audio input's roundtrip keeps the length."""
+    p = _tone(str(tmp_path / "n.wav"), sr=16000)
+    for scale in ("mel", "linear"):
+        d = str(tmp_path / f"db_{scale}")
+        assert jcli.main(["render", p, "-o", d, "--save-db", "--no-wav",
+                          "--freq-scale", scale]) == 0
+        db = os.path.join(d, "db_n.npy")
+        outs = {}
+        for name, fn, extra in (("port", main, CPU), ("jax", jcli.main, [])):
+            outs[name] = str(tmp_path / f"{name}_{scale}.wav")
+            assert fn(["reconstruct", db, "--sr", "16000", "--n-iter", "1",
+                       "--freq-scale", scale, "-o", outs[name],
+                       *extra]) == 0
+        y, sr = open_audio_file(outs["port"])
+        want, _ = open_audio_file(outs["jax"])
+        assert sr == 16000 and y.shape == want.shape
+        # PCM16 output: plus one quantization step
+        assert np.abs(y - want).max() <= 1e-4 * np.abs(want).max() + 2**-15
+    out = str(tmp_path / "rt.wav")
+    assert main(["reconstruct", p, "--n-iter", "2", "-o", out, *CPU]) == 0
+    assert open_audio_file(out)[0].shape == open_audio_file(p)[0][:1].shape
+
+
+def test_reconstruct_errors(tmp_path, capsys):
+    np.save(str(tmp_path / "bad.npy"), np.zeros((10, 7), np.float32))
+    for args in (["--sr", "8000"], []):
+        assert main(["reconstruct", str(tmp_path / "bad.npy"), *args,
+                     *CPU]) == 1
+        assert capsys.readouterr().err.startswith("error:")
 
 
 def test_module_entry_point_runs(wav_path, tmp_path):

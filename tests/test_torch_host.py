@@ -79,6 +79,36 @@ COPIED = {
          "thread-safe;"),
     ],
     ("ops.resample", "_poly_filter"): [],
+    ("ops.dft", "rdft_reference_np"): [],
+    ("ops.dft", "end_padded_rdft_matrices"): [],
+    ("ops.decibel", "a_weighting"): [],
+    **{("ops.filter", name): [] for name in (
+        "_buttap", "_lp2lp", "_lp2hp", "_lp2bp", "_lp2bs", "_bilinear",
+        "_pair_conjugates", "_zpk2sos", "butter_sos", "_rbj_common",
+        "peaking_eq", "_shelf", "low_shelf", "high_shelf", "notch",
+        "sos_response", "_section_plan", "sosfilt_zi_step", "firwin")},
+    ("ops.reconstruct", "_ola_constants"): [],
+    ("ops.reconstruct", "_mel_pinv_cached"): [],
+    ("ops.loudness", "k_weighting_coeffs"): [],
+    ("ops.loudness", "_parabolic_peak"): [],
+    ("ops.rhythm", "_bpm_prior"): [],
+    ("ops.rhythm", "tempo_from_tempogram"): [],
+    ("ops.rhythm", "oracle_tempogram_np"): [],
+    # the tempogram of the tempo estimate runs on the caller's device
+    ("ops.rhythm", "beat_track_from_envelope"): [
+        ("                             start_bpm: float = 120.0):",
+         "                             start_bpm: float = 120.0, "
+         "device=None):"),
+        ("            win_length=min(384, max(4, 2 * (n // 2))))",
+         "            win_length=min(384, max(4, 2 * (n // 2))), "
+         "device=device)"),
+        ("        bpm = tempo_from_tempogram(np.asarray(tg), fps,",
+         "        bpm = tempo_from_tempogram(tg.cpu().numpy(), fps,"),
+    ],
+    ("features", "_dct2_matrix"): [],
+    ("features", "_contrast_bands"): [],
+    ("features", "chroma_filterbank"): [],
+    ("features", "_peak_pick"): [],
 }
 
 # The native decoders: byte-for-byte copies, built by the port itself.
@@ -254,7 +284,10 @@ def test_import_pulls_in_neither_jax_nor_msv_tpu():
         "import sys; import msv_tpu_torch, msv_tpu_torch.kernels, "
         "msv_tpu_torch.render, msv_tpu_torch.ops, msv_tpu_torch.io, "
         "msv_tpu_torch.cli, msv_tpu_torch.viewer, msv_tpu_torch.__main__, "
-        "msv_tpu_torch.ops.resample; "
+        "msv_tpu_torch.ops.resample, msv_tpu_torch.ops.scan, "
+        "msv_tpu_torch.ops.filter, msv_tpu_torch.ops.loudness, "
+        "msv_tpu_torch.ops.reconstruct, msv_tpu_torch.ops.rhythm, "
+        "msv_tpu_torch.utils.device; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'msv_tpu')]; print(bad); sys.exit(1 if bad else 0)"
     )
@@ -375,9 +408,70 @@ def test_parity_torch_op_routes_run_with_tf32_off(monkeypatch, rng):
         for route, flags in seen.items():
             assert set(flags) == {(False, False)}, route
         assert _tf32() == (True, True)
+        _new_routes_run_with_tf32_off(monkeypatch, x.numpy(), sr)
+        assert _tf32() == (True, True)
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
+
+
+def _new_routes_run_with_tf32_off(monkeypatch, x, sr):
+    """Every GEMM (``@``) and convolution of the filter, reconstruction,
+    feature, rhythm and loudness routes, in both precisions, runs with
+    TF32 off: "fast" rounds operands to bf16, it never takes TF32."""
+    from msv_tpu_torch import features as F
+    from msv_tpu_torch.ops import filter as FL
+    from msv_tpu_torch.ops import loudness, reconstruct, rhythm
+    from msv_tpu_torch.ops.mel import calc_mel_fb_default
+
+    flags = {}
+    real_mm, real_conv = torch.Tensor.__matmul__, torch.nn.functional.conv1d
+
+    def mm(a, b):
+        flags.setdefault(route, set()).add(_tf32())
+        return real_mm(a, b)
+
+    def conv(*a, **kw):
+        flags.setdefault(route, set()).add(_tf32())
+        return real_conv(*a, **kw)
+
+    monkeypatch.setattr(torch.Tensor, "__matmul__", mm)
+    monkeypatch.setattr(torch.nn.functional, "conv1d", conv)
+    cpu = {"device": "cpu"}
+    mag = np.abs(np.random.default_rng(0).standard_normal((40, 257)))
+    fb = calc_mel_fb_default(sr, 512)
+    routes = {
+        "griffin_lim": lambda: reconstruct.griffin_lim(
+            mag.astype(np.float32), 320, 80, 512, n_iter=2, **cpu),
+        "mel_to_linear": lambda: reconstruct.mel_to_linear(
+            mag.astype(np.float32) @ fb, fb, **cpu),
+        "fir_filter": lambda: FL.fir_filter(x, FL.firwin(31, 1000.0, sr=sr),
+                                            **cpu),
+        "true_peak": lambda: loudness.true_peak(x, sr, **cpu),
+        "tempogram": lambda: rhythm.tempogram_from_envelope(
+            np.abs(x[:500]), 100.0, **cpu),
+        "delta": lambda: F.delta(np.ones((30, 4), np.float32), **cpu),
+    }
+    for prec in ("parity", "fast"):
+        routes.update({
+            f"whisper {prec}": lambda p=prec: F.whisper_log_mel(
+                np.resize(x, 16000), precision=p, **cpu),
+            f"mfcc {prec}": lambda p=prec: F.mfcc(x, sr, precision=p,
+                                                  **cpu),
+            f"spectral {prec}": lambda p=prec: F.spectral_features(
+                x, sr, precision=p, **cpu),
+            f"contrast {prec}": lambda p=prec: F.spectral_contrast(
+                x, sr, n_bands=3, precision=p, **cpu),
+            f"chroma {prec}": lambda p=prec: F.chroma_stft(
+                x, sr, precision=p, **cpu),
+            f"pcen {prec}": lambda p=prec: F.pcen(x, sr, precision=p,
+                                                  **cpu),
+        })
+    for route, run in routes.items():
+        run()
+    assert sorted(flags) == sorted(routes)
+    for route, seen in flags.items():
+        assert seen == {(False, False)}, route
 
 
 def test_precision_scope_nests_across_threads():

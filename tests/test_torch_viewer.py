@@ -9,9 +9,10 @@ the grey8 wire; tests/test_torch_cli.py's rule), one u8 step (waveforms)
 or three u8 steps (adaptive crops: their deep bins carry f32 noise through
 the blend, tests/test_torch_multires.py).  Also: the error paths and
 parameter bounds, Range requests, add/remove/channel/setting, the render
-cache's generation rule, a query fuzz, the analysis routes' 501, and a
-mirror of tests/test_viewer_contract.py on the port's page and routes (the
-page is msv_tpu's, byte for byte).
+cache's generation rule, a query fuzz, the onsets, beats and loudness
+routes against msv_tpu's and the direct calls, the other analysis routes'
+501, and a mirror of tests/test_viewer_contract.py on the port's page and
+routes (the page is msv_tpu's, byte for byte).
 """
 
 import json
@@ -289,9 +290,8 @@ def test_render_cache_generation_rule(wav_path, monkeypatch):
 
 
 @pytest.mark.parametrize("path", [
-    "/api/pitch/0", "/api/formants/0", "/api/onsets/0", "/api/beats/0",
-    "/api/segments/0", "/api/notes/0", "/api/key/0", "/api/analyze/0",
-    "/api/align/0?ref=0", "/api/loudness/0", "/api/process"])
+    "/api/pitch/0", "/api/formants/0", "/api/segments/0", "/api/notes/0",
+    "/api/key/0", "/api/analyze/0", "/api/align/0?ref=0", "/api/process"])
 def test_analysis_routes_answer_not_ported(path, port):
     post = {"id": 0, "op": "hpss"} if path == "/api/process" else None
     code, body = _err(port[0] + path, post=post)
@@ -299,6 +299,69 @@ def test_analysis_routes_answer_not_ported(path, port):
     assert code == 501 and json.loads(body) == {
         "error": f"not ported: {route}"}
     assert _get(port[0] + SPEC)[0] == 200  # still serving
+
+
+@pytest.fixture()
+def clicks(tmp_path):
+    """Both viewers over one 6 s click-train WAV (16 kHz stereo)."""
+    from test_torch_cli import _clicks
+
+    path = _clicks(str(tmp_path / "c.wav"))
+    mt = msv_tpu_torch.MultiTrack(device="cpu")
+    mt.add_tracks([0], [path])
+    jmt = msv_tpu.MultiTrack()
+    jmt.add_tracks([0], [path])
+    srv, url = _serve(mt, V._Handler)
+    jsrv, jurl = _serve(jmt, JV._Handler)
+    yield url, jurl, mt
+    srv.shutdown()
+    jsrv.shutdown()
+
+
+def test_onsets_beats_and_loudness_routes_match_jax(clicks):
+    """Each response equals the direct library call on the same slice and
+    msv_tpu's response (onset and beat times equal; the loudness summary
+    within its rounding: 0.01 LU / dB, LRA 0.1 LU); a second request is a
+    cache hit."""
+    from msv_tpu_torch.features import onset_detect
+    from msv_tpu_torch.ops.loudness import r128_stats
+    from msv_tpu_torch.ops.rhythm import beat_track
+
+    url, jurl, mt = clicks
+    tr = mt._track(0)
+    a, b = int(1.0 * tr.sr), int(5.5 * tr.sr)
+    wav = tr.wav_slice(a, b)
+    times = onset_detect(wav, tr.sr, device="cpu")
+    bpm, beats = beat_track(wav, tr.sr, device="cpu")
+    cases = {
+        "/api/onsets/0?start=1&end=5.5": {
+            "t": [round(1.0 + float(v), 3) for v in times]},
+        "/api/beats/0?start=1&end=5.5": {
+            "bpm": round(float(bpm), 1),
+            "t": [round(1.0 + float(v), 3) for v in beats]},
+        "/api/loudness/0": r128_stats(tr.wav_slice(0, tr.n_samples), tr.sr,
+                                      device="cpu"),
+    }
+    for path, direct in cases.items():
+        got = json.loads(_get(url + path)[1])
+        assert got == json.loads(json.dumps(direct)), path
+        want = json.loads(_get(jurl + path)[1])
+        if "loudness" in path:
+            for key, tol in (("lufs", 0.01), ("lra", 0.1), ("dbtp", 0.01)):
+                assert abs(got[key] - want[key]) <= tol + 1e-9, key
+        else:
+            assert got == want, path
+    assert len(cases["/api/onsets/0?start=1&end=5.5"]["t"]) >= 5
+    assert cases["/api/beats/0?start=1&end=5.5"]["bpm"] == 120.0
+    hits = json.loads(_get(url + "/api/stats")[1])["render_cache"]["hits"]
+    for path in cases:
+        _get(url + path)
+    stats = json.loads(_get(url + "/api/stats")[1])["render_cache"]
+    assert stats["hits"] == hits + len(cases)
+    # short windows answer empty, as msv_tpu's do
+    for path in ("/api/onsets/0?start=0&end=0.05",
+                 "/api/beats/0?start=0&end=0.5"):
+        assert _get(url + path)[1] == _get(jurl + path)[1]
 
 
 def test_query_fuzz_never_kills_the_server(port, rng):
@@ -505,7 +568,8 @@ def test_not_ported_routes_are_the_analysis_routes():
         "/api/tracks", "/api/spec", "/api/wav", "/api/audio",
         "/api/spec_crop", "/api/adaptive_crop", "/api/wav_crop",
         "/api/colormap", "/api/setting", "/api/stats", "/api/colorbar",
-        "/api/freq", "/api/add", "/api/remove", "/api/channel"}
+        "/api/freq", "/api/add", "/api/remove", "/api/channel",
+        "/api/onsets", "/api/beats", "/api/loudness"}
 
 
 def test_client_script_brackets_balance():
