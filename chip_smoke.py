@@ -113,10 +113,10 @@ Phases, each printing its lines:
               every image response equal to a direct session's with the
               same history, the zoomed-out adaptive crop of the hour 202
               then 200, a cache hit without a render, a Range request,
-              /api/pitch 501, request latencies over 20 distinct 1200-column
-              crops (misses) and again (hits); then python -m msv_tpu_torch
-              render and view in processes of their own, and a missing file
-              (exit 1, "error:");
+              POST /api/process 501, request latencies over 20 distinct
+              1200-column crops (misses) and again (hits); then python -m
+              msv_tpu_torch render and view in processes of their own, and
+              a missing file (exit 1, "error:");
   9. analysis  (slice 8) filter of the hour and the 8-minute stereo file
               (a 4th-order Butterworth band-pass and a high shelf),
               forward and --zero-phase, each within 5e-5 of the input's
@@ -138,7 +138,38 @@ Phases, each printing its lines:
               of the songs and the hour, each equal to the direct call,
               the second request a cache hit, first-request p50/p90.  No
               leg of phase 9 launches a mel kernel.
-Each path of phases 3c-9 is driven with the launch counts set to 0 just
+ 10. analysis 2  features --kind f0, f0v, tonnetz, key, lpcenv,
+              formants and segments of the seven songs (resampled to 16
+              kHz), each .npy equal to the library call, the 10 s track
+              card vs CPU in parity within its port test's tolerance (lpcenv
+              by its LPC coefficients, and its envelope within LPCENV_DB:
+              the envelope's deep nulls follow the coefficients' rounding);
+              features --kind segments of the hour
+              (7 200 pooled frames: the full-size similarity matrix), one
+              fast launch, and one parity launch under
+              precision_mode_scope("parity"), with the SSM and novelty GEMMs
+              timed apart; features --kind f0v of the 8-minute file, YIN and
+              the two Viterbi decodes timed apart, the pitch decode with and
+              without CUDA graphs (paths equal); transcribe of a seeded
+              eight-note melody (midi recovered, .json and .mid equal to the
+              library call); stretch --rate 0.5 and --semitones 3 of the
+              48 kHz song's channel 0 (peak frequency within
+              tests/test_effects.py's bound, two card runs bit-equal, the 10
+              s track card vs CPU within tests/test_torch_effects.py's
+              bounds); trim of a song
+              padded with silence; align of the 48 kHz song against a copy
+              delayed by a seeded offset (recovered within 1e-3 s); dtw on
+              the chroma of two songs, card vs CPU; phase 8's viewer:
+              /api/pitch (plain and smooth=1), /api/formants, /api/segments,
+              /api/notes, /api/key and /api/align over the songs and
+              windows of the hour, each equal to the direct call, the second
+              request a cache hit, first-request p50/p90; then /api/pitch
+              smooth=1 and /api/notes from eight threads among spec, wav
+              and adaptive crops, the Viterbi graph cache emptied first,
+              every answer equal to the one-at-a-time answer.  Only the
+              segments legs launch a mel kernel (one fast launch a file or
+              window).
+Each path of phases 3c-10 is driven with the launch counts set to 0 just
 before it and read just after; comparisons run outside those windows.  The
 second-to-last line is a JSON object describing each kernel (its bound is
 computed from this run's shapes against the H100 SXM's published peaks);
@@ -1902,9 +1933,10 @@ def phase_frontends(K, smi, song, hour, eight, work):
     tracks = json.loads(http(base + "/api/tracks")[1])["tracks"]
     check(code == 200 and [t["id"] for t in tracks] == [*ids, hid],
           f"POST /api/remove: HTTP {code}, tracks {tracks}")
-    code, body, _ = http(base + "/api/pitch/0")
+    code, body, _ = http(base + "/api/process", {"id": 0, "op": "hpss"})
     check(code == 501 and json.loads(body) == {
-        "error": "not ported: /api/pitch"}, f"/api/pitch: HTTP {code}")
+        "error": "not ported: /api/process"},
+        f"POST /api/process: HTTP {code}")
 
     lat = {}
     crop_urls = [f"/api/spec_crop/{hid}?px_per_sec=100&height=500"
@@ -1936,7 +1968,7 @@ def phase_frontends(K, smi, song, hour, eight, work):
           f"{set_s['linear']:.3f} s (no launch), mel {set_s['mel']:.3f} s "
           f"({6 + len(plan)} launches); /api/add of the 8-minute stereo file "
           f"{mut_s['add']:.3f} s, /api/channel 1 {mut_s['channel']:.3f} s, "
-          f"/api/remove; /api/pitch 501")
+          f"/api/remove; POST /api/process 501")
     print("[viewer] 20 distinct 1200-column crops of the hour, request "
           "latency: " + "; ".join(
               f"{k} p50 {np.percentile(v, 50) * 1e3:.1f} ms p90 "
@@ -2353,6 +2385,539 @@ def phase_analysis(K, smi, song, hour, eight, front, work, dev="cuda"):
     return legs
 
 
+def melody_wav(rng, path, sr=16000, notes=8, dur=0.5, gap=0.15):
+    """A PCM16 melody of ``notes`` seeded MIDI notes (55-79, no note twice
+    in a row: a repeat across a short gap may read as one note), each
+    ``dur`` seconds with 10 ms ramps and ``gap`` seconds of silence after
+    (tests/test_transcribe.py's melody); returns the MIDI numbers."""
+    from msv_tpu_torch.io.audio import write_wav
+
+    midi = [int(rng.integers(55, 80))]
+    while len(midi) < notes:
+        m = int(rng.integers(55, 80))
+        if m != midi[-1]:
+            midi.append(m)
+    t = np.arange(int(dur * sr)) / sr
+    env = np.minimum(1.0, np.minimum(t, t[::-1]) / 0.01)
+    parts = [np.zeros(int(gap * sr))]
+    for m in midi:
+        hz = 440.0 * 2.0 ** ((m - 69) / 12.0)
+        parts += [0.4 * env * np.sin(2 * np.pi * hz * t),
+                  np.zeros(int(gap * sr))]
+    write_wav(path, np.concatenate(parts).astype(np.float32)[None], sr)
+    return [int(m) for m in midi]
+
+
+def peak_hz(y, sr):
+    """The strongest frequency of a Hann-windowed clip."""
+    mag = np.abs(np.fft.rfft(y * np.hanning(len(y))))
+    return np.argmax(mag) * sr / len(y)
+
+
+# tests/test_torch_effects.py's sample-by-sample bounds, of the peak
+STRETCH_MAX, STRETCH_P99 = 0.05, 1e-3
+# dB: the 10 s track's LPC envelope, card vs CPU in parity.  Two runs of
+# this script on an H100 both read 9.1e-3 dB (PERF.md, phase 10): the port
+# test's 1e-3 dB holds against msv_tpu on the CPU, where both round alike;
+# on the card the envelope's nulls follow the coefficients' f32 rounding.
+# About 5x the reading.
+LPCENV_DB = 0.05
+
+
+def phase_analysis2(K, smi, song, hour, eight, front, work, dev="cuda"):
+    """10: pitch, Viterbi and DTW, LPC and formants, tonal features,
+    segmentation, transcription, time-stretch, trimming and alignment, as
+    users run them."""
+    import concurrent.futures
+    import re
+
+    from msv_tpu_torch import AudioTrack, SpecSetting, precision_mode_scope
+    from msv_tpu_torch import features as F
+    from msv_tpu_torch.cli import _build_parser, _feature
+    from msv_tpu_torch.io.audio import (open_audio_file, open_audio_mono_ex,
+                                        write_wav)
+    from msv_tpu_torch.ops import sequence as S
+    from msv_tpu_torch.ops import segment as G
+    from msv_tpu_torch.ops.align import align_offset
+    from msv_tpu_torch.ops.effects import pitch_shift, time_stretch, trim
+    from msv_tpu_torch.ops.lpc import formant_track, lpc
+    from msv_tpu_torch.ops.mel import hz_to_mel
+    from msv_tpu_torch.ops.pitch import yin
+    from msv_tpu_torch.ops.resample import resample
+    from msv_tpu_torch.ops.tonal import estimate_key
+    from msv_tpu_torch.ops.transcribe import transcribe_notes, write_midi
+    from msv_tpu_torch.viewer import analysis_window
+
+    rng = np.random.default_rng(SEED + 10)
+    paths, p10, _, _ = song
+    stem = {q: os.path.splitext(os.path.basename(q))[0]
+            for q in (*paths, p10, hour, eight)}
+    d = tempfile.mkdtemp(prefix="msv_chip_analysis2_", dir=work)
+    legs, wall = [], {}
+    dv = ["--device", dev]
+
+    def leg(name, args, want=None):
+        """One counted CLI run: (output dir, its stdout); ``want`` is the
+        launch count it must leave (default none)."""
+        out = os.path.join(d, re.sub(r"\W+", "_", name))
+        (rc, log, wall[name]), n = counted(
+            K, lambda: run_cli([*args, "-o", out, *dv]))
+        check(rc == 0, f"{name}: exit {rc}; {log}")
+        check(n == (want or counts()), f"{name}: launches {n}, expected "
+              f"{want or counts()}")
+        legs.append((f"cli {name}", n))
+        return out, log
+
+    def synced_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # ---- 1. features --kind of the seven songs; the 10 s track card vs
+    # CPU in parity
+    ns = _build_parser().parse_args(["features", p10])
+    w10, sr10 = open_audio_mono_ex(p10)[:2]
+    x16 = {k: resample(w10, sr10, 16000, device=k) for k in (dev, "cpu")}
+    x4 = resample(open_audio_mono_ex(paths[4])[0], 44100, 16000, device=dev)
+    step = 5500.0 / 1023  # formant_track's default grid step
+    notes, bad = [], []
+    for kind in ("f0", "f0v", "tonnetz", "key", "lpcenv", "formants",
+                 "segments"):
+        out, _ = leg(f"features --kind {kind}",
+                     ["features", *paths, "--kind", kind],
+                     counts(fast=len(paths)) if kind == "segments" else None)
+        got = np.load(os.path.join(out, f"feats_{kind}_{stem[paths[4]]}.npy"))
+        check(np.array_equal(got, _feature(kind, x4, 16000, ns)[0].astype(
+            np.float32), equal_nan=True),
+            f"features --kind {kind} != the library call")
+        with precision_mode_scope("parity"):
+            card, cpu = (_feature(kind, x16[k], 16000, ns)[0] for k in
+                         (dev, "cpu"))
+            if kind == "lpcenv":  # the coefficients under the envelope
+                coef = [lpc(x16[k], order=int(2 + 16000 / 1000),
+                            frame_length=1024) for k in (dev, "cpu")]
+        check(card.shape == cpu.shape, f"{kind}: {card.shape} {cpu.shape}")
+        dif = np.abs(card - cpu)
+        if kind == "f0":
+            ok = (bool((dif[:, 0] <= 5e-3 * np.abs(cpu[:, 0])).all())
+                  and bool((dif[:, 1] <= 5e-4 + 5e-2 * cpu[:, 1]).all()))
+            note = (f"f0 max rel {(dif[:, 0] / cpu[:, 0]).max():.3g}, ap "
+                    f"max|err| {dif[:, 1].max():.3g}")
+        elif kind in ("f0v", "segments"):
+            ok, note = np.array_equal(card, cpu), "equal"
+        elif kind in ("tonnetz", "key"):
+            tol = 1e-5 if kind == "tonnetz" else 1e-4
+            ok, note = bool(dif.max() <= tol), f"max|err| {dif.max():.3g}"
+        elif kind == "lpcenv":
+            (a, g), (ca, cg) = ((c[0].cpu().numpy(), c[1].cpu().numpy())
+                                for c in coef)
+            a_err = np.abs(a - ca).max()
+            g_err = np.abs(g / cg - 1).max()
+            ok = bool(a_err <= 2e-3 and g_err <= 2e-3
+                      and dif.max() <= LPCENV_DB)
+            note = (f"coefficients max|err| {a_err:.3g}, g2 max rel "
+                    f"{g_err:.3g}; envelope max|err| {dif.max():.3g} dB "
+                    f"(bound {LPCENV_DB})")
+        else:  # formants
+            same_nan = np.array_equal(np.isnan(card), np.isnan(cpu))
+            err = np.nanmax(dif) if np.isfinite(card).any() else 0.0
+            ok = same_nan and err <= step
+            note = f"max|err| {err:.3g} Hz, NaN alike {same_nan}"
+        if not ok:
+            bad.append(f"{kind}: {note}")
+        notes.append(f"{kind} {wall[f'features --kind {kind}']:.3f} s "
+                     f"(10 s track card vs CPU: {note})")
+    check(not bad, "features on the 10 s track, card vs CPU in parity: "
+          + "; ".join(bad))
+    print(f"[features2] {smi}; features --kind of the seven songs "
+          f"(resampled to 16 kHz on the card), wall: " + "; ".join(notes)
+          + "; each .npy == the library call; segments: one fast launch a "
+          "song, the others none")
+
+    # ---- 2. segments of the hour: one launch, fast then parity; the SSM
+    # and novelty GEMMs timed apart
+    seg = {}
+    for mode in ("fast", "parity"):
+        name = f"features --kind segments of the hour ({mode})"
+        with precision_mode_scope(mode):
+            out, _ = leg(name, ["features", hour, "--kind", "segments"],
+                         counts(**{mode: 1}))
+        seg[mode] = np.load(os.path.join(out,
+                                         f"feats_segments_{stem[hour]}.npy"))
+    xh = resample(open_audio_mono_ex(hour)[0], 48000, 16000, device=dev)
+    mel, mel_s = synced_s(lambda: F.log_mel_spectrogram(xh, 16000, n_mel=64,
+                                                        hop_ms=10.0))
+    t = (mel.shape[0] // 50) * 50
+    pooled = mel[:t].reshape(-1, 50, 64).mean(dim=1)
+    pooled = pooled - pooled.mean(dim=0, keepdim=True)
+    del mel, xh
+    ssm, ssm_s = synced_s(lambda: G.self_similarity(pooled))
+    nov, nov_s = synced_s(lambda: G.novelty_from_ssm(ssm, kernel_size=16))
+    n_ssm = ssm.shape[0]
+    check(n_ssm == t // 50 and np.isfinite(nov).all(),
+          f"the hour's SSM: {tuple(ssm.shape)}")
+    with precision_mode_scope("fast"):
+        bounds = G.segment_boundaries(pooled, kernel_size=16)
+    check(np.array_equal(seg["fast"], (bounds * 0.5).astype(np.float32)),
+          "features --kind segments of the hour != its library steps")
+    del ssm, pooled
+    print(f"[segments] {smi}; features --kind segments of the hour "
+          f"({n_ssm} pooled frames): fast "
+          f"{wall['features --kind segments of the hour (fast)']:.3f} s (1 "
+          f"fast launch, {len(seg['fast'])} boundaries), parity "
+          f"{wall['features --kind segments of the hour (parity)']:.3f} s "
+          f"(1 parity launch, {len(seg['parity'])} boundaries); library "
+          f"steps, fast: log_mel_spectrogram {mel_s:.3f} s, the {n_ssm} x "
+          f"{n_ssm} SSM GEMM {ssm_s:.3f} s, the band and novelty GEMM "
+          f"{nov_s:.3f} s")
+    torch.cuda.empty_cache()
+
+    # ---- 3. f0v of the 8-minute file: YIN and the two Viterbi decodes
+    out, _ = leg("features --kind f0v of the 8-minute file",
+                 ["features", eight, "--kind", "f0v"])
+    xe = resample(open_audio_mono_ex(eight)[0], 44100, 16000, device=dev)
+    (f0, ap), yin_s = synced_s(lambda: yin(xe, 16000,
+                                           with_aperiodicity=True))
+    decode_s, real = [], S.viterbi_log
+
+    def timed(*a, **kw):
+        r, dt = synced_s(lambda: real(*a, **kw))
+        decode_s.append(dt)
+        return r
+
+    S.viterbi_log = timed
+    try:
+        f0s, voiced = S.smooth_f0_viterbi(f0.cpu().numpy(), ap.cpu().numpy(),
+                                          device=dev)
+    finally:
+        S.viterbi_log = real
+    got = np.load(os.path.join(out, f"feats_f0v_{stem[eight]}.npy"))
+    check(np.array_equal(got, np.stack([f0s, voiced.astype(np.float32)],
+                                       axis=1)),
+          "features --kind f0v of the 8-minute file != the library call")
+    # the pitch decode without graphs: the same path, eagerly launched
+    fmin, fmax, bps = 65.0, 2093.0, 4
+    n_bins = int(np.ceil(12.0 * bps * np.log2(fmax / fmin))) + 1
+    cents = np.arange(n_bins) * (100.0 / bps)
+    v = np.clip(1.0 - 2.0 * ap.cpu().numpy().astype(np.float64), 1e-6,
+                1 - 1e-6)
+    z = (cents[None, :] - 1200.0 * np.log2(np.maximum(
+        f0.cpu().numpy().astype(np.float64), 1e-6) / fmin)[:, None]) / 50.0
+    log_obs = v[:, None] * np.log(0.95 * np.exp(-0.5 * z * z) + 0.05 / n_bins)
+    dz = (cents[None, :] - cents[:, None]) / 70.0
+    tv = np.exp(-0.5 * dz * dz)
+    tv /= tv.sum(axis=1, keepdims=True)
+    with np.errstate(divide="ignore"):
+        log_tv = np.log(tv)
+    (gp, _), graph_s = synced_s(lambda: S.viterbi_log(log_obs, log_tv,
+                                                      device=dev))
+    block = S.GRAPH_BLOCK
+    S.GRAPH_BLOCK = 1 << 40
+    try:
+        (ep, _), eager_s = synced_s(lambda: S.viterbi_log(
+            log_obs, log_tv, device=dev))
+    finally:
+        S.GRAPH_BLOCK = block
+    check(np.array_equal(gp, ep), "Viterbi: graphed != eager path")
+    steps = len(f0) - 1
+    print(f"[viterbi] {smi}; features --kind f0v of the 8-minute file "
+          f"{wall['features --kind f0v of the 8-minute file']:.3f} s: YIN of "
+          f"{len(f0)} frames {yin_s:.3f} s, voicing decode (2 states) "
+          f"{decode_s[0]:.3f} s, pitch decode ({n_bins} states) "
+          f"{decode_s[1]:.3f} s = {decode_s[1] / steps * 1e6:.1f} us a step "
+          f"({steps} steps, CUDA graphs of {block} steps); the pitch decode "
+          f"again: graphed {graph_s:.3f} s, eager {eager_s:.3f} s "
+          f"({eager_s / steps * 1e6:.1f} us a step), paths equal")
+    del xe, f0, ap
+
+    # ---- 4. transcribe of a seeded eight-note melody
+    mel_path = os.path.join(d, "melody.wav")
+    midi = melody_wav(rng, mel_path)
+    out, _ = leg("transcribe", ["transcribe", mel_path])
+    got = json.load(open(os.path.join(out, "notes_melody.json")))
+    wm, srm = open_audio_mono_ex(mel_path)[:2]
+    lib = transcribe_notes(wm, srm, device=dev)
+    check([n["midi"] for n in got["notes"]] == midi,
+          f"transcribe: midi {[n['midi'] for n in got['notes']]} != {midi}")
+    check(got == {"sr": srm, "notes": json.loads(json.dumps(lib))},
+          "transcribe: .json != the library call")
+    write_midi(os.path.join(d, "lib.mid"), lib)
+    with open(os.path.join(out, "notes_melody.mid"), "rb") as f, \
+            open(os.path.join(d, "lib.mid"), "rb") as g:
+        check(f.read() == g.read(), "transcribe: .mid != write_midi")
+
+    # ---- 5. stretch of the 48 kHz song's channel 0 (one harmonic series,
+    # so its strongest frequency is its fundamental; the two channels'
+    # series trade places in the mono sum): --rate 0.5 and --semitones 3
+    s48 = paths[-1]
+    w48 = open_audio_mono_ex(s48, channel=0)[0]
+    st_note = []
+    for flag, tag in ((["--rate", "0.5"], "x0.5"),
+                      (["--semitones", "3"], "ps+3")):
+        out, _ = leg(f"stretch {tag}", ["stretch", s48, "--channel", "0",
+                                        *flag])
+        y = open_audio_file(os.path.join(
+            out, f"{stem[s48]}_ch0_{tag}.wav"))[0][0]
+        if tag == "x0.5":
+            fn = lambda dev_, w=w48: time_stretch(w, 0.5, device=dev_)  # noqa: E731,E501
+            a = y[len(y) // 4: len(y) // 4 + 480000]  # input's 1/4 on
+            want_hz = peak_hz(w48[len(w48) // 4: len(w48) // 4 + 240000],
+                              48000)
+        else:
+            fn = lambda dev_, w=w48: pitch_shift(w, 48000, 3.0, device=dev_)  # noqa: E731,E501
+            a = y[len(y) // 4: len(y) // 4 + 240000]
+            want_hz = peak_hz(w48[len(w48) // 4: len(w48) // 4 + 240000],
+                              48000) * 2 ** 0.25
+        got_hz = peak_hz(a, 48000)
+        check(abs(got_hz - want_hz) <= 2 * 48000 / len(a) + 1.0,
+              f"stretch {tag}: peak {got_hz:.2f} Hz, expected {want_hz:.2f}")
+        r1, lib_s = synced_s(lambda: fn(dev))
+        check(np.array_equal(r1, fn(dev)), f"stretch {tag}: two card runs "
+              "differ")
+        write_wav(os.path.join(d, "lib.wav"), r1[None], 48000)
+        check(np.array_equal(y, open_audio_file(os.path.join(
+            d, "lib.wav"))[0][0]), f"stretch {tag}: WAV != the library call")
+        c10 = (time_stretch(w10, 0.5, device=dev), time_stretch(
+            w10, 0.5, device="cpu")) if tag == "x0.5" else (
+            pitch_shift(w10, sr10, 3.0, device=dev),
+            pitch_shift(w10, sr10, 3.0, device="cpu"))
+        err = np.abs(c10[0] - c10[1]) / np.abs(c10[1]).max()
+        check(err.max() <= STRETCH_MAX
+              and np.percentile(err, 99) <= STRETCH_P99,
+              f"stretch {tag}: the 10 s track card vs CPU max "
+              f"{err.max():.3g}, p99 {np.percentile(err, 99):.3g}")
+        st_note.append(f"{tag} {wall[f'stretch {tag}']:.3f} s wall, library "
+                       f"{lib_s:.3f} s, peak {got_hz:.2f} Hz (expected "
+                       f"{want_hz:.2f}), 10 s track card vs CPU max "
+                       f"{err.max():.3g} p99 {np.percentile(err, 99):.3g} "
+                       f"of the peak")
+
+    # ---- 6. trim of a song padded with silence; align of the 48 kHz song
+    # against a copy delayed by a seeded offset
+    st, _ = open_audio_file(s48)
+    pad_path = os.path.join(d, "padded.wav")
+    lead, tail, body = 3 * 48000, 2 * 48000, min(30 * 48000, st.shape[1])
+    write_wav(pad_path, np.concatenate(
+        [np.zeros((st.shape[0], lead), np.float32), st[:, :body],
+         np.zeros((st.shape[0], tail), np.float32)], axis=1), 48000)
+    out, _ = leg("trim", ["trim", pad_path])
+    wp = open_audio_mono_ex(pad_path)[0]
+    y = open_audio_file(os.path.join(out, "padded_trim.wav"))[0][0]
+    cut, (ta, tb) = trim(wp, 48000, device=dev)
+    write_wav(os.path.join(d, "lib.wav"), cut[None], 48000)
+    check(np.array_equal(y, open_audio_file(os.path.join(
+        d, "lib.wav"))[0][0]) and abs(ta - lead) <= 2048
+          and abs(tb - (lead + body)) <= 2048,
+          f"trim: [{ta}, {tb}) of a song padded by {lead} and {tail}")
+    delay = float(rng.uniform(0.5, 5.0))
+    late_path = os.path.join(d, "late.wav")
+    write_wav(late_path, np.concatenate(
+        [np.zeros((st.shape[0], int(round(delay * 48000))), np.float32),
+         st], axis=1)[:, :st.shape[1]], 48000)
+    del st
+    _, log = leg("align", ["align", s48, late_path])
+    found = re.findall(r"offset ([-+\d.]+)s", log)
+    r_al, al_s = synced_s(lambda: align_offset(
+        open_audio_mono_ex(s48)[0], 48000, open_audio_mono_ex(late_path)[0],
+        48000, device=dev))
+    check(len(found) == 1 and found[0] == f"{r_al.offset_s:+.4f}"
+          and abs(r_al.offset_s - round(delay * 48000) / 48000) <= 1e-3,
+          f"align: printed {found}, library {r_al}, delay {delay:.6f} s")
+
+    # ---- 7. dtw on the chroma of two songs (30 s each), card vs CPU
+    ch = [F.chroma_stft(open_audio_mono_ex(q)[0][:30 * sr_], sr_,
+                        precision="parity", device=dev).cpu().numpy()
+          for q, sr_ in ((paths[0], 8000), (paths[-1], 48000))]
+    (acc, path, total), dtw_s = synced_s(lambda: S.dtw(ch[0], ch[1],
+                                                       device=dev))
+    cacc, cpath, _ = S.dtw(ch[0], ch[1], device="cpu")
+    check(np.allclose(acc, cacc, rtol=1e-5, atol=1e-5)
+          and np.array_equal(path, cpath), "dtw: card != CPU")
+    n_diag = ch[0].shape[0] + ch[1].shape[0] - 1
+    print(f"[effects] {smi}; transcribe of a seeded eight-note melody "
+          f"{wall['transcribe']:.3f} s (midi {midi} recovered, .json and "
+          f".mid == the library call); stretch of the 48 kHz song: "
+          + "; ".join(st_note) + f"; two card runs bit-equal; trim of a song "
+          f"padded with silence {wall['trim']:.3f} s ([{ta}, {tb})); align "
+          f"against a copy {delay:.4f} s later {wall['align']:.3f} s wall, "
+          f"library {al_s:.3f} s, offset {r_al.offset_s:.6f} s, confidence "
+          f"{r_al.confidence:.3f}; dtw of two 30 s chromagrams "
+          f"({ch[0].shape[0]} x {ch[1].shape[0]}) {dtw_s:.3f} s, "
+          f"{4 * (n_diag - 1)} wavefront launches, card == CPU (rtol 1e-5, "
+          f"paths equal); no mel launch")
+
+    # ---- 8. the viewer's analysis routes (phase 8's server)
+    base, tids = front["viewer"], front["viewer_ids"]
+    hid = tids[-1]
+    tracks = {t_: AudioTrack(q, SpecSetting()) for t_, q in
+              zip(tids, [*paths, hour])}
+
+    def window(tid, s0, s1, cap):
+        tr = tracks[tid]
+        a, b = analysis_window(tr.n_samples, tr.sr, s0, s1, cap)
+        return tr, a, tr.wav_slice(a, b)
+
+    def rel(hz, sr_):
+        half = np.float32(sr_) / np.float32(2.0)
+        return np.asarray(hz_to_mel(np.asarray(hz, np.float32))) / float(
+            hz_to_mel(half))
+
+    def direct(route, tid, q):
+        """The route's body from the library calls, as the viewer makes
+        it."""
+        s0 = float(q.get("start", 0.0))
+        if route == "pitch":
+            tr, a, w = window(tid, s0, float(q["end"]), 120)
+            fmax_ = min(2093.0, tr.sr / 2.0 * 0.99)
+            f, ap_ = (v.cpu().numpy() for v in yin(
+                w, tr.sr, fmax=fmax_, with_aperiodicity=True, device=dev))
+            if q.get("smooth") == "1":
+                f, vo = S.smooth_f0_viterbi(f, ap_, fmax=fmax_, device=dev)
+                ap_ = np.where(vo, 0.0, 1.0).astype(np.float32)
+            return {"t0": a / tr.sr, "hop_s": 512 / tr.sr,
+                    "f0": [round(float(v_), 2) for v_ in f],
+                    "ap": [round(float(v_), 3) for v_ in ap_],
+                    "rel": [round(float(v_), 4) for v_ in rel(f, tr.sr)]}
+        if route == "formants":
+            tr, a, w = window(tid, s0, float(q["end"]), 120)
+            f, hop_s, _ = formant_track(w, tr.sr, n_formants=4,
+                                        fmax=min(5500.0, tr.sr / 2.0),
+                                        device=dev)
+            f = f.cpu().numpy()
+            r, ok = rel(f, tr.sr), np.isfinite(f)
+            return {"t0": a / tr.sr, "hop_s": hop_s,
+                    "f": [[round(float(v_), 1) if o else None for v_, o in
+                           zip(row, okr)] for row, okr in zip(f, ok)],
+                    "rel": [[round(float(v_), 4) if o else None for v_, o in
+                             zip(row, okr)] for row, okr in zip(r, ok)]}
+        if route == "segments":
+            tr, a, w = window(tid, s0, float(q["end"]), 600)
+            ks = max(1.5, min(8.0, len(w) / tr.sr / 4.0))
+            return {"t": [round(a / tr.sr + float(v_), 3) for v_ in
+                          G.segment(w, tr.sr, hop_s=0.5, kernel_s=ks,
+                                    device=dev)]}
+        if route == "notes":
+            tr, a, w = window(tid, s0, float(q["end"]), 120)
+            ns_ = transcribe_notes(w, tr.sr, fmax=min(2093.0, tr.sr / 2.0
+                                                      * 0.99), device=dev)
+            for nt in ns_:
+                nt["start"] = round(nt["start"] + a / tr.sr, 6)
+                nt["end"] = round(nt["end"] + a / tr.sr, 6)
+                nt["rel"] = round(float(rel(nt["hz"], tr.sr)), 4)
+            return {"notes": ns_}
+        if route == "key":
+            tr = tracks[tid]
+            tonic, mode, r, _ = estimate_key(
+                tr.wav_slice(0, min(tr.n_samples, 600 * tr.sr)), tr.sr,
+                device=dev)
+            return {"tonic": tonic, "mode": mode,
+                    "r": None if tonic is None else round(r, 3)}
+        ta_, tb_ = tracks[int(q["ref"])], tracks[tid]
+        r = align_offset(ta_.wav_slice(0, ta_.n_samples), ta_.sr,
+                         tb_.wav_slice(0, tb_.n_samples), tb_.sr,
+                         max_lag_s=30.0, device=dev)
+        return {"ref": int(q["ref"]), "id": tid,
+                "offset_s": round(r.offset_s, 6),
+                "confidence": round(r.confidence, 4),
+                "coarse_s": round(r.coarse_s, 4)}
+
+    def stats():
+        return json.loads(http(base + "/api/stats")[1])["render_cache"]
+
+    hour_s = tracks[hid].n_samples / tracks[hid].sr
+    hour_w = [int(a) for a in np.round(np.linspace(0.05, 0.9, 4) * hour_s)]
+    w0, w1 = min(30.0, SECONDS / 4), min(30.0, SECONDS / 4) + 30.0
+    routes = {
+        "pitch": [f"/api/pitch/{t_}?start={w0:g}&end={w1:g}" for t_ in tids]
+        + [f"/api/pitch/{hid}?start={a}&end={a + 30}" for a in hour_w],
+        "pitch smooth=1": [f"/api/pitch/{t_}?start={w0:g}&end={w1:g}"
+                           f"&smooth=1" for t_ in tids],
+        "formants": [f"/api/formants/{t_}?start={w0:g}&end={w0 + 10:g}"
+                     for t_ in tids],
+        "segments": [f"/api/segments/{t_}?start=0&end=120" for t_ in tids]
+        + [f"/api/segments/{hid}?start={a}&end={a + 600}"
+           for a in (0, int(hour_s / 2))],
+        "notes": [f"/api/notes/{t_}?start={w0:g}&end={w1:g}" for t_ in tids],
+        "key": [f"/api/key/{t_}" for t_ in tids],
+        "align": [f"/api/align/{t_}?ref=0" for t_ in tids[1:]],
+    }
+    lat, v_legs = {}, []
+    for route, urls in routes.items():
+        lat[route] = []
+        (_, n) = counted(K, lambda: [lat[route].append(http(base + u)[2])
+                                     for u in urls])
+        want = counts(fast=len(urls)) if route == "segments" else counts()
+        check(n == want, f"/api/{route}: launches {n}, expected {want}")
+        v_legs.append((f"viewer {route}", n))
+        h0 = stats()["hits"]
+        for u in urls:
+            code, body, _ = http(base + u)
+            got = json.loads(body)
+            tid = int(u.split("?")[0].rsplit("/", 1)[1])
+            q = dict(kv.split("=") for kv in u.partition("?")[2].split("&")
+                     if kv)
+            want = direct(route.split()[0], tid, q)
+            check(code == 200 and got == json.loads(json.dumps(want)),
+                  f"{u}: {str(got)[:300]} != the direct call's "
+                  f"{str(want)[:300]}")
+        check(stats()["hits"] - h0 == len(urls), f"/api/{route}: the second "
+              "requests were not all cache hits")
+    legs += v_legs
+
+    # the Viterbi routes from eight threads among image renders, the graph
+    # cache emptied first so that the captures happen among them: every
+    # answer equals the one-at-a-time answer ("&c=" keeps the passes'
+    # answers apart in the cache)
+    imgs = [f"/api/{k}/{t_}?px_per_sec=100&height=300&start={w0:g}"
+            f"&end={w0 + 12:g}" + ("&amp_min=-1&amp_max=1"
+                                   if k == "wav_crop" else "")
+            for t_ in tids for k in ("spec_crop", "wav_crop",
+                                     "adaptive_crop")]
+    ana = routes["pitch smooth=1"] + routes["notes"]
+    one = {u: http(base + u)[1] for u in ana}
+    one.update({u: http(base + u + "&c=0")[1] for u in imgs})
+    jobs = [u for i in range(max(len(imgs), len(ana)))
+            for u in imgs[i:i + 1] + ana[i:i + 1]]
+    S._GRAPHS.clear()
+
+    def storm():
+        with concurrent.futures.ThreadPoolExecutor(8) as ex:
+            return [(u, ex.submit(http, base + u + "&c=1")) for u in jobs]
+
+    t0 = time.perf_counter()
+    got, n = counted(K, storm)
+    storm_s = time.perf_counter() - t0
+    check(n == counts(), f"concurrent requests: launches {n}")
+    for u, f in got:
+        code, body, _ = f.result()
+        check(code == 200 and body == one[u], f"{u} among concurrent "
+              f"requests: HTTP {code} {body[:200]!r} != one at a time")
+    check(dev != "cuda" or S._GRAPHS,
+          "concurrent requests: no Viterbi graph was replayed")
+    legs.append(("viewer concurrent", n))
+    print(f"[concurrent] {smi}; {len(jobs)} requests from 8 threads "
+          f"({len(imgs)} spec, wav and adaptive crops among "
+          f"{len(jobs) - len(imgs)} /api/pitch smooth=1 and /api/notes), "
+          f"the Viterbi graph cache emptied first ({len(S._GRAPHS)} graphs "
+          f"captured among them), {storm_s:.3f} s; every answer == one at "
+          f"a time")
+    print(f"[viewer2] {smi}; /api/pitch (30 s windows of the songs and four "
+          f"of the hour; smooth=1 of the songs), /api/formants (10 s), "
+          f"/api/segments (120 s of the songs, two 600 s windows of the "
+          f"hour: one fast launch each), /api/notes (30 s), /api/key (whole "
+          f"tracks) and /api/align (each song against song 0), each response "
+          f"== the direct library call on the card, every second request a "
+          f"cache hit; first-request latency: " + "; ".join(
+              f"{r} p50 {np.percentile(v_, 50) * 1e3:.1f} ms p90 "
+              f"{np.percentile(v_, 90) * 1e3:.1f} ms"
+              for r, v_ in lat.items()))
+    del tracks
+    torch.cuda.empty_cache()
+    return legs
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
@@ -2385,6 +2950,7 @@ def main():
         legs, front = phase_frontends(K, smi, song, hour, eight, work)
         paths += legs
         paths += phase_analysis(K, smi, song, hour, eight, front, work)
+        paths += phase_analysis2(K, smi, song, hour, eight, front, work)
     launches = {m: sum(n[m] for _, n in paths) for m in K.MODES}
     print("[launches] main-path launches by path (parity, fast, split): "
           + json.dumps({name: [n[m] for m in K.MODES] for name, n in paths}))

@@ -8,8 +8,9 @@ globally-normalized grey -> Lanczos3 resize -> colormapped RGB images,
 min/max waveform images and adaptive multi-resolution images
 (``ops/multires.py``) as PyTorch ops, under a session device-memory budget;
 the log-mel ML frontend (``features.py``) on the same kernels, and the rest
-of the feature set, filtering, Griffin-Lim, loudness and rhythm as
-PyTorch ops.
+of the feature set, filtering, Griffin-Lim, loudness, rhythm, resampling,
+pitch, Viterbi and DTW, LPC and formants, tonal features, segmentation,
+transcription, the phase vocoder, trimming and alignment as PyTorch ops.
 Module paths mirror ``msv_tpu`` so each counterpart is easy to find;
 every function takes tensors on an explicit ``device``.
 """
@@ -22,14 +23,19 @@ from .features import (chroma_filterbank, chroma_stft, delta,
                        log_mel_spectrogram, log_mel_spectrogram_ragged, mfcc,
                        onset_detect, onset_strength, pcen, spectral_contrast,
                        spectral_features, whisper_log_mel)
-from .ops import (beat_track, butter_sos, filtfilt, firwin, griffin_lim,
-                  integrated_loudness, loudness_range, mel_to_linear,
-                  sosfilt, tempogram_from_envelope, true_peak)
+from .ops import (align_offset, beat_track, butter_sos, dtw, estimate_key,
+                  filtfilt, firwin, griffin_lim, integrated_loudness,
+                  loudness_range, mel_to_linear, pitch_shift, resample,
+                  resample_poly, resample_streamed, segment,
+                  segment_boundaries, self_similarity, smooth_f0_viterbi,
+                  sosfilt, split, tempogram_from_envelope, time_stretch,
+                  tonnetz, trim, true_peak, viterbi, yin, yin_smoothed)
 from .parallel import streaming_spec_db, streaming_spec_db_mmap
 from .render.colormap import get_colormap
 from .session import AudioTrack, MultiTrack
 
 __all__ = [
+    "align_offset",
     "AudioTrack",
     "beat_track",
     "butter_sos",
@@ -37,6 +43,8 @@ __all__ = [
     "chroma_stft",
     "delta",
     "derive_stft_params",
+    "dtw",
+    "estimate_key",
     "filtfilt",
     "firwin",
     "FreqScale",
@@ -54,17 +62,32 @@ __all__ = [
     "onset_detect",
     "onset_strength",
     "pcen",
+    "pitch_shift",
     "precision_mode_scope",
+    "resample",
+    "resample_poly",
+    "resample_streamed",
+    "segment",
+    "segment_boundaries",
+    "self_similarity",
     "set_precision_mode",
     "set_session_hbm_budget",
+    "smooth_f0_viterbi",
     "sosfilt",
     "SpecSetting",
     "spectral_contrast",
     "spectral_features",
+    "split",
     "StftParams",
     "streaming_spec_db",
     "streaming_spec_db_mmap",
     "tempogram_from_envelope",
+    "time_stretch",
+    "tonnetz",
+    "trim",
     "true_peak",
+    "viterbi",
     "whisper_log_mel",
+    "yin",
+    "yin_smoothed",
 ]

@@ -11,15 +11,18 @@
     python -m msv_tpu_torch filter a.wav --bandpass 200 5000 -o outdir
     python -m msv_tpu_torch gain a.wav --lufs -23 -o outdir
     python -m msv_tpu_torch reconstruct outdir/db_a.npy --sr 48000
+    python -m msv_tpu_torch transcribe melody.wav -o outdir
+    python -m msv_tpu_torch stretch a.wav --rate 0.5 -o outdir
+    python -m msv_tpu_torch trim a.wav --split -o outdir
+    python -m msv_tpu_torch align ref.wav take2.wav --write -o outdir
 
-``render``, ``view``, ``info``, ``resample``, ``features``, ``filter``,
-``gain`` and ``reconstruct`` take ``--device`` (default ``cuda``): without
-a card they stop with an error and never fall back to the CPU on their
-own; ``--device cpu`` runs the kernels' plain PyTorch versions.
-``features`` computes the kinds logmel, mfcc, chroma, spectral, whisper,
-pcen, contrast, onsets, tempogram and beats; its other kinds and the
-remaining analysis and editing subcommands answer "not ported yet"
-(ROADMAP queue 1 items 7-9).
+Every subcommand that computes takes ``--device`` (default ``cuda``):
+without a card it stops with an error and never falls back to the CPU on
+its own; ``--device cpu`` runs the kernels' plain PyTorch versions.
+``features`` computes every kind but mtspec and reassigned; those two and
+the subcommands ``analyze``, ``hpss``, ``separate``, ``denoise``,
+``declick`` and ``specedit`` answer "not ported yet" (ROADMAP queue 1
+items 8-9).
 """
 
 import argparse
@@ -28,11 +31,12 @@ import sys
 import time
 
 # Subcommands whose operations the port does not have yet.
-NOT_PORTED = ("analyze", "hpss", "separate", "transcribe", "stretch", "trim",
-              "align", "denoise", "declick", "specedit")
+NOT_PORTED = ("analyze", "hpss", "separate", "denoise", "declick",
+              "specedit")
 # ``features --kind`` values the port computes.
 FEATURE_KINDS = ("logmel", "mfcc", "chroma", "spectral", "whisper", "pcen",
-                 "contrast", "onsets", "tempogram", "beats")
+                 "contrast", "onsets", "tempogram", "beats", "f0", "f0v",
+                 "segments", "tonnetz", "key", "lpcenv", "formants")
 
 
 def _add_device(p):
@@ -179,6 +183,7 @@ def _build_parser():
                     help="write only the JSON note list")
     tc.add_argument("--channel", type=int, default=None,
                     help="one source channel instead of the channel sum")
+    _add_device(tc)
 
     sp = sub.add_parser(
         "separate",
@@ -218,6 +223,7 @@ def _build_parser():
                     "of identity phase locking")
     st.add_argument("--channel", type=int, default=None,
                     help="one source channel instead of the channel sum")
+    _add_device(st)
 
     tr = sub.add_parser(
         "trim",
@@ -235,6 +241,7 @@ def _build_parser():
                     help="write each non-silent interval separately")
     tr.add_argument("--channel", type=int, default=None,
                     help="one source channel instead of the channel sum")
+    _add_device(tr)
 
     rs = sub.add_parser(
         "resample",
@@ -276,6 +283,7 @@ def _build_parser():
     al.add_argument("--channel", type=int, default=None,
                     help="one source channel instead of the channel sum")
     al.add_argument("--bits", type=int, choices=[16, 32], default=16)
+    _add_device(al)
 
     dn = sub.add_parser(
         "denoise",
@@ -607,9 +615,28 @@ def _render_adaptive(args, setting):
 def _feature(kind, x, target, args):
     """``features --kind`` of the device tensor ``x`` at ``target`` Hz:
     (host array, extra text to print)."""
+    import numpy as np
+
     from . import features as F
     from .ops import rhythm
+    from .ops.lpc import formant_track, lpc_envelope_db
+    from .ops.pitch import yin
+    from .ops.segment import segment
+    from .ops.sequence import yin_smoothed
+    from .ops.tonal import estimate_key, tonnetz
 
+    if kind == "f0":
+        f0, ap = yin(x, target, with_aperiodicity=True)
+        return np.stack([f0.cpu().numpy(), ap.cpu().numpy()], axis=1), ""
+    if kind == "f0v":
+        f0, voiced = yin_smoothed(x, target)
+        return np.stack([f0, voiced.astype(np.float32)], axis=1), ""
+    if kind == "segments":
+        return segment(x, target), ""
+    if kind == "key":
+        tonic, kmode, r, out = estimate_key(x, target)
+        return out, ("  (atonal)" if tonic is None
+                     else f"  {tonic} {kmode} (r={r:.2f})")
     if kind == "beats":
         bpm, out = rhythm.beat_track(x, target)
         return out, f"  {bpm:.1f} BPM"
@@ -630,6 +657,12 @@ def _feature(kind, x, target, args):
         out = F.whisper_log_mel(x, 16000)
     elif kind == "pcen":
         out = F.pcen(x, target, n_mel=args.n_mel)
+    elif kind == "tonnetz":
+        out = tonnetz(x, target)
+    elif kind == "lpcenv":
+        out = lpc_envelope_db(x, target)[0]
+    elif kind == "formants":
+        out = formant_track(x, target)[0]
     else:  # contrast
         out = F.spectral_contrast(x, target)
     return out.cpu().numpy(), ""
@@ -932,6 +965,154 @@ def _resample_cmd(args):
     return 0
 
 
+def _transcribe_cmd(args):
+    import json as _json
+
+    from .io.audio import open_audio_mono_ex
+    from .ops.transcribe import transcribe_notes, write_midi
+    from .utils.errors import MsvError
+
+    os.makedirs(args.outdir, exist_ok=True)
+    for f in args.files:
+        wav, sr, _, _, _ = open_audio_mono_ex(f, channel=args.channel)
+        t0 = time.perf_counter()
+        try:
+            notes = transcribe_notes(
+                wav, sr, fmin=args.fmin, fmax=args.fmax,
+                min_note_ms=args.min_note_ms, device=args.device,
+            )
+        except ValueError as e:
+            raise MsvError(f"{f}: {e}") from e
+        dt = time.perf_counter() - t0
+        stem = _stem(f, args.channel)
+        jout = os.path.join(args.outdir, f"notes_{stem}.json")
+        with open(jout, "w") as fh:
+            _json.dump({"sr": sr, "notes": notes}, fh, indent=1)
+        line = f"  {jout}  {len(notes)} notes"
+        if notes:
+            lo = min(nt["midi"] for nt in notes)
+            hi = max(nt["midi"] for nt in notes)
+            line += f"  midi {lo}-{hi}"
+        if not args.no_midi:
+            mout = os.path.join(args.outdir, f"notes_{stem}.mid")
+            write_midi(mout, notes, tempo_bpm=args.tempo)
+            line += f"  + {os.path.basename(mout)}"
+        print(line + f"  ({dt:.2f}s)")
+    return 0
+
+
+def _stretch_cmd(args):
+    import numpy as np
+
+    from .io.audio import open_audio_mono_ex, write_wav
+    from .ops.effects import pitch_shift, time_stretch
+    from .utils.errors import MsvError
+
+    if (args.rate is None) == (args.semitones is None):
+        raise MsvError("stretch: pass exactly one of --rate/--semitones")
+    os.makedirs(args.outdir, exist_ok=True)
+    lock = not args.no_phase_lock
+    for f in args.files:
+        wav, sr, _, _, _ = open_audio_mono_ex(f, channel=args.channel)
+        t0 = time.perf_counter()
+        try:
+            if args.rate is not None:
+                out = time_stretch(wav, args.rate, phase_lock=lock,
+                                   device=args.device)
+                tag = f"x{args.rate:g}"
+            else:
+                out = pitch_shift(wav, sr, args.semitones, phase_lock=lock,
+                                  device=args.device)
+                tag = f"ps{args.semitones:+g}"
+        except ValueError as e:
+            raise MsvError(f"{f}: {e}") from e
+        dt = time.perf_counter() - t0
+        path = os.path.join(args.outdir, f"{_stem(f, args.channel)}_{tag}.wav")
+        write_wav(path, np.asarray(out)[None, :], sr)
+        print(f"  {path}  {len(out) / sr:.2f}s  ({dt:.2f}s)")
+    return 0
+
+
+def _trim_cmd(args):
+    import numpy as np
+
+    from .io.audio import open_audio_mono_ex, write_wav
+    from .ops.effects import split, trim
+    from .utils.errors import MsvError
+
+    os.makedirs(args.outdir, exist_ok=True)
+    for f in args.files:
+        wav, sr, _, _, _ = open_audio_mono_ex(f, channel=args.channel)
+        t0 = time.perf_counter()
+        try:
+            if args.split:
+                parts = [(a, b) for a, b in split(
+                    wav, sr, top_db=args.top_db, device=args.device)]
+            else:
+                _, (a, b) = trim(wav, sr, top_db=args.top_db,
+                                 device=args.device)
+                parts = [(a, b)] if b > a else []
+        except ValueError as e:
+            raise MsvError(f"{f}: {e}") from e
+        dt = time.perf_counter() - t0
+        stem = _stem(f, args.channel)
+        if not parts:
+            print(f"  {f}: all silent (top_db={args.top_db:g}), "
+                  f"nothing written  ({dt:.2f}s)")
+            continue
+        for k, (a, b) in enumerate(parts):
+            name = (f"{stem}_part{k}.wav" if args.split
+                    else f"{stem}_trim.wav")
+            path = os.path.join(args.outdir, name)
+            write_wav(path, np.asarray(wav[a:b], np.float32)[None, :], sr)
+            print(f"  {path}  [{a / sr:.3f}s, {b / sr:.3f}s)  "
+                  f"({dt:.2f}s)")
+    return 0
+
+
+def _align_cmd(args):
+    import numpy as np
+
+    from .io.audio import open_audio_file, open_audio_mono_ex, write_wav
+    from .ops.align import align_offset
+    from .utils.errors import MsvError
+
+    if len(args.files) < 2:
+        raise MsvError("align: need a reference file plus at least one "
+                       "file to align to it")
+    ref_mono, ref_sr, _, _, _ = open_audio_mono_ex(
+        args.files[0], channel=args.channel)
+    ref_mono = np.asarray(ref_mono, np.float32)
+    print(f"reference: {args.files[0]} ({ref_sr} Hz)")
+    if args.write:
+        os.makedirs(args.outdir, exist_ok=True)
+    for f in args.files[1:]:
+        mono, sr, _, _, _ = open_audio_mono_ex(f, channel=args.channel)
+        t0 = time.perf_counter()
+        try:
+            r = align_offset(ref_mono, ref_sr, np.asarray(mono, np.float32),
+                             sr, max_lag_s=args.max_lag, device=args.device)
+        except ValueError as e:
+            raise MsvError(f"{f}: {e}") from e
+        dt = time.perf_counter() - t0
+        print(f"  {f}: offset {r.offset_s:+.4f}s  "
+              f"confidence {r.confidence:.2f}  ({dt:.2f}s)")
+        if args.write:
+            wav, wsr = open_audio_file(f)
+            shift = int(round(r.offset_s * wsr))
+            if shift >= 0:   # content late: trim the head
+                out = wav[:, shift:]
+            else:            # content early: delay with silence
+                out = np.concatenate(
+                    [np.zeros((wav.shape[0], -shift), np.float32), wav],
+                    axis=1)
+            stem = os.path.splitext(os.path.basename(f))[0]
+            path = os.path.join(args.outdir, f"{stem}_aligned.wav")
+            write_wav(path, out, wsr, bits=args.bits)
+            print(f"    -> {path}  ({out.shape[1] / wsr:.3f}s)")
+    return 0
+
+
 def _info_cmd(args):
     from .config import SpecSetting, derive_stft_params
     from .io.audio import open_audio_file
@@ -1082,6 +1263,14 @@ def _main(argv=None):
         return _filter_cmd(args)
     if args.cmd == "gain":
         return _gain_cmd(args)
+    if args.cmd == "transcribe":
+        return _transcribe_cmd(args)
+    if args.cmd == "stretch":
+        return _stretch_cmd(args)
+    if args.cmd == "trim":
+        return _trim_cmd(args)
+    if args.cmd == "align":
+        return _align_cmd(args)
 
     if args.cmd == "view":
         from . import FreqScale, SpecSetting

@@ -7,11 +7,11 @@ planes on the device.
     python -m msv_tpu_torch view a.wav b.wav --port 8080
 
 Every image route, the audio route, settings, track management, the
-stats route and the onsets, beats and loudness routes are ported.  The
-other analysis routes (pitch, formants, segments, notes, key, analyze,
-align) and POST /api/process answer 501 ``{"error": "not ported:
-<route>"}`` until their operations are ported (ROADMAP queue 1 items
-7-9).
+stats route and the analysis routes (pitch, formants, onsets, beats,
+segments, notes, key, align, loudness) are ported, each computing on the
+session's device.  GET /api/analyze and POST /api/process answer 501
+``{"error": "not ported: <route>"}`` until their operations are ported
+(ROADMAP queue 1 items 8-9).
 """
 
 import io
@@ -735,6 +735,47 @@ _CACHEABLE = ("/api/spec/", "/api/wav/", "/api/spec_crop/",
               "/api/loudness/", "/api/onsets/", "/api/beats/",
               "/api/segments/", "/api/key/", "/api/align/",
               "/api/notes/")
+# routes that answer 400 for a bad parameter and 404 for an unknown track
+# (the others answer 500, as msv_tpu's viewer does)
+_CHECKED = ("/api/pitch/", "/api/formants/", "/api/segments/",
+            "/api/notes/", "/api/key/", "/api/align/")
+
+
+def analysis_window(n_samples, sr, start_s, end_s, cap_s):
+    """The sample span ``[a, b)`` an analysis route reads: the request's
+    window clipped to the track and to ``cap_s`` seconds from its start
+    (a hostile span must not pin the device)."""
+    a = min(max(0, int(start_s * sr)), n_samples)
+    return a, min(n_samples, int(end_s * sr), a + cap_s * sr)
+
+
+def display_rel(hz, sr, linear):
+    """Hz as the 0..1 display position /api/freq's cursor readout maps:
+    over Nyquist on the linear scale, else as mel (of f32 Hz) over
+    Nyquist's mel, so an overlay lands where the readout reports that Hz.
+    An array divides in its own dtype, a scalar in f64 (msv_tpu's pitch
+    and formant routes, and its notes route)."""
+    import numpy as np
+
+    from .ops.mel import hz_to_mel
+
+    half = np.float32(sr) / np.float32(2.0)
+    if not linear:
+        hz = hz_to_mel(np.asarray(hz, np.float32))
+        hz = float(hz) if np.ndim(hz) == 0 else hz
+        half = hz_to_mel(half)
+    return hz / float(half)
+
+
+def _error_status(path, e):
+    from .utils.errors import TrackNotFoundError
+
+    if path.startswith(_CHECKED):
+        if isinstance(e, TrackNotFoundError):
+            return 404
+        if isinstance(e, ValueError):
+            return 400
+    return 500
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -756,9 +797,7 @@ class _Handler(BaseHTTPRequestHandler):
         return c
 
     # routes whose operations are not ported yet: 501 + {"error"}
-    NOT_PORTED_GET = ("/api/pitch/", "/api/formants/", "/api/segments/",
-                      "/api/notes/", "/api/key/", "/api/analyze/",
-                      "/api/align/")
+    NOT_PORTED_GET = ("/api/analyze/",)
     NOT_PORTED_POST = ("/api/process",)
 
     def _not_ported(self, path):
@@ -768,6 +807,19 @@ class _Handler(BaseHTTPRequestHandler):
                 route = r.rstrip("/")
         self._send(501, "application/json", json.dumps(
             {"error": f"not ported: {route}"}).encode())
+
+    def _window(self, tid, s0, s1, cap_s):
+        """``(sr, a, samples, linear)`` of track ``tid`` over the
+        :func:`analysis_window` of ``[s0, s1)`` s, read under the session's
+        read lock with whether the display is on the linear scale."""
+        from .config import FreqScale
+
+        mt = self.session
+        with self.lock.read():
+            tr = mt._track(tid)
+            a, b = analysis_window(tr.n_samples, tr.sr, s0, s1, cap_s)
+            return (tr.sr, a, tr.wav_slice(a, b),
+                    mt.setting.freq_scale == FreqScale.LINEAR)
 
     def _send_img(self, arr):
         """Encode + send a 200 image response, remembering the bytes so
@@ -1107,6 +1159,98 @@ class _Handler(BaseHTTPRequestHandler):
                     else:
                         hz = mt.get_frequency_hz(tid, rel)
                 self._send(200, "application/json", json.dumps({"hz": hz}).encode())
+            elif url.path.startswith("/api/pitch/"):
+                # f0 contour over a bounded time window (ops/pitch.py
+                # YIN): {"t0", "hop_s", "f0": Hz, "ap", "rel"} — "rel"
+                # is the 0..1 display position mirroring /api/freq's
+                # cursor mapping, so the client overlay lands exactly
+                # where the readout would report that Hz.  Cacheable:
+                # rides the render LRU keyed by session generation.
+                import numpy as _np
+
+                from .ops.pitch import yin
+
+                tid = int(url.path.rsplit("/", 1)[1])
+                fmin = qf("fmin", 65.0, 10.0, 4000.0)
+                fmax = qf("fmax", 2093.0, 20.0, 20000.0)
+                s0 = qf("start", 0.0, 0.0, 1e7)
+                s1 = qf("end", s0 + 30.0, 0.0, 1e7)
+                force_mel = q.get("mel", ["0"])[0] == "1"
+                # 120 s of audio per request (the client asks per viewport)
+                sr, a, wav, linear = self._window(tid, s0, s1, 120)
+                if len(wav) < 1:
+                    self._send(200, "application/json", json.dumps(
+                        {"t0": a / sr, "hop_s": 512 / sr, "f0": [],
+                         "ap": [], "rel": []}).encode())
+                    return
+                fmax_eff = min(fmax, sr / 2.0 * 0.99)
+                if fmax_eff <= fmin:
+                    raise ValueError(
+                        f"fmin {fmin} too high for sr {sr}")
+                f0, ap = yin(wav, sr, fmin=fmin, fmax=fmax_eff,
+                             with_aperiodicity=True, device=mt.device)
+                f0 = f0.cpu().numpy()
+                ap = ap.cpu().numpy()
+                if q.get("smooth", ["0"])[0] == "1":
+                    # Viterbi decode (ops/sequence.py): snapped contour
+                    # + voicing mask, exposed through the same wire —
+                    # ap becomes 0/1 so the client's pen-lift threshold
+                    # needs no change
+                    from .ops.sequence import smooth_f0_viterbi
+
+                    f0, voiced = smooth_f0_viterbi(
+                        f0, ap, fmin=fmin, fmax=fmax_eff, device=mt.device)
+                    ap = _np.where(voiced, 0.0, 1.0).astype(_np.float32)
+                rel = display_rel(f0, sr, linear and not force_mel)
+                body = json.dumps({
+                    "t0": a / sr, "hop_s": 512 / sr,
+                    "f0": [round(float(v), 2) for v in f0],
+                    "ap": [round(float(v), 3) for v in ap],
+                    "rel": [round(float(v), 4) for v in rel],
+                }).encode()
+                self._cache().put(self.path, "application/json", body,
+                                  gen=self._req_gen)
+                self._send(200, "application/json", body)
+            elif url.path.startswith("/api/formants/"):
+                # Praat-style formant tracks over a bounded window
+                # (ops/lpc.py: autocorrelation LPC -> all-pole envelope
+                # -> ordered grid peaks).  Same wire shape idea as
+                # /api/pitch but with K parallel contours; NaN gaps
+                # travel as nulls (JSON has no NaN).
+                import numpy as _np
+
+                from .ops.lpc import formant_track
+
+                tid = int(url.path.rsplit("/", 1)[1])
+                nf = max(1, min(int(qf("n", 4, 1, 8)), 8))
+                fmax = qf("fmax", 5500.0, 500.0, 20000.0)
+                s0 = qf("start", 0.0, 0.0, 1e7)
+                s1 = qf("end", s0 + 30.0, 0.0, 1e7)
+                force_mel = q.get("mel", ["0"])[0] == "1"
+                sr, a, wav, linear = self._window(tid, s0, s1, 120)
+                if len(wav) < sr // 20:
+                    self._send(200, "application/json", json.dumps(
+                        {"t0": a / sr, "hop_s": 0.01, "f": [],
+                         "rel": []}).encode())
+                    return
+                f, hop_s, _t0 = formant_track(
+                    wav, sr, n_formants=nf, fmax=min(fmax, sr / 2.0),
+                    device=mt.device)
+                f = f.cpu().numpy()
+                rel = display_rel(f, sr, linear and not force_mel)
+                ok = _np.isfinite(f)
+                body = json.dumps({
+                    "t0": a / sr, "hop_s": hop_s,
+                    "f": [[round(float(v), 1) if o else None
+                           for v, o in zip(row, okr)]
+                          for row, okr in zip(f, ok)],
+                    "rel": [[round(float(v), 4) if o else None
+                             for v, o in zip(row, okr)]
+                            for row, okr in zip(rel, ok)],
+                }).encode()
+                self._cache().put(self.path, "application/json", body,
+                                  gen=self._req_gen)
+                self._send(200, "application/json", body)
             elif url.path.startswith("/api/onsets/"):
                 # onset times over a bounded window (features.py
                 # spectral-flux novelty); viewport-sized like /api/pitch
@@ -1117,12 +1261,7 @@ class _Handler(BaseHTTPRequestHandler):
                 s0 = qf("start", 0.0, 0.0, 1e7)
                 s1 = qf("end", s0 + 30.0, 0.0, 1e7)
                 delta = qf("delta", 3.0, 0.1, 100.0)
-                with self.lock.read():
-                    tr = mt._track(tid)
-                    sr = tr.sr
-                    a = min(max(0, int(s0 * sr)), tr.n_samples)
-                    b = min(tr.n_samples, int(s1 * sr), a + 120 * sr)
-                    wav = tr.wav_slice(a, b)
+                sr, a, wav, _ = self._window(tid, s0, s1, 120)
                 if len(wav) < sr // 10:
                     body = json.dumps({"t": []}).encode()
                 else:
@@ -1143,12 +1282,7 @@ class _Handler(BaseHTTPRequestHandler):
                 tid = int(url.path.rsplit("/", 1)[1])
                 s0 = qf("start", 0.0, 0.0, 1e7)
                 s1 = qf("end", s0 + 30.0, 0.0, 1e7)
-                with self.lock.read():
-                    tr = mt._track(tid)
-                    sr = tr.sr
-                    a = min(max(0, int(s0 * sr)), tr.n_samples)
-                    b = min(tr.n_samples, int(s1 * sr), a + 120 * sr)
-                    wav = tr.wav_slice(a, b)
+                sr, a, wav, _ = self._window(tid, s0, s1, 120)
                 if len(wav) < sr:  # < 1 s: no meaningful tempo
                     body = json.dumps({"bpm": 0.0, "t": []}).encode()
                 else:
@@ -1157,6 +1291,109 @@ class _Handler(BaseHTTPRequestHandler):
                         "bpm": round(float(bpm), 1),
                         "t": [round(a / sr + float(v), 3) for v in beats],
                     }).encode()
+                self._cache().put(self.path, "application/json", body,
+                                  gen=self._req_gen)
+                self._send(200, "application/json", body)
+            elif url.path.startswith("/api/segments/"):
+                # structure boundaries over a bounded window
+                # (ops/segment.py: pooled log-mel -> SSM GEMM -> Foote
+                # novelty -> absolute-threshold peaks); windows up to
+                # 600 s (vs 120 s elsewhere: structure needs horizon,
+                # and the pooled T stays ~1200 frames)
+                from .ops.segment import segment
+
+                tid = int(url.path.rsplit("/", 1)[1])
+                s0 = qf("start", 0.0, 0.0, 1e7)
+                s1 = qf("end", s0 + 120.0, 0.0, 1e7)
+                sr, a, wav, _ = self._window(tid, s0, s1, 600)
+                if len(wav) < 4 * sr:  # < 4 s: no meaningful structure
+                    body = json.dumps({"t": []}).encode()
+                else:
+                    # horizon adapts to the window so zoomed-in views
+                    # still resolve local structure
+                    ks = max(1.5, min(8.0, len(wav) / sr / 4.0))
+                    bounds = segment(wav, sr, hop_s=0.5, kernel_s=ks,
+                                     device=mt.device)
+                    body = json.dumps({
+                        "t": [round(a / sr + float(v), 3) for v in bounds],
+                    }).encode()
+                self._cache().put(self.path, "application/json", body,
+                                  gen=self._req_gen)
+                self._send(200, "application/json", body)
+            elif url.path.startswith("/api/notes/"):
+                # transcribed note events over a bounded window
+                # (ops/transcribe.py): piano-roll bars for the client.
+                # "rel" maps each note's hz through the same display
+                # mapping as /api/pitch so the bar lands where the
+                # cursor readout would report that Hz.
+                from .ops.transcribe import transcribe_notes
+
+                tid = int(url.path.rsplit("/", 1)[1])
+                s0 = qf("start", 0.0, 0.0, 1e7)
+                s1 = qf("end", s0 + 30.0, 0.0, 1e7)
+                fmin = qf("fmin", 65.0, 10.0, 4000.0)
+                fmax = qf("fmax", 2093.0, 20.0, 20000.0)
+                force_mel = q.get("mel", ["0"])[0] == "1"
+                sr, a, wav, linear = self._window(tid, s0, s1, 120)
+                fmax_eff = min(fmax, sr / 2.0 * 0.99)
+                if fmax_eff <= fmin:
+                    raise ValueError(f"fmin {fmin} too high for sr {sr}")
+                notes = ([] if len(wav) < sr // 4 else transcribe_notes(
+                    wav, sr, fmin=fmin, fmax=fmax_eff, device=mt.device))
+                for nt in notes:
+                    nt["start"] = round(nt["start"] + a / sr, 6)
+                    nt["end"] = round(nt["end"] + a / sr, 6)
+                    nt["rel"] = round(float(display_rel(
+                        nt["hz"], sr, linear and not force_mel)), 4)
+                body = json.dumps({"notes": notes}).encode()
+                self._cache().put(self.path, "application/json", body,
+                                  gen=self._req_gen)
+                self._send(200, "application/json", body)
+            elif url.path.startswith("/api/key/"):
+                # Krumhansl-Schmuckler key of the track's mono view
+                # (ops/tonal.py); on-demand (client button) + LRU-
+                # cached.  Bounded: chroma over the first 10 min is
+                # plenty of evidence for a global key.
+                from .ops.tonal import estimate_key
+
+                tid = int(url.path.rsplit("/", 1)[1])
+                with self.lock.read():
+                    tr = mt._track(tid)
+                    sr = tr.sr
+                    wav = tr.wav_slice(0, min(tr.n_samples, 600 * sr))
+                tonic, mode, r, _ = estimate_key(wav, sr, device=mt.device)
+                body = json.dumps({
+                    "tonic": tonic, "mode": mode,
+                    "r": None if tonic is None else round(r, 3),
+                }).encode()
+                self._cache().put(self.path, "application/json", body,
+                                  gen=self._req_gen)
+                self._send(200, "application/json", body)
+            elif url.path.startswith("/api/align/"):
+                # cross-track offset (ops/align.py NCC + GCC-PHAT):
+                # /api/align/<id>?ref=<rid> answers how much later <id>'s
+                # content occurs than <rid>'s, on the same mono views the
+                # audio player uses.  LRU-cached; viewport-independent.
+                from .ops.align import align_offset
+
+                tid = int(url.path.rsplit("/", 1)[1])
+                rid = int(q.get("ref", ["0"])[0])
+                max_lag = float(q.get("max_lag", ["30"])[0])
+                if not 0 < max_lag <= 600:
+                    raise ValueError("max_lag outside (0, 600] s")
+                with self.lock.read():
+                    ta, tb = mt._track(rid), mt._track(tid)
+                    wa = ta.wav_slice(0, ta.n_samples)
+                    wb = tb.wav_slice(0, tb.n_samples)
+                    sra, srb = ta.sr, tb.sr
+                r = align_offset(wa, sra, wb, srb, max_lag_s=max_lag,
+                                 device=mt.device)
+                body = json.dumps({
+                    "ref": rid, "id": tid,
+                    "offset_s": round(r.offset_s, 6),
+                    "confidence": round(r.confidence, 4),
+                    "coarse_s": round(r.coarse_s, 4),
+                }).encode()
                 self._cache().put(self.path, "application/json", body,
                                   gen=self._req_gen)
                 self._send(200, "application/json", body)
@@ -1184,7 +1421,8 @@ class _Handler(BaseHTTPRequestHandler):
             else:
                 self._send(404, "text/plain", b"not found")
         except Exception as e:  # surface errors to the client, keep serving
-            self._send(500, "text/plain", f"error: {e}".encode())
+            self._send(_error_status(url.path, e), "text/plain",
+                       f"error: {e}".encode())
 
     def do_POST(self):
         """Session management (the reference's add_tracks/remove_track FFI

@@ -141,7 +141,8 @@ def _subparsers(parser):
 
 
 PORTED_DEVICE = ("render", "view", "info", "resample", "features", "filter",
-                 "gain", "reconstruct")
+                 "gain", "reconstruct", "transcribe", "stretch", "trim",
+                 "align")
 
 
 @pytest.mark.parametrize("cmd", [
@@ -360,14 +361,16 @@ def test_missing_file_error(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("cmd", ["render", "info", "resample", "features",
-                                 "view", "filter", "gain", "reconstruct"])
+                                 "view", "filter", "gain", "reconstruct",
+                                 "transcribe", "stretch", "trim", "align"])
 def test_no_card_is_an_error_without_device_cpu(cmd, wav_path, tmp_path,
                                                 capsys):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default route runs there")
     extra = {"resample": ["--sr", "16000"], "view": ["--port", "0"],
              "filter": ["--lowpass", "1000"],
-             "reconstruct": ["-o", str(tmp_path / "o" / "r.wav")]}
+             "reconstruct": ["-o", str(tmp_path / "o" / "r.wav")],
+             "stretch": ["--rate", "2"], "align": [wav_path, "--write"]}
     args = [cmd, wav_path, *extra.get(cmd, [])]
     if cmd not in ("info", "view", "reconstruct"):
         args += ["-o", str(tmp_path / "o")]
@@ -378,17 +381,14 @@ def test_no_card_is_an_error_without_device_cpu(cmd, wav_path, tmp_path,
 
 
 @pytest.mark.parametrize("cmd", [
-    "analyze", "hpss", "separate", "transcribe", "stretch", "trim", "align",
-    "denoise", "declick", "specedit"])
+    "analyze", "hpss", "separate", "denoise", "declick", "specedit"])
 def test_analysis_subcommands_are_not_ported(cmd, wav_path, capsys):
     assert main([cmd, wav_path]) == 1
     cap = capsys.readouterr()
     assert cap.err == f"error: {cmd} is not ported yet\n" and not cap.out
 
 
-@pytest.mark.parametrize("kind", ["f0", "f0v", "segments", "tonnetz", "key",
-                                  "mtspec", "reassigned", "lpcenv",
-                                  "formants"])
+@pytest.mark.parametrize("kind", ["mtspec", "reassigned"])
 def test_features_other_kinds_are_not_ported(kind, wav_path, tmp_path,
                                              capsys):
     assert main(["features", wav_path, "-o", str(tmp_path), "--kind", kind,
@@ -641,3 +641,271 @@ def test_render_on_the_card(tmp_path):
                      _png(outs["cpu"], "spec_ten.png")).max() <= 1
     np.testing.assert_array_equal(_png(outs["cuda"], "wav_ten.png"),
                                   _png(outs["cpu"], "wav_ten.png"))
+
+
+# ------------------------------------------------- the analysis subcommands
+
+
+def _melody(path, sr=16000, freqs=(440.0, 523.25, 659.26), dur=0.5,
+            gap=0.15, lead=0.15):
+    """tests/test_transcribe.py's gapped melody (10 ms ramps), with
+    ``lead`` seconds of silence before it and ``gap`` between notes."""
+    t = np.arange(int(dur * sr)) / sr
+    env = np.minimum(1.0, np.minimum(t, t[::-1]) / 0.01)
+    parts = [np.zeros(int(lead * sr))]
+    for f in freqs:
+        parts += [0.4 * env * np.sin(2 * np.pi * f * t),
+                  np.zeros(int(gap * sr))]
+    write_wav(path, np.concatenate(parts).astype(np.float32)[None], sr)
+    return path
+
+
+def _two_sections(path, sr=16000, seconds=20.0):
+    """A tone, then noise: one structure boundary at ``seconds``."""
+    t = np.arange(int(seconds * sr)) / sr
+    x = np.concatenate([0.4 * np.sin(2 * np.pi * 440 * t),
+                        0.2 * np.random.default_rng(2).standard_normal(
+                            len(t))])
+    write_wav(path, x.astype(np.float32)[None], sr)
+    return path
+
+
+def _vowel(path, sr=16000):
+    """A 120 Hz pulse train through resonators at 700 and 1800 Hz
+    (tests/test_lpc.py's vowel): voiced in every frame.  Formant picks of
+    near-silent frames follow f32 noise in the envelope, so the formant
+    kind is compared on a signal without silence."""
+    import scipy.signal
+
+    src = np.zeros(sr)
+    src[:: sr // 120] = 1.0
+    y = src
+    for f0, bw in ((700.0, 80.0), (1800.0, 120.0)):
+        r = np.exp(-np.pi * bw / sr)
+        th = 2 * np.pi * f0 / sr
+        y = scipy.signal.lfilter([1.0], [1.0, -2 * r * np.cos(th), r * r], y)
+    write_wav(path, (0.5 * y / np.abs(y).max()).astype(np.float32)[None], sr)
+    return path
+
+
+def _ar_noise(path, sr=16000):
+    """Noise through an AR(4) filter (tests/test_lpc.py:71): at the default
+    order its normal equations are well conditioned.  On sustained tones
+    they are near-singular (the reflection clamp of ops/lpc.py), and both
+    implementations' envelope nulls follow f32 rounding there."""
+    import scipy.signal
+
+    x = scipy.signal.lfilter([1.0], [1.0, -1.2, 0.8, -0.3, 0.1],
+                             np.random.default_rng(4).standard_normal(sr))
+    write_wav(path, (0.5 * x / np.abs(x).max()).astype(np.float32)[None], sr)
+    return path
+
+
+def _f0_close(got, want):
+    # tests/test_pitch.py:72-73: f0 rtol 5e-3; ap rtol 5e-2, atol 5e-4
+    np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=5e-3)
+    np.testing.assert_allclose(got[:, 1], want[:, 1], rtol=5e-2, atol=5e-4)
+
+
+def _formants_close(got, want):
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert np.nanmax(np.abs(got - want)) <= 5500.0 / 1023  # a grid step
+
+
+# kind -> check of the port's .npy against msv_tpu's, both in parity:
+# the port tests' tolerances (tests/test_torch_pitch.py, _sequence, _lpc,
+# _tonal, _segment)
+ANALYSIS_KINDS = {
+    "f0": _f0_close,
+    "f0v": np.testing.assert_array_equal,
+    "segments": np.testing.assert_array_equal,
+    "tonnetz": lambda g, w: np.testing.assert_allclose(g, w, atol=1e-5),
+    "key": lambda g, w: np.testing.assert_allclose(g, w, atol=1e-4),
+    "lpcenv": lambda g, w: np.testing.assert_allclose(g, w, atol=1e-3),
+    "formants": _formants_close,
+}
+
+
+@pytest.mark.parametrize("kind", sorted(ANALYSIS_KINDS))
+def test_features_analysis_kinds_match_jax(kind, tmp_path, jcli, capsys):
+    from msv_tpu import config as jcfg
+    from msv_tpu_torch.cli import _feature
+    from msv_tpu_torch.io.audio import open_audio_mono_ex
+
+    p = {"segments": _two_sections, "formants": _vowel,
+         "lpcenv": _ar_noise}.get(kind, _melody)(str(tmp_path / "m.wav"))
+    x = torch.from_numpy(np.ascontiguousarray(open_audio_mono_ex(p)[0]))
+    args = ["features", p, "--kind", kind]
+    name = f"feats_{kind}_m.npy"
+    ns = argparse.Namespace(n_mel=128, n_mfcc=13)
+    out = str(tmp_path / "default")
+    assert main([*args, "-o", out, *CPU]) == 0
+    got = np.load(os.path.join(out, name))
+    np.testing.assert_array_equal(
+        got, _feature(kind, x, 16000, ns)[0].astype(np.float32))
+    tcfg.set_precision_mode("parity")
+    jcfg.set_precision_mode("parity")
+    try:
+        outs = _run_both(jcli, args, tmp_path)
+    finally:
+        jcfg.reset_precision_mode()
+    got = np.load(os.path.join(outs["port"], name))
+    want = np.load(os.path.join(outs["jax"], name))
+    assert got.dtype == np.float32 and got.shape == want.shape
+    ANALYSIS_KINDS[kind](got, want)
+    if kind == "segments":
+        assert got.shape == (1,) and abs(got[0] - 20.0) <= 1.0
+    if kind == "key":
+        printed = re.findall(r"\(24,\)  (\S+ \S+) \(r=", capsys.readouterr().out)
+        assert len(printed) == 3 and len(set(printed)) == 1
+
+
+def test_transcribe_matches_jax(tmp_path, jcli):
+    import json
+
+    from msv_tpu_torch.ops.transcribe import transcribe_notes, write_midi
+
+    p = _melody(str(tmp_path / "mel.wav"))
+    outs = _run_both(jcli, ["transcribe", p, "--tempo", "90"], tmp_path)
+    got = json.load(open(os.path.join(outs["port"], "notes_mel.json")))
+    want = json.load(open(os.path.join(outs["jax"], "notes_mel.json")))
+    assert got == want and [n["midi"] for n in got["notes"]] == [69, 72, 76]
+    wav, sr = open_audio_file(p)
+    notes = transcribe_notes(wav[0], sr, device="cpu")
+    assert got == {"sr": sr, "notes": json.loads(json.dumps(notes))}
+    mid = open(os.path.join(outs["port"], "notes_mel.mid"), "rb").read()
+    assert mid == open(os.path.join(outs["jax"], "notes_mel.mid"),
+                       "rb").read()
+    write_midi(str(tmp_path / "direct.mid"), notes, tempo_bpm=90.0)
+    assert mid == (tmp_path / "direct.mid").read_bytes()
+    out = str(tmp_path / "nomidi")
+    assert main(["transcribe", p, "--no-midi", "-o", out, *CPU]) == 0
+    assert sorted(os.listdir(out)) == ["notes_mel.json"]
+
+
+@pytest.mark.parametrize("flag", [["--rate", "0.5"], ["--semitones", "3"]])
+def test_stretch_matches_jax(flag, tmp_path, jcli, capsys):
+    from msv_tpu_torch.ops.effects import pitch_shift, time_stretch
+
+    p = _melody(str(tmp_path / "mel.wav"))
+    outs = _run_both(jcli, ["stretch", p, *flag], tmp_path)
+    tag = "x0.5" if flag[0] == "--rate" else "ps+3"
+    y, sr = open_audio_file(os.path.join(outs["port"], f"mel_{tag}.wav"))
+    want, _ = open_audio_file(os.path.join(outs["jax"], f"mel_{tag}.wav"))
+    wav = open_audio_file(p)[0][0]
+    direct = (time_stretch(wav, 0.5, device="cpu") if tag == "x0.5"
+              else pitch_shift(wav, sr, 3.0, device="cpu"))
+    write_wav(str(tmp_path / "direct.wav"), direct[None], sr)
+    np.testing.assert_array_equal(
+        y, open_audio_file(str(tmp_path / "direct.wav"))[0])
+    assert y.shape == want.shape
+    # tests/test_torch_effects.py's bounds, plus one PCM16 step
+    err = np.abs(y - want) / np.abs(want).max()
+    assert err.max() <= 0.05 + 2.0**-14
+    assert np.percentile(err, 99) <= 1e-3 + 2.0**-14
+    capsys.readouterr()
+    assert main(["stretch", p, "--rate", "2", "--semitones", "1",
+                 *CPU]) == 1
+    assert "exactly one of --rate/--semitones" in capsys.readouterr().err
+    assert main(["stretch", p, "--rate", "0", "-o", str(tmp_path / "z"),
+                 *CPU]) == 1
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_trim_matches_jax(split, tmp_path, jcli, capsys):
+    from msv_tpu_torch.ops.effects import split as split_op, trim
+
+    p = _melody(str(tmp_path / "mel.wav"), gap=0.6, lead=0.8)
+    args = ["trim", p, *(["--split"] if split else [])]
+    outs = _run_both(jcli, args, tmp_path)
+    names = sorted(os.listdir(outs["port"]))
+    assert names == sorted(os.listdir(outs["jax"]))
+    for n in names:
+        np.testing.assert_array_equal(
+            open_audio_file(os.path.join(outs["port"], n))[0],
+            open_audio_file(os.path.join(outs["jax"], n))[0])
+    wav, sr = open_audio_file(p)
+    if split:
+        iv = split_op(wav[0], sr, device="cpu")
+        assert names == [f"mel_part{k}.wav" for k in range(len(iv))]
+        assert len(iv) == 3
+    else:
+        _, (a, b) = trim(wav[0], sr, device="cpu")
+        iv = [(a, b)]
+        assert names == ["mel_trim.wav"]
+    for n, (a, b) in zip(names, iv):
+        write_wav(str(tmp_path / "d.wav"), wav[:, a:b], sr)
+        np.testing.assert_array_equal(
+            open_audio_file(os.path.join(outs["port"], n))[0],
+            open_audio_file(str(tmp_path / "d.wav"))[0])
+    silent = str(tmp_path / "silent.wav")
+    write_wav(silent, np.zeros((1, 8000), np.float32), 8000)
+    capsys.readouterr()
+    assert main(["trim", silent, "-o", str(tmp_path / "s"), *CPU]) == 0
+    assert "all silent" in capsys.readouterr().out
+
+
+def test_align_matches_jax(tmp_path, jcli, capsys):
+    from msv_tpu_torch.ops.align import align_offset
+
+    rng = np.random.default_rng(11)
+    sr = 16000
+    n = 6 * sr
+    env = np.abs(np.convolve(rng.standard_normal(n), np.hanning(sr // 2),
+                             "same"))
+    x = (env / env.max() * rng.standard_normal(n) * 0.3).astype(np.float32)
+    d = int(0.75 * sr)
+    ref = str(tmp_path / "ref.wav")
+    late = str(tmp_path / "late.wav")
+    write_wav(ref, x[None], sr)
+    write_wav(late, np.concatenate([np.zeros(d, np.float32), x])[None], sr)
+    args = ["align", ref, late, "--max-lag", "2", "--write", "--bits", "32"]
+    outs = {}
+    for name, fn, extra in (("port", main, CPU), ("jax", jcli.main, [])):
+        outs[name] = str(tmp_path / f"out_{name}")
+        capsys.readouterr()
+        assert fn([*args, "-o", outs[name], *extra]) == 0
+        outs[name + "_log"] = capsys.readouterr().out
+    pat = r"offset ([-+\d.]+)s  confidence ([\d.]+)"
+    got = re.findall(pat, outs["port_log"])
+    assert got == re.findall(pat, outs["jax_log"]) and len(got) == 1
+    r = align_offset(open_audio_file(ref)[0][0], sr,
+                     open_audio_file(late)[0][0], sr, max_lag_s=2.0,
+                     device="cpu")
+    assert got[0] == (f"{r.offset_s:+.4f}", f"{r.confidence:.2f}")
+    assert abs(r.offset_s - 0.75) < 1e-3
+    y = open_audio_file(os.path.join(outs["port"], "late_aligned.wav"))[0]
+    np.testing.assert_array_equal(
+        y, open_audio_file(os.path.join(outs["jax"], "late_aligned.wav"))[0])
+    np.testing.assert_array_equal(y[:, :len(x) - d],
+                                  open_audio_file(ref)[0][:, :len(x) - d])
+    assert main(["align", ref, *CPU]) == 1
+    assert "need a reference file" in capsys.readouterr().err
+
+
+@pytest.mark.gpu
+def test_analysis_subcommands_on_the_card(tmp_path):
+    """transcribe, stretch and features --kind f0v on the card equal the
+    CPU run's notes, the stretch within tests/test_torch_effects.py's
+    bounds, the voicing equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import json
+
+    p = _melody(str(tmp_path / "mel.wav"))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        outs[dev] = str(tmp_path / dev)
+        for args in (["transcribe", p], ["stretch", p, "--rate", "0.5"],
+                     ["features", p, "--kind", "f0v"]):
+            assert main([*args, "-o", outs[dev], "--device", dev]) == 0
+    notes = [json.load(open(os.path.join(outs[d], "notes_mel.json")))
+             for d in ("cuda", "cpu")]
+    assert notes[0] == notes[1]
+    y = [open_audio_file(os.path.join(outs[d], "mel_x0.5.wav"))[0]
+         for d in ("cuda", "cpu")]
+    err = np.abs(y[0] - y[1]) / np.abs(y[1]).max()
+    assert err.max() <= 0.05 + 2.0**-14
+    f0v = [np.load(os.path.join(outs[d], "feats_f0v_mel.npy"))
+           for d in ("cuda", "cpu")]
+    np.testing.assert_array_equal(f0v[0][:, 1], f0v[1][:, 1])

@@ -109,6 +109,61 @@ COPIED = {
     ("features", "_contrast_bands"): [],
     ("features", "chroma_filterbank"): [],
     ("features", "_peak_pick"): [],
+    # the pitch, sequence, LPC, tonal, segment, transcription, effects and
+    # alignment modules' host code
+    ("ops.sequence", "viterbi"): [
+        ("def viterbi(prob, transition, p_init=None):",
+         "def viterbi(prob, transition, p_init=None, *, device=None):"),
+        ("    return viterbi_log(lo, la, li)",
+         "    return viterbi_log(lo, la, li, device=device)"),
+    ],
+    ("ops.sequence", "_pairwise_cost"): [],
+    ("ops.sequence", "smooth_f0_viterbi"): [
+        ("                      voicing_slope: float = 2.0):",
+         "                      voicing_slope: float = 2.0, device=None):"),
+        ("    v_path, _ = viterbi_log(v_obs, v_trans)",
+         "    v_path, _ = viterbi_log(v_obs, v_trans, device=device)"),
+        ("    path, _ = viterbi_log(log_obs, log_tv)",
+         "    path, _ = viterbi_log(log_obs, log_tv, device=device)"),
+    ],
+    ("ops.lpc", "_eval_grid_matrices"): [],
+    ("ops.lpc", "_prep_signal"): [],
+    **{("ops.tonal", name): [] for name in (
+        "tonnetz_basis", "_pearson_rows", "estimate_key_from_chroma",
+        "oracle_tonnetz_np")},
+    ("ops.segment", "_checker_u"): [],
+    ("ops.segment", "oracle_novelty_np"): [],
+    # the pitch and onset analyses run on the caller's device
+    ("ops.transcribe", "transcribe_notes"): [
+        ("    level_drop_db: float = 40.0,",
+         "    level_drop_db: float = 40.0, device=None,"),
+        ("                              hop_length=hop_length)",
+         "                              hop_length=hop_length, device=device)"),
+        ("            onsets = np.asarray(onset_detect(wav, sr), np.float64)",
+         "            onsets = np.asarray(onset_detect(wav, sr, "
+         "device=device), float)"),
+    ],
+    ("ops.transcribe", "_frame_rms_db"): [],
+    ("ops.transcribe", "_varlen"): [],
+    ("ops.transcribe", "write_midi"): [],
+    ("ops.effects", "_phase_tables"): [],
+    ("ops.effects", "_stretch_plan"): [],
+    ("ops.effects", "split"): [
+        ("          frame_length: int = 2048, hop_length: int = 512):",
+         "          frame_length: int = 2048, hop_length: int = 512, "
+         "device=None):"),
+        ("    rms = _frame_rms(wav, frame_length, hop_length)",
+         "    rms = _frame_rms(wav, frame_length, hop_length, device)"),
+    ],
+    ("ops.effects", "trim"): [
+        ("         frame_length: int = 2048, hop_length: int = 512):",
+         "         frame_length: int = 2048, hop_length: int = 512, "
+         "device=None):"),
+        ("               hop_length=hop_length)",
+         "               hop_length=hop_length, device=device)"),
+    ],
+    ("ops.align", "AlignResult"): [],
+    ("ops.align", "_parabolic"): [],
 }
 
 # The native decoders: byte-for-byte copies, built by the port itself.
@@ -287,6 +342,10 @@ def test_import_pulls_in_neither_jax_nor_msv_tpu():
         "msv_tpu_torch.ops.resample, msv_tpu_torch.ops.scan, "
         "msv_tpu_torch.ops.filter, msv_tpu_torch.ops.loudness, "
         "msv_tpu_torch.ops.reconstruct, msv_tpu_torch.ops.rhythm, "
+        "msv_tpu_torch.ops.pitch, msv_tpu_torch.ops.sequence, "
+        "msv_tpu_torch.ops.lpc, msv_tpu_torch.ops.tonal, "
+        "msv_tpu_torch.ops.segment, msv_tpu_torch.ops.transcribe, "
+        "msv_tpu_torch.ops.effects, msv_tpu_torch.ops.align, "
         "msv_tpu_torch.utils.device; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'msv_tpu')]; print(bad); sys.exit(1 if bad else 0)"
@@ -593,3 +652,32 @@ def test_nan_checks_and_device_trace(tmp_path, monkeypatch):
         K.mel_spectrogram_cuda(torch.zeros(4000), c, s, fb, win=win,
                                hop=hop, n_frames=40)
     assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
+
+
+def test_analysis_constants_equal_jax():
+    """The module constants copied with the analysis modules: key names,
+    the Krumhansl-Kessler profiles, the SSM cap, the decoders' infinities,
+    the alignment geometry, and the exported names of msv_tpu's package
+    that the port now has."""
+    import msv_tpu
+    import msv_tpu_torch
+    from msv_tpu.ops import align as ja, segment as jseg, sequence as jseq
+    from msv_tpu.ops import tonal as jt
+    from msv_tpu_torch.ops import align as ta, segment as tseg
+    from msv_tpu_torch.ops import sequence as tseq, tonal as tt
+
+    assert tt.KEY_NAMES == jt.KEY_NAMES
+    for name in ("_KK_MAJOR", "_KK_MINOR"):
+        np.testing.assert_array_equal(getattr(tt, name), getattr(jt, name))
+    assert tseg.MAX_SSM_FRAMES == jseg.MAX_SSM_FRAMES
+    assert (tseq._NEG, tseq._BIG) == (jseq._NEG, jseq._BIG)
+    for name in ("_ENV_FPS", "_BLOCK", "_REFINE_WIN", "_REFINE_NFFT",
+                 "_REFINE_HOP", "_MAX_REFINE_FRAMES"):
+        assert getattr(ta, name) == getattr(ja, name), name
+    for name in ("align_offset", "dtw", "estimate_key", "pitch_shift",
+                 "resample", "resample_poly", "resample_streamed", "segment",
+                 "segment_boundaries", "self_similarity",
+                 "smooth_f0_viterbi", "split", "time_stretch", "tonnetz",
+                 "trim", "viterbi", "yin", "yin_smoothed"):
+        assert name in msv_tpu_torch.__all__, name
+        assert hasattr(msv_tpu, name), name

@@ -10,8 +10,9 @@ or three u8 steps (adaptive crops: their deep bins carry f32 noise through
 the blend, tests/test_torch_multires.py).  Also: the error paths and
 parameter bounds, Range requests, add/remove/channel/setting, the render
 cache's generation rule, a query fuzz, the onsets, beats and loudness
-routes against msv_tpu's and the direct calls, the other analysis routes'
-501, and a mirror of tests/test_viewer_contract.py on the port's page and
+routes, and the pitch, formants, segments, notes, key and align routes
+against msv_tpu's and the direct calls, /api/analyze's and POST
+/api/process's 501, and a mirror of tests/test_viewer_contract.py on the port's page and
 routes (the page is msv_tpu's, byte for byte).
 """
 
@@ -289,9 +290,7 @@ def test_render_cache_generation_rule(wav_path, monkeypatch):
     assert c.get("/api/spec/0") == ("image/png", b"fresh")
 
 
-@pytest.mark.parametrize("path", [
-    "/api/pitch/0", "/api/formants/0", "/api/segments/0", "/api/notes/0",
-    "/api/key/0", "/api/analyze/0", "/api/align/0?ref=0", "/api/process"])
+@pytest.mark.parametrize("path", ["/api/analyze/0", "/api/process"])
 def test_analysis_routes_answer_not_ported(path, port):
     post = {"id": 0, "op": "hpss"} if path == "/api/process" else None
     code, body = _err(port[0] + path, post=post)
@@ -362,6 +361,195 @@ def test_onsets_beats_and_loudness_routes_match_jax(clicks):
     for path in ("/api/onsets/0?start=0&end=0.05",
                  "/api/beats/0?start=0&end=0.5"):
         assert _get(url + path)[1] == _get(jurl + path)[1]
+
+
+def _song(path, sr=16000):
+    """4 s of notes (a gapped melody over a quiet noise floor), then 4 s of
+    noise: pitch, formants, notes, key and one structure boundary."""
+    from msv_tpu_torch.io.audio import write_wav
+
+    rng = np.random.default_rng(9)
+    t = np.arange(int(0.6 * sr)) / sr
+    env = np.minimum(1.0, np.minimum(t, t[::-1]) / 0.01)
+    parts = []
+    for f in (261.63, 329.63, 392.0, 523.25, 392.0, 329.63):
+        parts += [0.4 * env * np.sin(2 * np.pi * f * t),
+                  np.zeros(int(0.066 * sr))]
+    x = np.concatenate(parts)[:4 * sr]
+    x = np.concatenate([x, np.zeros(4 * sr - len(x)),
+                        0.2 * rng.standard_normal(4 * sr)])
+    x = x + 0.002 * rng.standard_normal(len(x))
+    write_wav(path, x.astype(np.float32)[None], sr)
+    late = np.concatenate([np.zeros(int(0.5 * sr)), x])
+    write_wav(path[:-4] + "_late.wav", late.astype(np.float32)[None], sr)
+    return path, path[:-4] + "_late.wav"
+
+
+@pytest.fixture(scope="module")
+def songs(tmp_path_factory):
+    """Both viewers over the song (track 0) and its copy 0.5 s later
+    (track 1)."""
+    d = tmp_path_factory.mktemp("songs")
+    paths = list(_song(str(d / "song.wav")))
+    mt = msv_tpu_torch.MultiTrack(device="cpu")
+    mt.add_tracks([0, 1], paths)
+    jmt = msv_tpu.MultiTrack()
+    jmt.add_tracks([0, 1], paths)
+    srv, url = _serve(mt, V._Handler)
+    jsrv, jurl = _serve(jmt, JV._Handler)
+    yield url, jurl, mt
+    srv.shutdown()
+    jsrv.shutdown()
+
+
+def _direct(route, mt, query):
+    """The response body of ``route`` from the port's library calls, as the
+    viewer computes it (its window rules, rounding and display mapping)."""
+    from msv_tpu_torch.ops.align import align_offset
+    from msv_tpu_torch.ops.lpc import formant_track
+    from msv_tpu_torch.ops.mel import hz_to_mel
+    from msv_tpu_torch.ops.pitch import yin
+    from msv_tpu_torch.ops.segment import segment
+    from msv_tpu_torch.ops.sequence import smooth_f0_viterbi
+    from msv_tpu_torch.ops.tonal import estimate_key
+    from msv_tpu_torch.ops.transcribe import transcribe_notes
+
+    tr = mt._track(0)
+    sr = tr.sr
+    s0, s1 = float(query.get("start", 0.0)), float(query.get("end", 8.0))
+    a, b = int(s0 * sr), min(tr.n_samples, int(s1 * sr))
+    wav = tr.wav_slice(a, b)
+    half = np.float32(sr) / np.float32(2.0)
+
+    def rel(hz):
+        return np.asarray(hz_to_mel(np.asarray(hz, np.float32))) / float(
+            hz_to_mel(half))
+
+    if route == "pitch":
+        f0, ap = (v.numpy() for v in yin(wav, sr, fmax=min(
+            2093.0, sr / 2 * 0.99), with_aperiodicity=True, device="cpu"))
+        if query.get("smooth") == "1":
+            f0, voiced = smooth_f0_viterbi(f0, ap, fmax=min(
+                2093.0, sr / 2 * 0.99), device="cpu")
+            ap = np.where(voiced, 0.0, 1.0).astype(np.float32)
+        return {"t0": a / sr, "hop_s": 512 / sr,
+                "f0": [round(float(v), 2) for v in f0],
+                "ap": [round(float(v), 3) for v in ap],
+                "rel": [round(float(v), 4) for v in rel(f0)]}
+    if route == "formants":
+        f, hop_s, _ = formant_track(wav, sr, n_formants=4,
+                                    fmax=min(5500.0, sr / 2.0), device="cpu")
+        f = f.numpy()
+        r = rel(f)
+        ok = np.isfinite(f)
+        return {"t0": a / sr, "hop_s": hop_s,
+                "f": [[round(float(v), 1) if o else None for v, o in
+                       zip(row, okr)] for row, okr in zip(f, ok)],
+                "rel": [[round(float(v), 4) if o else None for v, o in
+                         zip(row, okr)] for row, okr in zip(r, ok)]}
+    if route == "segments":
+        ks = max(1.5, min(8.0, len(wav) / sr / 4.0))
+        return {"t": [round(a / sr + float(v), 3) for v in segment(
+            wav, sr, hop_s=0.5, kernel_s=ks, device="cpu")]}
+    if route == "notes":
+        notes = transcribe_notes(wav, sr, fmax=min(2093.0, sr / 2 * 0.99),
+                                 device="cpu")
+        for nt in notes:
+            nt["start"] = round(nt["start"] + a / sr, 6)
+            nt["end"] = round(nt["end"] + a / sr, 6)
+            nt["rel"] = round(float(rel(nt["hz"])), 4)
+        return {"notes": notes}
+    if route == "key":
+        tonic, mode, r, _ = estimate_key(tr.wav_slice(0, tr.n_samples), sr,
+                                         device="cpu")
+        return {"tonic": tonic, "mode": mode,
+                "r": None if tonic is None else round(r, 3)}
+    late = mt._track(1)
+    r = align_offset(tr.wav_slice(0, tr.n_samples), sr,
+                     late.wav_slice(0, late.n_samples), late.sr,
+                     max_lag_s=float(query["max_lag"]), device="cpu")
+    return {"ref": 0, "id": 1, "offset_s": round(r.offset_s, 6),
+            "confidence": round(r.confidence, 4),
+            "coarse_s": round(r.coarse_s, 4)}
+
+
+ANALYSIS_2 = {
+    "pitch": "/api/pitch/0?start=0&end=4",
+    "pitch_smooth": "/api/pitch/0?start=0&end=4&smooth=1",
+    "formants": "/api/formants/0?start=0.5&end=2.5",
+    "segments": "/api/segments/0",
+    "notes": "/api/notes/0?start=0&end=4",
+    "key": "/api/key/0",
+    "align": "/api/align/1?ref=0&max_lag=2",
+}
+
+
+@pytest.mark.parametrize("name", sorted(ANALYSIS_2))
+def test_analysis_2_routes_equal_the_direct_calls(name, songs):
+    """Each response equals the port's library calls on the same slice;
+    a second request is a cache hit; msv_tpu's response names the same
+    notes, key, boundaries and voicing (pitch within tests/
+    test_pitch.py's rtol 5e-3, formants within one 5.4 Hz grid step, the
+    key's r within 1e-2 in the route's default fast precision)."""
+    url, jurl, mt = songs
+    path = ANALYSIS_2[name]
+    query = dict(kv.split("=") for kv in path.partition("?")[2].split("&")
+                 if kv)
+    got = json.loads(_get(url + path)[1])
+    assert got == json.loads(json.dumps(_direct(name.split("_")[0], mt,
+                                                query)))
+    hits = json.loads(_get(url + "/api/stats")[1])["render_cache"]["hits"]
+    assert json.loads(_get(url + path)[1]) == got
+    assert json.loads(_get(url + "/api/stats")[1])["render_cache"][
+        "hits"] == hits + 1
+    if name == "align":  # pinned to msv_tpu by tests/test_torch_align.py
+        assert abs(got["offset_s"] - 0.5) < 1e-3
+        return
+    want = json.loads(_get(jurl + path)[1])
+    assert got.keys() == want.keys()
+    if name.startswith("pitch"):
+        assert got["t0"] == want["t0"] and got["hop_s"] == want["hop_s"]
+        np.testing.assert_allclose(got["f0"], want["f0"], rtol=5e-3)
+        if name == "pitch_smooth":
+            assert got["ap"] == want["ap"] and got["f0"] == want["f0"]
+    elif name == "formants":
+        g, w = (np.array([[np.nan if v is None else v for v in row]
+                          for row in d["f"]]) for d in (got, want))
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+        assert np.nanmax(np.abs(g - w)) <= 5500.0 / 1023 + 0.1
+    elif name == "key":
+        # the route's default precision is fast: the port rounds the chroma
+        # GEMM's operands to bf16, msv_tpu's CPU run is f32 (r moved 2e-3)
+        assert (got["tonic"], got["mode"]) == (want["tonic"], want["mode"])
+        assert abs(got["r"] - want["r"]) <= 1e-2
+    else:
+        assert got == want
+    if name == "segments":
+        assert len(got["t"]) == 1 and abs(got["t"][0] - 4.0) <= 1.0
+    if name == "notes":
+        assert [n["midi"] for n in got["notes"]] == [60, 64, 67, 72, 67, 64]
+
+
+@pytest.mark.parametrize("path, status", [
+    ("/api/pitch/0?fmin=4000&fmax=3000", 400),  # fmin over the search band
+    ("/api/pitch/0?fmin=nan", 400),
+    ("/api/pitch/x", 400),
+    ("/api/formants/0?n=9", 400),
+    ("/api/notes/0?fmax=1e9", 400),
+    ("/api/segments/0?start=-1", 400),
+    ("/api/align/1?ref=0&max_lag=0", 400),
+    ("/api/align/1?ref=7", 404),
+    ("/api/key/9", 404),
+])
+def test_analysis_2_routes_refuse_bad_parameters(path, status, songs):
+    """A bad parameter answers 400 and an unknown track 404, with an
+    ``error:`` body (msv_tpu answers 500 to both), and the server keeps
+    serving."""
+    url, jurl, _ = songs
+    code, body = _err(url + path)
+    assert code == status and body.startswith(b"error:")
+    assert _err(jurl + path)[0] == 500
+    assert _get(url + "/api/key/0")[0] == 200
 
 
 def test_query_fuzz_never_kills_the_server(port, rng):
@@ -569,7 +757,9 @@ def test_not_ported_routes_are_the_analysis_routes():
         "/api/spec_crop", "/api/adaptive_crop", "/api/wav_crop",
         "/api/colormap", "/api/setting", "/api/stats", "/api/colorbar",
         "/api/freq", "/api/add", "/api/remove", "/api/channel",
-        "/api/onsets", "/api/beats", "/api/loudness"}
+        "/api/onsets", "/api/beats", "/api/loudness", "/api/pitch",
+        "/api/formants", "/api/segments", "/api/notes", "/api/key",
+        "/api/align"}
 
 
 def test_client_script_brackets_balance():
