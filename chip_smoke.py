@@ -113,8 +113,9 @@ Phases, each printing its lines:
               every image response equal to a direct session's with the
               same history, the zoomed-out adaptive crop of the hour 202
               then 200, a cache hit without a render, a Range request,
-              POST /api/process 501, request latencies over 20 distinct
-              1200-column crops (misses) and again (hits); then python -m
+              POST /api/process of an unknown op 400, request latencies
+              over 20 distinct 1200-column crops (misses) and again
+              (hits); then python -m
               msv_tpu_torch render and view in processes of their own, and
               a missing file (exit 1, "error:");
   9. analysis  (slice 8) filter of the hour and the 8-minute stereo file
@@ -169,7 +170,32 @@ Phases, each printing its lines:
               every answer equal to the one-at-a-time answer.  Only the
               segments legs launch a mel kernel (one fast launch a file or
               window).
-Each path of phases 3c-10 is driven with the launch counts set to 0 just
+ 11. analysis 3  hpss, separate --components 4, denoise, declick (on a
+              copy with planted clicks, every one repaired) and specedit
+              (a gain box and a patch box) of the 48 kHz song, each WAV
+              equal to the library call, the wall beside the library
+              call's own time; h + p within HPSS_SUM of the input's peak,
+              the parts' sum within SEPARATE_ATOL; hpss and denoise of the
+              hour with the peak device memory; analyze of the seven songs
+              (one fast launch each, through segment; the 48 kHz report
+              equal to the library call); features --kind mtspec and
+              reassigned of the songs (.npy equal to the library call,
+              reassigned bit-equal over two card runs); cqt of the 48 kHz
+              song (32 768-sample frames in blocks: its wall and peak
+              device memory, under a quarter of the whole frame matrix);
+              the 10 s track card vs CPU at the port tests' bounds (hpss,
+              separate at 3 iterations, denoise, specedit, declick with
+              equal spans, cqt, multitaper power, reassigned totals,
+              analyze field by field); phase 8's viewer: POST
+              /api/process of each of the six ops on the 48 kHz song (one
+              parity launch each: the derived track's add), the derived
+              audio equal to the library call's and a crop rendered, a
+              bad op 400, an unknown track 404; GET /api/analyze of the
+              song and of the hour's first 600 s polled from 202 to 200
+              (one fast launch each, reports equal to the direct call), 20
+              crop misses of the hour timed while the hour's job runs,
+              every image equal to one at a time.
+Each path of phases 3c-11 is driven with the launch counts set to 0 just
 before it and read just after; comparisons run outside those windows.  The
 second-to-last line is a JSON object describing each kernel (its bound is
 computed from this run's shapes against the H100 SXM's published peaks);
@@ -1934,9 +1960,8 @@ def phase_frontends(K, smi, song, hour, eight, work):
     check(code == 200 and [t["id"] for t in tracks] == [*ids, hid],
           f"POST /api/remove: HTTP {code}, tracks {tracks}")
     code, body, _ = http(base + "/api/process", {"id": 0, "op": "hpss"})
-    check(code == 501 and json.loads(body) == {
-        "error": "not ported: /api/process"},
-        f"POST /api/process: HTTP {code}")
+    check(code == 400 and body.startswith(b"error: unknown op"),
+          f"POST /api/process of an unknown op: HTTP {code}")
 
     lat = {}
     crop_urls = [f"/api/spec_crop/{hid}?px_per_sec=100&height=500"
@@ -1968,7 +1993,7 @@ def phase_frontends(K, smi, song, hour, eight, work):
           f"{set_s['linear']:.3f} s (no launch), mel {set_s['mel']:.3f} s "
           f"({6 + len(plan)} launches); /api/add of the 8-minute stereo file "
           f"{mut_s['add']:.3f} s, /api/channel 1 {mut_s['channel']:.3f} s, "
-          f"/api/remove; POST /api/process 501")
+          f"/api/remove; POST /api/process of an unknown op 400")
     print("[viewer] 20 distinct 1200-column crops of the hour, request "
           "latency: " + "; ".join(
               f"{k} p50 {np.percentile(v, 50) * 1e3:.1f} ms p90 "
@@ -2918,6 +2943,437 @@ def phase_analysis2(K, smi, song, hour, eight, front, work, dev="cuda"):
     return legs
 
 
+# Phase 11's card-vs-CPU bounds on the 10 s track, the port tests' own
+# (tests/test_torch_{hpss,denoise,nmf,specedit,spectral_views}.py).
+ROUNDTRIP_ATOL = 2e-5   # hpss, gain boxes, declick, separate at 3
+#                         iterations: tests/test_specedit.py:88
+DENOISE_ATOL = 2e-4     # tests/test_denoise.py:87
+SEPARATE_ATOL = 2e-4    # parts sum to the input: tests/test_nmf.py:71
+PATCH_ATOL = 5e-5       # patched cells: tests/test_torch_specedit.py's
+#                         measured bound
+MT_RTOL, MT_ATOL = 2e-4, 2e-7  # tests/test_multitaper.py:46
+CQT_ATOL = 2e-5         # tests/test_cqt.py:53
+HPSS_SUM = 5e-5         # h + p against the input, of its peak
+CLICKS = (0.13, 0.32, 0.53, 0.83)  # planted clicks, of the song's length
+
+
+def plant_clicks(wav, sr, times, width=3, amp=0.6):
+    out = np.array(wav, np.float32, copy=True)
+    for k, ts in enumerate(times):
+        i = int(ts * sr)
+        out[..., i:i + width] += np.float32(amp if k % 2 == 0 else -amp)
+    return out
+
+
+def report_close(got, want):
+    """Fields of two analyze reports: (ok, note).  Counts, the key's name
+    and the structure boundaries equal; floats within their rounding step
+    plus the ops' port-test tolerances."""
+    bad = []
+    for k in ("duration_s", "n_beats", "n_onsets", "n_clicks",
+              "segments_s", "active_s"):
+        if got[k] != want[k]:
+            bad.append(f"{k} {got[k]} != {want[k]}")
+    gk, wk = got["key"], want["key"]
+    if (gk is None) != (wk is None) or (gk and (
+            (gk["tonic"], gk["mode"]) != (wk["tonic"], wk["mode"])
+            or abs(gk["r"] - wk["r"]) > 1e-2)):
+        bad.append(f"key {gk} != {wk}")
+    tol = {"loudness_lufs": 0.02, "loudness_range_lu": 0.02,
+           "true_peak_dbtp": 0.02, "tempo_bpm": 0.1, "voiced_fraction": 2e-3,
+           "f0_median_hz": 0.2}
+    for k, t in tol.items():
+        a, b = got[k], want[k]
+        if (a is None) != (b is None) or (a is not None and abs(a - b) > t):
+            bad.append(f"{k} {a} != {b}")
+    for k, t in (("centroid_hz", 0.2), ("flatness", 2e-4), ("rms", 2e-5)):
+        a, b = got["spectral"][k], want["spectral"][k]
+        if abs(a - b) > t + 1e-3 * abs(b):
+            bad.append(f"spectral {k} {a} != {b}")
+    return not bad, "; ".join(bad) or "fields agree"
+
+
+def phase_analysis3(K, smi, song, hour, eight, front, work, dev="cuda"):
+    """11: HPSS, NMF separation, denoising, de-clicking, spectral editing,
+    the analyze report, the multitaper and reassigned views, POST
+    /api/process and GET /api/analyze, as users run them."""
+    import glob
+    import re
+
+    from msv_tpu_torch import AudioTrack, SpecSetting
+    from msv_tpu_torch.cli import _build_parser, _feature
+    from msv_tpu_torch.config import derive_stft_params
+    from msv_tpu_torch.features import analyze
+    from msv_tpu_torch.io.audio import (open_audio_file, open_audio_mono_ex,
+                                        write_wav)
+    from msv_tpu_torch.ops.cqt import cqt
+    from msv_tpu_torch.ops.declick import declick
+    from msv_tpu_torch.ops.denoise import denoise
+    from msv_tpu_torch.ops.hpss import hpss
+    from msv_tpu_torch.ops.multitaper import multitaper_spectrogram
+    from msv_tpu_torch.ops.nmf import separate
+    from msv_tpu_torch.ops.reassign import reassigned_spec_db
+    from msv_tpu_torch.ops.resample import resample
+    from msv_tpu_torch.ops.specedit import Box, spectral_edit
+
+    paths, p10, _, _ = song
+    s48 = paths[-1]
+    stem = {q: os.path.splitext(os.path.basename(q))[0]
+            for q in (*paths, p10, hour)}
+    d = tempfile.mkdtemp(prefix="msv_chip_analysis3_", dir=work)
+    legs, wall, lib_s = [], {}, {}
+    dv = ["--device", dev]
+
+    def leg(name, args, want=None):
+        out = os.path.join(d, re.sub(r"\W+", "_", name))
+        (rc, log, wall[name]), n = counted(
+            K, lambda: run_cli([*args, "-o", out, *dv]))
+        check(rc == 0, f"{name}: exit {rc}; {log}")
+        check(n == (want or counts()), f"{name}: launches {n}, expected "
+              f"{want or counts()}")
+        legs.append((f"cli {name}", n))
+        return out, log
+
+    def lib(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        lib_s[name] = time.perf_counter() - t0
+        return out
+
+    def wav_of(path):
+        return open_audio_file(path)[0]
+
+    def same_as_written(path, y, sr, bits=16):
+        write_wav(os.path.join(d, "lib.wav"), np.atleast_2d(y), sr,
+                  bits=bits)
+        return np.array_equal(wav_of(path), wav_of(os.path.join(d,
+                                                                "lib.wav")))
+
+    # ---- 1. the subcommands on the 48 kHz song
+    st48, _ = open_audio_file(s48)
+    m48 = open_audio_mono_ex(s48)[0]
+    p48 = derive_stft_params(48000, SpecSetting())
+    stft = (p48.win_length, p48.hop_length, p48.n_fft)
+    out, _ = leg("hpss", ["hpss", s48])
+    h, pc = lib("hpss", lambda: hpss(m48, *stft, device=dev))
+    check(same_as_written(os.path.join(out, f"{stem[s48]}_harmonic.wav"),
+                          h, 48000)
+          and same_as_written(os.path.join(
+              out, f"{stem[s48]}_percussive.wav"), pc, 48000),
+          "hpss: WAVs != the library call")
+    hp_err = np.abs(h + pc - m48).max() / np.abs(m48).max()
+    check(hp_err <= HPSS_SUM, f"hpss: h + p off the input by {hp_err:.3g} "
+          "of its peak")
+    out, _ = leg("separate --components 4", ["separate", s48,
+                                             "--components", "4"])
+    parts, _, hact = lib("separate --components 4", lambda: separate(
+        m48, *stft, n_components=4, device=dev))
+    order = np.argsort(-(parts ** 2).sum(axis=1))
+    check(all(same_as_written(os.path.join(
+        out, f"{stem[s48]}_part{r}.wav"), parts[k], 48000)
+        for r, k in enumerate(order)), "separate: WAVs != the library call")
+    sep_err = np.abs(parts.sum(axis=0) - m48).max()
+    check(sep_err <= SEPARATE_ATOL, f"separate: parts sum off the input by "
+          f"{sep_err:.3g}")
+    out, _ = leg("denoise", ["denoise", s48])
+    y = lib("denoise", lambda: np.stack([denoise(
+        ch, *stft, sr=48000, device=dev) for ch in st48]))
+    check(same_as_written(os.path.join(out, f"{stem[s48]}_dn.wav"), y,
+                          48000), "denoise: WAV != the library call")
+    clicked = os.path.join(d, "clicked.wav")
+    clicks_s = [f * SECONDS for f in CLICKS]
+    write_wav(clicked, plant_clicks(st48, 48000, clicks_s), 48000)
+    stc, _ = open_audio_file(clicked)
+    out, log = leg("declick", ["declick", clicked])
+    rep = lib("declick", lambda: [declick(ch, 48000, device=dev)
+                                  for ch in stc])
+    check(same_as_written(os.path.join(out, "clicked_dc.wav"),
+                          np.stack([r[0] for r in rep]), 48000),
+          "declick: WAV != the library call")
+    for ci, (_, spans, _) in enumerate(rep):
+        hit = [any(a <= int(ts * 48000) < b for a, b in spans)
+               for ts in clicks_s]
+        check(all(hit), f"declick ch{ci}: planted clicks {clicks_s} not all "
+              f"in the repaired spans {spans[:12]}")
+    g0, g1, pt = SECONDS / 12, SECONDS / 6, SECONDS / 4
+    spec_box = [{"t0": g0, "t1": g1, "f0": 400, "f1": 1200,
+                 "gain_db": -24.0},
+                {"t0": pt, "t1": pt + 0.05, "f0": 0, "f1": 24000,
+                 "mode": "patch"}]
+    bx = [Box(**b) for b in spec_box]
+    boxes = ["--box", f"{g0:g}:{g1:g}:400:1200:-24",
+             "--patch", f"{pt:g}:{pt + 0.05:g}:0:24000"]
+    out, _ = leg("specedit", ["specedit", s48, *boxes])
+    y = lib("specedit", lambda: np.stack([spectral_edit(
+        ch, 48000, bx, win_length=p48.win_length,
+        hop_length=p48.hop_length, n_fft=p48.n_fft, device=dev)
+        for ch in st48]))
+    check(same_as_written(os.path.join(out, f"{stem[s48]}_edit.wav"), y,
+                          48000), "specedit: WAV != the library call")
+    n_spans = len(rep[0][1])
+    del st48, stc, rep, parts, h, pc, y
+    print(f"[process] {smi}; the 240 s 48 kHz stereo song, wall (library "
+          f"call's own time on the card): " + "; ".join(
+              f"{k} {wall[k]:.3f} s ({lib_s[k]:.3f} s)" for k in
+              ("hpss", "separate --components 4", "denoise", "declick",
+               "specedit"))
+          + f"; every WAV == the library call; hpss h + p off the input by "
+          f"{hp_err:.3g} of its peak; separate's 4 parts sum to the input "
+          f"within {sep_err:.3g}; declick found all {len(CLICKS)} planted "
+          f"clicks ({n_spans} spans in channel 0); no mel launch")
+    torch.cuda.empty_cache()
+
+    # ---- 2. hpss and denoise of the hour, peak device memory
+    peaks = {}
+    for cmd in ("hpss", "denoise"):
+        torch.cuda.reset_peak_memory_stats()
+        base_b = torch.cuda.memory_allocated()
+        _, log = leg(f"{cmd} of the hour", [cmd, hour])
+        peaks[cmd] = (torch.cuda.max_memory_allocated() - base_b) / 2**30
+        secs = re.findall(r"\(?in ([\d.]+)s\)?|\(([\d.]+)s\)", log)
+        lib_s[f"{cmd} of the hour"] = float([a or b for a, b in secs][-1])
+        torch.cuda.empty_cache()
+    print(f"[process-hour] {smi}; the 60-minute 48 kHz file: " + "; ".join(
+        f"{c} {wall[f'{c} of the hour']:.3f} s wall ({lib_s[f'{c} of the hour']:.2f} "
+        f"s in the op, as the CLI prints it), peak device memory "
+        f"{peaks[c]:.2f} GiB over the session's" for c in peaks))
+
+    # ---- 3. analyze of the seven songs; the 48 kHz song's report equals
+    # a direct call
+    out, _ = leg("analyze", ["analyze", *paths], counts(fast=len(paths)))
+    reps = {q: json.load(open(os.path.join(out, f"analysis_{stem[q]}.json")))
+            for q in paths}
+    direct = lib("analyze", lambda: analyze(m48, 48000, device=dev))
+    got = {k: v for k, v in reps[s48].items() if k in direct}
+    check(got == json.loads(json.dumps(direct)),
+          f"analyze: {got} != the library call {direct}")
+
+    # ---- 4. features --kind mtspec and reassigned of the seven songs
+    ns = _build_parser().parse_args(["features", p10])
+    x4 = resample(open_audio_mono_ex(paths[4])[0], 44100, 16000, device=dev)
+    for kind in ("mtspec", "reassigned"):
+        out, _ = leg(f"features --kind {kind}",
+                     ["features", *paths, "--kind", kind])
+        got = np.load(os.path.join(out, f"feats_{kind}_{stem[paths[4]]}.npy"))
+        check(np.array_equal(got, _feature(kind, x4, 16000, ns)[0].astype(
+            np.float32)), f"features --kind {kind} != the library call")
+    r1 = lib("reassigned", lambda: reassigned_spec_db(x4, 16000))
+    check(np.array_equal(r1, reassigned_spec_db(x4, 16000)),
+          "reassigned: two card runs differ")
+
+    # ---- 4b. cqt of the 48 kHz song: C1's support makes 32 768-sample
+    # frames, a frame matrix of 2.9 GB were it whole; it is taken in blocks
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_b = torch.cuda.memory_allocated()
+    cq, n = counted(K, lambda: lib("cqt", lambda: cqt(m48, 48000,
+                                                      device=dev)))
+    cqt_peak = (torch.cuda.max_memory_allocated() - base_b) / 2**30
+    legs.append(("library cqt", n))
+    n_cf = 1 + len(m48) // 512
+    whole = n_cf * 32768 * 4 / 2**30
+    check(n == counts(), f"cqt: launches {n}, expected none")
+    check(tuple(cq.shape) == (n_cf, 84) and bool(torch.isfinite(cq).all()),
+          f"cqt: shape {tuple(cq.shape)}, expected ({n_cf}, 84), finite")
+    check(cqt_peak < whole / 4, f"cqt: peak {cqt_peak:.2f} GiB, the whole "
+          f"frame matrix is {whole:.2f} GiB")
+    del cq
+
+    # ---- 5. the 10 s track, card vs CPU
+    w10, sr10 = open_audio_mono_ex(p10)[:2]
+    p = derive_stft_params(sr10, SpecSetting())
+    st10 = (p.win_length, p.hop_length, p.n_fft)
+    notes, bad = [], []
+
+    def both(fn):
+        return fn(dev), fn("cpu")
+
+    def close(name, a, b, atol):
+        e = float(np.abs(np.asarray(a) - np.asarray(b)).max())
+        notes.append(f"{name} {e:.3g} (bound {atol:g})")
+        if not e <= atol:
+            bad.append(f"{name}: {e:.3g} > {atol:g}")
+
+    (hc, pcc), (hh, ph) = both(lambda v: hpss(w10, *st10, device=v))
+    close("hpss", np.stack([hc, pcc]), np.stack([hh, ph]), ROUNDTRIP_ATOL)
+    close("separate 3 iterations", *both(lambda v: separate(
+        w10, *st10, n_components=4, n_iter=3, device=v)[0]), ROUNDTRIP_ATOL)
+    close("denoise", *both(lambda v: denoise(w10, *st10, sr=sr10,
+                                             device=v)), DENOISE_ATOL)
+    bx10 = [Box(2, 4, 400, 1200, gain_db=-24.0),
+            Box(6.0, 6.05, 0, sr10 / 2, mode="patch")]
+    e_card, e_cpu = both(lambda v: spectral_edit(
+        w10, sr10, bx10, win_length=p.win_length, hop_length=p.hop_length,
+        n_fft=p.n_fft, device=v))
+    span = slice(int(5.9 * sr10), int(6.15 * sr10))
+    close("specedit patch span", e_card[span], e_cpu[span], PATCH_ATOL)
+    e_card[span] = e_cpu[span] = 0.0
+    close("specedit elsewhere", e_card, e_cpu, ROUNDTRIP_ATOL)
+    c10 = plant_clicks(w10, sr10, times=(2.3, 5.1, 8.7))
+    (dc, sc, kc), (dh, sh, kh) = both(lambda v: declick(c10, sr10,
+                                                        device=v))
+    if sc != sh or kc != kh:
+        bad.append(f"declick spans: card {sc} {kc}, CPU {sh} {kh}")
+    close("declick", dc, dh, ROUNDTRIP_ATOL)
+    close("cqt", *both(lambda v: cqt(w10, sr10, device=v).cpu().numpy()),
+          CQT_ATOL)
+    x10 = {v: resample(w10, sr10, 16000, device=v) for v in (dev, "cpu")}
+    mt = [multitaper_spectrogram(x10[v], 16000, device=v).cpu().numpy()
+          for v in (dev, "cpu")]
+    e = np.abs(mt[0] - mt[1]) - MT_RTOL * np.abs(mt[1])
+    notes.append(f"mtspec excess over rtol {e.max():.3g} (atol {MT_ATOL:g})")
+    if not e.max() <= MT_ATOL:
+        bad.append(f"mtspec: {e.max():.3g} over rtol {MT_RTOL}")
+    ra = [reassigned_spec_db(x10[v], 16000, top_db=None, device=v)
+          for v in (dev, "cpu")]
+    tot = [float((10.0 ** (r.astype(np.float64) / 10.0)).sum()) for r in ra]
+    rel_tot = abs(tot[0] / tot[1] - 1)
+    notes.append(f"reassigned total power rel {rel_tot:.3g} (bound 1e-5)")
+    if not rel_tot <= 1e-5:
+        bad.append(f"reassigned totals: {rel_tot:.3g}")
+    an = [analyze(w10, sr10, device=v) for v in (dev, "cpu")]
+    ok, note = report_close(*an)
+    notes.append(f"analyze: {note}")
+    if not ok:
+        bad.append(f"analyze: {note}")
+    check(not bad, "the 10 s track, card vs CPU: " + "; ".join(bad))
+    print(f"[analysis3] {smi}; analyze of the seven songs "
+          f"{wall['analyze']:.3f} s ({len(paths)} fast launches, the 48 kHz "
+          f"song's report == the library call, {lib_s['analyze']:.3f} s); "
+          f"features --kind mtspec {wall['features --kind mtspec']:.3f} s, "
+          f"reassigned {wall['features --kind reassigned']:.3f} s (each .npy "
+          f"== the library call; reassigned {lib_s['reassigned']:.3f} s, two "
+          f"card runs bit-equal); cqt of the 48 kHz song "
+          f"{lib_s['cqt']:.3f} s on the card, peak device memory "
+          f"{cqt_peak:.3f} GiB over the session's (the whole frame matrix "
+          f"{whole:.2f} GiB); the 10 s track card vs CPU max|err|: "
+          + "; ".join(notes))
+    torch.cuda.empty_cache()
+
+    # ---- 6. POST /api/process for each op on the 48 kHz song (phase 8's
+    # server), the derived tracks' audio == the library call's, a crop of
+    # each rendered; then GET /api/analyze of a song and of the hour
+    base, tids = front["viewer"], front["viewer_ids"]
+    sid, hid = tids[len(paths) - 1], tids[-1]
+    track = AudioTrack(s48, SpecSetting())
+    wav = track.wav_slice(0, track.n_samples)
+    ops = {
+        "denoise": lambda: [denoise(wav, *stft, sr=48000, device=dev)],
+        "declick": lambda: [declick(wav, 48000, device=dev)[0]],
+        "harmonic": lambda: [hpss(wav, *stft, device=dev)[0]],
+        "percussive": lambda: [hpss(wav, *stft, device=dev)[1]],
+        "separate": lambda: (lambda pa: list(pa[np.argsort(-(pa ** 2).sum(
+            axis=1))]))(separate(wav, *stft, n_components=2,
+                                 device=dev)[0]),
+        "specedit": lambda: [spectral_edit(
+            wav, 48000, bx,
+            win_length=p48.win_length, hop_length=p48.hop_length,
+            n_fft=p48.n_fft, device=dev)],
+    }
+    proc_lat = {}
+    for op, fn in ops.items():
+        body_ = {"id": sid, "op": op}
+        if op == "specedit":
+            body_["boxes"] = spec_box
+        t0 = time.perf_counter()
+        (code, body, _), n = counted(K, lambda: http(
+            base + "/api/process", body_))
+        proc_lat[op] = time.perf_counter() - t0
+        check(code == 200, f"POST /api/process {op}: HTTP {code} "
+              f"{body[:300]!r}")
+        resp = json.loads(body)
+        check(n == counts(1), f"POST /api/process {op}: launches {n}, "
+              "expected one parity launch (the derived tracks' add)")
+        legs.append((f"viewer process {op}", n))
+        names = {t["id"]: t["filename"] for t in json.loads(http(
+            base + "/api/tracks")[1])["tracks"]}
+        want = fn()
+        check(len(resp["ids"]) == len(want), f"{op}: ids {resp['ids']}")
+        for new_id, y in zip(resp["ids"], want):
+            f = glob.glob(os.path.join(tempfile.gettempdir(), "msv_proc_*",
+                                       names[new_id]))
+            check(len(f) == 1 and np.array_equal(wav_of(f[0])[0], y),
+                  f"{op}: derived track {new_id}'s audio != the library "
+                  "call's")
+            code, img, _ = http(base + f"/api/spec_crop/{new_id}?"
+                                f"px_per_sec=100&height=300&start={g0:g}"
+                                f"&end={g0 + 12:g}")
+            check(code == 200 and png_pixels(img).shape[0] == 300,
+                  f"{op}: crop of the derived track: HTTP {code}")
+        for new_id in resp["ids"]:
+            check(http(base + "/api/remove", {"id": new_id})[0] == 200,
+                  f"remove {new_id}")
+    code, body, _ = http(base + "/api/process", {"id": sid, "op": "bogus"})
+    check(code == 400 and body.startswith(b"error:"),
+          f"POST /api/process bogus: HTTP {code}")
+    code, body, _ = http(base + "/api/process", {"id": 999, "op": "denoise"})
+    check(code == 404, f"POST /api/process of an unknown track: HTTP {code}")
+
+    def poll(url, deadline_s=600):
+        t0 = time.perf_counter()
+        code, body, _ = http(base + url)
+        while code == 202:
+            check(time.perf_counter() - t0 < deadline_s, f"{url} pending")
+            time.sleep(0.05)
+            code, body, _ = http(base + url)
+        check(code == 200, f"{url}: HTTP {code} {body[:300]!r}")
+        return json.loads(body), time.perf_counter() - t0
+
+    (rep_song, song_s), n = counted(K, lambda: poll(f"/api/analyze/{sid}"))
+    check(n == counts(fast=1), f"/api/analyze/{sid}: launches {n}")
+    legs.append(("viewer analyze song", n))
+    want = dict(direct, window_s=round(track.n_samples / 48000, 3))
+    check(rep_song == json.loads(json.dumps(want)),
+          f"/api/analyze/{sid}: {rep_song} != the direct call {want}")
+
+    # the hour's analyze (its first 600 s) with 20 crop misses during it
+    hour_len = AudioTrack(hour, SpecSetting()).n_samples / 48000
+    crops = [f"/api/spec_crop/{hid}?px_per_sec=100&height=500"
+             f"&start={a:g}&end={a + 12:g}&c=11" for a in
+             np.round(hour_len * (0.2 + np.arange(20) * 0.035))]
+    url = f"/api/analyze/{hid}"
+
+    def hour_job():
+        t0 = time.perf_counter()
+        code, _, _ = http(base + url)
+        check(code == 202, f"{url}: first request HTTP {code}")
+        lat = [http(base + u) for u in crops]
+        still = http(base + url)[0]
+        rep, _ = poll(url)
+        return rep, lat, still, time.perf_counter() - t0
+
+    (rep_hour, lat, still, hour_s), n = counted(K, hour_job)
+    check(n == counts(fast=1), f"{url}: launches {n}")
+    legs.append(("viewer analyze hour", n))
+    check(still == 202, "the hour's analyze job ended before the 20 crops "
+          "did")
+    ht = AudioTrack(hour, SpecSetting())
+    nh = min(ht.n_samples, 600 * ht.sr)
+    want = dict(analyze(ht.wav_slice(0, nh), ht.sr, device=dev),
+                window_s=round(nh / ht.sr, 3))
+    check(rep_hour == json.loads(json.dumps(want)),
+          f"{url}: {rep_hour} != the direct call {want}")
+    for u, (code, body, _) in zip(crops, lat):
+        alone = http(base + u.replace("&c=11", "&c=12"))[1]
+        check(code == 200 and body == alone, f"{u} during analyze: HTTP "
+              f"{code}, image != one at a time")
+    ms = [t * 1e3 for _, _, t in lat]
+    print(f"[viewer3] {smi}; POST /api/process on the 48 kHz song (one "
+          f"parity launch each, the derived track's add), request wall: "
+          + "; ".join(f"{k} {v:.3f} s" for k, v in proc_lat.items())
+          + "; each derived track's audio == the library call's, a crop of "
+          f"each rendered, bad op 400, unknown track 404; GET /api/analyze "
+          f"of the song 202 -> 200 in {song_s:.3f} s, of the hour's first "
+          f"600 s in {hour_s:.3f} s (one fast launch each, reports == the "
+          f"direct call); 20 crop misses of the hour during that job: p50 "
+          f"{np.percentile(ms, 50):.1f} ms p90 {np.percentile(ms, 90):.1f} "
+          f"ms, every image == one at a time")
+    torch.cuda.empty_cache()
+    return legs
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
@@ -2951,6 +3407,7 @@ def main():
         paths += legs
         paths += phase_analysis(K, smi, song, hour, eight, front, work)
         paths += phase_analysis2(K, smi, song, hour, eight, front, work)
+        paths += phase_analysis3(K, smi, song, hour, eight, front, work)
     launches = {m: sum(n[m] for _, n in paths) for m in K.MODES}
     print("[launches] main-path launches by path (parity, fast, split): "
           + json.dumps({name: [n[m] for m in K.MODES] for name, n in paths}))

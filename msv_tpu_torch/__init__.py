@@ -10,84 +10,98 @@ min/max waveform images and adaptive multi-resolution images
 the log-mel ML frontend (``features.py``) on the same kernels, and the rest
 of the feature set, filtering, Griffin-Lim, loudness, rhythm, resampling,
 pitch, Viterbi and DTW, LPC and formants, tonal features, segmentation,
-transcription, the phase vocoder, trimming and alignment as PyTorch ops.
+transcription, the phase vocoder, trimming, alignment, HPSS, spectral
+editing, denoising, NMF separation, de-clicking, the CQT, the multitaper
+and reassigned spectrograms and the ``analyze`` report as PyTorch ops.
 Module paths mirror ``msv_tpu`` so each counterpart is easy to find;
-every function takes tensors on an explicit ``device``.
+every function takes tensors on an explicit ``device``.  ``__all__`` is
+msv_tpu's list; ``precision_mode_scope`` and the streaming entry points are
+bound here too.
 """
 
 from .config import (FreqScale, SpecSetting, StftParams, derive_stft_params,
                      get_precision_mode, get_session_hbm_budget,
                      precision_mode_scope, set_precision_mode,
                      set_session_hbm_budget)
-from .features import (chroma_filterbank, chroma_stft, delta,
+from .features import (analyze, chroma_filterbank, chroma_stft, delta,
                        log_mel_spectrogram, log_mel_spectrogram_ragged, mfcc,
                        onset_detect, onset_strength, pcen, spectral_contrast,
                        spectral_features, whisper_log_mel)
-from .ops import (align_offset, beat_track, butter_sos, dtw, estimate_key,
-                  filtfilt, firwin, griffin_lim, integrated_loudness,
-                  loudness_range, mel_to_linear, pitch_shift, resample,
-                  resample_poly, resample_streamed, segment,
-                  segment_boundaries, self_similarity, smooth_f0_viterbi,
-                  sosfilt, split, tempogram_from_envelope, time_stretch,
-                  tonnetz, trim, true_peak, viterbi, yin, yin_smoothed)
+from .ops import (align_offset, beat_track, butter_sos, cqt, cqt_frequencies,
+                  declick, denoise, dtw, estimate_key, filtfilt,
+                  find_clicks, firwin, griffin_lim, hpss, hpss_masks,
+                  integrated_loudness, loudness_range, mel_to_linear,
+                  pitch_shift, resample, resample_poly, resample_streamed,
+                  segment, segment_boundaries, self_similarity,
+                  smooth_f0_viterbi, sosfilt, split, tempogram_from_envelope,
+                  time_stretch, tonnetz, trim, true_peak, viterbi, yin,
+                  yin_smoothed)
 from .parallel import streaming_spec_db, streaming_spec_db_mmap
 from .render.colormap import get_colormap
 from .session import AudioTrack, MultiTrack
 
+__version__ = "0.3.0"
+
 __all__ = [
     "align_offset",
-    "AudioTrack",
-    "beat_track",
+    "declick",
+    "denoise",
+    "find_clicks",
     "butter_sos",
-    "chroma_filterbank",
-    "chroma_stft",
-    "delta",
-    "derive_stft_params",
-    "dtw",
-    "estimate_key",
+    "sosfilt",
     "filtfilt",
     "firwin",
+    "analyze",
     "FreqScale",
-    "get_colormap",
+    "SpecSetting",
+    "StftParams",
+    "derive_stft_params",
     "get_precision_mode",
+    "set_precision_mode",
+    "set_session_hbm_budget",
     "get_session_hbm_budget",
-    "griffin_lim",
-    "integrated_loudness",
-    "log_mel_spectrogram",
-    "log_mel_spectrogram_ragged",
-    "loudness_range",
-    "mel_to_linear",
-    "mfcc",
+    "AudioTrack",
     "MultiTrack",
-    "onset_detect",
-    "onset_strength",
-    "pcen",
-    "pitch_shift",
-    "precision_mode_scope",
+    "get_colormap",
+    "griffin_lim",
+    "mel_to_linear",
     "resample",
     "resample_poly",
     "resample_streamed",
+    "hpss",
+    "hpss_masks",
+    "pitch_shift",
+    "time_stretch",
+    "split",
+    "trim",
+    "yin",
+    "cqt",
+    "cqt_frequencies",
+    "integrated_loudness",
+    "loudness_range",
+    "true_peak",
+    "beat_track",
+    "tempogram_from_envelope",
+    "estimate_key",
+    "tonnetz",
+    "dtw",
+    "smooth_f0_viterbi",
+    "viterbi",
+    "yin_smoothed",
     "segment",
     "segment_boundaries",
     "self_similarity",
-    "set_precision_mode",
-    "set_session_hbm_budget",
-    "smooth_f0_viterbi",
-    "sosfilt",
-    "SpecSetting",
+    "chroma_filterbank",
+    "chroma_stft",
+    "delta",
+    "onset_detect",
+    "onset_strength",
+    "log_mel_spectrogram",
+    "log_mel_spectrogram_ragged",
+    "mfcc",
+    "pcen",
     "spectral_contrast",
     "spectral_features",
-    "split",
-    "StftParams",
-    "streaming_spec_db",
-    "streaming_spec_db_mmap",
-    "tempogram_from_envelope",
-    "time_stretch",
-    "tonnetz",
-    "trim",
-    "true_peak",
-    "viterbi",
     "whisper_log_mel",
-    "yin",
-    "yin_smoothed",
+    "__version__",
 ]

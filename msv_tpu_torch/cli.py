@@ -15,28 +15,22 @@
     python -m msv_tpu_torch stretch a.wav --rate 0.5 -o outdir
     python -m msv_tpu_torch trim a.wav --split -o outdir
     python -m msv_tpu_torch align ref.wav take2.wav --write -o outdir
+    python -m msv_tpu_torch analyze a.wav
+    python -m msv_tpu_torch hpss a.wav -o outdir
+    python -m msv_tpu_torch separate a.wav --components 4 -o outdir
+    python -m msv_tpu_torch denoise a.wav --noise-span 0 0.5 -o outdir
+    python -m msv_tpu_torch declick a.wav -o outdir
+    python -m msv_tpu_torch specedit a.wav --box 1:2:400:1200:-24 -o outdir
 
 Every subcommand that computes takes ``--device`` (default ``cuda``):
 without a card it stops with an error and never falls back to the CPU on
 its own; ``--device cpu`` runs the kernels' plain PyTorch versions.
-``features`` computes every kind but mtspec and reassigned; those two and
-the subcommands ``analyze``, ``hpss``, ``separate``, ``denoise``,
-``declick`` and ``specedit`` answer "not ported yet" (ROADMAP queue 1
-items 8-9).
 """
 
 import argparse
 import os
 import sys
 import time
-
-# Subcommands whose operations the port does not have yet.
-NOT_PORTED = ("analyze", "hpss", "separate", "denoise", "declick",
-              "specedit")
-# ``features --kind`` values the port computes.
-FEATURE_KINDS = ("logmel", "mfcc", "chroma", "spectral", "whisper", "pcen",
-                 "contrast", "onsets", "tempogram", "beats", "f0", "f0v",
-                 "segments", "tonnetz", "key", "lpcenv", "formants")
 
 
 def _add_device(p):
@@ -141,6 +135,7 @@ def _build_parser():
                     help="write analysis_<stem>.json instead of stdout")
     an.add_argument("--channel", type=int, default=None,
                     help="one source channel instead of the channel sum")
+    _add_device(an)
 
     h = sub.add_parser(
         "hpss",
@@ -164,6 +159,7 @@ def _build_parser():
     h.add_argument("--channel", type=int, default=None,
                    help="separate one source channel instead of the "
                    "channel sum")
+    _add_device(h)
 
     tc = sub.add_parser(
         "transcribe",
@@ -203,6 +199,7 @@ def _build_parser():
     sp.add_argument("--channel", type=int, default=None,
                     help="separate one source channel instead of the "
                     "channel sum")
+    _add_device(sp)
 
     st = sub.add_parser(
         "stretch",
@@ -312,6 +309,7 @@ def _build_parser():
     dn.add_argument("--channel", type=int, default=None,
                     help="one source channel instead of all channels")
     dn.add_argument("--bits", type=int, choices=[16, 32], default=16)
+    _add_device(dn)
 
     dc = sub.add_parser(
         "declick",
@@ -339,6 +337,7 @@ def _build_parser():
     dc.add_argument("--channel", type=int, default=None,
                     help="one source channel instead of all channels")
     dc.add_argument("--bits", type=int, choices=[16, 32], default=16)
+    _add_device(dc)
 
     se = sub.add_parser(
         "specedit",
@@ -362,6 +361,7 @@ def _build_parser():
     se.add_argument("--channel", type=int, default=None,
                     help="one source channel instead of all channels")
     se.add_argument("--bits", type=int, choices=[16, 32], default=16)
+    _add_device(se)
 
     fl = sub.add_parser(
         "filter",
@@ -620,7 +620,9 @@ def _feature(kind, x, target, args):
     from . import features as F
     from .ops import rhythm
     from .ops.lpc import formant_track, lpc_envelope_db
+    from .ops.multitaper import multitaper_spec_db
     from .ops.pitch import yin
+    from .ops.reassign import reassigned_spec_db
     from .ops.segment import segment
     from .ops.sequence import yin_smoothed
     from .ops.tonal import estimate_key, tonnetz
@@ -663,6 +665,10 @@ def _feature(kind, x, target, args):
         out = lpc_envelope_db(x, target)[0]
     elif kind == "formants":
         out = formant_track(x, target)[0]
+    elif kind == "mtspec":
+        out = multitaper_spec_db(x, target)
+    elif kind == "reassigned":
+        return reassigned_spec_db(x, target), ""
     else:  # contrast
         out = F.spectral_contrast(x, target)
     return out.cpu().numpy(), ""
@@ -676,9 +682,6 @@ def _features_cmd(args):
     from .ops.resample import resample
     from .utils.errors import MsvError
 
-    if args.kind not in FEATURE_KINDS:
-        raise MsvError(f"features --kind {args.kind} is not ported yet "
-                       f"(ported: {', '.join(FEATURE_KINDS)})")
     target = 16000 if args.kind == "whisper" else args.target_sr
     if target < 1000:
         raise MsvError(f"--target-sr too low: {target}")
@@ -1113,6 +1116,251 @@ def _align_cmd(args):
     return 0
 
 
+def _channels(f, channel):
+    """(n_ch, T) float32 samples of ``f`` (one channel if asked) and sr."""
+    import numpy as np
+
+    from .io.audio import open_audio_file, open_audio_mono_ex
+
+    if channel is None:
+        return open_audio_file(f)
+    mono, sr, _, _, _ = open_audio_mono_ex(f, channel=channel)
+    return np.asarray(mono, np.float32)[None], sr
+
+
+def _analyze_cmd(args):
+    import json
+
+    from .features import analyze
+    from .io.audio import open_audio_mono_ex
+    from .utils.errors import MsvError
+
+    if args.outdir:
+        os.makedirs(args.outdir, exist_ok=True)
+    for f in args.files:
+        wav, sr, _, _, n_ch = open_audio_mono_ex(f, channel=args.channel)
+        t0 = time.perf_counter()
+        try:
+            rep = {"path": f, "sr": sr, "channels": n_ch,
+                   "channel": args.channel,
+                   **analyze(wav, sr, device=args.device)}
+        except ValueError as e:
+            raise MsvError(f"{f}: {e}") from e
+        rep["analysis_s"] = round(time.perf_counter() - t0, 2)
+        if args.outdir:
+            dest = os.path.join(args.outdir,
+                                f"analysis_{_stem(f, args.channel)}.json")
+            with open(dest, "w") as fh:
+                json.dump(rep, fh, indent=2)
+            print(f"  {dest}  ({rep['analysis_s']}s)")
+        else:
+            print(json.dumps(rep))
+    return 0
+
+
+def _hpss_cmd(args):
+    import numpy as np
+
+    from .config import SpecSetting, derive_stft_params
+    from .io.audio import open_audio_mono_ex, write_wav
+    from .ops.hpss import hpss
+    from .utils.errors import MsvError
+
+    setting = SpecSetting(win_ms=args.win_ms, t_overlap=args.t_overlap)
+    os.makedirs(args.outdir, exist_ok=True)
+    for f in args.files:
+        wav, sr, _, _, _ = open_audio_mono_ex(f, channel=args.channel)
+        p = derive_stft_params(sr, setting)
+        t0 = time.perf_counter()
+        try:
+            h, pc = hpss(
+                wav, p.win_length, p.hop_length, p.n_fft,
+                kernel_time=args.kernel_time, kernel_freq=args.kernel_freq,
+                power=args.power, margin=args.margin, device=args.device,
+            )
+        except ValueError as e:
+            raise MsvError(f"{f}: {e}") from e
+        dt = time.perf_counter() - t0
+        stem = _stem(f, args.channel)
+        for part, name in ((h, "harmonic"), (pc, "percussive")):
+            out = os.path.join(args.outdir, f"{stem}_{name}.wav")
+            write_wav(out, part[None, :], sr)
+            rms = float(np.sqrt(np.mean(part * part)))
+            print(f"  {out}  rms {rms:.4f}")
+        print(f"separated {len(wav) / sr:.2f}s in {dt:.2f}s")
+    return 0
+
+
+def _separate_cmd(args):
+    import numpy as np
+
+    from .config import SpecSetting, derive_stft_params
+    from .io.audio import open_audio_mono_ex, write_wav
+    from .ops.nmf import separate
+    from .utils.errors import MsvError
+
+    setting = SpecSetting(win_ms=args.win_ms, t_overlap=args.t_overlap)
+    os.makedirs(args.outdir, exist_ok=True)
+    for f in args.files:
+        wav, sr, _, _, _ = open_audio_mono_ex(f, channel=args.channel)
+        p = derive_stft_params(sr, setting)
+        t0 = time.perf_counter()
+        try:
+            parts, _, h = separate(
+                wav, p.win_length, p.hop_length, p.n_fft,
+                n_components=args.components, n_iter=args.iters,
+                seed=args.seed, device=args.device,
+            )
+        except ValueError as e:
+            raise MsvError(f"{f}: {e}") from e
+        dt = time.perf_counter() - t0
+        stem = _stem(f, args.channel)
+        # loudest component first so part0 is the headline
+        order = np.argsort(-(parts ** 2).sum(axis=1))
+        for rank, kk in enumerate(order):
+            out = os.path.join(args.outdir, f"{stem}_part{rank}.wav")
+            write_wav(out, parts[kk][None, :], sr)
+            rms = float(np.sqrt(np.mean(parts[kk] ** 2)))
+            act = float(h[kk].max())
+            print(f"  {out}  rms {rms:.4f}  peak-activation {act:.3g}")
+        print(f"separated {len(wav) / sr:.2f}s into {len(order)} "
+              f"components in {dt:.2f}s")
+    return 0
+
+
+def _denoise_cmd(args):
+    import numpy as np
+
+    from .config import SpecSetting, derive_stft_params
+    from .io.audio import write_wav
+    from .ops.denoise import denoise
+    from .utils.errors import MsvError
+
+    os.makedirs(args.outdir, exist_ok=True)
+    for f in args.files:
+        wav, sr = _channels(f, args.channel)
+        p = derive_stft_params(sr, SpecSetting())
+        t0 = time.perf_counter()
+        try:
+            out = np.stack([
+                denoise(ch, p.win_length, p.hop_length, p.n_fft, sr=sr,
+                        noise_span=(tuple(args.noise_span)
+                                    if args.noise_span else None),
+                        percentile=args.percentile,
+                        oversub=args.oversub,
+                        reduction_db=args.reduction_db,
+                        smooth_time=args.smooth, device=args.device)
+                for ch in wav])
+        except ValueError as e:
+            raise MsvError(f"{f}: {e}") from e
+        dt = time.perf_counter() - t0
+        path = os.path.join(args.outdir, f"{_stem(f, args.channel)}_dn.wav")
+        write_wav(path, out, sr, bits=args.bits)
+        drop = 20.0 * np.log10(
+            max(float(np.std(wav)), 1e-12) / max(float(np.std(out)), 1e-12))
+        print(f"  {path}  {out.shape[0]} ch, rms drop {drop:+.1f} dB  "
+              f"({dt:.2f}s)")
+    return 0
+
+
+def _declick_cmd(args):
+    import numpy as np
+
+    from .io.audio import write_wav
+    from .ops.declick import declick, find_clicks
+    from .utils.errors import MsvError
+
+    if not args.detect_only:
+        os.makedirs(args.outdir, exist_ok=True)
+    kw = {"thresh": args.thresh, "max_click_ms": args.max_click_ms,
+          "contrast": args.contrast, "device": args.device}
+    for f in args.files:
+        wav, sr = _channels(f, args.channel)
+        t0 = time.perf_counter()
+        try:
+            if args.detect_only:
+                for ci, ch in enumerate(wav):
+                    spans = find_clicks(ch, sr, **kw)
+                    for (a, b) in spans:
+                        print(f"  {f} ch{ci}  {a / sr:.4f}s - {b / sr:.4f}s"
+                              f"  ({b - a} samples)")
+                    if not spans:
+                        print(f"  {f} ch{ci}  no clicks")
+                continue
+            chans, n_rep, n_skip = [], 0, 0
+            for ch in wav:
+                rep, spans, skipped = declick(ch, sr, **kw)
+                chans.append(rep)
+                n_rep += len(spans)
+                n_skip += len(skipped)
+            out = np.stack(chans)
+        except ValueError as e:
+            raise MsvError(f"{f}: {e}") from e
+        dt = time.perf_counter() - t0
+        path = os.path.join(args.outdir, f"{_stem(f, args.channel)}_dc.wav")
+        write_wav(path, out, sr, bits=args.bits)
+        skip_note = f", {n_skip} edge span(s) left" if n_skip else ""
+        print(f"  {path}  {out.shape[0]} ch, {n_rep} click(s) "
+              f"repaired{skip_note}  ({dt:.2f}s)")
+    return 0
+
+
+def _parse_box(spec: str, mode: str):
+    from .ops.specedit import Box
+    from .utils.errors import MsvError
+
+    parts = spec.split(":")
+    want = (4, 5) if mode == "gain" else (4,)
+    if len(parts) not in want:
+        raise MsvError(
+            f"bad box '{spec}': expected T0:T1:F0:F1"
+            + ("[:GAIN_DB]" if mode == "gain" else ""))
+    try:
+        vals = [float(v) for v in parts]
+    except ValueError as e:
+        raise MsvError(f"bad box '{spec}': {e}") from e
+    try:
+        if mode == "gain":
+            gain = vals[4] if len(vals) == 5 else -80.0
+            return Box(vals[0], vals[1], vals[2], vals[3], gain_db=gain)
+        return Box(vals[0], vals[1], vals[2], vals[3], mode="patch")
+    except ValueError as e:
+        raise MsvError(f"bad box '{spec}': {e}") from e
+
+
+def _specedit_cmd(args):
+    import numpy as np
+
+    from .config import SpecSetting, derive_stft_params
+    from .io.audio import write_wav
+    from .ops.specedit import spectral_edit
+    from .utils.errors import MsvError
+
+    boxes = ([_parse_box(b, "gain") for b in args.box]
+             + [_parse_box(b, "patch") for b in args.patch])
+    if not boxes:
+        raise MsvError("no edits: give at least one --box or --patch")
+    os.makedirs(args.outdir, exist_ok=True)
+    for f in args.files:
+        wav, sr = _channels(f, args.channel)
+        p = derive_stft_params(sr, SpecSetting())
+        t0 = time.perf_counter()
+        try:
+            out = np.stack([
+                spectral_edit(ch, sr, boxes, win_length=p.win_length,
+                              hop_length=p.hop_length, n_fft=p.n_fft,
+                              device=args.device)
+                for ch in wav])
+        except ValueError as e:
+            raise MsvError(f"{f}: {e}") from e
+        dt = time.perf_counter() - t0
+        path = os.path.join(args.outdir,
+                            f"{_stem(f, args.channel)}_edit.wav")
+        write_wav(path, out, sr, bits=args.bits)
+        print(f"  {f}: {len(boxes)} edit(s) -> {path}  ({dt:.2f}s)")
+    return 0
+
+
 def _info_cmd(args):
     from .config import SpecSetting, derive_stft_params
     from .io.audio import open_audio_file
@@ -1232,11 +1480,6 @@ def main(argv=None):
 
 def _main(argv=None):
     args = _build_parser().parse_args(argv)
-    from .utils.errors import MsvError
-
-    if args.cmd in NOT_PORTED:
-        raise MsvError(f"{args.cmd} is not ported yet")
-
     if args.cmd == "serve":
         import functools
         import http.server
@@ -1271,6 +1514,11 @@ def _main(argv=None):
         return _trim_cmd(args)
     if args.cmd == "align":
         return _align_cmd(args)
+    commands = {"analyze": _analyze_cmd, "hpss": _hpss_cmd,
+                "separate": _separate_cmd, "denoise": _denoise_cmd,
+                "declick": _declick_cmd, "specedit": _specedit_cmd}
+    if args.cmd in commands:
+        return commands[args.cmd](args)
 
     if args.cmd == "view":
         from . import FreqScale, SpecSetting

@@ -2,7 +2,8 @@
 frontend (``log_mel_spectrogram``, ``log_mel_spectrogram_ragged``) and the
 rest of the feature set (``whisper_log_mel``, ``mfcc``, ``pcen``,
 ``delta``, ``spectral_features``, ``spectral_contrast``, ``chroma_stft``,
-``onset_strength``, ``onset_detect``); ``analyze`` is not ported yet.
+``onset_strength``, ``onset_detect``) and ``analyze``, the report
+of the whole analysis stack.
 
 The conventions of msv_tpu's frontend, which differ from the viewer session
 on purpose:
@@ -23,9 +24,12 @@ first.  The kernel takes every hop, so msv_tpu's routing on ``win % hop``
 and the engine switch (a TPU constraint) are not carried over, nor are its
 128-frame buckets (no program is keyed on shape here; the pad frames are
 sliced off); the ``shard_map`` route waits for multi-GPU (ROADMAP queue 1
-item 11).  ``_dct2_matrix``, ``_contrast_bands``, ``chroma_filterbank``
-and ``_peak_pick`` are copies of msv_tpu's host code, pinned by
-tests/test_torch_host.py.
+item 11).  ``_dct2_matrix``, ``_contrast_bands``, ``chroma_filterbank``,
+``_peak_pick`` and ``analyze`` (with named line edits: each op's device)
+are copies of msv_tpu's host code, pinned by tests/test_torch_host.py.
+``analyze`` opens no precision scope of its own: each op keeps its own
+short one, so a background report never holds one while the viewer's
+renders wait.
 """
 
 import functools
@@ -871,3 +875,65 @@ def onset_detect(
     if units == "frames":
         return idx
     return idx.astype(np.float64) * hop_s
+
+
+def analyze(wav, sr: int, *, device=None) -> dict:
+    """One mono (T,) signal -> the full analysis report dict.
+
+    Runs the whole analysis stack — BS.1770 loudness, tempo + beat
+    count, Krumhansl-Schmuckler key, structure boundaries, onsets,
+    Viterbi-decoded pitch/voicing, spectral descriptor medians over
+    NON-SILENT frames, RMS-gated active span — every field from an
+    oracle-pinned op.  Shared by ``msv_tpu_torch analyze`` and the viewer's
+    ``/api/analyze/<id>``; JSON-serializable output."""
+    from .ops.declick import find_clicks
+    from .ops.effects import trim
+    from .ops.loudness import r128_stats
+    from .ops.rhythm import beat_track
+    from .ops.segment import segment
+    from .ops.sequence import yin_smoothed
+    from .ops.tonal import estimate_key
+
+    dur = len(wav) / sr
+    r128 = r128_stats(wav, sr, device=device)
+    bpm, beats = beat_track(wav, sr, device=device)
+    tonic, mode, r, _ = estimate_key(wav, sr, device=device)
+    bounds = segment(wav, sr, device=device) if dur >= 4.0 else np.empty(0)
+    onsets = onset_detect(wav, sr, device=device)
+    fmax = min(2093.0, sr / 2.0 * 0.99)
+    f0, voiced = yin_smoothed(wav, sr, fmax=fmax, device=device)
+    spec = spectral_features(wav, sr, device=device).cpu().numpy()
+    # descriptor medians over NON-SILENT frames (same -60 dB gate as
+    # split): a sparse signal's median frame is silence, whose zero
+    # centroid/flatness describe nothing
+    act = spec[:, 4] > spec[:, 4].max() * 10.0 ** (-60.0 / 20.0)
+    spec = spec[act] if act.any() else spec
+    _, (a, b) = trim(wav, sr, device=device)
+    return {
+        "duration_s": round(dur, 3),
+        "loudness_lufs": r128["lufs"],
+        "loudness_range_lu": r128["lra"],
+        "true_peak_dbtp": r128["dbtp"],
+        "tempo_bpm": round(float(bpm), 1),
+        "n_beats": int(len(beats)),
+        "key": None if tonic is None else {
+            "tonic": tonic, "mode": mode, "r": round(float(r), 3)},
+        "segments_s": [round(float(v), 3) for v in bounds],
+        "n_onsets": int(len(onsets)),
+        "voiced_fraction": round(float(voiced.mean()), 3)
+        if len(voiced) else 0.0,
+        "f0_median_hz": (round(float(np.median(f0[voiced])), 1)
+                         if voiced.any() else None),
+        "spectral": {
+            "centroid_hz": round(float(np.median(spec[:, 0])), 1),
+            "flatness": round(float(np.median(spec[:, 3])), 4),
+            "rms": round(float(np.median(spec[:, 4])), 5),
+        },
+        "active_s": [round(a / sr, 3), round(b / sr, 3)],
+        # defect scan (ops/declick.py): contrast-gated LPC click
+        # detection; a clean recording reports 0 or a handful.  Skipped
+        # (None) past 10 minutes — the two-pass AR fit over an hour
+        # track would dominate the whole report's wall
+        "n_clicks": (int(len(find_clicks(
+            np.asarray(wav, np.float32), sr, device=device))) if dur <= 600.0 else None),
+    }

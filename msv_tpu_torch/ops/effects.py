@@ -14,10 +14,10 @@ the bounded deviation: the linear part ``i * phi``, exactly periodic mod
 2pi with period ``P = n_fft / gcd(hop, n_fft)``, comes from msv_tpu's
 host-f64 ``(P, n_freq)`` table.  Identity phase locking finds each bin's
 nearest peak with ``torch.cummax`` and a ``torch.cummin`` of the flipped
-rows.  The overlap-add is ``fold`` (a fixed-order sum, as
-``ops/reconstruct.py``), never ``index_add_``, so two runs give the same
-audio.  The spectrum is complex only as (re, im) pairs of real tensors,
-as in msv_tpu.
+rows.  The overlap-add is ``ops/reconstruct.py::overlap_add`` (``fold``, a
+fixed-order sum), never ``index_add_``, so two runs give the same audio.
+The spectrum is complex only as (re, im) pairs of real tensors, as in
+msv_tpu.
 
 msv_tpu bucketed frames and steps to 256 and frame RMS to 128 (its compile
 cache, masked pad rows); the port runs the true counts, so nothing is
@@ -36,7 +36,7 @@ from ..config import get_precision_mode, precision_for
 from ..utils import round_up_to
 from ..utils.device import as_f32, target_device
 from .dft import inverse_rdft, n_pad_split
-from .reconstruct import _ola_constants
+from .reconstruct import _ola_norm, overlap_add
 from .stft import _prepare, frame_device
 
 _TWO_PI = 2.0 * math.pi
@@ -158,7 +158,7 @@ def _time_stretch_device(wav, rate, *, win_length, hop_length, n_fft,
 
         window = default_stft_window(win_length, n_fft)
     syn = np.ascontiguousarray(window, dtype=np.float32)
-    _, wsq, total = _ola_constants(s_true, win_length, hop_length, syn)
+    wsq = _ola_norm(s_true, win_length, hop_length, syn)
     mode = precision or get_precision_mode()
     t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
          for a in (sel.astype(np.int64), frac, lin, phi, syn, wsq)]
@@ -169,11 +169,8 @@ def _time_stretch_device(wav, rate, *, win_length, hop_length, n_fft,
         phase_lock=bool(phase_lock))
     pl, _ = n_pad_split(n_fft, win_length)
     with precision_for("parity"):
-        frames_o = (inverse_rdft((out_re, out_im), n_fft)[:, pl:pl + win_length]
-                    * syn_t[None, :])
-    sig = torch.nn.functional.fold(
-        frames_o.T[None], (1, total), (1, win_length),
-        stride=(1, hop_length)).reshape(total) / wsq_t
+        frames_o = inverse_rdft((out_re, out_im), n_fft)[:, pl:pl + win_length]
+    sig = overlap_add(frames_o, syn_t, hop_length, wsq_t)
     half = win_length // 2
     out = sig[half:half + out_len]
     if out.shape[0] < out_len:  # OLA ran a few samples short of round(T/rate)

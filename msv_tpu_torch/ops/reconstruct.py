@@ -45,6 +45,34 @@ def _ola_constants(n_frames: int, win: int, hop: int, window: np.ndarray):
                                 n_frames))
     return idx.astype(np.int32), np.maximum(wsq, np.float32(1e-24)), total
 
+
+def _ola_norm(n_frames: int, win: int, hop: int, window: np.ndarray):
+    """``_ola_constants``' normalizer, bit for bit, without its scatter
+    index (an hour's index is 2.7 GB and ``np.add.at`` over it takes
+    seconds).  Away from the first and last window each sample sums the
+    same window taps in the same frame order, so its value repeats with
+    period ``hop``: a short run of ``2q + 1`` frames (``q`` frames overlap
+    a sample) gives the head, one period and the tail."""
+    q = -(-win // hop)
+    m = 2 * q + 1
+    if n_frames <= m:
+        return _ola_constants(n_frames, win, hop, window)[1]
+    small = _ola_constants(m, win, hop, window)[1]
+    mid = np.tile(small[q * hop:(q + 1) * hop], n_frames - q)
+    return np.concatenate([small[:q * hop], mid, small[m * hop:]])
+
+
+def overlap_add(frames, syn, hop: int, wsq):
+    """(n_frames, win) synthesis frames, times the window ``syn``,
+    overlap-added by ``fold`` (each sample sums its frames in a fixed
+    order, never by atomics) and divided by the normalizer ``wsq``."""
+    n_frames, win = frames.shape
+    total = (n_frames - 1) * hop + win
+    sig = torch.nn.functional.fold(
+        (frames * syn).T[None], (1, total), (1, win), stride=(1, hop))
+    return sig.reshape(total) / wsq
+
+
 def _griffin_lim_core(mag, c, s, syn, wsq, *, win, hop, n_fft, n_iter,
                       momentum):
     """The iteration on the padded timeline: istft produces the full
@@ -53,14 +81,11 @@ def _griffin_lim_core(mag, c, s, syn, wsq, *, win, hop, n_fft, n_iter,
     per-iteration slice or re-pad, for any win/hop parity."""
     pl, _ = n_pad_split(n_fft, win)
     n_frames = mag.shape[0]
-    total = (n_frames - 1) * hop + win
     mfac = momentum / (1.0 + momentum)
 
     def istft(re, im):
-        frames = inverse_rdft((re, im), n_fft)[:, pl:pl + win] * syn
-        sig = torch.nn.functional.fold(
-            frames.T[None], (1, total), (1, win), stride=(1, hop))
-        return sig.reshape(total) / wsq
+        return overlap_add(inverse_rdft((re, im), n_fft)[:, pl:pl + win],
+                           syn, hop, wsq)
 
     def stft(x):
         frames = frame_device(x, win, hop, n_frames)
@@ -125,7 +150,7 @@ def griffin_lim(
         window = default_stft_window(win_length, n_fft)
     window = np.ascontiguousarray(window, dtype=np.float32)
     c, s = windowed_dft_matrices(window, n_fft)
-    _, wsq, _ = _ola_constants(n_frames, win_length, hop_length, window)
+    wsq = _ola_norm(n_frames, win_length, hop_length, window)
     dev = mag.device
     with precision_for("parity"):
         out = _griffin_lim_core(

@@ -21,6 +21,16 @@ from .framing import n_frames_for, reflect_pad_center
 from .windows import default_stft_window
 
 FRAME_BUCKET = 256  # frame-count granularity of stft_magnitude
+# Elements of one working block: a block of frames and its GEMM outputs
+# (cqt, multitaper, reassign), of stacked median copies (hpss) or of
+# percentile columns (denoise).  Work on a whole long plane goes in blocks
+# of about this size, so an hour's planes never materialise at once.
+BLOCK_ELEMENTS = 1 << 26
+
+
+def block_rows(width: int) -> int:
+    """How many rows of ``width`` elements one block holds (at least 1)."""
+    return max(1, BLOCK_ELEMENTS // width)
 
 
 def frame_device(padded, win: int, hop: int, n_frames: int):
@@ -28,6 +38,17 @@ def frame_device(padded, win: int, hop: int, n_frames: int):
     frame k is ``padded[..., k*hop : k*hop + win]``.  ``unfold`` makes a
     strided view (no gather, no copy); any hop is allowed."""
     return padded[..., : (n_frames - 1) * hop + win].unfold(-1, win, hop)
+
+
+def frame_blocks(padded, win: int, hop: int, n_frames: int, width: int):
+    """Yield ``(f0, nf, frames)``: :func:`frame_device`'s frames
+    ``f0 .. f0 + nf`` in blocks of :func:`block_rows` of the wider of a
+    frame and an output row of ``width`` elements.  Frames are
+    independent, so the blocks change no value."""
+    step = block_rows(max(win, width))
+    for f0 in range(0, n_frames, step):
+        nf = min(step, n_frames - f0)
+        yield f0, nf, frame_device(padded[..., f0 * hop:], win, hop, nf)
 
 
 def _stft_core(padded, c, s, *, win: int, hop: int, n_frames: int):

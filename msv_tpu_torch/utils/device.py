@@ -19,3 +19,11 @@ def target_device(x, device=None):
     if device is not None:
         return torch.device(device)
     return x.device if isinstance(x, torch.Tensor) else torch.device("cuda")
+
+
+def host_f32(x):
+    """``x`` as a float32 numpy array; a tensor is copied to the host (for
+    entry points whose host code, framing or geometry, runs in numpy)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, np.float32)

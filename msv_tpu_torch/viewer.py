@@ -6,12 +6,14 @@ planes on the device.
 
     python -m msv_tpu_torch view a.wav b.wav --port 8080
 
-Every image route, the audio route, settings, track management, the
-stats route and the analysis routes (pitch, formants, onsets, beats,
-segments, notes, key, align, loudness) are ported, each computing on the
-session's device.  GET /api/analyze and POST /api/process answer 501
-``{"error": "not ported: <route>"}`` until their operations are ported
-(ROADMAP queue 1 items 8-9).
+Every route of msv_tpu's viewer is ported, each computing on the
+session's device: the image routes, the audio route, settings, track
+management, the stats route, the analysis routes (pitch, formants,
+onsets, beats, segments, notes, key, align, loudness), the background
+``/api/analyze`` report and ``POST /api/process``, which adds a processed
+track (denoise, declick, harmonic, percussive, separate, specedit).  The
+analysis routes and the last two answer 400 to a bad parameter and 404 to
+an unknown track, where msv_tpu answers 500.
 """
 
 import io
@@ -738,7 +740,12 @@ _CACHEABLE = ("/api/spec/", "/api/wav/", "/api/spec_crop/",
 # routes that answer 400 for a bad parameter and 404 for an unknown track
 # (the others answer 500, as msv_tpu's viewer does)
 _CHECKED = ("/api/pitch/", "/api/formants/", "/api/segments/",
-            "/api/notes/", "/api/key/", "/api/align/")
+            "/api/notes/", "/api/key/", "/api/align/", "/api/analyze/",
+            "/api/process")
+ANALYZE_CAP_S = 600  # /api/analyze reads at most this much of a track
+# POST /api/process's operations
+PROCESS_OPS = ("denoise", "declick", "harmonic", "percussive", "separate",
+               "specedit")
 
 
 def analysis_window(n_samples, sr, start_s, end_s, cap_s):
@@ -796,17 +803,147 @@ class _Handler(BaseHTTPRequestHandler):
             c = cls.cache = _RenderCache()
         return c
 
-    # routes whose operations are not ported yet: 501 + {"error"}
-    NOT_PORTED_GET = ("/api/analyze/",)
-    NOT_PORTED_POST = ("/api/process",)
+    proc_dir = None  # server-owned temp dir for /api/process outputs
 
-    def _not_ported(self, path):
-        route = path.rstrip("/")
-        for r in self.NOT_PORTED_GET:
-            if path.startswith(r):
-                route = r.rstrip("/")
-        self._send(501, "application/json", json.dumps(
-            {"error": f"not ported: {route}"}).encode())
+    @classmethod
+    def _proc_dir(cls):
+        d = cls.proc_dir
+        if d is None:
+            import atexit
+            import shutil
+            import tempfile
+
+            d = cls.proc_dir = tempfile.mkdtemp(prefix="msv_proc_")
+            # derived WAVs are full-length float32 (hundreds of MB for
+            # hour tracks): reclaim them when the server process ends
+            atexit.register(shutil.rmtree, d, ignore_errors=True)
+        return d
+
+    analyses = None  # per-server-class (gen, tid) -> analysis job dict
+
+    @classmethod
+    def _analyses(cls):
+        a = cls.analyses
+        if a is None:
+            a = cls.analyses = ({}, threading.Lock())
+        return a
+
+    @staticmethod
+    def _run_analysis(cls, key, tid):
+        """Background worker for /api/analyze: snapshot the first
+        ``ANALYZE_CAP_S`` of the signal under the read lock, then run the
+        (long) analysis lock-free on the session's device."""
+        from .features import analyze
+
+        jobs, jlock = cls._analyses()
+        try:
+            with cls.lock.read():
+                tr = cls.session._track(tid)
+                sr = tr.sr
+                n = min(tr.n_samples, ANALYZE_CAP_S * sr)
+                wav = tr.wav_slice(0, n)
+            rep = analyze(wav, sr, device=cls.session.device)
+            rep["window_s"] = round(n / sr, 3)
+            body, state = json.dumps(rep).encode(), "done"
+        except Exception as e:  # surfaced as the endpoint's 500 body
+            body, state = f"error: {e}".encode(), "error"
+        with jlock:
+            if key in jobs:  # not pruned by a mutation meanwhile
+                jobs[key] = {"state": state, "body": body}
+
+    def _process(self, body):
+        """POST /api/process: run ``body["op"]`` on a loaded track's mono
+        view on the session's device and add each output as a new track
+        (float32 WAVs in the server-owned temp dir: no client path crosses
+        the wire).  Returns the JSON answer."""
+        import os as _os
+
+        import numpy as np
+
+        from .config import derive_stft_params
+        from .io.audio import write_wav
+
+        mt = self.session
+        op = str(body.get("op", ""))
+        if op not in PROCESS_OPS:
+            raise ValueError(f"unknown op {op!r}: expected "
+                             + " | ".join(PROCESS_OPS))
+        if "id" not in body:
+            raise ValueError("missing track id")
+        sid = int(body["id"])
+        with self.lock.read():
+            tr = mt._track(sid)
+            wav = np.asarray(tr.wav_slice(0, tr.n_samples), np.float32)
+            sr = tr.sr
+        p = derive_stft_params(sr, mt.setting)
+        stft = (p.win_length, p.hop_length, p.n_fft)
+        dev = {"device": mt.device}
+        detail = None
+        if op == "declick":
+            from .ops.declick import declick
+
+            rep, dspans, dskip = declick(wav, sr, **dev)
+            outs = [rep]
+            detail = {"repaired": len(dspans), "skipped": len(dskip)}
+        elif op == "denoise":
+            from .ops.denoise import denoise
+
+            outs = [denoise(wav, *stft, sr=sr, **dev)]
+        elif op == "specedit":
+            # boxes in seconds x Hz, the schema of ops.specedit.Box dicts
+            from .ops.specedit import Box, spectral_edit
+
+            raw = body.get("boxes")
+            if not isinstance(raw, list) or not raw or len(raw) > 32:
+                raise ValueError(
+                    "boxes must be a non-empty list of up to "
+                    "32 {t0,t1,f0,f1[,gain_db][,mode]} dicts")
+            try:
+                boxes = [Box(float(b["t0"]), float(b["t1"]), float(b["f0"]),
+                             float(b["f1"]), float(b.get("gain_db", -80.0)),
+                             str(b.get("mode", "gain"))) for b in raw]
+            except (KeyError, TypeError) as e:
+                raise ValueError(f"bad box: {e!r}") from e
+            outs = [spectral_edit(wav, sr, boxes, win_length=p.win_length,
+                                  hop_length=p.hop_length, n_fft=p.n_fft,
+                                  **dev)]
+        elif op == "separate":
+            from .ops.nmf import separate
+
+            k = int(body.get("components", 2))
+            if not 2 <= k <= 6:
+                raise ValueError(f"components must be in [2, 6], got {k}")
+            parts, _, _ = separate(wav, *stft, n_components=k, **dev)
+            outs = list(parts[np.argsort(-(parts ** 2).sum(axis=1))])
+        else:
+            from .ops.hpss import hpss
+
+            h, perc = hpss(wav, *stft, **dev)
+            outs = [h if op == "harmonic" else perc]
+        with self.lock.write():
+            req_id = body.get("new_id")
+            if req_id is not None and len(outs) > 1:
+                raise ValueError("new_id only applies to single-output ops")
+            if req_id is not None and int(req_id) in mt.tracks:
+                # a re-add would REPLACE the track; this route ADDS one
+                raise ValueError(f"new_id {int(req_id)} already loaded")
+            nxt = (max(mt.tracks) + 1) if mt.tracks else 0
+            new_ids = [int(req_id) if req_id is not None else nxt + j
+                       for j in range(len(outs))]
+            paths = [_os.path.join(self._proc_dir(),
+                                   f"{op}{j}_{sid}_{new_id}.wav")
+                     for j, new_id in enumerate(new_ids)]
+            for out, path in zip(outs, paths):
+                # float WAV: the derived track re-decodes bit-exactly
+                write_wav(path, np.asarray(out, np.float32)[None], sr,
+                          bits=32)
+            mt.add_tracks(new_ids, paths)
+        self._cache().bump_gen()
+        resp = {"ok": True, "id": new_ids[0], "ids": new_ids, "op": op,
+                "source": sid}
+        if detail is not None:
+            resp["detail"] = detail
+        return resp
 
     def _window(self, tid, s0, s1, cap_s):
         """``(sr, a, samples, linear)`` of track ``tid`` over the
@@ -1416,8 +1553,37 @@ class _Handler(BaseHTTPRequestHandler):
                 self._cache().put(self.path, "application/json", body,
                                   gen=self._req_gen)
                 self._send(200, "application/json", body)
-            elif url.path.startswith(self.NOT_PORTED_GET):
-                self._not_ported(url.path)
+            elif url.path.startswith("/api/analyze/"):
+                # The analyze report (features.analyze) of the track's mono
+                # view over its first ANALYZE_CAP_S, as a background job:
+                # 202 {"pending": true} until ready, then 200 with the
+                # JSON.  Jobs are keyed by the session generation, as the
+                # response cache is, so a mutation never serves a stale
+                # report.
+                tid = int(url.path.rsplit("/", 1)[1])
+                with self.lock.read():
+                    mt._track(tid)  # unknown ids -> 404
+                jobs, jlock = self._analyses()
+                key = (self._req_gen, tid)
+                with jlock:
+                    cur = self._cache().gen
+                    for k in [k for k in jobs if k[0] != cur]:
+                        del jobs[k]  # superseded by a session mutation
+                    job = jobs.get(key)
+                    if job is None and key[0] == cur:
+                        job = jobs[key] = {"state": "running",
+                                           "body": None}
+                        threading.Thread(
+                            target=self._run_analysis,
+                            args=(self.__class__, key, tid),
+                            daemon=True).start()
+                if job is None or job["state"] == "running":
+                    self._send(202, "application/json",
+                               b'{"pending": true}')
+                elif job["state"] == "done":
+                    self._send(200, "application/json", job["body"])
+                else:
+                    self._send(500, "text/plain", job["body"])
             else:
                 self._send(404, "text/plain", b"not found")
         except Exception as e:  # surface errors to the client, keep serving
@@ -1497,8 +1663,9 @@ class _Handler(BaseHTTPRequestHandler):
                     200, "application/json",
                     json.dumps({"ok": True, "changed": bool(changed)}).encode(),
                 )
-            elif url.path in self.NOT_PORTED_POST:
-                self._not_ported(url.path)
+            elif url.path == "/api/process":
+                self._send(200, "application/json",
+                           json.dumps(self._process(body)).encode())
             elif url.path == "/api/setting":
                 # live settings: merge partial fields into the current
                 # SpecSetting and re-derive every track (lib.rs:57-61
@@ -1535,7 +1702,8 @@ class _Handler(BaseHTTPRequestHandler):
             else:
                 self._send(404, "text/plain", b"not found")
         except Exception as e:
-            self._send(500, "text/plain", f"error: {e}".encode())
+            self._send(_error_status(url.path, e), "text/plain",
+                       f"error: {e}".encode())
 
 
 def serve_viewer(paths, port: int = 8080, setting=None,

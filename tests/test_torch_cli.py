@@ -142,7 +142,8 @@ def _subparsers(parser):
 
 PORTED_DEVICE = ("render", "view", "info", "resample", "features", "filter",
                  "gain", "reconstruct", "transcribe", "stretch", "trim",
-                 "align")
+                 "align", "analyze", "hpss", "separate", "denoise",
+                 "declick", "specedit")
 
 
 @pytest.mark.parametrize("cmd", [
@@ -362,7 +363,9 @@ def test_missing_file_error(tmp_path, capsys):
 
 @pytest.mark.parametrize("cmd", ["render", "info", "resample", "features",
                                  "view", "filter", "gain", "reconstruct",
-                                 "transcribe", "stretch", "trim", "align"])
+                                 "transcribe", "stretch", "trim", "align",
+                                 "analyze", "hpss", "separate", "denoise",
+                                 "declick", "specedit"])
 def test_no_card_is_an_error_without_device_cpu(cmd, wav_path, tmp_path,
                                                 capsys):
     if torch.cuda.is_available():
@@ -370,7 +373,8 @@ def test_no_card_is_an_error_without_device_cpu(cmd, wav_path, tmp_path,
     extra = {"resample": ["--sr", "16000"], "view": ["--port", "0"],
              "filter": ["--lowpass", "1000"],
              "reconstruct": ["-o", str(tmp_path / "o" / "r.wav")],
-             "stretch": ["--rate", "2"], "align": [wav_path, "--write"]}
+             "stretch": ["--rate", "2"], "align": [wav_path, "--write"],
+             "specedit": ["--box", "0.1:0.2:100:500"]}
     args = [cmd, wav_path, *extra.get(cmd, [])]
     if cmd not in ("info", "view", "reconstruct"):
         args += ["-o", str(tmp_path / "o")]
@@ -380,21 +384,121 @@ def test_no_card_is_an_error_without_device_cpu(cmd, wav_path, tmp_path,
     assert not os.path.exists(str(tmp_path / "o"))
 
 
-@pytest.mark.parametrize("cmd", [
-    "analyze", "hpss", "separate", "denoise", "declick", "specedit"])
-def test_analysis_subcommands_are_not_ported(cmd, wav_path, capsys):
-    assert main([cmd, wav_path]) == 1
-    cap = capsys.readouterr()
-    assert cap.err == f"error: {cmd} is not ported yet\n" and not cap.out
+def _clicked(path, sr=8000, seconds=1.0):
+    """A stereo tone with three planted clicks (tests/test_declick.py's
+    kind: their residual ratios are decisive)."""
+    t = np.arange(int(seconds * sr)) / sr
+    x = np.stack([0.4 * np.sin(2 * np.pi * 440 * t),
+                  0.3 * np.sin(2 * np.pi * 440 * t + 1.0)])
+    for k, ts in enumerate((0.21, 0.47, 0.73)):
+        x[:, int(ts * sr):int(ts * sr) + 3] += 0.6 if k % 2 else -0.6
+    write_wav(path, x.astype(np.float32), sr)
+    return path
+
+
+def _same_wav(path, y, sr, tmp_path, bits=16):
+    """The WAV at ``path`` decodes to what writing ``y`` decodes to."""
+    ref = str(tmp_path / "lib.wav")
+    write_wav(ref, np.atleast_2d(y), sr, bits=bits)
+    got, want = open_audio_file(path), open_audio_file(ref)
+    return got[1] == want[1] and np.array_equal(got[0], want[0])
+
+
+# subcommand -> (extra arguments, its outputs' names)
+ANALYSIS_3 = {
+    "hpss": ([], ["clk_harmonic.wav", "clk_percussive.wav"]),
+    "separate": (["--components", "2", "--iters", "5"],
+                 ["clk_part0.wav", "clk_part1.wav"]),
+    "denoise": (["--percentile", "30"], ["clk_dn.wav"]),
+    "declick": ([], ["clk_dc.wav"]),
+    "specedit": (["--box", "0.1:0.3:300:900:-30", "--patch",
+                  "0.5:0.52:0:4000"], ["clk_edit.wav"]),
+    "analyze": ([], ["analysis_clk.json"]),
+}
+
+
+@pytest.mark.parametrize("cmd", sorted(ANALYSIS_3))
+def test_analysis_3_subcommands_equal_the_library_calls(cmd, tmp_path,
+                                                        capsys):
+    """Each subcommand's files equal the library call on the same
+    samples, on the CPU."""
+    import json
+
+    from msv_tpu_torch.config import SpecSetting, derive_stft_params
+    from msv_tpu_torch.features import analyze
+    from msv_tpu_torch.io.audio import open_audio_mono_ex
+    from msv_tpu_torch.ops.declick import declick
+    from msv_tpu_torch.ops.denoise import denoise
+    from msv_tpu_torch.ops.hpss import hpss
+    from msv_tpu_torch.ops.nmf import separate
+    from msv_tpu_torch.ops.specedit import Box, spectral_edit
+
+    path = _clicked(str(tmp_path / "clk.wav"))
+    extra, names = ANALYSIS_3[cmd]
+    out = str(tmp_path / "o")
+    assert main([cmd, path, *extra, "-o", out, *CPU]) == 0
+    st, sr = open_audio_file(path)
+    mono = open_audio_mono_ex(path)[0]
+    p = derive_stft_params(sr, SpecSetting())
+    stft = (p.win_length, p.hop_length, p.n_fft)
+    cpu = {"device": "cpu"}
+    if cmd == "analyze":
+        rep = json.load(open(os.path.join(out, names[0])))
+        want = analyze(mono, sr, **cpu)
+        assert {k: rep[k] for k in want} == json.loads(json.dumps(want))
+        assert rep["n_clicks"] >= 1
+        return
+    if cmd == "hpss":
+        outs = hpss(mono, *stft, **cpu)
+    elif cmd == "separate":
+        parts = separate(mono, *stft, n_components=2, n_iter=5, **cpu)[0]
+        outs = parts[np.argsort(-(parts ** 2).sum(axis=1))]
+    elif cmd == "denoise":
+        outs = [np.stack([denoise(ch, *stft, sr=sr, percentile=30.0, **cpu)
+                          for ch in st])]
+    elif cmd == "declick":
+        reps = [declick(ch, sr, **cpu) for ch in st]
+        assert all(len(r[1]) == 3 for r in reps)
+        outs = [np.stack([r[0] for r in reps])]
+    else:
+        bx = [Box(0.1, 0.3, 300, 900, gain_db=-30.0),
+              Box(0.5, 0.52, 0, 4000, mode="patch")]
+        outs = [np.stack([spectral_edit(
+            ch, sr, bx, win_length=p.win_length, hop_length=p.hop_length,
+            n_fft=p.n_fft, **cpu) for ch in st])]
+    for name, y in zip(names, outs):
+        assert _same_wav(os.path.join(out, name), y, sr, tmp_path), name
 
 
 @pytest.mark.parametrize("kind", ["mtspec", "reassigned"])
-def test_features_other_kinds_are_not_ported(kind, wav_path, tmp_path,
-                                             capsys):
+def test_features_analysis_3_kinds_equal_the_library_calls(kind, wav_path,
+                                                           tmp_path):
+    from msv_tpu_torch.io.audio import open_audio_mono_ex
+    from msv_tpu_torch.ops.multitaper import multitaper_spec_db
+    from msv_tpu_torch.ops.reassign import reassigned_spec_db
+    from msv_tpu_torch.ops.resample import resample
+
     assert main(["features", wav_path, "-o", str(tmp_path), "--kind", kind,
-                 *CPU]) == 1
-    err = capsys.readouterr().err
-    assert err.startswith("error:") and "not ported" in err
+                 *CPU]) == 0
+    got = np.load(str(tmp_path / f"feats_{kind}_tone.npy"))
+    x = resample(open_audio_mono_ex(wav_path)[0], 8000, 16000, device="cpu")
+    want = (multitaper_spec_db(x, 16000).numpy() if kind == "mtspec"
+            else reassigned_spec_db(x, 16000))
+    assert got.shape == want.shape == (63, 513)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_analysis_3_subcommands_match_jax(tmp_path, jcli):
+    """hpss and denoise through both command lines: the WAVs within the
+    port tests' bounds (2e-5, 2e-4) plus one PCM16 step."""
+    path = _clicked(str(tmp_path / "clk.wav"))
+    for cmd, names, tol in (("hpss", ["clk_harmonic.wav"], 2e-5),
+                            ("denoise", ["clk_dn.wav"], 2e-4)):
+        outs = _run_both(jcli, [cmd, path], tmp_path / cmd)
+        for name in names:
+            got, want = (open_audio_file(os.path.join(outs[k], name))[0]
+                         for k in ("port", "jax"))
+            np.testing.assert_allclose(got, want, atol=tol + 2 ** -15)
 
 
 # ------------------------------------------------- resample and features

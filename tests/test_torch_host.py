@@ -164,6 +164,84 @@ COPIED = {
     ],
     ("ops.align", "AlignResult"): [],
     ("ops.align", "_parabolic"): [],
+    # the HPSS, spectral edit, NMF, de-click, CQT, multitaper and
+    # reassignment modules' host code, and the analyze report
+    ("ops.hpss", "_check_args"): [],
+    ("ops.specedit", "Box"): [],
+    ("ops.specedit", "_feather"): [],
+    ("ops.specedit", "_build_masks"): [],
+    ("ops.nmf", "kl_divergence"): [],
+    # the LPC fit, the residual and the patch run on the caller's device
+    ("ops.declick", "find_clicks"): [
+        ("    contrast: float = 1.5,", "    contrast: float = 1.5, "
+         "device=None,"),
+        ("                      frame_length=frame_length, hop_length=hop)",
+         "                      frame_length=frame_length, hop_length=hop, "
+         "device=device)"),
+        ("        a = np.asarray(a)",
+         "        # a stays on the device, where a[fi] gathers the rows"),
+        ("            jnp.asarray(padded), jnp.asarray(a_up), order=order, "
+         "n=n))",
+         "            padded, a_up, order=order, n=n, device=device))"),
+    ],
+    ("ops.declick", "_ar_coef"): [
+        ("    host: ops/lpc.py::_levinson (batched JAX fori_loop for device "
+         "frame",
+         "    host: ops/lpc.py::_levinson (batched torch loop for device "
+         "frame"),
+    ],
+    ("ops.declick", "_ar_fill"): [],
+    ("ops.declick", "declick"): [
+        ("    ar_ctx: int = 512,", "    ar_ctx: int = 512, device=None,"),
+        ("                        **find_kw)",
+         "                        device=device, **find_kw)"),
+        ("        n_fft=repair_win, feather_ms=1000.0 * hop / sr, "
+         "feather_hz=0.0)",
+         "        n_fft=repair_win, feather_ms=1000.0 * hop / sr, "
+         "feather_hz=0.0, device=device)"),
+    ],
+    ("ops.cqt", "_cqt_kernels"): [],
+    ("ops.cqt", "cqt_frequencies"): [],
+    ("ops.multitaper", "_dpss_bank"): [],
+    ("ops.reassign", "_window_and_derivatives"): [],
+    ("ops.reassign", "_reassign_bank"): [],
+    ("ops.reassign", "reassigned_spec_db"): [
+        ("    top_db: float | None = 80.0,",
+         "    top_db: float | None = 80.0, device=None,"),
+        ("        n_fft=n_fft)", "        n_fft=n_fft, device=device)"),
+        ("    db = np.asarray(power_to_db(jnp.asarray(img)))",
+         "    db = power_to_db(as_f32(img, target_device(wav, device)))"
+         ".cpu().numpy()"),
+    ],
+    ("features", "analyze"): [
+        ("def analyze(wav, sr: int) -> dict:",
+         "def analyze(wav, sr: int, *, device=None) -> dict:"),
+        ("    oracle-pinned op.  Shared by ``msv_tpu analyze`` and the "
+         "viewer's",
+         "    oracle-pinned op.  Shared by ``msv_tpu_torch analyze`` and the "
+         "viewer's"),
+        ("    r128 = r128_stats(wav, sr)",
+         "    r128 = r128_stats(wav, sr, device=device)"),
+        ("    bpm, beats = beat_track(wav, sr)",
+         "    bpm, beats = beat_track(wav, sr, device=device)"),
+        ("    tonic, mode, r, _ = estimate_key(wav, sr)",
+         "    tonic, mode, r, _ = estimate_key(wav, sr, device=device)"),
+        ("    bounds = segment(wav, sr) if dur >= 4.0 else np.empty(0)",
+         "    bounds = segment(wav, sr, device=device) if dur >= 4.0 else "
+         "np.empty(0)"),
+        ("    onsets = onset_detect(wav, sr)",
+         "    onsets = onset_detect(wav, sr, device=device)"),
+        ("    f0, voiced = yin_smoothed(wav, sr, fmax=fmax)",
+         "    f0, voiced = yin_smoothed(wav, sr, fmax=fmax, device=device)"),
+        ("    spec = np.asarray(spectral_features(wav, sr))",
+         "    spec = spectral_features(wav, sr, device=device).cpu().numpy()"),
+        ("    _, (a, b) = trim(wav, sr)",
+         "    _, (a, b) = trim(wav, sr, device=device)"),
+        ("            np.asarray(wav, np.float32), sr))) if dur <= 600.0 "
+         "else None),",
+         "            np.asarray(wav, np.float32), sr, device=device))) if "
+         "dur <= 600.0 else None),"),
+    ],
 }
 
 # The native decoders: byte-for-byte copies, built by the port itself.
@@ -346,6 +424,10 @@ def test_import_pulls_in_neither_jax_nor_msv_tpu():
         "msv_tpu_torch.ops.lpc, msv_tpu_torch.ops.tonal, "
         "msv_tpu_torch.ops.segment, msv_tpu_torch.ops.transcribe, "
         "msv_tpu_torch.ops.effects, msv_tpu_torch.ops.align, "
+        "msv_tpu_torch.ops.hpss, msv_tpu_torch.ops.specedit, "
+        "msv_tpu_torch.ops.denoise, msv_tpu_torch.ops.nmf, "
+        "msv_tpu_torch.ops.declick, msv_tpu_torch.ops.cqt, "
+        "msv_tpu_torch.ops.multitaper, msv_tpu_torch.ops.reassign, "
         "msv_tpu_torch.utils.device; "
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'msv_tpu')]; print(bad); sys.exit(1 if bad else 0)"
@@ -476,12 +558,20 @@ def test_parity_torch_op_routes_run_with_tf32_off(monkeypatch, rng):
 
 def _new_routes_run_with_tf32_off(monkeypatch, x, sr):
     """Every GEMM (``@``) and convolution of the filter, reconstruction,
-    feature, rhythm and loudness routes, in both precisions, runs with
+    feature, rhythm, loudness, HPSS, denoise, spectral edit, NMF, CQT,
+    multitaper and reassignment routes, in both precisions, runs with
     TF32 off: "fast" rounds operands to bf16, it never takes TF32."""
     from msv_tpu_torch import features as F
     from msv_tpu_torch.ops import filter as FL
     from msv_tpu_torch.ops import loudness, reconstruct, rhythm
+    from msv_tpu_torch.ops.cqt import cqt
+    from msv_tpu_torch.ops.denoise import denoise
+    from msv_tpu_torch.ops.hpss import hpss
     from msv_tpu_torch.ops.mel import calc_mel_fb_default
+    from msv_tpu_torch.ops.multitaper import multitaper_spectrogram
+    from msv_tpu_torch.ops.nmf import separate
+    from msv_tpu_torch.ops.reassign import reassigned_stft
+    from msv_tpu_torch.ops.specedit import Box, spectral_edit
 
     flags = {}
     real_mm, real_conv = torch.Tensor.__matmul__, torch.nn.functional.conv1d
@@ -510,6 +600,16 @@ def _new_routes_run_with_tf32_off(monkeypatch, x, sr):
         "tempogram": lambda: rhythm.tempogram_from_envelope(
             np.abs(x[:500]), 100.0, **cpu),
         "delta": lambda: F.delta(np.ones((30, 4), np.float32), **cpu),
+        "hpss": lambda: hpss(x[:4000], 320, 80, 512, **cpu),
+        "denoise": lambda: denoise(x[:4000], 320, 80, 512, **cpu),
+        "specedit": lambda: spectral_edit(
+            x[:4000], sr, [Box(0.1, 0.2, 100, 900)], win_length=320,
+            hop_length=80, n_fft=512, **cpu),
+        "separate": lambda: separate(x[:4000], 320, 80, 512, n_iter=2,
+                                     **cpu),
+        "cqt": lambda: cqt(x, sr, fmin=220.0, n_bins=24, **cpu),
+        "multitaper": lambda: multitaper_spectrogram(x, sr, **cpu),
+        "reassign": lambda: reassigned_stft(x, sr, **cpu),
     }
     for prec in ("parity", "fast"):
         routes.update({
@@ -681,3 +781,32 @@ def test_analysis_constants_equal_jax():
                  "trim", "viterbi", "yin", "yin_smoothed"):
         assert name in msv_tpu_torch.__all__, name
         assert hasattr(msv_tpu, name), name
+
+
+@pytest.mark.parametrize("pkg", ["", ".ops"])
+def test_exports_are_msv_tpu_s(pkg):
+    """The package's and ``ops``' ``__all__`` are msv_tpu's lists, and
+    every name is bound."""
+    import importlib
+
+    port = importlib.import_module("msv_tpu_torch" + pkg)
+    ref = importlib.import_module("msv_tpu" + pkg)
+    assert sorted(port.__all__) == sorted(ref.__all__)
+    for name in port.__all__:
+        assert hasattr(port, name), name
+
+
+@pytest.mark.parametrize("n_frames,win,hop", [
+    (1, 320, 80), (9, 320, 80), (10, 320, 80), (101, 640, 160),
+    (333, 1920, 480), (77, 884, 221), (40, 100, 70), (1000, 1764, 441)])
+def test_ola_norm_equals_the_scatter_normalizer(n_frames, win, hop):
+    """``_ola_norm`` (head, one period, tail) equals ``_ola_constants``'
+    ``np.add.at`` normalizer bit for bit."""
+    from msv_tpu.ops.reconstruct import _ola_constants
+    from msv_tpu_torch.ops.reconstruct import _ola_norm
+
+    window = default_stft_window(win, 2048)
+    want = _ola_constants(n_frames, win, hop, window)[1]
+    got = _ola_norm(n_frames, win, hop, window)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert got.tobytes() == want.tobytes()

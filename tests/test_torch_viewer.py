@@ -11,8 +11,9 @@ the blend, tests/test_torch_multires.py).  Also: the error paths and
 parameter bounds, Range requests, add/remove/channel/setting, the render
 cache's generation rule, a query fuzz, the onsets, beats and loudness
 routes, and the pitch, formants, segments, notes, key and align routes
-against msv_tpu's and the direct calls, /api/analyze's and POST
-/api/process's 501, and a mirror of tests/test_viewer_contract.py on the port's page and
+against msv_tpu's and the direct calls, POST /api/process's derived
+tracks against the library calls and /api/analyze's background report
+(202, then the library report), their 400 and 404 answers, and a mirror of tests/test_viewer_contract.py on the port's page and
 routes (the page is msv_tpu's, byte for byte).
 """
 
@@ -290,14 +291,98 @@ def test_render_cache_generation_rule(wav_path, monkeypatch):
     assert c.get("/api/spec/0") == ("image/png", b"fresh")
 
 
-@pytest.mark.parametrize("path", ["/api/analyze/0", "/api/process"])
-def test_analysis_routes_answer_not_ported(path, port):
-    post = {"id": 0, "op": "hpss"} if path == "/api/process" else None
-    code, body = _err(port[0] + path, post=post)
-    route = path.split("?")[0].rstrip("0").rstrip("/")
-    assert code == 501 and json.loads(body) == {
-        "error": f"not ported: {route}"}
-    assert _get(port[0] + SPEC)[0] == 200  # still serving
+def _library_outputs(op, wav, sr, body):
+    """What POST /api/process adds for ``op``: the library call's
+    outputs, loudest part first for ``separate``."""
+    from msv_tpu_torch.config import SpecSetting, derive_stft_params
+    from msv_tpu_torch.ops.declick import declick
+    from msv_tpu_torch.ops.denoise import denoise
+    from msv_tpu_torch.ops.hpss import hpss
+    from msv_tpu_torch.ops.nmf import separate
+    from msv_tpu_torch.ops.specedit import Box, spectral_edit
+
+    p = derive_stft_params(sr, SpecSetting())
+    stft, cpu = (p.win_length, p.hop_length, p.n_fft), {"device": "cpu"}
+    if op == "declick":
+        return [declick(wav, sr, **cpu)[0]]
+    if op == "denoise":
+        return [denoise(wav, *stft, sr=sr, **cpu)]
+    if op in ("harmonic", "percussive"):
+        return [hpss(wav, *stft, **cpu)[op == "percussive"]]
+    if op == "separate":
+        parts = separate(wav, *stft, n_components=body["components"],
+                         **cpu)[0]
+        return list(parts[np.argsort(-(parts ** 2).sum(axis=1))])
+    return [spectral_edit(wav, sr, [Box(**b) for b in body["boxes"]],
+                          win_length=p.win_length, hop_length=p.hop_length,
+                          n_fft=p.n_fft, **cpu)]
+
+
+PROCESS = {
+    "denoise": {}, "declick": {}, "harmonic": {}, "percussive": {},
+    "separate": {"components": 2},
+    "specedit": {"boxes": [{"t0": 0.1, "t1": 0.3, "f0": 300, "f1": 900,
+                            "gain_db": -30.0},
+                           {"t0": 0.5, "t1": 0.52, "f0": 0, "f1": 4000,
+                            "mode": "patch"}]},
+}
+
+
+@pytest.mark.parametrize("op", sorted(PROCESS))
+def test_process_adds_the_library_call_s_track(op, port):
+    url, mt = port
+    body = {"id": 0, "op": op, **PROCESS[op]}
+    gen = json.loads(_get(url + "/api/tracks")[1])["gen"]
+    code, resp = _post(url + "/api/process", body)
+    want = _library_outputs(op, mt._track(0).wav_slice(
+        0, mt._track(0).n_samples), mt.get_sr(0), body)
+    assert code == 200 and resp["ok"] and resp["op"] == op
+    assert resp["source"] == 0 and resp["ids"] == list(
+        range(1, 1 + len(want))) and resp["id"] == 1
+    for new_id, y in zip(resp["ids"], want):
+        tr = mt._track(new_id)
+        np.testing.assert_array_equal(tr.wav_slice(0, tr.n_samples), y)
+        code, img = _get(url + f"/api/spec_crop/{new_id}?px_per_sec=80"
+                         "&height=90&start=0.2&end=0.7")
+        assert code == 200 and np.array_equal(
+            cs.png_pixels(img), mt.get_spec_image_crop(new_id, 80.0, 90,
+                                                       0.2, 0.7))
+    assert json.loads(_get(url + "/api/tracks")[1])["gen"] > gen
+
+
+@pytest.mark.parametrize("body,code", [
+    ({"id": 0, "op": "hpss"}, 400),  # msv_tpu's op names are the parts
+    ({"op": "denoise"}, 400),
+    ({"id": 7, "op": "denoise"}, 404),
+    ({"id": 0, "op": "separate", "components": 9}, 400),
+    ({"id": 0, "op": "specedit", "boxes": [{"t0": 0.1}]}, 400),
+    ({"id": 0, "op": "separate", "new_id": 5}, 400),
+    ({"id": 0, "op": "denoise", "new_id": 0}, 400),
+])
+def test_process_refuses_bad_requests(body, code, port):
+    got, text = _err(port[0] + "/api/process", post=body)
+    assert got == code and text.startswith(b"error:")
+    assert sorted(port[1].tracks) == [0]
+
+
+def test_analyze_is_pending_then_the_library_report(port):
+    from msv_tpu_torch.features import analyze
+
+    url, mt = port
+    code, body = _get(url + "/api/analyze/0")
+    assert code == 202 and json.loads(body) == {"pending": True}
+    t0 = time.time()
+    while code == 202:
+        assert time.time() - t0 < 120
+        time.sleep(0.05)
+        code, body = _get(url + "/api/analyze/0")
+    tr = mt._track(0)
+    want = dict(analyze(tr.wav_slice(0, tr.n_samples), tr.sr,
+                        device="cpu"),
+                window_s=round(tr.n_samples / tr.sr, 3))
+    assert code == 200 and json.loads(body) == json.loads(json.dumps(want))
+    got, text = _err(url + "/api/analyze/9")
+    assert got == 404 and text.startswith(b"error:")
 
 
 @pytest.fixture()
@@ -711,15 +796,13 @@ def _client_endpoints():
 
 
 def _server_routes():
-    """Routes do_GET / do_POST serve, the 501 ones included."""
+    """Routes do_GET / do_POST serve."""
     import inspect
 
     src = (inspect.getsource(V._Handler.do_GET)
            + inspect.getsource(V._Handler.do_POST))
     pat = r'url\.path(?:\s*==\s*|\.startswith\()\s*"(/api/[a-z_]+)'
-    routes = {m.group(1).rstrip("/") for m in re.finditer(pat, src)}
-    return routes | {r.rstrip("/") for r in (*V._Handler.NOT_PORTED_GET,
-                                             *V._Handler.NOT_PORTED_POST)}
+    return {m.group(1).rstrip("/") for m in re.finditer(pat, src)}
 
 
 def test_every_client_endpoint_has_a_server_route():
@@ -741,8 +824,9 @@ def test_cacheable_prefixes_are_real_routes():
 
 
 def test_not_ported_routes_are_the_analysis_routes():
-    """The 501 routes are exactly msv_tpu's routes that the port does not
-    serve yet: every msv_tpu route is served or answers 501."""
+    """Every msv_tpu route is served (the last two, /api/analyze and POST
+    /api/process, since their operations were ported): no route answers
+    "not ported"."""
     import inspect
 
     src = (inspect.getsource(JV._Handler.do_GET)
@@ -750,16 +834,8 @@ def test_not_ported_routes_are_the_analysis_routes():
     pat = r'url\.path(?:\s*==\s*|\.startswith\()\s*"(/api/[a-z_]+)'
     jax_routes = {m.group(1).rstrip("/") for m in re.finditer(pat, src)}
     assert jax_routes == _server_routes()
-    ported = _server_routes() - {r.rstrip("/") for r in (
-        *V._Handler.NOT_PORTED_GET, *V._Handler.NOT_PORTED_POST)}
-    assert ported == {
-        "/api/tracks", "/api/spec", "/api/wav", "/api/audio",
-        "/api/spec_crop", "/api/adaptive_crop", "/api/wav_crop",
-        "/api/colormap", "/api/setting", "/api/stats", "/api/colorbar",
-        "/api/freq", "/api/add", "/api/remove", "/api/channel",
-        "/api/onsets", "/api/beats", "/api/loudness", "/api/pitch",
-        "/api/formants", "/api/segments", "/api/notes", "/api/key",
-        "/api/align"}
+    assert {"/api/analyze", "/api/process"} <= _server_routes()
+    assert not [n for n in vars(V._Handler) if "not_ported" in n.lower()]
 
 
 def test_client_script_brackets_balance():
