@@ -195,7 +195,35 @@ Phases, each printing its lines:
               (one fast launch each, reports equal to the direct call), 20
               crop misses of the hour timed while the hour's job runs,
               every image equal to one at a time.
-Each path of phases 3c-11 is driven with the launch counts set to 0 just
+ 12. slice 11  the batch loader: extract_features over 96 seeded 30 s
+              mono PCM16 WAVs (16 at each of the six rates) and two 20 s
+              (padded) and two 40 s (truncated) clips, at Whisper's width
+              (whisper_log_mel, batches of 16, four decode threads; its
+              power mel is torch ops: no launch), rows and ClipMetas equal
+              to the direct decode -> resample -> whisper_log_mel of each
+              batch's group, then with log_mel_spectrogram (one fast launch
+              a batch), three clips card vs CPU (whisper within 3e-4, log-mel
+              within the fast bound); wall, clips/s, the pool's summed
+              decode time and the feature calls' CUDA-event time; the
+              engine: the seven songs under set_engine("xla") (no launch,
+              planes by f32_agree against "auto"), render --engine xla (PNGs
+              equal to the "xla" session's images), both sessions'
+              add_tracks.kernel_minmax stage times; the mesh on one card
+              (meshes listing cuda:0 1, 4 or 8 times: overhead, not
+              scaling): sharded_spec_pipeline of 8 x 240 s at 48 kHz on
+              (1, 1) and (2, 4) against the unsharded plain pipeline
+              (f32_agree, range within 1e-3 dB), sharded_streaming_spec_db of
+              phase 5's hour on (1, 1) and (1, 4) against streaming_spec_db
+              (f32_agree), freq_sharded_spec of the 48 kHz song, mel and
+              linear, on (1, 1) and (1, 4), sharded_envelope_minmax of the
+              hour at 1200 and 4096 columns bit-equal to the single-device
+              envelope, log_mel_spectrogram of a dp-split 8 x 30 s batch
+              (one fast launch a shard, equal to the unsplit call), each wall
+              beside its unsharded twin; initialize_distributed at world
+              size 1 on NCCL (a free localhost port), make_global_mesh(1, 1)
+              and one sharded_spec_pipeline step equal to the step without a
+              process group.
+Each path of phases 3c-12 is driven with the launch counts set to 0 just
 before it and read just after; comparisons run outside those windows.  The
 second-to-last line is a JSON object describing each kernel (its bound is
 computed from this run's shapes against the H100 SXM's published peaks);
@@ -3374,6 +3402,412 @@ def phase_analysis3(K, smi, song, hour, eight, front, work, dev="cuda"):
     return legs
 
 
+CLIP_SECONDS = 30.0
+CLIPS_PER_RATE = 16
+WHISPER_ATOL = 3e-4  # tests/test_features.py:279, in log10/4 units
+
+
+def write_clip_corpus(rng, d):
+    """The loader's corpus: CLIPS_PER_RATE 30 s mono PCM16 WAVs at each of
+    the six rates, two 20 s clips at 16 kHz (padded) and two 40 s at 48 kHz
+    (truncated): a tone over noise, each clip its own."""
+    from msv_tpu_torch.io.audio import write_wav
+
+    plan = [(sr, CLIP_SECONDS) for sr in RATES
+            for _ in range(CLIPS_PER_RATE)]
+    plan += [(16000, 20.0)] * 2 + [(48000, 40.0)] * 2
+    paths = []
+    for i, (sr, sec) in enumerate(plan):
+        n = int(sec * sr)
+        t = np.arange(n, dtype=np.float32) / np.float32(sr)
+        x = np.float32(0.3) * np.sin(np.float32(2 * np.pi * rng.uniform(
+            100, 2000)) * t)
+        x += np.float32(0.05) * rng.standard_normal(n, dtype=np.float32)
+        paths.append(os.path.join(d, f"clip{i:03d}_{sr}.wav"))
+        write_wav(paths[-1], x[None], sr, bits=16)
+    return paths
+
+
+def phase_slice11(K, smi, song, hour, work, dev="cuda"):
+    """12: the batch loader, the engine switch and the mesh."""
+    import torch.distributed as dist
+
+    from msv_tpu_torch import (MultiTrack, log_mel_spectrogram,
+                               whisper_log_mel)
+    from msv_tpu_torch.config import (SpecSetting, derive_stft_params,
+                                      set_engine)
+    from msv_tpu_torch.data import AudioBatcher, extract_features
+    from msv_tpu_torch.io.audio import open_audio_mono_ex, open_wav_mmap
+    from msv_tpu_torch.kernels.pipeline import spec_pipeline_batched
+    from msv_tpu_torch.ops.framing import n_frames_for, reflect_pad_center
+    from msv_tpu_torch.ops.resample import resample
+    from msv_tpu_torch.parallel import (make_mesh, sharded_envelope_minmax,
+                                        sharded_spec_pipeline,
+                                        sharded_streaming_spec_db,
+                                        streaming_spec_db)
+    from msv_tpu_torch.parallel.multihost import (initialize_distributed,
+                                                  make_global_mesh)
+    from msv_tpu_torch.parallel.sharded import freq_sharded_spec, shard_array
+    from msv_tpu_torch.render.envelope import (_chunked_window_minmax,
+                                               column_windows)
+
+    legs = []
+    t_phase = time.perf_counter()
+    card = torch.device(dev, 0)
+    dv = ["--device", dev]
+    d = tempfile.mkdtemp(prefix="msv_chip_slice11_", dir=work)
+
+    # ---- 1. the loader at Whisper's width
+    rng = np.random.default_rng(SEED + 12)
+    t0 = time.perf_counter()
+    corpus = write_clip_corpus(rng, d)
+    print(f"[loader] wrote {len(corpus)} mono PCM16 WAVs in "
+          f"{time.perf_counter() - t0:.2f} s")
+    decode_s, lock = [0.0], threading.Lock()
+    real_decode = AudioBatcher._decode
+
+    def timed_decode(self, path):
+        t0 = time.perf_counter()
+        try:
+            return real_decode(self, path)
+        finally:
+            with lock:
+                decode_s[0] += time.perf_counter() - t0
+
+    def run(fn, name):
+        """One counted extract_features run over the corpus: rows, metas,
+        batch sizes, wall, the pool's decode seconds and the feature
+        calls' CUDA-event milliseconds."""
+        sizes, events = [], []
+
+        def feats(b):
+            sizes.append(b.shape[0])
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            e0.record()
+            out = fn(b)
+            e1.record()
+            events.append((e0, e1))
+            return out
+
+        decode_s[0] = 0.0
+        AudioBatcher._decode = timed_decode
+        try:
+            torch.cuda.synchronize()
+            reset_counts(K)
+            t0 = time.perf_counter()
+            rows, metas = extract_features(
+                corpus, feats, target_sr=16000, clip_seconds=CLIP_SECONDS,
+                batch_size=16, workers=4, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = read_counts(K)
+        finally:
+            AudioBatcher._decode = real_decode
+        feat_ms = sum(a.elapsed_time(b) for a, b in events)
+        legs.append((f"loader {name}", n))
+        print(f"[loader] {smi}; extract_features({name}) of {len(rows)} "
+              f"clips in {len(sizes)} batches {sizes}: wall {wall:.3f} s "
+              f"({len(rows) / wall:.1f} clips/s), the pool's decode "
+              f"{decode_s[0]:.3f} s summed over 4 threads, the feature "
+              f"calls {feat_ms:.1f} ms (CUDA events)")
+        return rows, metas, sizes, n
+
+    rows, metas, sizes, n = run(whisper_log_mel, "whisper_log_mel")
+    check(n == counts(), f"whisper_log_mel batches launched {n}: its power "
+          "mel runs as torch ops")
+    check(len(rows) == len(corpus) and sorted(m.path for m in metas)
+          == sorted(corpus), "extract_features: every clip once")
+    check(all(r.shape == (80, 3000) for r in rows), "whisper rows' shape")
+    n_clip = {sr: int(round(CLIP_SECONDS * sr)) for sr in RATES}
+
+    def direct(group, device):
+        """decode -> pad/truncate -> resample of one group on ``device``,
+        and its ClipMetas' fields."""
+        wavs, fields = [], []
+        for path in group:
+            x, sr, _, _, n_ch = open_audio_mono_ex(path)
+            want = n_clip[sr]
+            fields.append((path, sr, len(x), n_ch, len(x) > want))
+            wavs.append(x[:want] if len(x) > want
+                        else np.pad(x, (0, want - len(x))))
+        x = torch.from_numpy(np.stack(wavs).astype(np.float32)).to(device)
+        return (x if fields[0][1] == 16000
+                else resample(x, fields[0][1], 16000)), fields
+
+    starts = np.cumsum([0, *sizes])
+    for a, b in zip(starts[:-1], starts[1:]):
+        x, fields = direct([m.path for m in metas[a:b]], card)
+        want = whisper_log_mel(x).cpu().numpy()
+        check(all(tuple(vars(m).values()) == f
+                  for m, f in zip(metas[a:b], fields)),
+              f"batch rows {a}-{b}: ClipMetas != the direct decode's")
+        check(np.array_equal(np.stack(rows[a:b]), want),
+              f"batch rows {a}-{b}: whisper rows != the direct decode -> "
+              "resample -> whisper_log_mel of the group")
+    fast_rows, fast_metas, fast_sizes, n = run(
+        lambda b: log_mel_spectrogram(b, 16000, n_mel=80), "log_mel fast")
+    check(n == counts(fast=len(fast_sizes)),
+          f"log_mel batches: launches {n}, expected one fast launch a "
+          f"batch ({len(fast_sizes)})")
+    check([m.path for m in fast_metas] == [m.path for m in metas],
+          "the two loader runs' order")
+    # three full clips, card against CPU
+    notes = []
+    for i in (0, 3 * CLIPS_PER_RATE, len(RATES) * CLIPS_PER_RATE - 1):
+        path = metas[i].path
+        xs = [direct([path], v)[0] for v in (dev, "cpu")]
+        w = [whisper_log_mel(x).cpu() for x in xs]
+        e_w = float((w[0] - w[1]).abs().max())
+        lm = [log_mel_spectrogram(x, 16000, n_mel=80).cpu() for x in xs]
+        err = (lm[0] - lm[1]).abs()
+        e_max, e_p99 = err.max().item(), quantile(err, 0.99)
+        check(e_w <= WHISPER_ATOL and e_max < GREY_STEP and e_p99 < 0.01,
+              f"{path}: card vs CPU whisper {e_w:.3g}, fast log-mel max "
+              f"{e_max:.3g} p99 {e_p99:.3g} dB")
+        notes.append(f"{metas[i].sr} Hz whisper {e_w:.2g}, log-mel max "
+                     f"{e_max:.3g} p99 {e_p99:.2g} dB")
+    print(f"[loader] rows and ClipMetas == the direct decode -> resample -> "
+          f"whisper_log_mel of each batch's group; log-mel: one fast launch "
+          f"a batch; card vs CPU (whisper bound {WHISPER_ATOL:g}, fast "
+          f"bound {GREY_STEP} dB max, 0.01 dB p99): " + "; ".join(notes))
+    del rows, fast_rows
+    torch.cuda.empty_cache()
+
+    # ---- 2. the engine: the seven songs under "xla" against "auto"
+    paths, _, _, _ = song
+    ids = list(range(len(paths)))
+
+    def session():
+        mt = MultiTrack(device=dev)
+        mt.add_tracks(ids, paths)
+        return mt
+
+    auto, n = counted(K, session)
+    check(n == counts(6), f"'auto' session: launches {n}")
+    legs.append(("engine auto session", n))
+    set_engine("xla")
+    try:
+        xla, n = counted(K, session)
+        check(n == counts(), f"'xla' session: launches {n}, expected none")
+        legs.append(("engine xla session", n))
+        errs = [check_f32(torch.from_numpy(xla.get_spec_db(i)),
+                          torch.from_numpy(auto.get_spec_db(i)),
+                          f"'xla' track {i} against 'auto'")[0] for i in ids]
+        imgs = [xla.get_spec_image(i, 100.0, 500) for i in ids]
+    finally:
+        set_engine("auto")
+    out = os.path.join(d, "render_xla")
+    (rc, log, render_s), n = counted(K, lambda: run_cli(
+        ["render", *paths, "--engine", "xla", "--no-wav", "-o", out, *dv]))
+    check(rc == 0, f"render --engine xla: exit {rc}; {log}")
+    check(n == counts(), f"render --engine xla: launches {n}")
+    legs.append(("cli render --engine xla", n))
+    for i, p in enumerate(paths):
+        stem = os.path.splitext(os.path.basename(p))[0]
+        check(np.array_equal(png_pixels(os.path.join(out, f"spec_{stem}.png")),
+                             imgs[i]),
+              f"render --engine xla: track {i} != the 'xla' session's image")
+    stage = {name: mt.timer.summary()["add_tracks.kernel_minmax"]
+             for name, mt in (("auto", auto), ("xla", xla))}
+    print(f"[engine] {smi}; seven-song add, add_tracks.kernel_minmax "
+          f"(launch or plain version, masked min/max, one sync; host clock): "
+          + "; ".join(f"{k} {v['total_s']:.4f} s over {v['calls']} groups"
+                      for k, v in stage.items())
+          + f"; 'xla' planes against 'auto' max|err| {max(errs):.3g} dB "
+          f"(f32_agree), no launch; render --engine xla {render_s:.3f} s, "
+          f"PNGs == the 'xla' session's images")
+    del auto, xla
+    torch.cuda.empty_cache()
+
+    # ---- 3. the mesh on one card: meshes of cuda:0
+    card8 = [card] * 8
+    rng = np.random.default_rng(SEED + 13)
+    p48 = derive_stft_params(48000, SpecSetting())
+    win, hop = p48.win_length, p48.hop_length
+    _, _, (c, s, fb) = operands(48000, dev)
+    c_np, s_np, fb_np = (t.cpu().numpy() for t in (c, s, fb))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    n_sec = int(SECONDS * 48000)
+    t = np.arange(n_sec, dtype=np.float32) / np.float32(48000)
+    wavs = np.stack([np.float32(0.3) * np.sin(np.float32(
+        2 * np.pi * rng.uniform(100, 3000)) * t) + np.float32(0.05)
+        * rng.standard_normal(n_sec, dtype=np.float32) for _ in range(8)])
+    del t
+    n_frames = n_frames_for(n_sec, win, hop)
+    padded = np.stack([reflect_pad_center(w, win) for w in wavs])
+    need = (n_frames + 4) * hop + win
+    padded = np.pad(padded, ((0, 0), (0, need - padded.shape[1])))
+    (ref, rmin, rmax), plain_s = timed(lambda: spec_pipeline_batched(
+        torch.from_numpy(padded).to(dev), c, s, fb,
+        torch.full((8,), n_frames, device=dev), win=win, hop=hop,
+        n_frames=n_frames, use_mel=True, mode="parity"))
+    rmin, rmax = float(rmin.min()), float(rmax.max())
+    walls = [f"8 x {SECONDS:.0f} s at 48 kHz unsharded (spec_pipeline_"
+             f"batched) {plain_s:.3f} s"]
+    for shape in ((1, 1), (2, 4)):
+        (db, lo, hi, n_total), n = counted(K, lambda: timed(
+            lambda: sharded_spec_pipeline(make_mesh(*shape, card8), padded,
+                                          win, hop, c_np, s_np, fb_np,
+                                          n_frames))[0])
+        _, wall = timed(lambda: sharded_spec_pipeline(
+            make_mesh(*shape, card8), padded, win, hop, c_np, s_np, fb_np,
+            n_frames))
+        check(n == counts(), f"sharded_spec_pipeline {shape}: launches {n}")
+        legs.append((f"mesh sharded_spec_pipeline {shape}", n))
+        check(len(db.shards) == shape[0] * shape[1] and n_total >= n_frames,
+              f"sharded_spec_pipeline {shape}: {len(db.shards)} shards")
+        check_f32(db.gather()[:, :n_frames], ref,
+                  f"sharded_spec_pipeline {shape} against the plain pipeline")
+        check(abs(float(lo) - rmin) <= 1e-3 and abs(float(hi) - rmax) <= 1e-3,
+              f"sharded_spec_pipeline {shape}: range [{float(lo)}, "
+              f"{float(hi)}] against [{rmin}, {rmax}]")
+        walls.append(f"{shape} {wall:.3f} s")
+        del db
+    del ref, padded
+    torch.cuda.empty_cache()
+    print(f"[mesh] {smi}; one card, every shard on cuda:0 (overhead, not "
+          f"scaling): sharded_spec_pipeline walls (second run, host clock "
+          f"to a sync): " + "; ".join(walls) + "; planes by f32_agree, "
+          "range within 1e-3 dB, no launch")
+
+    # the streamed hour
+    hour_i16 = np.asarray(open_wav_mmap(hour)[0])
+    ops48 = (c, s, fb)
+    (one, n_hour, lo1, hi1), one_s = timed(lambda: streaming_spec_db(
+        hour_i16, win, hop, *ops48))
+    walls = [f"streaming_spec_db (the parity kernel) {one_s:.3f} s"]
+    for shape in ((1, 1), (1, 4)):
+        ((db, n_m, lo, hi), wall), n = counted(K, lambda: timed(
+            lambda: sharded_streaming_spec_db(make_mesh(*shape, card8),
+                                              hour_i16, win, hop, c_np, s_np,
+                                              fb_np)))
+        check(n == counts(), f"sharded_streaming_spec_db {shape}: launches "
+              f"{n}")
+        legs.append((f"mesh sharded_streaming_spec_db {shape}", n))
+        check(n_m == n_hour, f"sharded_streaming_spec_db {shape}: "
+              f"{n_m} frames, streaming {n_hour}")
+        check_f32(db.gather()[:n_hour], one[:n_hour],
+                  f"sharded_streaming_spec_db {shape} against streaming")
+        check(abs(hi - hi1) <= ATOL, f"sharded streaming {shape}: max "
+              f"{hi} against {hi1}")
+        walls.append(f"{shape} {wall:.3f} s")
+        del db
+    del one
+    torch.cuda.empty_cache()
+
+    # the frequency-sharded song, mel and linear
+    song48 = open_audio_mono_ex(paths[-1])[0].astype(np.float32)
+    n48 = n_frames_for(len(song48), win, hop)
+    p_song = torch.from_numpy(reflect_pad_center(song48, win)).to(dev)[None]
+    for use_mel in (True, False):
+        m = fb if use_mel else None
+        (want, _, _), plain_s = timed(lambda: spec_pipeline_batched(
+            p_song, c, s, m, torch.full((1,), n48, device=dev), win=win,
+            hop=hop, n_frames=n48, use_mel=use_mel, mode="parity"))
+        for shape in ((1, 1), (1, 4)):
+            ((db, n_f), wall), n = counted(K, lambda: timed(
+                lambda: freq_sharded_spec(make_mesh(*shape, card8), song48,
+                                          win, hop, c_np, s_np,
+                                          fb_np if use_mel else None)))
+            name = f"freq_sharded_spec {'mel' if use_mel else 'linear'} "
+            check(n == counts(), f"{name}{shape}: launches {n}")
+            legs.append((f"mesh {name}{shape}", n))
+            check(n_f == n48, f"{name}{shape}: {n_f} frames")
+            check_f32(db, want[0], f"{name}{shape} against the plain "
+                      "pipeline")
+            walls.append(f"{name}{shape} {wall:.3f} s (unsharded "
+                         f"{plain_s:.3f} s)")
+    del p_song
+    # the hour's envelope
+    hour_f32 = hour_i16.astype(np.float32) * np.float32(2.0**-15)
+    dev_hour = torch.from_numpy(hour_f32).to(dev)
+    n_h = len(hour_f32)
+    for n_cols in (1200, 4096):
+        st, en = column_windows(np.arange(n_cols, dtype=np.float32), n_cols,
+                                n_h, n_h)
+        (want, one_s) = timed(lambda: _chunked_window_minmax(
+            dev_hour, torch.from_numpy(st).to(dev),
+            torch.from_numpy(en).to(dev), int((en - st).max())))
+        want = [w.cpu().numpy() for w in want]
+        for shape in ((1, 1), (2, 4)):
+            ((mx, mn), wall), n = counted(K, lambda: timed(
+                lambda: sharded_envelope_minmax(make_mesh(*shape, card8),
+                                                hour_f32, n_cols)))
+            check(n == counts(), f"sharded envelope {shape}: launches {n}")
+            legs.append((f"mesh sharded_envelope_minmax {shape} {n_cols}",
+                         n))
+            check(np.array_equal(mx, want[0]) and np.array_equal(mn, want[1]),
+                  f"sharded envelope {shape} at {n_cols} columns != the "
+                  "single-device envelope")
+            walls.append(f"envelope {n_cols} cols {shape} {wall:.3f} s "
+                         f"(single device {one_s:.3f} s)")
+    del dev_hour, hour_f32
+    torch.cuda.empty_cache()
+
+    # the log-mel frontend on a dp-split batch
+    # 8 x 30 s at 16 kHz, on the card before either call is timed
+    x = torch.from_numpy(np.stack([wavs[i, : 30 * 48000][::3]
+                                   for i in range(8)])).to(dev)
+    log_mel_spectrogram(x, 16000)  # the frontend's operands, made once
+    whole, whole_s = timed(lambda: log_mel_spectrogram(x, 16000))
+    for shape in ((1, 1), (2, 4)):
+        mesh = make_mesh(*shape, card8)
+        batch = shard_array(x, mesh, ("dp", None))
+        (got, wall), n = counted(K, lambda: timed(
+            lambda: log_mel_spectrogram(batch, 16000)))
+        check(n == counts(fast=shape[0]), f"log_mel dp-split {shape}: "
+              f"launches {n}, expected one fast launch a shard")
+        legs.append((f"mesh log_mel_spectrogram {shape}", n))
+        check(torch.equal(got.gather(), whole),
+              f"log_mel dp-split {shape} != the unsplit call")
+        walls.append(f"log_mel 8 x 30 s dp-split {shape} {wall:.4f} s "
+                     f"(unsplit {whole_s:.4f} s)")
+    print(f"[mesh] {smi}; " + "; ".join(walls) + "; the hour's planes by "
+          "f32_agree against streaming's, the envelopes bit-equal to the "
+          "single-device envelope, the split log-mel batch == the unsplit "
+          "call")
+
+    # ---- 4. torch.distributed on one card: a group of one on NCCL
+    small = np.stack([reflect_pad_center(w[:30 * 48000], win)
+                      for w in wavs[:2]])
+    n_small = n_frames_for(30 * 48000, win, hop)
+    small = np.pad(small, ((0, 0), (0, 4 * hop)))
+    solo = sharded_spec_pipeline(make_mesh(1, 1, [card]), small, win, hop,
+                                 c_np, s_np, fb_np, n_small)
+    initialize_distributed(f"localhost:{free_port()}")
+    try:
+        backend = dist.get_backend()
+        check(dist.get_world_size() == 1
+              and backend == ("nccl" if dev == "cuda" else "gloo"),
+              f"process group: {backend}, {dist.get_world_size()}")
+        mesh = make_global_mesh(1, 1, [card])
+        (db, lo, hi, n_total), n = counted(K, lambda: sharded_spec_pipeline(
+            mesh, small, win, hop, c_np, s_np, fb_np, n_small))
+        check(n == counts(), f"distributed step: launches {n}")
+        legs.append(("distributed sharded_spec_pipeline", n))
+        check(torch.equal(db.gather(), solo[0].gather())
+              and float(lo) == float(solo[1])
+              and float(hi) == float(solo[2]) and n_total == solo[3],
+              "the step in a process group != the step without one")
+    finally:
+        dist.destroy_process_group()
+    print(f"[distributed] {smi}; initialize_distributed at world size 1 on "
+          f"{backend} (localhost), make_global_mesh(1, 1) over "
+          f"{[str(d_) for d_ in mesh.devices.flat]}, one "
+          f"sharded_spec_pipeline step (2 x 30 s at 48 kHz, all_reduce of "
+          f"the range) == the step without a process group")
+    torch.cuda.empty_cache()
+    print(f"[slice11] phase 12 in {time.perf_counter() - t_phase:.1f} s")
+    return legs
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
@@ -3408,6 +3842,7 @@ def main():
         paths += phase_analysis(K, smi, song, hour, eight, front, work)
         paths += phase_analysis2(K, smi, song, hour, eight, front, work)
         paths += phase_analysis3(K, smi, song, hour, eight, front, work)
+        paths += phase_slice11(K, smi, song, hour, work)
     launches = {m: sum(n[m] for _, n in paths) for m in K.MODES}
     print("[launches] main-path launches by path (parity, fast, split): "
           + json.dumps({name: [n[m] for m in K.MODES] for name, n in paths}))

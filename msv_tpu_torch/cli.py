@@ -1397,9 +1397,6 @@ def _render_cmd(args):
     from .io.png import write_png
     from .utils.errors import MsvError
 
-    if args.engine == "xla":
-        raise MsvError("--engine xla is not ported: the port has one mel "
-                       "engine, the CUDA kernel (auto and pallas run it)")
     if args.db_wire is not None:
         try:
             check_db_wire(args.db_wire)
@@ -1534,13 +1531,19 @@ def _main(argv=None):
                      device=args.device)
         return 0
 
-    # render: --fast holds for this command only
-    from .config import precision_mode_scope
+    # render: --fast and --engine hold for this command only
+    from .config import get_engine, precision_mode_scope, set_engine
 
-    if args.fast:
-        with precision_mode_scope("fast"):
-            return _render_cmd(args)
-    return _render_cmd(args)
+    engine = get_engine()
+    if args.engine != "auto":
+        set_engine(args.engine)
+    try:
+        if args.fast:
+            with precision_mode_scope("fast"):
+                return _render_cmd(args)
+        return _render_cmd(args)
+    finally:
+        set_engine(engine)
 
 
 if __name__ == "__main__":

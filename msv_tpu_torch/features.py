@@ -21,10 +21,12 @@ batched ``(B, L)`` launch; every other ``log``/``spec`` runs
 the other features, which msv_tpu also left to XLA.  Every GEMM runs in
 ``precision_for("parity")`` (TF32 off); "fast" rounds its operands to bf16
 first.  The kernel takes every hop, so msv_tpu's routing on ``win % hop``
-and the engine switch (a TPU constraint) are not carried over, nor are its
-128-frame buckets (no program is keyed on shape here; the pad frames are
-sliced off); the ``shard_map`` route waits for multi-GPU (ROADMAP queue 1
-item 11).  ``_dct2_matrix``, ``_contrast_bands``, ``chroma_filterbank``,
+(a TPU constraint) is not carried over, nor are its 128-frame buckets (no
+program is keyed on shape here; the pad frames are sliced off).  Under
+``config.set_engine("xla")`` the fused route runs the kernel's plain
+version on the same device.  A dp-split ``ShardedArray`` batch runs one
+launch per shard and keeps its split (msv_tpu's ``shard_map`` route).
+``_dct2_matrix``, ``_contrast_bands``, ``chroma_filterbank``,
 ``_peak_pick`` and ``analyze`` (with named line edits: each op's device)
 are copies of msv_tpu's host code, pinned by tests/test_torch_host.py.
 ``analyze`` opens no precision scope of its own: each op keeps its own
@@ -38,9 +40,10 @@ import math
 import numpy as np
 import torch
 
-from .config import (get_precision_mode, precision_for,
+from .config import (get_engine, get_precision_mode, precision_for,
                      precision_mode_is_explicit)
-from .kernels.spectrogram_cuda import (mel_spectrogram_cuda, operands_bf16,
+from .kernels.spectrogram_cuda import (mel_spectrogram_cuda,
+                                       mel_spectrogram_plain, operands_bf16,
                                        operands_from_numpy, prepare_operands,
                                        round_bf16)
 from .ops.decibel import amp_to_db, power_to_db
@@ -50,6 +53,7 @@ from .ops.mel import calc_mel_fb
 from .ops.scan import _f32, pole_scan
 from .ops.stft import frame_device
 from .ops.windows import hann
+from .parallel.sharded import Shard, ShardedArray
 from .utils import next_pow2
 from .utils.device import as_f32
 
@@ -214,7 +218,42 @@ def log_mel_spectrogram(
     ``wav`` may be a tensor: it stays on its device and is padded there (the
     device-resident form).  A numpy ``wav`` is padded on the host and
     shipped to ``device`` (default "cuda"; "cpu" runs the plain versions).
+
+    ``wav`` may also be a ``parallel.sharded.ShardedArray`` (B, L): split
+    on its first axis only, with the rows dividing evenly, each shard runs
+    its own launch on its device and the result keeps that split (a
+    ``ShardedArray`` (B, n_frames, n_mel)); any other split is gathered to
+    its first device and runs the torch-op core, as msv_tpu's partitioned
+    XLA route does.  Under ``config.set_engine("xla")`` the fused route
+    runs the kernel's plain version on the same device.
     """
+    kw = dict(n_mel=n_mel, win_length=win_length, hop_length=hop_length,
+              n_fft=n_fft, win_ms=win_ms, hop_ms=hop_ms, fmin=fmin,
+              fmax=fmax, mel_norm=mel_norm, log=log, top_db=top_db,
+              precision=precision, spec=spec, device=device)
+    if isinstance(wav, ShardedArray):
+        return _log_mel_sharded(wav, sr, kw)
+    return _log_mel(wav, sr, **kw)
+
+
+def _log_mel_sharded(wav, sr, kw):
+    """:func:`log_mel_spectrogram` of a sharded (B, L) batch."""
+    axis = wav.spec[0]
+    if (wav.ndim != 2 or not isinstance(axis, str) or wav.spec[1] is not None
+            or wav.shape[0] % wav.mesh.shape[axis]):
+        return _log_mel(wav.gather(), sr, fused=False,
+                        **dict(kw, device=None))
+    shards = [Shard((sh.index[0], slice(None), slice(None)),
+                    _log_mel(sh.data, sr, **dict(kw, device=None)))
+              for sh in wav.shards]
+    n_frames, n_out = shards[0].data.shape[1:]
+    return ShardedArray((wav.shape[0], n_frames, n_out), wav.mesh,
+                        (axis, None, None), shards)
+
+
+def _log_mel(wav, sr, *, n_mel, win_length, hop_length, n_fft, win_ms,
+             hop_ms, fmin, fmax, mel_norm, log, top_db, precision, spec,
+             device, fused=True):
     wav, squeeze, device = _batch(wav, device)
     win_length, hop_length, n_fft = _geometry(sr, win_length, hop_length,
                                               n_fft, win_ms, hop_ms)
@@ -222,15 +261,18 @@ def log_mel_spectrogram(
 
     padded = pad_batch(wav, win_length).to(device)
     n_frames = n_frames_for(wav.shape[1], win_length, hop_length)
-    fused = log == "amp_db" and spec == "magnitude"
+    fused = fused and log == "amp_db" and spec == "magnitude"
     setting = (sr, win_length, n_fft, n_mel, float(fmin),
                None if fmax is None else float(fmax), mel_norm)
-    if fused:
+    frames = dict(win=win_length, hop=hop_length, n_frames=n_frames,
+                  mode=precision)
+    if fused and get_engine() == "xla":
+        out = mel_spectrogram_plain(
+            padded, *feature_operands(*setting, precision, device), **frames)
+    elif fused:
         out = mel_spectrogram_cuda(
             padded.contiguous(),
-            feature_kernel_operands(*setting, precision, device),
-            win=win_length, hop=hop_length, n_frames=n_frames,
-            mode=precision)
+            feature_kernel_operands(*setting, precision, device), **frames)
     else:
         c, s, fb = feature_operands(*setting, "parity", device)
         out = _features_core(padded, c, s, fb, win=win_length,

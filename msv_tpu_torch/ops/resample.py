@@ -80,6 +80,15 @@ def _polyphase_weights(up: int, down: int, beta: float):
     return w.astype(np.float32), t_min
 
 
+@functools.lru_cache(maxsize=64)
+def _device_taps(up: int, down: int, beta: float, device):
+    """The (up, 1, W) taps of ``_polyphase_weights`` on ``device``, shipped
+    once: a copy from pageable memory would wait for the device at every
+    call."""
+    return torch.from_numpy(_polyphase_weights(up, down, beta)[0]).to(
+        device)[:, None, :]
+
+
 def resample_poly(x, up: int, down: int, *, beta: float = 5.0, device=None):
     """Resample the last axis by the rational factor ``up / down``.
 
@@ -111,7 +120,7 @@ def resample_poly(x, up: int, down: int, *, beta: float = 5.0, device=None):
     take = min(n_in - src, need - lo)
     if take > 0:
         xp[:, 0, lo:lo + take] = x2[:, src:src + take]
-    taps = torch.from_numpy(w).to(x.device)[:, None, :]
+    taps = _device_taps(up, down, float(beta), x.device)
     with precision_for("parity"):
         y = torch.nn.functional.conv1d(xp, taps, stride=down)  # (B, up, M)
     y = y.transpose(1, 2).reshape(x2.shape[0], n_blocks * up)[:, :n_out]

@@ -7,7 +7,8 @@ A long file (an hour at 48 kHz is 360 000 frames) is cut into segments of
 reflect-padded signal (``padded_slice``).  Every segment is one launch of
 the fused mel dB kernel (``kernels/spectrogram_cuda.py``, the parity or the
 fast kernel) writing its rows of one preallocated ``(n_total, n_out)``
-plane, so no hour-long intermediate and no concatenation exists.  Without
+plane, so no hour-long intermediate and no concatenation exists (under the
+"xla" engine, the kernel's plain version writes those rows).  Without
 the filterbank (``mel_fb=None``, the linear scale) or with ``impl="fft"``,
 each segment runs msv_tpu's per-chunk XLA step as torch ops instead (the
 DFT GEMM pair or ``torch.fft.rfft``, magnitude, [mel GEMM], log10 dB),
@@ -25,9 +26,10 @@ samples.
 import numpy as np
 import torch
 
-from ..config import get_precision_mode, precision_for
+from ..config import get_engine, get_precision_mode, precision_for
 from ..kernels.spectrogram_cuda import (MelOperands, mel_spectrogram_cuda,
-                                        operands_bf16, prepare_operands)
+                                        mel_spectrogram_plain, operands_bf16,
+                                        prepare_operands)
 from ..ops.decibel import amp_to_db
 from ..ops.framing import n_frames_for
 from ..ops.stft import dft_magnitude, frame_device
@@ -88,21 +90,21 @@ def padded_slice(src, a: int, b: int, half: int, n: int, dtype=np.int16):
     return out  # anything beyond stays zero (bucket tail)
 
 
-def _device_operands(c, s, mel_fb, device, mode, kernel=True):
-    """The operands on ``device``.  For the kernel, ``mode``'s prepared
-    record (``prepare_operands``), made once for all segments: ``c`` may be
-    that record already (``s`` and ``mel_fb`` then None; its device is the
-    one used), else tensors are
+def _device_operands(c, s, mel_fb, device, mode, route="kernel"):
+    """The operands of ``route`` (``_check_route``) on ``device``.  For the
+    kernel, ``mode``'s prepared record (``prepare_operands``), made once
+    for all segments: ``c`` may be that record already (``s`` and
+    ``mel_fb`` then None; its device is the one used), else tensors are
     taken as they are, numpy arrays are shipped as f32, and f32 for fast
-    mode are rounded to bf16 here.  The torch-op route takes (C, S, fb) in
-    f32.  ``mel_fb`` may be None (no filterbank)."""
+    mode are rounded to bf16 here.  The other routes take (C, S, fb) in
+    f32, the kernel's plain version also those of a record.  ``mel_fb``
+    may be None (no filterbank)."""
     if isinstance(c, MelOperands):  # the segments go to its device
-        if not kernel or c.mode != mode:
+        if route == "torch" or c.mode != mode:
             raise ValueError(
                 f"operands prepared for the {c.mode!r} kernel do not fit "
-                f"this call (mode {mode!r}, "
-                f"{'kernel' if kernel else 'torch-op'} route)")
-        return c
+                f"this call (mode {mode!r}, {route} route)")
+        return c if route == "kernel" else (c.c, c.s, c.fb)
     if device is None:
         if not isinstance(c, torch.Tensor):
             raise ValueError("streaming needs a device: pass device=, or "
@@ -114,7 +116,7 @@ def _device_operands(c, s, mel_fb, device, mode, kernel=True):
         else torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
         for a in (c, s, mel_fb)
     )
-    if not kernel:
+    if route != "kernel":
         return tuple(None if a is None else a.to(torch.float32) for a in ops)
     if mode == "fast" and ops[0].dtype != torch.bfloat16:
         ops = operands_bf16(*ops)
@@ -127,8 +129,9 @@ def _fb_of(c, mel_fb):
 
 
 def _check_route(mel_fb, impl, transfer, n_fft=None, window=None):
-    """Whether the route is the fused kernel (True) or torch ops (False);
-    raises on what no route takes."""
+    """The route: "kernel" (the fused kernel), "plain" (its plain version,
+    under ``config.set_engine("xla")``) or "torch" (msv_tpu's per-chunk
+    step as torch ops); raises on what no route takes."""
     if impl not in ("dft", "pallas", "fft"):
         raise ValueError(f"unknown impl: {impl!r}")
     if impl == "fft" and (n_fft is None or window is None):
@@ -141,7 +144,9 @@ def _check_route(mel_fb, impl, transfer, n_fft=None, window=None):
             f"wire codec); 'auto' and 'raw' ship raw samples")
     if transfer not in ("auto", "raw"):
         raise ValueError(f"unknown transfer: {transfer!r}")
-    return impl != "fft" and mel_fb is not None
+    if impl == "fft" or mel_fb is None:
+        return "torch"
+    return "plain" if get_engine() == "xla" else "kernel"
 
 
 def _torch_segment(seg, ops, out, *, win, hop, chunk_frames, scale, window,
@@ -172,9 +177,10 @@ def _torch_segment(seg, ops, out, *, win, hop, chunk_frames, scale, window,
 
 def _run_segments(make_seg, seg_plan, n_frames, win, hop, ops, chunk_frames,
                   *, mode, keep_wav=False, scale=_PCM16_SCALE, window=None,
-                  n_fft=None):
+                  n_fft=None, route="kernel"):
     """Segment k's host slice -> device -> one kernel launch (``ops`` a
-    prepared record) or the torch-op step (``ops`` = (C, S, fb)) into rows
+    prepared record), the kernel's plain version (``route`` "plain", the
+    "xla" engine) or the torch-op step (``ops`` = (C, S, fb)) into rows
     [f0, f0 + seg_frames) of the output plane.
 
     On a card the host prepares segment k+1 while the device computes
@@ -184,8 +190,7 @@ def _run_segments(make_seg, seg_plan, n_frames, win, hop, ops, chunk_frames,
     copy before it rewrites that buffer.  Per-segment min/max stay on the
     device; one host sync at the end reads them.
     """
-    kernel = isinstance(ops, MelOperands)
-    if kernel:
+    if route == "kernel":
         device, n_out = ops.slabs.device, ops.fb.shape[-1]
     else:
         c, _, fb = ops
@@ -230,10 +235,14 @@ def _run_segments(make_seg, seg_plan, n_frames, win, hop, ops, chunk_frames,
             seg.record_stream(compute)
         else:
             seg = torch.from_numpy(seg_np)
-        if kernel:
+        if route == "kernel":
             rows = mel_spectrogram_cuda(seg, ops, win=win, hop=hop,
                                         n_frames=seg_frames, mode=mode,
                                         out=db[f0 : f0 + seg_frames])
+        elif route == "plain":
+            rows = db[f0 : f0 + seg_frames]
+            rows.copy_(mel_spectrogram_plain(seg, *ops, win=win, hop=hop,
+                                             n_frames=seg_frames, mode=mode))
         else:
             rows = _torch_segment(seg, ops, db[f0 : f0 + seg_frames],
                                   win=win, hop=hop, chunk_frames=chunk_frames,
@@ -294,7 +303,10 @@ def streaming_spec_db(
 
     The kernel follows the session's precision mode
     (``set_precision_mode``), as in ``msv_tpu``, and so does the torch-op
-    route: true f32 in parity, TF32 in fast.  ``device`` defaults to the device of ``c`` (a tensor).
+    route: true f32 in parity, TF32 in fast.  Under
+    ``config.set_engine("xla")`` the kernel's segments run its plain
+    version (``mel_spectrogram_plain``) on the same device instead.
+    ``device`` defaults to the device of ``c`` (a tensor).
     ``c``, ``s``, ``mel_fb`` may be numpy f32, or tensors that are the
     mode's operands (f32, or bf16 for "fast"); for the kernel they are laid
     out once (``prepare_operands``) for every segment.  ``c`` may also be
@@ -304,9 +316,9 @@ def streaming_spec_db(
     ``keep_wav=True`` appends a 5th value: the reflect-padded, zero-tailed
     wave on the device, stitched from the shipped segments.
     """
-    kernel = _check_route(_fb_of(c, mel_fb), impl, transfer, n_fft, window)
+    route = _check_route(_fb_of(c, mel_fb), impl, transfer, n_fft, window)
     mode = get_precision_mode()
-    ops = _device_operands(c, s, mel_fb, device, mode, kernel)
+    ops = _device_operands(c, s, mel_fb, device, mode, route)
     # integer input is kept as the carrier: int16 raw PCM or the int32
     # multi-channel sum
     dtype = wav.dtype if wav.dtype in (np.int16, np.int32) else np.float32
@@ -325,7 +337,7 @@ def streaming_spec_db(
     return _run_segments(make_seg, seg_plan, n_frames, win, hop, ops,
                          chunk_frames, mode=mode, keep_wav=keep_wav,
                          scale=scale, window=window if impl == "fft" else None,
-                         n_fft=n_fft)
+                         n_fft=n_fft, route=route)
 
 
 def streaming_spec_db_mmap(path, win, hop, c, s, mel_fb=None,
@@ -337,9 +349,9 @@ def streaming_spec_db_mmap(path, win, hop, c, s, mel_fb=None,
     schedule as :func:`streaming_spec_db` on the same samples."""
     from ..io.audio import open_wav_mmap
 
-    kernel = _check_route(_fb_of(c, mel_fb), "dft", transfer)
+    route = _check_route(_fb_of(c, mel_fb), "dft", transfer)
     mode = get_precision_mode()
-    ops = _device_operands(c, s, mel_fb, device, mode, kernel)
+    ops = _device_operands(c, s, mel_fb, device, mode, route)
     mm, sr = open_wav_mmap(path)
     n = len(mm)
     half = win // 2
@@ -353,4 +365,4 @@ def streaming_spec_db_mmap(path, win, hop, c, s, mel_fb=None,
         return padded_slice(mm, a, a + seg_len, half, n, dtype=dtype)
 
     return _run_segments(make_seg, seg_plan, n_frames, win, hop, ops,
-                         chunk_frames, mode=mode)
+                         chunk_frames, mode=mode, route=route)

@@ -5,7 +5,8 @@ Host Python owns file I/O and the global-dB state machine; the device owns
 every per-sample computation.  On the mel scale every track's spectrogram
 goes through the fused CUDA kernel of the session's precision mode
 (``kernels/spectrogram_cuda.py``: the f32 kernel under "parity", the bf16
-kernel under "fast"); on the linear scale through ``spec_pipeline_batched``
+kernel under "fast"), or through its plain version on the same device
+under ``config.set_engine("xla")``; on the linear scale through ``spec_pipeline_batched``
 (torch ops, f32).  Tracks that share a bucket ``(sr, n_frames_pad, wire)``
 go as one batched call (each track then owns a copy of its plane), and a
 track over STREAMING_FRAME_THRESHOLD frames goes alone through segmented
@@ -44,11 +45,13 @@ import numpy as np
 import torch
 
 from ..config import (FreqScale, SpecSetting, check_db_wire,
-                      derive_stft_params, get_db_wire, get_image_wire,
-                      get_precision_mode, get_session_hbm_budget)
+                      derive_stft_params, get_db_wire, get_engine,
+                      get_image_wire, get_precision_mode,
+                      get_session_hbm_budget)
 from ..kernels.pipeline import (render_grey_q, render_rgb,
                                 spec_pipeline_batched)
-from ..kernels.spectrogram_cuda import (mel_spectrogram_cuda, operands_bf16,
+from ..kernels.spectrogram_cuda import (mel_spectrogram_cuda,
+                                        mel_spectrogram_plain, operands_bf16,
                                         operands_from_numpy, prepare_operands)
 from ..parallel.streaming import streaming_spec_db
 from ..ops.dft import windowed_dft_matrices
@@ -422,7 +425,8 @@ class MultiTrack:
                else np.asarray(track.wav, np.float32))
         mode = get_precision_mode()
         ops = ((self._sr_kernel_operands(track.sr, mode), None, None)
-               if self._use_mel else self._sr_operands(track.sr, mode))
+               if self._use_mel and get_engine() != "xla"
+               else self._sr_operands(track.sr, mode))
         db, n_valid, smin, smax, wav_dev = streaming_spec_db(
             src, track.win_length, track.hop_length, *ops,
             keep_wav=True, scale=track.scale,
@@ -467,8 +471,12 @@ class MultiTrack:
                 mm = torch.stack([smin, smax]).cpu().numpy()  # one sync
         else:
             with self.timer.stage("add_tracks.kernel_minmax"):
-                db_b = mel_spectrogram_cuda(
-                    wave, self._sr_kernel_operands(sr, mode), **kw)
+                if get_engine() == "xla":
+                    db_b = mel_spectrogram_plain(
+                        wave, *self._sr_operands(sr, mode), **kw)
+                else:
+                    db_b = mel_spectrogram_cuda(
+                        wave, self._sr_kernel_operands(sr, mode), **kw)
                 frame = torch.arange(n_frames_pad, device=self.device)
                 fmask = (frame[None, :] < n_valid[:, None])[:, :, None]
                 smax = torch.where(fmask, db_b, -torch.inf).amax(dim=(1, 2))

@@ -280,22 +280,21 @@ def test_render_linear_matches_jax(wav_path, tmp_path, jcli):
                      _png(outs["jax"], "spec_tone.png")).max() <= 1
 
 
-def test_render_engine_flags(wav_path, tmp_path, capsys):
+def test_render_engine_flags(wav_path, tmp_path):
+    """Every engine renders (on the CPU all three run the plain version),
+    and --engine holds for the command only."""
+    from msv_tpu_torch.config import get_engine
+
     imgs = {}
-    for engine in ("auto", "pallas"):
+    for engine in ("auto", "pallas", "xla"):
         out = str(tmp_path / engine)
         assert main(["render", wav_path, "-o", out, "--engine", engine,
                      "--no-wav", "--px-per-sec", "40", "--height", "80",
                      *CPU]) == 0
         imgs[engine] = _png(out, "spec_tone.png")
+        assert get_engine() == "auto"
     np.testing.assert_array_equal(imgs["auto"], imgs["pallas"])
-    capsys.readouterr()
-    out = str(tmp_path / "xla")
-    assert main(["render", wav_path, "-o", out, "--engine", "xla",
-                 *CPU]) == 1
-    err = capsys.readouterr().err
-    assert err.startswith("error:") and "one mel engine" in err
-    assert not os.path.exists(os.path.join(out, "spec_tone.png"))
+    np.testing.assert_array_equal(imgs["auto"], imgs["xla"])
 
 
 @pytest.mark.parametrize("wire", ["q16", "q12", "q10", "q8"])

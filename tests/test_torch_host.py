@@ -437,6 +437,20 @@ def test_import_pulls_in_neither_jax_nor_msv_tpu():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_loader_and_mesh_import_neither_jax_nor_msv_tpu():
+    code = (
+        "import sys; import msv_tpu_torch.data, msv_tpu_torch.parallel, "
+        "msv_tpu_torch.parallel.mesh, msv_tpu_torch.parallel.sharded, "
+        "msv_tpu_torch.parallel.multihost, msv_tpu_torch.config; "
+        "msv_tpu_torch.config.set_engine('xla'); "
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'msv_tpu')]; print(bad); sys.exit(1 if bad else 0)"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_no_port_source_mentions_jax():
     hits = []
     for root, _dirs, files in os.walk(PORT_PKG):
@@ -783,10 +797,10 @@ def test_analysis_constants_equal_jax():
         assert hasattr(msv_tpu, name), name
 
 
-@pytest.mark.parametrize("pkg", ["", ".ops"])
+@pytest.mark.parametrize("pkg", ["", ".ops", ".io", ".render", ".parallel"])
 def test_exports_are_msv_tpu_s(pkg):
-    """The package's and ``ops``' ``__all__`` are msv_tpu's lists, and
-    every name is bound."""
+    """The package's, ``ops``', ``io``'s, ``render``'s and ``parallel``'s
+    ``__all__`` are msv_tpu's lists, and every name is bound."""
     import importlib
 
     port = importlib.import_module("msv_tpu_torch" + pkg)
