@@ -2,8 +2,9 @@
 """The readings that the limits of ``correct`` are set from: the compared
 numbers of one cell over many seeds in one process, with the program as
 the configuration states it, or with its lower-precision path switched on
-(``--precision fast``: the bf16 mel kernel, the control that has to come
-out as not correct).
+(``--precision fast``, the control that has to come out as not correct:
+the bf16 mel kernel on the mel scale, the linear route's GEMMs in TF32 on
+the linear scale).
 
     python3 portbench/calibrate.py --workload <cell> --seeds 1,2,3 \
         --seconds 5 [--precision fast]

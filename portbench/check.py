@@ -81,15 +81,19 @@ def wav_gap(png: bytes, ref_rgba: np.ndarray) -> float:
 
 def judge(run, out: dict) -> dict:
     """The numbers of a run's outputs:
-    out = {"planes": {id: (n_frames, n_mel) f32 array}, "range": (max_db,
+    out = {"planes": {id: (n_frames, n_bins) f32 array}, "range": (max_db,
     min_db), "images": [{"kind", "id", "pps", "height", "start", "end",
-    "amp", "png"}], "failed": int}."""
+    "amp", "png"}], "failed": int}.  The reference follows the
+    configuration's ``freq_scale``: mel bands, or the linear scale's
+    n_fft // 2 + 1 bins."""
     setting = run.config["setting"]
+    scale = setting["freq_scale"]
+    db_plane = spec.linear_db if scale == "linear" else spec.mel_db
     dev = run.device
     refs, smin, smax = {}, [], []
     mono = [spec.mono_f32(tr["pcm"]) for tr in run.tracks]
     for tid, tr in enumerate(run.tracks):
-        refs[tid] = spec.mel_db(mono[tid], tr["sr"], setting, dev)
+        refs[tid] = db_plane(mono[tid], tr["sr"], setting, dev)
         smin.append(float(refs[tid].min()))
         smax.append(float(refs[tid].max()))
     max_db, min_db = spec.db_window(smin, smax, setting["db_range"])
@@ -109,8 +113,10 @@ def judge(run, out: dict) -> dict:
         tr = run.tracks[im["id"]]
         if im["kind"] == "spec":
             levels = render.spec_levels(
-                refs[im["id"]], tr["sr"], max_sr, max_db, min_db, im["pps"],
-                im["height"], im["start"], im["end"], tr["pcm"].shape[1])
+                refs[im["id"]], tr["sr"],
+                spec.up_ratio_for(tr["sr"], max_sr, scale), max_db, min_db,
+                im["pps"], im["height"], im["start"], im["end"],
+                tr["pcm"].shape[1])
             level_err = max(level_err, spec_gap(im["png"], levels))
         else:
             ref_img = render.wav_crop(

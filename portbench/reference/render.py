@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from .colormap import WAVECOLOR, grey_lut
-from .spec import grey_height, up_ratio
+from .spec import grey_height
 
 f32 = np.float32
 
@@ -64,22 +64,23 @@ def lanczos_rows(n_in: int, n_out: int, o0: int, o1: int):
     return left, np.where(valid, w, f32(0.0)).astype(np.float32)
 
 
-def spec_levels(plane: torch.Tensor, sr: int, max_sr: int, max_db: float,
+def spec_levels(plane: torch.Tensor, sr: int, ratio: float, max_db: float,
                 min_db: float, pps: float, height: int, start: float,
                 end: float, n_samples: int) -> np.ndarray:
     """(height, c1 - c0) uint8 grey levels of a spectrogram crop, from a
-    (n_frames, n_mel) dB plane on any device."""
+    (n_frames, n_bins) dB plane on any device; ``ratio`` is the track's
+    alignment ratio on the session's scale (``spec.up_ratio_for``)."""
     dev = plane.device
-    nf, n_mel = plane.shape
+    nf, n_bins = plane.shape
     full, c0, c1 = crop_columns(n_samples, sr, pps, start, end)
     left, wh = lanczos_rows(nf, full, c0, c1)
     f0 = int(left.min())
     f1 = min(nf, int(left.max()) + wh.shape[1])
     rng = f32(max_db) - f32(min_db)
     g = torch.clamp((plane[f0:f1] - float(f32(min_db))) / float(rng), 0, 1)
-    gh = grey_height(n_mel, up_ratio(sr, max_sr))
+    gh = grey_height(n_bins, ratio)
     grey = torch.zeros((gh, f1 - f0), dtype=torch.float32, device=dev)
-    grey[gh - n_mel:] = torch.flip(g.T, dims=(0,))
+    grey[gh - n_bins:] = torch.flip(g.T, dims=(0,))
     vl, vw = lanczos_rows(gh, height, 0, height)
     wv = np.zeros((height, gh), np.float32)
     for r in range(height):

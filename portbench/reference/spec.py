@@ -1,8 +1,8 @@
-"""The mel dB plane of a track and the session's dB window, in float32
-with TF32 off: reflect-padded centered frames, a periodic Hann window
-divided by n_fft, an FFT of n_fft points, the magnitude, the mel product
-and 20 log10 with the 1e-18 floor (thesia src_rust/lib.rs:112-136,
-388-433; decibel.rs:33-56)."""
+"""The dB plane of a track on either frequency scale and the session's dB
+window, in float32 with TF32 off: reflect-padded centered frames, a
+periodic Hann window divided by n_fft, an FFT of n_fft points, the
+magnitude, on the mel scale the mel product, and 20 log10 with the 1e-18
+floor (thesia src_rust/lib.rs:112-136, 388-433; decibel.rs:33-56)."""
 
 import math
 
@@ -36,8 +36,17 @@ def up_ratio(sr: int, max_sr: int) -> float:
                  / hz_to_mel(f32(sr) / f32(2.0)))
 
 
-def grey_height(n_mel: int, ratio: float) -> int:
-    v = f32(n_mel) * f32(ratio)
+def up_ratio_for(sr: int, max_sr: int, freq_scale: str) -> float:
+    """The grey's alignment ratio on the session's scale: max_sr / sr in
+    float32 on the linear scale, :func:`up_ratio` on the mel scale
+    (lib.rs:231-248)."""
+    if freq_scale == "linear":
+        return float(f32(max_sr) / f32(sr))
+    return up_ratio(sr, max_sr)
+
+
+def grey_height(n_bins: int, ratio: float) -> int:
+    v = f32(n_bins) * f32(ratio)
     return int(np.floor(v + f32(0.5)))
 
 
@@ -50,6 +59,19 @@ def mono_f32(pcm: np.ndarray) -> np.ndarray:
 def mel_db(mono: np.ndarray, sr: int, setting: dict, device) -> torch.Tensor:
     """(n_frames, n_mel) float32 dB plane on ``device``, in blocks of
     BLOCK_FRAMES frames."""
+    _, _, n_fft = stft_params(sr, setting)
+    return _db_plane(mono, sr, setting, device, mel_fb_auto(sr, n_fft))
+
+
+def linear_db(mono: np.ndarray, sr: int, setting: dict,
+              device) -> torch.Tensor:
+    """(n_frames, n_fft // 2 + 1) float32 dB plane on ``device``, in blocks
+    of BLOCK_FRAMES frames: the magnitude's bins as they are."""
+    return _db_plane(mono, sr, setting, device, None)
+
+
+def _db_plane(mono, sr, setting, device, fb) -> torch.Tensor:
+    """The frames' magnitudes, times ``fb`` where it is not None, in dB."""
     win, hop, n_fft = stft_params(sr, setting)
     nf = n_frames(len(mono), win, hop)
     half = win // 2
@@ -60,8 +82,10 @@ def mel_db(mono: np.ndarray, sr: int, setting: dict, device) -> torch.Tensor:
     window = torch.from_numpy((window / f32(n_fft)).astype(np.float32)).to(
         device)
     left = (n_fft - win) // 2
-    fb = torch.from_numpy(mel_fb_auto(sr, n_fft)).to(device)
-    out = torch.empty((nf, fb.shape[1]), dtype=torch.float32, device=device)
+    if fb is not None:
+        fb = torch.from_numpy(fb).to(device)
+    n_out = n_fft // 2 + 1 if fb is None else fb.shape[1]
+    out = torch.empty((nf, n_out), dtype=torch.float32, device=device)
     floor = 20.0 * math.log10(AMIN)
     tf32 = torch.backends.cuda.matmul
     prev = tf32.allow_tf32
@@ -72,9 +96,11 @@ def mel_db(mono: np.ndarray, sr: int, setting: dict, device) -> torch.Tensor:
             seg = x[a * hop:(b - 1) * hop + win]
             fr = seg.unfold(0, win, hop) * window
             fr = torch.nn.functional.pad(fr, (left, n_fft - win - left))
-            mel = torch.fft.rfft(fr, n=n_fft).abs() @ fb
-            out[a:b] = torch.where(mel > AMIN, 20.0 * torch.log10(mel),
-                                   torch.full_like(mel, floor))
+            mag = torch.fft.rfft(fr, n=n_fft).abs()
+            if fb is not None:
+                mag = mag @ fb
+            out[a:b] = torch.where(mag > AMIN, 20.0 * torch.log10(mag),
+                                   torch.full_like(mag, floor))
     finally:
         tf32.allow_tf32 = prev
     return out

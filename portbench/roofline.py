@@ -1,10 +1,11 @@
-"""Peaks of the card and the least time of the mel dB function.
+"""Peaks of the card and the least time of the dB functions of either
+frequency scale.
 
 The least time counts the work of the function, not of a kernel that
-implements it: a real FFT of n_fft points a frame, the magnitude and the
-band-sparse mel product; the track's PCM16 samples read once, the f32 dB
-plane written once, the nonzero filterbank weights read once.  So any
-implementation of the same planes is held to the same floor.
+implements it: a real FFT of n_fft points a frame, the magnitude and, on
+the mel scale, the band-sparse mel product; the track's PCM16 samples read
+once, the f32 dB plane written once, the nonzero filterbank weights read
+once.  So any implementation of the same planes is held to the same floor.
 """
 
 import math
@@ -29,6 +30,17 @@ def mel_work(n_samples: int, sr: int, setting: dict):
     f = n_frames(n_samples, win, hop)
     ops = f * (2.5 * n_fft * math.log2(n_fft) + 3 * n_freq + 2 * w)
     nbytes = PCM_BYTES * n_samples + 4 * f * n_mel + 4 * w
+    return ops, nbytes
+
+
+def linear_work(n_samples: int, sr: int, setting: dict):
+    """(operations, bytes) of one track's linear-scale dB plane: the mel
+    plane's terms less the filterbank's, with n_fft // 2 + 1 bins out."""
+    win, hop, n_fft = stft_params(sr, setting)
+    n_freq = n_fft // 2 + 1
+    f = n_frames(n_samples, win, hop)
+    ops = f * (2.5 * n_fft * math.log2(n_fft) + 3 * n_freq)
+    nbytes = PCM_BYTES * n_samples + 4 * f * n_freq
     return ops, nbytes
 
 
