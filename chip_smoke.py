@@ -39,6 +39,24 @@ Phases, each printing its lines:
               segments, parity, split and fast, in frames per second (the
               main path of the split kernel: its launches are counted
               there);
+  3d. survey  (run after phase 3c, on its own seeded stream) the parity
+              and bf16 kernels at 384, 250 and 192 kHz (windows of 15 360,
+              10 000 and 7680 samples, n_fft 16 384, 16 384 and 8192) on
+              300 s of audio per row (30 001 frames), f32 and int16 input,
+              batch 1 and 2: the tier each launch takes (parity chunked at
+              all three; fast resident at 192 and 250 kHz, chunked at 384),
+              int16 bit-equal to f32, batch rows independent; parity against
+              its plain version by f32_agree or, where a bin fails it,
+              within twice the plain version's own f32 error at that window
+              (its largest distance from a float64 witness on the card, in
+              amplitude relative to the frame's peak: window_agree), which
+              the bf16 kernel fails; fast against its plain version as in
+              3b; times of both kernels and the plain versions at 384 kHz;
+              then the survey session (the benchmark's survey384k: four 300
+              s mono PCM16 WAVs at 384, 250, 192 and 48 kHz) in
+              MultiTrack(device="cuda").add_tracks, in parity and in fast,
+              its launches by tier counted (its main path) and each plane
+              equal to the kernel's on the session's padded wave;
   4. session  the user's path: MultiTrack(device="cuda").add_tracks on seven
               240 s stereo PCM16 WAVs at 8/16/22.05/24/44.1/44.1/48 kHz (six
               kernel launch groups), a 500-row full-width image of every
@@ -245,7 +263,7 @@ Phases, each printing its lines:
               hour's peak device memory per width; render --save-db
               --db-wire q10 of the songs (6 parity launches), each .npy
               equal to get_spec_db(wire="q10").
-Each path of phases 3c-13 is driven with the launch counts set to 0 just
+Each path of phases 3c-13 (3d's survey sessions too) is driven with the launch counts set to 0 just
 before it and read just after; comparisons run outside those windows.  The
 second-to-last line is a JSON object describing each kernel (its bound is
 computed from this run's shapes against the H100 SXM's published peaks);
@@ -329,6 +347,8 @@ def reset_counts(K):
     K.LAUNCHES = 0
     for mode in K.LAUNCHES_BY_MODE:
         K.LAUNCHES_BY_MODE[mode] = 0
+    for tier in K.LAUNCHES_BY_TIER:
+        K.LAUNCHES_BY_TIER[tier] = 0
 
 
 def read_counts(K):
@@ -1105,6 +1125,215 @@ def split_ab(K, rng, minutes=30, seg=32768):
     del wave, segs, outs
     torch.cuda.empty_cache()
     return launches, ab
+
+
+# The survey session's rates whose windows (7056 samples and more) no
+# resident parity block holds, 300 s a row as the benchmark's survey384k
+# files (30 001 frames), and the tier each kernel takes there.
+SURVEY_RATES = [384000, 250000, 192000]
+SURVEY_SECONDS = 300.0
+SURVEY_TIER = {"parity": {sr: "chunked" for sr in SURVEY_RATES},
+               "fast": {384000: "chunked", 250000: "resident",
+                        192000: "resident"}}
+# frames per block of the plain version and the f64 witness in 3d
+WINDOW_BLOCK = 4096
+
+
+def f64_witness_cuda(x, c, s, fb, win, hop, n_frames):
+    """f64_witness on the card, for windows too long for the host: the
+    kernels' function in float64 torch on a (..., L) wave (int16 or f32)
+    and the float64 copies of the f32 (C, S, fb)."""
+    x = x.double() * (2.0**-15 if x.dtype == torch.int16 else 1.0)
+    fr = x.unfold(-1, win, hop)[..., :n_frames, :]
+    re, im = fr @ c, fr @ s
+    mel = torch.sqrt(re * re + im * im) @ fb
+    return torch.where(mel > 1e-18, 20.0 * torch.log10(mel), -360.0)
+
+
+def window_agree(got, plain, wit):
+    """Where ``got`` agrees with the plain version at windows of 7056
+    samples and more: by f32_agree, or within twice the plain version's own
+    f32 error there (its largest distance from the float64 witness ``wit``)
+    in amplitude relative to the frame's peak.  Over a 15 360-sample
+    window both f32 sums leave a few bins 40-60 dB under their frame's
+    peak some hundredths of a dB apart, which f32_agree's atol/rtol does
+    not admit; bf16 operands miss the loudest bins by about 1e-3 of the
+    peak, which this rule does not admit either.  Returns (agree,
+    f32_agree's part, the plain version's error)."""
+    agree, _ = f32_agree(got, plain)
+    peak = wit.amax(dim=-1, keepdim=True)
+
+    def amp(db):  # amplitude relative to the frame's peak
+        return torch.pow(10.0, (db.double() - peak) / 20.0)
+
+    own = (amp(plain) - amp(wit)).abs().max().item()
+    near = (amp(got) - amp(plain)).abs() <= 2 * own
+    return agree | near, agree, own
+
+
+def survey_against_plain(K, got, x, ops, win, hop, n_frames):
+    """3d's comparisons of one rate's (2, n_frames, n_mel) kernel planes
+    ``got`` (by mode) on the f32 wave ``x`` against the plain versions, in
+    blocks of WINDOW_BLOCK frames.  Returns each mode's largest |dB error|
+    and a note."""
+    wide = tuple(t.double() for t in ops)
+    out_of_f32, n_bins, own, err = 0, 0, 0.0, {"parity": 0.0}
+    fast_err, fast_told = [], False
+    for a in range(0, n_frames, WINDOW_BLOCK):
+        b = min(n_frames, a + WINDOW_BLOCK)
+        seg = x[..., a * hop:(b - 1) * hop + win]
+        kw = dict(win=win, hop=hop, n_frames=b - a)
+        plain = K.mel_spectrogram_plain(seg, *ops, **kw)
+        wit = f64_witness_cuda(seg, *wide, win, hop, b - a)
+        par = got["parity"][..., a:b, :]
+        agree, f32_ok, e = window_agree(par, plain, wit)
+        out = int((~agree).sum())
+        check(out == 0, f"{win}-sample windows, parity, frames {a}-{b}: "
+              f"{out} bins out of window_agree (plain's own f32 error {e:.3g}"
+              f" of the peak)")
+        out_of_f32 += int((~f32_ok).sum())
+        n_bins += agree.numel()
+        own = max(own, e)
+        err["parity"] = max(err["parity"], (par - plain).abs().max().item())
+        fast = got["fast"][..., a:b, :]
+        if a == 0:  # the rule tells the bf16 kernel apart
+            fast_told = not bool(window_agree(fast, plain, wit)[0].all())
+        fast_err.append((fast - K.mel_spectrogram_plain(
+            seg, *ops, mode="fast", **kw)).abs().flatten())
+        del plain, wit
+    check(out_of_f32 <= FLOOR_SHARE * n_bins, f"{win}-sample windows: "
+          f"{out_of_f32} of {n_bins} bins out of f32_agree")
+    check(fast_told, f"{win}-sample windows: the bf16 kernel meets "
+          f"window_agree")
+    fe = torch.cat(fast_err)
+    err["fast"], p99 = fe.max().item(), quantile(fe, 0.99)
+    check(err["fast"] < GREY_STEP and p99 < 0.01, f"{win}-sample windows, "
+          f"fast vs plain: max {err['fast']} dB, p99 {p99} dB")
+    return err, (f"parity: {out_of_f32} of {n_bins} bins out of f32_agree, "
+                 f"within twice plain's own f32 error {own:.3g} of the peak; "
+                 f"fast: max {err['fast']:.3g} dB p99 {p99:.3g} dB, and out "
+                 f"of window_agree")
+
+
+def phase_survey(K, rng, work):
+    """3d: the chunked tier at the survey's rates, then the survey session.
+    Returns (paths, heads, errs, chunked): the sessions' resident-tier
+    launches for the launch line, each mode's headline at 384 kHz and
+    largest |dB error| against its plain version, and each survey
+    session's chunked-tier launches."""
+    from msv_tpu_torch import MultiTrack, precision_mode_scope
+    from msv_tpu_torch.io.audio import write_wav
+    from msv_tpu_torch.ops.framing import n_frames_for, reflect_pad_center
+
+    d = tempfile.mkdtemp(prefix="msv_chip_survey_", dir=work)
+    files, heads, errs = [], {}, {"parity": 0.0, "fast": 0.0}
+    for sr in SURVEY_RATES:
+        win, hop, ops = operands(sr, "cuda")
+        rec = {"parity": K.prepare_operands(*ops, "parity"),
+               "fast": K.prepare_operands(*K.operands_bf16(*ops), "fast")}
+        i16 = make_signal(rng, sr, SURVEY_SECONDS, 2)
+        files.append(os.path.join(d, f"survey_{sr}.wav"))
+        write_wav(files[-1], i16[0].astype(np.float32) / 32768.0, sr)
+        n_frames = n_frames_for(i16.shape[1], win, hop)
+        check(n_frames == 30001, f"{sr} Hz: {n_frames} frames")
+        padded = np.stack([reflect_pad_center(x, win) for x in i16])
+        wave = {"i16": torch.from_numpy(padded).cuda(),
+                "f32": torch.from_numpy(padded.astype(np.float32)
+                                        * np.float32(2.0**-15)).cuda()}
+        del i16, padded
+        n_mel = ops[2].shape[1]
+        got, line = {}, []
+        for mode in ("parity", "fast"):
+            kw = dict(win=win, hop=hop, n_frames=n_frames, mode=mode)
+            what = f"survey {sr} Hz {mode}"
+            tier = SURVEY_TIER[mode][sr]
+            before = dict(K.LAUNCHES_BY_TIER)
+            two = {k: K.mel_spectrogram_cuda(v, rec[mode], **kw)
+                   for k, v in wave.items()}
+            one = {k: K.mel_spectrogram_cuda(v[1], rec[mode], **kw)
+                   for k, v in wave.items()}
+            check(K.LAUNCHES_BY_TIER == dict(before, **{tier: before[tier]
+                                                         + 4}),
+                  f"{what}: launches by tier {K.LAUNCHES_BY_TIER}, "
+                  f"{tier} expected")
+            torch.cuda.synchronize()
+            check(tuple(two["f32"].shape) == (2, n_frames, n_mel)
+                  and bool(torch.isfinite(two["f32"]).all()),
+                  f"{what}: shape {tuple(two['f32'].shape)} or not finite")
+            check(all(torch.equal(g["i16"], g["f32"]) for g in (one, two)),
+                  f"{what}: int16 route != f32 route")
+            check(torch.equal(one["f32"], two["f32"][1]),
+                  f"{what}: B=1 != row 1 of B=2")
+            got[mode] = two["f32"]
+            del one, two
+            x1 = wave["f32"][0]
+            ms = cuda_ms(lambda: K.mel_spectrogram_cuda(x1, rec[mode], **kw))
+            ms_i16 = cuda_ms(lambda: K.mel_spectrogram_cuda(
+                wave["i16"][0], rec[mode], **kw))
+            plain_ms = cuda_ms(lambda: K.mel_spectrogram_plain(x1, *ops,
+                                                               **kw))
+            line.append(f"{mode} {tier} {ms:.3f} ms (i16 {ms_i16:.3f}), "
+                        f"plain {plain_ms:.3f} ms")
+            if sr == 384000:
+                heads[mode] = (ms, plain_ms, f"{sr} Hz, B=1, f32, {n_frames}"
+                               f" frames x {n_mel} mel", *bound(
+                                   K, mode, x1, ops if mode == "parity"
+                                   else K.operands_bf16(*ops), n_frames))
+        err, note = survey_against_plain(K, got, wave["f32"], ops, win, hop,
+                                         n_frames)
+        for mode in errs:
+            errs[mode] = max(errs[mode], err[mode])
+        print(f"[survey] {sr} Hz win {win} hop {hop} n_mel {n_mel} B=1,2 "
+              f"frames {n_frames}: i16==f32, rows independent; {note}; B=1: "
+              + "; ".join(line), flush=True)
+        del wave, got, ops, rec
+        torch.cuda.empty_cache()
+
+    files.append(os.path.join(d, "survey_48000.wav"))
+    write_wav(files[-1], make_signal(rng, 48000, SURVEY_SECONDS, 1)[0]
+              .astype(np.float32) / 32768.0, 48000)
+    ids = list(range(len(files)))
+    paths, chunked = [], {}
+    for mode in ("parity", "fast"):
+        # ---- the survey session: counts from here to the end of add_tracks
+        torch.cuda.synchronize()
+        reset_counts(K)
+        t0 = time.perf_counter()
+        with precision_mode_scope(mode):
+            mt = MultiTrack(device="cuda")
+            mt.add_tracks(ids, files)
+        torch.cuda.synchronize()
+        add_s = time.perf_counter() - t0
+        n, tiers = read_counts(K), dict(K.LAUNCHES_BY_TIER)
+        # ---- end of the survey session
+        want = sum(SURVEY_TIER[mode][sr] == "chunked" for sr in SURVEY_RATES)
+        check(n == counts(**{mode: len(ids)})
+              and tiers == {"resident": len(ids) - want, "chunked": want},
+              f"{mode} survey session: launches {n}, by tier {tiers}")
+        for i in ids:
+            tr, st = mt.tracks[i], mt._state[i]
+            padded, nf, nfp = mt._prep_padded(tr)
+            direct = K.mel_spectrogram_cuda(
+                torch.from_numpy(padded).cuda(),
+                mt._sr_kernel_operands(tr.sr, mode), win=tr.win_length,
+                hop=tr.hop_length, n_frames=nfp, mode=mode)
+            check(torch.equal(st.spec_db[:nf], direct[:nf]),
+                  f"{mode} survey session: the {tr.sr} Hz plane != the "
+                  f"kernel's on its padded wave")
+        stages = {k: round(v["total_s"], 4)
+                  for k, v in mt.timer.summary().items()}
+        print(f"[survey] {mode} session: add_tracks of {len(ids)} x "
+              f"{SURVEY_SECONDS:.0f} s mono PCM16 at "
+              f"{[mt.tracks[i].sr for i in ids]} Hz {add_s:.3f} s; launches "
+              f"by tier {tiers}, each plane equal to the kernel's; stage "
+              f"seconds, host clock: {json.dumps(stages)}", flush=True)
+        paths.append((f"{'' if mode == 'parity' else 'fast '}survey session"
+                      " (resident tier)",
+                      counts(**{mode: tiers["resident"]})))
+        chunked[mode] = tiers["chunked"]
+        del mt
+        torch.cuda.empty_cache()
+    return paths, heads, errs, chunked
 
 
 def write_hour_wav(rng, path, sr=48000, minutes=60):
@@ -4124,6 +4353,8 @@ def main():
             K, np.random.default_rng(SEED + 1))
         errs["split"], heads["split"], split_path, _ = phase_split(
             K, np.random.default_rng(SEED + 4))
+        survey_paths, survey_heads, survey_errs, chunked = phase_survey(
+            K, np.random.default_rng(SEED + 5), work)
         streaming, (hour, eight) = phase_streaming(
             K, np.random.default_rng(SEED + 2), work)
         paths = list(zip(
@@ -4133,6 +4364,7 @@ def main():
             (*session, *streaming,
              phase_features(K, np.random.default_rng(SEED + 3)),
              split_path, phase_residency(K, smi, song, hour))))
+        paths += survey_paths
         legs, front = phase_frontends(K, smi, song, hour, eight, work)
         paths += legs
         paths += phase_analysis(K, smi, song, hour, eight, front, work)
@@ -4160,6 +4392,26 @@ def main():
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             # no single PyTorch call computes the fused mel dB function
+            "library_ms": None,
+            "shape": shape,
+            "card": smi,
+        })
+    # the chunked tier (no TPU kernel of its own: the Pallas kernel holds
+    # whole windows in VMEM); its launches are the survey sessions'
+    for mode, name in (("parity", "mel_db_tf32_chunked_kernel"),
+                       ("fast", "mel_db_bf16_chunked_kernel")):
+        ms, plain_ms, shape, bound_ms, bound_by = survey_heads[mode]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": os.path.relpath(K.SOURCES[mode]),
+            "replaces": "msv_tpu/kernels/spectrogram_pallas.py:411",
+            "launches": chunked[mode],
+            "max_abs_err": survey_errs[mode],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
             "library_ms": None,
             "shape": shape,
             "card": smi,

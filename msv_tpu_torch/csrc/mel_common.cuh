@@ -8,7 +8,9 @@
 // over hi/lo planes of the magnitude and the filterbank).
 //
 // They share the staging ring of C/S slabs (bulk copies completing on
-// mbarriers, below) and the leftover bin: their operands come from
+// mbarriers, below), the chunked tier's sample staging (parity and fast,
+// for windows whose samples no block holds), the launchers' Plan and the
+// leftover bin: their operands come from
 // kernels/spectrogram_cuda.py::prepare_operands, which cuts C and S into
 // slabs of KS rows x NB bins laid out as the ring stage's shared-memory
 // image (parity and fast: C rows, then S rows, at a padded row stride;
@@ -300,6 +302,72 @@ __device__ __forceinline__ const E* stage_tail(unsigned char* ring,
   for (int i = tid; i < 2 * win; i += 32 * WARPS) dst[i] = tail[i];
   return dst;
 }
+
+// ---------------------------------------------------------------------------
+// The chunked tier's samples: where a block cannot hold every sample of its
+// frames' windows (16*MT*hop + win of them) beside the ring, it stages them
+// in chunks along the window, samples [k0, k0 + len) of each of its TF
+// frames, frame f's at dst[f * cs + n - k0] (one row a frame: every row
+// starts at its frame's own first sample, so any hop reads aligned), uses
+// them, and stages the next chunk after a barrier.  The consumer warps
+// stage, two frames a warp at a time, 2 * kStageLoads loads in flight,
+// each sample kept as it lies until all have landed: int16 samples
+// converted as each load landed made the int16 route 1.56 times slower
+// than f32 at 384 kHz (491 against 314 ms a 300 s track on an H100 80GB
+// HBM3 at 700 W; 322 ms once converted after).
+
+constexpr int kStageLoads = 16;  // sample loads in flight per thread and frame
+
+__device__ __forceinline__ float to_smem(float v, float*) { return v; }
+
+__device__ __forceinline__ __nv_bfloat16 to_smem(float v, __nv_bfloat16*) {
+  return __float2bfloat16_rn(v);
+}
+
+template <int TF, typename S, typename T>
+__device__ __forceinline__ void stage_chunk(S* dst, int cs,
+                                            const T* __restrict__ w,
+                                            long long base, int hop,
+                                            long long wave_len, int k0,
+                                            int len, int lane, int warp) {
+  static_assert(TF % (2 * WARPS) == 0, "two frames a warp at a time");
+  for (int f = warp; f < TF; f += 2 * WARPS) {
+    for (int cb = 0; cb < len; cb += 32 * kStageLoads) {
+      // all loads in flight, as they lie, before any conversion or store
+      T v[2][kStageLoads];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long g0 =
+            base + static_cast<long long>(f + h * WARPS) * hop + k0;
+#pragma unroll
+        for (int u = 0; u < kStageLoads; ++u) {
+          const int c = cb + lane + 32 * u;
+          v[h][u] = c < len && g0 + c < wave_len ? w[g0 + c] : T(0);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int u = 0; u < kStageLoads; ++u) {
+          const int c = cb + lane + 32 * u;
+          if (c < len)
+            dst[(f + h * WARPS) * cs + c] = to_smem(load_sample(v[h], u), dst);
+        }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// What a launcher chose, for the wrapper (kernels/spectrogram_cuda.py puts
+// it on the launch's span): the tier (kNoTier where none fits: nothing was
+// launched and `smem` is the least a block would need), the m-tiles, the
+// ring's stages, the chunk's samples (chunked tier), the block's shared
+// memory and the most a block may use.
+enum Tier : int { kNoTier = 0, kResident = 1, kChunked = 2 };
+
+struct Plan {
+  int tier, mt, stages, chunk, smem, avail;
+};
 
 // Shared memory the card offers: per block (opt-in), per SM, and reserved
 // by the runtime per resident block.

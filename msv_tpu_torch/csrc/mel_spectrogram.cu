@@ -73,6 +73,25 @@
 //  * MT (4, 2, then 1) is the largest whose samples, magnitude tile and
 //    three ring stages fit the card's shared memory; the ring then deepens
 //    while as many blocks still fit on an SM.
+//
+// The chunked tier (mel_db_tf32_chunked_kernel), for windows whose samples
+// no block holds: 16*MT*hop + win floats with the band tables (12*n_mel +
+// 4*n_wts bytes) beside them pass the 227 KB a block may use at every MT
+// from 176.4 kHz on at the session's settings (windows of 7056 samples;
+// 384 kHz needs 415 KB at MT 1).  Its shared memory is bounded whatever
+// the window: the ring, the magnitude tile and one chunk of kc samples for
+// each of the TF frames, 4 B * TF * (kc + 4); the band tables and the
+// leftover bin's kept columns are read from device memory.  The launcher
+// takes it where no resident MT fits, with one plan whatever the shape
+// (CHUNK_MT and CHUNK): MT 4, kc 512, 212.9 KB with three stages, the most
+// m-tiles and then the longest power-of-two chunk that fit an H100's
+// block.  The chunks are staged again for every frequency tile (64
+// tiles at n_fft 16 384): device memory sees the wave n_tiles times, at
+// the HBM rate about 1% of the products' time.  Measured (kernels/probe.py,
+// NVIDIA H100 80GB HBM3 at 700 W, B = 1, f32 input, 6001 frames of 60 s):
+// 78.3 ms at 384 kHz, 38.6 TFLOP/s of the f32 DFT pair (48 kHz resident:
+// 33.7); forced on where the resident tier fits, 1.34 ms at 48 kHz against
+// its 1.40, and 4.73 ms at 88.2 kHz against 5.77 (resident MT 2).
 
 #include "mel_common.cuh"
 
@@ -86,6 +105,8 @@ constexpr int ROW = NB + 8;         // slab row stride (floats)
 constexpr int SLAB = 2 * KS * ROW;  // floats per slab: C rows, then S rows
 constexpr uint32_t SLAB_BYTES = SLAB * sizeof(float);
 constexpr int STAGE_LOADS = 16;     // sample loads in flight per thread
+constexpr int CHUNK_MT = 4;         // the chunked tier's m-tiles
+constexpr int CHUNK = 512;          // and its samples a frame a chunk
 static_assert(SLAB_BYTES % 16 == 0, "bulk copies move 16-byte multiples");
 
 // (hi, lo) of x as tf32 register values: hi = tf32_rna(x), lo =
@@ -104,6 +125,64 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One k-step of 8 samples into this slab's products `part`: the B
+// fragments of the warp's 2 n-tiles of C and S (slab rows kk + tig and
+// kk + tig + 4, column g of each n-tile) times the A fragments of its MT
+// m-tiles (frame rows at arow, samples from x on), each product in 3xTF32.
+template <int MT>
+__device__ __forceinline__ void kstep(float (&part)[2][MT][2][4],
+                                      const float* cs, int kk, const float* x,
+                                      const int (&arow)[MT][2], int wn0,
+                                      int g, int tig) {
+  uint32_t bh[2][2][2], bl[2][2][2];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        split_tf32(cs[m * KS * ROW + (kk + tig + 4 * r) * ROW + wn0 +
+                      nt * 8 + g],
+                   bh[m][nt][r], bl[m][nt][r]);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    uint32_t ah[4], al[4];
+    split_tf32(x[arow[mt][0]], ah[0], al[0]);
+    split_tf32(x[arow[mt][1]], ah[1], al[1]);
+    split_tf32(x[arow[mt][0] + 4], ah[2], al[2]);
+    split_tf32(x[arow[mt][1] + 4], ah[3], al[3]);
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {  // small terms first
+        mma_tf32(part[m][mt][nt], al, bh[m][nt]);
+        mma_tf32(part[m][mt][nt], ah, bl[m][nt]);
+        mma_tf32(part[m][mt][nt], ah, bh[m][nt]);
+      }
+  }
+}
+
+// |X| in f32 into mag[bin][frame] for the bins [0, nv) of the tile that
+// this warp's products cover.
+template <int MT>
+__device__ __forceinline__ void store_magnitude(
+    float* mag, const float (&acc)[2][MT][2][4], int nv, int wn0, int g,
+    int tig) {
+  constexpr int MS = msv::mag_stride<16 * MT, float>();
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int col = wn0 + nt * 8 + tig * 2 + (q & 1);
+        if (col < nv) {
+          const float x = acc[0][mt][nt][q], y = acc[1][mt][nt][q];
+          mag[col * MS + mt * 16 + g + (q >> 1) * 8] = sqrtf(x * x + y * y);
+        }
+      }
 }
 
 // Samples per staged row: hop, rounded up to 8, and the 8 a k-step reads
@@ -226,35 +305,7 @@ mel_db_tf32_kernel(const T* __restrict__ wave, long long wave_stride,
             for (int r = 0; r < 4; ++r) part[m][mt][nt][r] = 0.0f;
 #pragma unroll
       for (int kk = 0; kk < KS; kk += 8) {
-        // B fragments of the warp's 2 n-tiles, C and S: rows kk + tig and
-        // kk + tig + 4, column g of each n-tile
-        uint32_t bh[2][2][2], bl[2][2][2];
-#pragma unroll
-        for (int m = 0; m < 2; ++m)
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-            for (int r = 0; r < 2; ++r)
-              split_tf32(cs[m * KS * ROW + (kk + tig + 4 * r) * ROW + wn0 +
-                            nt * 8 + g],
-                         bh[m][nt][r], bl[m][nt][r]);
-        const float* x = chunk + koff;
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          uint32_t ah[4], al[4];
-          split_tf32(x[arow[mt][0]], ah[0], al[0]);
-          split_tf32(x[arow[mt][1]], ah[1], al[1]);
-          split_tf32(x[arow[mt][0] + 4], ah[2], al[2]);
-          split_tf32(x[arow[mt][1] + 4], ah[3], al[3]);
-#pragma unroll
-          for (int m = 0; m < 2; ++m)
-#pragma unroll
-            for (int nt = 0; nt < 2; ++nt) {  // small terms first
-              mma_tf32(part[m][mt][nt], al, bh[m][nt]);
-              mma_tf32(part[m][mt][nt], ah, bl[m][nt]);
-              mma_tf32(part[m][mt][nt], ah, bh[m][nt]);
-            }
-        }
+        kstep<MT>(part, cs, kk, chunk + koff, arow, wn0, g, tig);
         koff += 8;
         c0 += 8;
         while (c0 >= hop) {  // the next row
@@ -278,18 +329,7 @@ mel_db_tf32_kernel(const T* __restrict__ wave, long long wave_stride,
     // |X| in f32 into mag[bin][frame], for the bins the products cover
     const int k0 = t * NB;
     const int nv = min(NB, n_freq - 1 - k0);
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int col = wn0 + nt * 8 + tig * 2 + (q & 1);
-          if (col < nv) {
-            const float x = acc[0][mt][nt][q], y = acc[1][mt][nt][q];
-            mag[col * MS + mt * 16 + g + (q >> 1) * 8] = sqrtf(x * x + y * y);
-          }
-        }
+    store_magnitude<MT>(mag, acc, nv, wn0, g, tig);
     int kt = NB;
     if (t == ops.n_tiles - 1) {  // the leftover bin n_freq - 1, column nv
       const float* tl = msv::stage_tail(smem + msv::kRingOffset,
@@ -309,49 +349,206 @@ mel_db_tf32_kernel(const T* __restrict__ wave, long long wave_stride,
   msv::mel_empty_bands<TF>(o, tb.bands, n_mel, nf, lane, warp);
 }
 
-// Shared memory besides the ring.
+// The chunked tier: the kernel above for blocks that cannot hold every
+// sample of their frames' windows.  The samples arrive in chunks of kc
+// along the window (msv::stage_chunk: one row of kc + 4 floats a frame, 4
+// mod 8 words), staged again for every frequency tile; the band tables are
+// read where they are in device memory (L1 and L2 keep them), not copied
+// into shared memory; the leftover bin sums chunk by chunk in the last
+// tile, with its kept columns read from device memory.  The products, the
+// magnitude, the mel pass and the dB are the kernel above's.
+__host__ __device__ __forceinline__ int chunk_stride(int kc) { return kc + 4; }
+
+template <typename T, int MT>
+__global__ void __launch_bounds__(32 * WARPS, 1)
+mel_db_tf32_chunked_kernel(const T* __restrict__ wave, long long wave_stride,
+                           long long wave_len, const msv::Prepared<float> ops,
+                           float* __restrict__ out, int win, int hop,
+                           int n_frames, int n_freq, int n_mel, int stages,
+                           int kc) {
+  constexpr int TF = 16 * MT;
+  constexpr int P = 32 * WARPS / TF;  // threads per frame, leftover bin
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int win_p = (win + KS - 1) / KS * KS;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  const msv::Ring ring{bars, bars + msv::kMaxStages, smem + msv::kRingOffset,
+                       reinterpret_cast<const unsigned char*>(ops.slabs),
+                       SLAB_BYTES, stages, ops.n_tiles * (win_p / KS)};
+  constexpr int MS = msv::mag_stride<TF, float>();
+  float* mag = reinterpret_cast<float*>(smem + msv::kRingOffset +
+                                        stages * SLAB_BYTES);  // [NB+1][MS]
+  float* chunk = mag + (NB + 1) * MS;  // frame f's samples at f * cs
+  const int cs = chunk_stride(kc);
+  const msv::BandTables<float> tb{ops.bands, ops.woff, ops.wts};
+
+  const int lane = threadIdx.x;
+  const int warp = threadIdx.y;
+  const int tid = warp * 32 + lane;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int f0 = blockIdx.x * TF;
+  const T* w = wave + static_cast<long long>(blockIdx.y) * wave_stride;
+  const long long base = static_cast<long long>(f0) * hop;
+
+  ring.start(tid);
+  __syncthreads();  // the ring's mbarriers are initialised
+
+  float* o = out + (static_cast<long long>(blockIdx.y) * n_frames + f0) * n_mel;
+  const int nf = min(TF, n_frames - f0);
+  const int wn0 = warp * WCOLS;
+  int arow[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) arow[mt][h] = (mt * 16 + g + 8 * h) * cs + tig;
+  msv::Ring::Cursor cur;
+
+  for (int t = 0; t < ops.n_tiles; ++t) {
+    const bool last = t == ops.n_tiles - 1;
+    float acc[2][MT][2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[m][mt][nt][q] = 0.0f;
+    float2 left = make_float2(0.0f, 0.0f);  // the leftover bin, last tile
+
+    for (int k0 = 0; k0 < win_p; k0 += kc) {
+      const int len = min(kc, win_p - k0);
+      msv::consumer_sync();  // every warp is done with the last chunk
+      msv::stage_chunk<TF>(chunk, cs, w, base, hop, wave_len, k0, len, lane,
+                           warp);
+      msv::consumer_sync();
+      if (last) {  // samples [k0, k0 + nl) of the kept columns
+        const int nl = min(len, win - k0);
+        const float2 v =
+            msv::leftover_bin<TF>(chunk, cs, nl, ops.tail + 2 * k0, nl, tid);
+        left.x += v.x;
+        left.y += v.y;
+      }
+      for (int j = 0; j < len; j += KS) {
+        const float* cs_ = reinterpret_cast<const float*>(ring.acquire(cur));
+        float part[2][MT][2][4];
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+              for (int r = 0; r < 4; ++r) part[m][mt][nt][r] = 0.0f;
+#pragma unroll
+        for (int kk = 0; kk < KS; kk += 8)
+          kstep<MT>(part, cs_, kk, chunk + j + kk, arow, wn0, g, tig);
+        ring.release_all(cur, tid);
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+              for (int r = 0; r < 4; ++r)
+                acc[m][mt][nt][r] += part[m][mt][nt][r];
+      }
+    }
+
+    // every warp is done with the last tile's mel pass
+    msv::consumer_sync();
+    const int k0 = t * NB;
+    const int nv = min(NB, n_freq - 1 - k0);
+    store_magnitude<MT>(mag, acc, nv, wn0, g, tig);
+    int kt = NB;
+    if (last) {  // the leftover bin n_freq - 1, column nv
+      if (tid % P == 0)
+        mag[nv * MS + tid / P] = sqrtf(left.x * left.x + left.y * left.y);
+      kt = nv + 1;
+    }
+    msv::consumer_sync();
+
+    msv::mel_tile<TF>(mag, tb, __ldg(ops.tile_bands + 2 * t),
+                      __ldg(ops.tile_bands + 2 * t + 1), o, k0, kt, n_mel,
+                      nf, lane, warp);
+  }
+  msv::mel_empty_bands<TF>(o, tb.bands, n_mel, nf, lane, warp);
+}
+
+// Shared memory besides the ring: resident tier.
 size_t fixed_bytes(int mt, int win, int hop, int n_mel, int n_wts) {
   return tables_offset(mt, win, hop, 0) +
          msv::table_bytes(n_mel, n_wts, sizeof(float));
+}
+
+// Shared memory besides the ring: chunked tier.
+size_t chunked_fixed_bytes(int mt, int kc) {
+  const size_t tf = 16 * mt;
+  return msv::kRingOffset +
+         sizeof(float) * ((NB + 1) * (tf + 1) + tf * chunk_stride(kc));
 }
 
 template <typename T, int MT>
 int launch_mt(const void* wave, long long wave_stride, long long wave_len,
               int batch, const msv::Prepared<float>& ops, float* out, int win,
               int hop, int n_frames, int n_freq, int n_mel, int stages,
-              cudaStream_t stream) {
+              int kc, msv::Plan* plan, cudaStream_t stream) {
+  const bool chunked = kc > 0;
   const size_t smem =
-      fixed_bytes(MT, win, hop, n_mel, ops.n_wts) + stages * SLAB_BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      mel_db_tf32_kernel<T, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+      (chunked ? chunked_fixed_bytes(MT, kc)
+               : fixed_bytes(MT, win, hop, n_mel, ops.n_wts)) +
+      stages * SLAB_BYTES;
+  *plan = {chunked ? msv::kChunked : msv::kResident, MT, stages, kc,
+           static_cast<int>(smem), plan->avail};
   const dim3 grid((n_frames + 16 * MT - 1) / (16 * MT), batch);
   const dim3 block(32, WARPS);
-  mel_db_tf32_kernel<T, MT><<<grid, block, smem, stream>>>(
-      static_cast<const T*>(wave), wave_stride, wave_len, ops, out, win, hop,
-      n_frames, n_freq, n_mel, stages);
+  const T* w = static_cast<const T*>(wave);
+  cudaError_t err;
+  if (chunked) {
+    err = cudaFuncSetAttribute(mel_db_tf32_chunked_kernel<T, MT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    mel_db_tf32_chunked_kernel<T, MT><<<grid, block, smem, stream>>>(
+        w, wave_stride, wave_len, ops, out, win, hop, n_frames, n_freq,
+        n_mel, stages, kc);
+  } else {
+    err = cudaFuncSetAttribute(mel_db_tf32_kernel<T, MT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    mel_db_tf32_kernel<T, MT><<<grid, block, smem, stream>>>(
+        w, wave_stride, wave_len, ops, out, win, hop, n_frames, n_freq,
+        n_mel, stages);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The most m-tiles (4, 2, then 1) whose block fits with a ring of three
-// stages: more frames per block means fewer slab copies per frame.
+// The resident tier: the most m-tiles (4, 2, then 1) whose block fits with
+// a ring of three stages (more frames per block means fewer slab copies per
+// frame).  Else the chunked tier's one plan, where it fits with three
+// stages.  Else nothing is launched.
 template <typename T>
 int launch(const void* wave, long long wave_stride, long long wave_len,
            int batch, const msv::Prepared<float>& ops, float* out, int win,
-           int hop, int n_frames, int n_freq, int n_mel,
+           int hop, int n_frames, int n_freq, int n_mel, msv::Plan* plan,
            cudaStream_t stream) {
   msv::SmemLimits lim;
   if (const int err = msv::smem_limits(&lim)) return err;
-#define MSV_LAUNCH(M)                                                        \
-  if (const int st = msv::ring_stages(                                     \
-          fixed_bytes(M, win, hop, n_mel, ops.n_wts), SLAB_BYTES, lim))     \
-    return launch_mt<T, M>(wave, wave_stride, wave_len, batch, ops, out,    \
-                           win, hop, n_frames, n_freq, n_mel, st, stream);
-  MSV_LAUNCH(4)
-  MSV_LAUNCH(2)
-  MSV_LAUNCH(1)
+  plan->avail = static_cast<int>(lim.block);
+#define MSV_LAUNCH(M, KC, FIXED)                                            \
+  if (const int st = msv::ring_stages(FIXED, SLAB_BYTES, lim))             \
+    return launch_mt<T, M>(wave, wave_stride, wave_len, batch, ops, out,   \
+                           win, hop, n_frames, n_freq, n_mel, st, KC, plan, \
+                           stream);
+  MSV_LAUNCH(4, 0, fixed_bytes(4, win, hop, n_mel, ops.n_wts))
+  MSV_LAUNCH(2, 0, fixed_bytes(2, win, hop, n_mel, ops.n_wts))
+  MSV_LAUNCH(1, 0, fixed_bytes(1, win, hop, n_mel, ops.n_wts))
+  MSV_LAUNCH(CHUNK_MT, CHUNK, chunked_fixed_bytes(CHUNK_MT, CHUNK))
 #undef MSV_LAUNCH
+  plan->smem = static_cast<int>(chunked_fixed_bytes(CHUNK_MT, CHUNK) +
+                                3 * SLAB_BYTES);
   return static_cast<int>(cudaErrorInvalidConfiguration);
 }
 
@@ -367,9 +564,10 @@ extern "C" {
 // filterbank weights over its bins, band m's from woff[m]; bands: (n_mel,
 // 2) int32 [lo, hi) bin support of each band; tile_bands: (n_tiles, 2)
 // int32, the bands [ma, mb) each frequency tile meets.  out: (batch,
-// n_frames, n_mel) f32.
+// n_frames, n_mel) f32.  plan: 6 ints, the launcher's choice (msv::Plan).
 // Launches on `stream` without synchronising; returns the launch's
-// cudaError_t.
+// cudaError_t (cudaErrorInvalidConfiguration, launching nothing, where no
+// tier fits: then plan's tier is 0 and its smem the least a block needs).
 int msv_mel_spectrogram(const void* wave, int wave_is_i16,
                         long long wave_stride, long long wave_len, int batch,
                         const void* slabs, const void* tail, const void* wts,
@@ -377,7 +575,7 @@ int msv_mel_spectrogram(const void* wave, int wave_is_i16,
                         const int* tile_bands, float* out,
                         int win, int hop, int n_frames, int n_freq, int n_mel,
                         int n_tiles, int n_wts, int ks, int nb,
-                        int row_stride, void* stream) {
+                        int row_stride, void* stream, int* plan) {
   if (ks != KS || nb != NB || row_stride != ROW || n_tiles < 1 ||
       reinterpret_cast<uintptr_t>(slabs) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -386,12 +584,14 @@ int msv_mel_spectrogram(const void* wave, int wave_is_i16,
                                  static_cast<const float*>(wts), bands, woff,
                                  tile_bands, n_tiles, n_wts};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  msv::Plan* pl = reinterpret_cast<msv::Plan*>(plan);
+  *pl = {};
   if (wave_is_i16) {
     return launch<int16_t>(wave, wave_stride, wave_len, batch, ops, out, win,
-                           hop, n_frames, n_freq, n_mel, st);
+                           hop, n_frames, n_freq, n_mel, pl, st);
   }
   return launch<float>(wave, wave_stride, wave_len, batch, ops, out, win, hop,
-                       n_frames, n_freq, n_mel, st);
+                       n_frames, n_freq, n_mel, pl, st);
 }
 
 const char* msv_cuda_error_string(int err) {

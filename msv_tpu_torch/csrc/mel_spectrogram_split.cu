@@ -579,9 +579,11 @@ template <typename T, int MT>
 int launch_mt(const void* wave, long long wave_stride, long long wave_len,
               int batch, const msv::Prepared<uint32_t>& ops, float* out,
               int win, int hop, int n_frames, int n_freq, int n_mel,
-              int stages, cudaStream_t stream) {
+              int stages, msv::Plan* plan, cudaStream_t stream) {
   const size_t smem =
       fixed_bytes(MT, win, hop, n_mel, ops.n_wts) + stages * SLAB_BYTES;
+  *plan = {msv::kResident, MT, stages, 0, static_cast<int>(smem),
+           plan->avail};
   cudaError_t err = cudaFuncSetAttribute(
       mel_db_split_kernel<T, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -595,23 +597,29 @@ int launch_mt(const void* wave, long long wave_stride, long long wave_len,
 }
 
 // The most m-tiles (4, 2, then 1) whose block fits with a ring of three
-// stages: more frames per block means fewer slab copies per frame.
+// stages: more frames per block means fewer slab copies per frame.  It has
+// no chunked tier: where none fits (windows of 7056 samples and more, 176.4
+// kHz and up at the session's settings) nothing is launched.
 template <typename T>
 int launch(const void* wave, long long wave_stride, long long wave_len,
            int batch, const msv::Prepared<uint32_t>& ops, float* out, int win,
-           int hop, int n_frames, int n_freq, int n_mel,
+           int hop, int n_frames, int n_freq, int n_mel, msv::Plan* plan,
            cudaStream_t stream) {
   msv::SmemLimits lim;
   if (const int err = msv::smem_limits(&lim)) return err;
+  plan->avail = static_cast<int>(lim.block);
 #define MSV_LAUNCH(M)                                                        \
   if (const int st = msv::ring_stages(                                     \
           fixed_bytes(M, win, hop, n_mel, ops.n_wts), SLAB_BYTES, lim))     \
     return launch_mt<T, M>(wave, wave_stride, wave_len, batch, ops, out,    \
-                           win, hop, n_frames, n_freq, n_mel, st, stream);
+                           win, hop, n_frames, n_freq, n_mel, st, plan,    \
+                           stream);
   MSV_LAUNCH(4)
   MSV_LAUNCH(2)
   MSV_LAUNCH(1)
 #undef MSV_LAUNCH
+  plan->smem = static_cast<int>(fixed_bytes(1, win, hop, n_mel, ops.n_wts) +
+                                3 * SLAB_BYTES);
   return static_cast<int>(cudaErrorInvalidConfiguration);
 }
 
@@ -624,8 +632,8 @@ extern "C" {
 // of 8 x 8 core matrices (`core` = 8 must be this kernel's CORE, ks and nb
 // its KS and NB); tail: (win, 4), the columns of bin n_freq - 1 of Ch, Cl,
 // Sh, Sl; wts: (n_wts, 2), each band's weights over its bins as (hi, lo)
-// pairs.  Launches on `stream` without synchronising; returns the launch's
-// cudaError_t.
+// pairs; plan as msv_mel_spectrogram's.  Launches on `stream` without
+// synchronising; returns the launch's cudaError_t.
 int msv_mel_spectrogram_split(const void* wave, int wave_is_i16,
                               long long wave_stride, long long wave_len,
                               int batch, const void* slabs, const void* tail,
@@ -633,7 +641,8 @@ int msv_mel_spectrogram_split(const void* wave, int wave_is_i16,
                               const int* woff, const int* tile_bands,
                               float* out, int win, int hop, int n_frames,
                               int n_freq, int n_mel, int n_tiles, int n_wts,
-                              int ks, int nb, int core, void* stream) {
+                              int ks, int nb, int core, void* stream,
+                              int* plan) {
   if (ks != KS || nb != NB || core != CORE || n_tiles < 1 ||
       reinterpret_cast<uintptr_t>(slabs) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(tail) % 8 != 0 ||
@@ -644,12 +653,14 @@ int msv_mel_spectrogram_split(const void* wave, int wave_is_i16,
                                     static_cast<const uint32_t*>(wts), bands,
                                     woff, tile_bands, n_tiles, n_wts};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  msv::Plan* pl = reinterpret_cast<msv::Plan*>(plan);
+  *pl = {};
   if (wave_is_i16) {
     return launch<int16_t>(wave, wave_stride, wave_len, batch, ops, out, win,
-                           hop, n_frames, n_freq, n_mel, st);
+                           hop, n_frames, n_freq, n_mel, pl, st);
   }
   return launch<float>(wave, wave_stride, wave_len, batch, ops, out, win, hop,
-                       n_frames, n_freq, n_mel, st);
+                       n_frames, n_freq, n_mel, pl, st);
 }
 
 }  // extern "C"

@@ -11,9 +11,9 @@ Each variant is a copy of ``csrc/`` with one textual change, built with
 and loaded on its own.  The kernels are called with the same prepared
 operands on 240 s of noise at 48 and 8 kHz, B = 1, f32 input, and timed by
 CUDA events (median of ``reps`` after a warm-up).  ``base``, ``no_fence``,
-``int_split``, ``mma_sync`` and ``no_fadd`` compute the right numbers (their
-largest distance from the plain version is printed); the others exist for
-their times:
+``int_split``, ``mma_sync``, ``no_fadd`` and ``chunked`` compute the right
+numbers (their largest distance from the plain version is printed); the
+others exist for their times:
 
 * ``base``: the sources as they are;
 * ``no_fence``: no ``fence.proxy.async`` before each bulk copy;
@@ -33,6 +33,8 @@ their times:
   ``wgmma`` (``MSV_SPLIT_WGMMA=0``), everything else the same;
 * ``no_fadd`` (split): each tile's products accumulated in the tensor
   cores over the whole window instead of per-slab sums added by FADD;
+* ``chunked`` (parity, fast): every launch in the chunked tier, where the
+  launcher would take the resident one first;
 * ``bare_no_bands``, ``bare_no_stage``, ``bare_no_store``,
   ``bare_no_log``: ``bare`` without the mel pass, without the sample
   staging, without the mel pass's stores, or with them but without the dB.
@@ -99,8 +101,8 @@ VARIANTS["no_split"] = [("mel_spectrogram.cu", _CVT,
                          "  hi = lo = __float_as_uint(x);\n")]
 VARIANTS["one_pass"] = [
     ("mel_spectrogram.cu",
-     "              mma_tf32(part[m][mt][nt], al, bh[m][nt]);\n"
-     "              mma_tf32(part[m][mt][nt], ah, bl[m][nt]);\n", ""),
+     "        mma_tf32(part[m][mt][nt], al, bh[m][nt]);\n"
+     "        mma_tf32(part[m][mt][nt], ah, bl[m][nt]);\n", ""),
     ("mel_spectrogram_split.cu",
      "  wgmma_m64n128k16(d, ah, b_desc(b_lo), keep);\n"
      "  wgmma_m64n128k16(d, al, b_desc(b_hi), 1);\n", "")]
@@ -109,8 +111,13 @@ VARIANTS["mma_sync"] = [("mel_spectrogram_split.cu",
 VARIANTS["no_fadd"] = [("mel_spectrogram_split.cu",
                         "constexpr bool kStageFadd = true;",
                         "constexpr bool kStageFadd = false;")]
+_RESIDENT = ("  MSV_LAUNCH(4, 0, fixed_bytes(4, win, hop, n_mel, ops.n_wts))\n"
+             "  MSV_LAUNCH(2, 0, fixed_bytes(2, win, hop, n_mel, ops.n_wts))\n"
+             "  MSV_LAUNCH(1, 0, fixed_bytes(1, win, hop, n_mel, ops.n_wts))\n")
+VARIANTS["chunked"] = [(f, _RESIDENT, "") for f in ("mel_spectrogram.cu",
+                                                    "mel_spectrogram_bf16.cu")]
 # the variants whose output is the kernel's function
-RIGHT = ("base", "no_fence", "int_split", "mma_sync", "no_fadd")
+RIGHT = ("base", "no_fence", "int_split", "mma_sync", "no_fadd", "chunked")
 _BANDS = "  const int k1 = k0 + kt;\n"
 VARIANTS["bare_no_bands"] = VARIANTS["bare"] + [
     ("mel_common.cuh", _BANDS, _BANDS + "  return;\n")]
@@ -210,7 +217,7 @@ def build_all(names, modes, verbose=False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         for m in built[name]:
             fn = getattr(lib, K.ENTRY_POINTS[m])
-            fn.argtypes = [p, i, ll, ll, i, *[p] * 7, *[i] * 10, p]
+            fn.argtypes = [p, i, ll, ll, i, *[p] * 7, *[i] * 10, p, p]
             fn.restype = ctypes.c_int
         libs[name] = lib
     return libs
@@ -295,6 +302,7 @@ def main():
                     continue
                 fn = getattr(libs[name], K.ENTRY_POINTS[mode])
                 stream = torch.cuda.current_stream().cuda_stream
+                plan = K._Plan()
 
                 def run():
                     err = fn(x.data_ptr(), 0, x.numel(), x.numel(), 1,
@@ -305,7 +313,7 @@ def main():
                              n_frames,
                              ops.n_freq, n_mel, ops.n_tiles,
                              ops.wts.shape[0], ops.ks, ops.nb, ops.row,
-                             stream)
+                             stream, ctypes.byref(plan))
                     if err:
                         raise RuntimeError(f"{name} {mode}: error {err}")
 
@@ -318,8 +326,11 @@ def main():
                             f"max |err| vs plain {err.max().item():.3g} dB, "
                             f"bins over 0.01 dB: {int((err > 0.01).sum())})")
                 results[f"{name}/{mode}/{sr}"] = ms
+                tier = K.TIERS[plan.tier - 1]
                 print(f"[probe] {name:10s} {mode:6s} {sr:5d} Hz B=1 "
-                      f"{n_frames} frames: {ms:.3f} ms{note}", flush=True)
+                      f"{n_frames} frames, {tier} MT {plan.mt} stages "
+                      f"{plan.stages} chunk {plan.chunk}: {ms:.3f} ms{note}",
+                      flush=True)
     print(json.dumps(results))
 
 

@@ -15,7 +15,10 @@ in its three modes:
 
 Each source's header says what bounds it on an H100 and how its design
 answers that; all include ``csrc/mel_common.cuh``: the staging ring of C/S
-slabs, the leftover bin and the mel pass with its dB.  They are built with
+slabs, the chunked tier's sample staging, the launchers' plan, the leftover
+bin and the mel pass with its dB.  Each launcher takes the resident tier
+where a block holds its frames' samples, else (parity and fast) the
+chunked one (``TIERS``), and reports its choice.  They are built with
 ``nvcc`` at first use into one library under ``build/msv_tpu_torch/``
 beside the package, keyed on the hash of the sources and the header, and
 loaded as a plain C library.
@@ -50,6 +53,7 @@ import torch
 from ..config import precision_for
 from ..ops.stft import frame_device
 from ..utils.debug import check_nan
+from ..utils.profiling import span
 
 _AMIN = 1e-18
 _DB_SCALE = 20.0 / math.log(10.0)
@@ -72,10 +76,17 @@ MODES = ("parity", "fast", "split")
 ENTRY_POINTS = {"parity": "msv_mel_spectrogram",
                 "fast": "msv_mel_spectrogram_bf16",
                 "split": "msv_mel_spectrogram_split"}
+# The launchers' tiers, by the number a launcher reports (0: none fits):
+# "resident" stages every sample of a block's frames once; "chunked" (the
+# parity and fast kernels, where no resident block fits: at the session's
+# settings parity from 176.4 kHz on, fast at 384 kHz) stages them in chunks
+# along the window, again for every frequency tile.
+TIERS = ("resident", "chunked")
 # Kernel launches made by mel_spectrogram_cuda (the CPU route does not
-# count): the total, and by precision mode (the kernel it launched).
+# count): the total, by precision mode (the kernel it launched) and by tier.
 LAUNCHES = 0
 LAUNCHES_BY_MODE = {mode: 0 for mode in MODES}
+LAUNCHES_BY_TIER = {tier: 0 for tier in TIERS}
 # nvcc's report (registers, shared memory, spills) from the last build.
 BUILD_REPORT = ""
 
@@ -137,9 +148,9 @@ def build() -> ctypes.CDLL:
         shape = [i] * 5  # win, hop, n_frames, n_freq, n_mel
         for name in ENTRY_POINTS.values():
             # slabs, tail, wts, bands, woff, tile_bands, out; n_tiles,
-            # n_wts, ks, nb, row
+            # n_wts, ks, nb, row; the stream and the plan (6 ints out)
             getattr(lib, name).argtypes = [*wave, *[p] * 7, *shape,
-                                           *[i] * 5, p]
+                                           *[i] * 5, p, p]
             getattr(lib, name).restype = ctypes.c_int
         lib.msv_cuda_error_string.argtypes = [ctypes.c_int]
         lib.msv_cuda_error_string.restype = ctypes.c_char_p
@@ -482,8 +493,42 @@ def _check_out(out, shape, device):
             f"got {out.dtype} {tuple(out.shape)} on {out.device}")
 
 
+class _Plan(ctypes.Structure):
+    """A launcher's choice (``msv::Plan`` in ``csrc/mel_common.cuh``)."""
+
+    _fields_ = [(name, ctypes.c_int) for name in
+                ("tier", "mt", "stages", "chunk", "smem", "avail")]
+
+
+def _launch(lib, mode, wave, ops, out, win, hop, n_frames, n_mel, stream):
+    """Launch ``mode``'s kernel; returns what its launcher chose, as the
+    ``mel.launch`` span's attributes.  Raises ValueError where no tier of
+    the kernel fits the card's shared memory (nothing was launched), and
+    RuntimeError where the launch failed."""
+    plan = _Plan()
+    err = getattr(lib, ENTRY_POINTS[mode])(
+        wave.data_ptr(), int(wave.dtype == torch.int16), wave.shape[1],
+        wave.shape[1], wave.shape[0], ops.slabs.data_ptr(),
+        ops.tail.data_ptr(), ops.wts.data_ptr(), ops.bands.data_ptr(),
+        ops.woff.data_ptr(), ops.tile_bands.data_ptr(), out.data_ptr(), win,
+        hop, n_frames, ops.n_freq, n_mel, ops.n_tiles, ops.wts.shape[0],
+        ops.ks, ops.nb, ops.row, stream, ctypes.byref(plan))
+    if plan.tier == 0 and plan.smem > 0:
+        raise ValueError(
+            f"no tier of the {mode} mel kernel fits win={win}, hop={hop}, "
+            f"n_mel={n_mel}: a block needs {plan.smem} bytes of shared "
+            f"memory, the card offers {plan.avail}")
+    if err != 0:
+        msg = lib.msv_cuda_error_string(err).decode()
+        raise RuntimeError(f"mel_spectrogram kernel ({mode}) launch failed: "
+                           f"{msg}")
+    return {"tier": TIERS[plan.tier - 1], "mt": plan.mt,
+            "stages": plan.stages, "chunk": plan.chunk,
+            "smem_bytes": plan.smem}
+
+
 def mel_spectrogram_cuda(padded, *operands, win, hop, n_frames,
-                         mode="parity", out=None):
+                         mode="parity", out=None, sr=None):
     """Fused mel dB spectrogram: ``(n_frames, n_mel)``, or
     ``(B, n_frames, n_mel)`` for a ``(B, L)`` batch, float32.
 
@@ -496,6 +541,15 @@ def mel_spectrogram_cuda(padded, *operands, win, hop, n_frames,
     given, is a contiguous float32 tensor of the result's shape that the
     kernel writes (a row range of a larger plane, for instance) and that is
     returned.
+
+    Each call is one ``mel.launch`` program span (``utils.profiling``) with
+    ``sr`` (the caller's rate, or None), ``batch``, ``win``, ``hop``,
+    ``n_fft`` (2 * (n_freq - 1)), ``n_mel``, ``mode`` and what the launcher
+    chose: ``tier``, ``mt``, ``stages``, ``chunk`` and ``smem_bytes`` (the
+    CPU route: tier "plain", the rest 0).  It ends when the launch returns,
+    not when the kernel does.  Raises ValueError where no tier of the
+    mode's kernel fits the card (the split kernel, which has no chunked
+    tier, from 176.4 kHz on at the session's settings).
     """
     global LAUNCHES
     if len(operands) == 1 and isinstance(operands[0], MelOperands):
@@ -514,41 +568,36 @@ def mel_spectrogram_cuda(padded, *operands, win, hop, n_frames,
         padded.shape[0], n_frames, n_mel)
     if out is not None:
         _check_out(out, shape, padded.device)
-    if padded.device.type == "cpu":
-        db = mel_spectrogram_plain(padded, c, s, fb, win=win, hop=hop,
-                                   n_frames=n_frames, mode=mode)
-        check_nan(db, f"the {mode} mel kernel's plain version")
-        return db if out is None else out.copy_(db)
-    if padded.device.type != "cuda":
-        raise ValueError(f"unsupported device: {padded.device}")
-    given = {"padded": padded}
-    if ops is None:
-        given.update(c=c, s=s, fb=fb)
-    for name, t in given.items():
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    lib = build()
-    wave = padded if padded.ndim == 2 else padded.unsqueeze(0)
-    batch, length = wave.shape
-    if out is None:
-        out = torch.empty(shape, dtype=torch.float32, device=wave.device)
-    if ops is None:
-        ops = prepare_operands(c, s, fb, mode)
-    fn = getattr(lib, ENTRY_POINTS[mode])
-    with torch.cuda.device(wave.device):
-        stream = torch.cuda.current_stream(wave.device).cuda_stream
-        err = fn(wave.data_ptr(), int(wave.dtype == torch.int16), length,
-                 length, batch, ops.slabs.data_ptr(), ops.tail.data_ptr(),
-                 ops.wts.data_ptr(), ops.bands.data_ptr(),
-                 ops.woff.data_ptr(), ops.tile_bands.data_ptr(),
-                 out.data_ptr(), win, hop, n_frames, n_freq, n_mel,
-                 ops.n_tiles, ops.wts.shape[0], ops.ks, ops.nb, ops.row,
-                 stream)
-    if err != 0:
-        msg = lib.msv_cuda_error_string(err).decode()
-        raise RuntimeError(f"mel_spectrogram kernel ({mode}) launch failed: "
-                           f"{msg}")
+    batch = padded.shape[0] if padded.ndim == 2 else 1
+    with span("mel.launch", sr=sr, batch=batch, win=win, hop=hop,
+              n_fft=2 * (n_freq - 1), n_mel=n_mel, mode=mode) as sp:
+        if padded.device.type == "cpu":
+            db = mel_spectrogram_plain(padded, c, s, fb, win=win, hop=hop,
+                                       n_frames=n_frames, mode=mode)
+            sp.set(tier="plain", mt=0, stages=0, chunk=0, smem_bytes=0)
+            check_nan(db, f"the {mode} mel kernel's plain version")
+            return db if out is None else out.copy_(db)
+        if padded.device.type != "cuda":
+            raise ValueError(f"unsupported device: {padded.device}")
+        given = {"padded": padded}
+        if ops is None:
+            given.update(c=c, s=s, fb=fb)
+        for name, t in given.items():
+            if not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+        lib = build()
+        wave = padded if padded.ndim == 2 else padded.unsqueeze(0)
+        if out is None:
+            out = torch.empty(shape, dtype=torch.float32, device=wave.device)
+        if ops is None:
+            ops = prepare_operands(c, s, fb, mode)
+        with torch.cuda.device(wave.device):
+            stream = torch.cuda.current_stream(wave.device).cuda_stream
+            plan = _launch(lib, mode, wave, ops, out, win, hop, n_frames,
+                           n_mel, stream)
+        sp.set(**plan)
     LAUNCHES += 1
     LAUNCHES_BY_MODE[mode] += 1
+    LAUNCHES_BY_TIER[plan["tier"]] += 1
     check_nan(out, f"the {mode} mel kernel")
     return out

@@ -9,6 +9,8 @@ folded into the matrices.  FLOPs: 2 * win * n_freq * 2 per frame.
 """
 
 import functools
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -20,18 +22,35 @@ def n_pad_split(n_fft: int, win_length: int):
     return n_pad_left, n_pad_right
 
 
+# Rows of C and S whose f64 twiddles are made at a time, by a pool of
+# threads (numpy's cos and sin release the GIL): the same values as the
+# whole matrix at once, with temporaries of ROWS x n_freq (a 384 kHz
+# window, 15 360 x 8193, would otherwise hold four 1 GB f64 arrays, and its
+# cos and sin would run on one core).
+_TWIDDLE_ROWS = 256
+_TWIDDLE_THREADS = min(8, os.cpu_count() or 1)
+
+
 @functools.lru_cache(maxsize=64)
 def _dft_matrices_cached(win_length: int, n_fft: int, window_key, dtype_str: str):
     window = np.frombuffer(window_key, dtype=np.float32).astype(np.float64)
     n_freq = n_fft // 2 + 1
     n_pad_left, _ = n_pad_split(n_fft, win_length)
-    j = np.arange(win_length, dtype=np.float64)[:, None] + n_pad_left
     k = np.arange(n_freq, dtype=np.float64)[None, :]
-    phase = -2.0 * np.pi * j * k / n_fft
-    c = window[:, None] * np.cos(phase)
-    s = window[:, None] * np.sin(phase)
     dt = np.dtype(dtype_str)
-    return c.astype(dt), s.astype(dt)
+    c = np.empty((win_length, n_freq), dt)
+    s = np.empty((win_length, n_freq), dt)
+
+    def rows(a):
+        b = min(a + _TWIDDLE_ROWS, win_length)
+        j = np.arange(a, b, dtype=np.float64)[:, None] + n_pad_left
+        phase = -2.0 * np.pi * j * k / n_fft
+        c[a:b] = window[a:b, None] * np.cos(phase)
+        s[a:b] = window[a:b, None] * np.sin(phase)
+
+    with ThreadPoolExecutor(_TWIDDLE_THREADS) as pool:
+        list(pool.map(rows, range(0, win_length, _TWIDDLE_ROWS)))
+    return c, s
 
 
 def windowed_dft_matrices(window: np.ndarray, n_fft: int, dtype=np.float32):

@@ -202,7 +202,7 @@ def _torch_segment(seg, ops, out, *, win, hop, chunk_frames, scale, window,
 
 def _run_segments(make_seg, seg_plan, n_frames, win, hop, ops, chunk_frames,
                   *, mode, keep_wav=False, scale=_PCM16_SCALE, window=None,
-                  n_fft=None, route="kernel", transfer="auto"):
+                  n_fft=None, route="kernel", transfer="auto", sr=None):
     """Segment k's host slice (its carrier: int16, int32 or f32) -> device
     (raw, or packed for ``transfer`` and unpacked there) -> one kernel
     launch (``ops`` a prepared record), the kernel's plain version
@@ -293,7 +293,7 @@ def _run_segments(make_seg, seg_plan, n_frames, win, hop, ops, chunk_frames,
         if route == "kernel":
             rows = mel_spectrogram_cuda(seg, ops, win=win, hop=hop,
                                         n_frames=seg_frames, mode=mode,
-                                        out=db[f0 : f0 + seg_frames])
+                                        out=db[f0 : f0 + seg_frames], sr=sr)
         elif route == "plain":
             rows = db[f0 : f0 + seg_frames]
             rows.copy_(mel_spectrogram_plain(seg, *ops, win=win, hop=hop,
@@ -339,6 +339,7 @@ def streaming_spec_db(
     scale: float = 2.0**-15,
     *,
     device=None,
+    sr: int | None = None,
 ):
     """Full-file dB spectrogram via segmented launches.
 
@@ -371,7 +372,8 @@ def streaming_spec_db(
     session passes its cached one.
 
     ``keep_wav=True`` appends a 5th value: the reflect-padded, zero-tailed
-    wave on the device, stitched from the shipped segments.
+    wave on the device, stitched from the shipped segments.  ``sr``, where
+    given, goes on each launch's ``mel.launch`` span.
     """
     route = _check_route(_fb_of(c, mel_fb), impl, transfer, n_fft, window)
     mode = get_precision_mode()
@@ -390,7 +392,7 @@ def streaming_spec_db(
     return _run_segments(make_seg, seg_plan, n_frames, win, hop, ops,
                          chunk_frames, mode=mode, keep_wav=keep_wav,
                          scale=scale, window=window if impl == "fft" else None,
-                         n_fft=n_fft, route=route, transfer=transfer)
+                         n_fft=n_fft, route=route, transfer=transfer, sr=sr)
 
 
 def streaming_spec_db_mmap(path, win, hop, c, s, mel_fb=None,
@@ -419,4 +421,4 @@ def streaming_spec_db_mmap(path, win, hop, c, s, mel_fb=None,
 
     return _run_segments(make_seg, seg_plan, n_frames, win, hop, ops,
                          chunk_frames, mode=mode, route=route,
-                         transfer=transfer)
+                         transfer=transfer, sr=sr)

@@ -427,7 +427,7 @@ class MultiTrack:
                else self._sr_operands(track.sr, mode))
         db, n_valid, smin, smax, wav_dev = streaming_spec_db(
             src, track.win_length, track.hop_length, *ops,
-            keep_wav=True, scale=track.scale,
+            keep_wav=True, scale=track.scale, sr=track.sr,
         )
         self._env_states[id] = EnvelopeState.from_device(
             wav_dev, track.n_samples, offset=track.win_length // 2,
@@ -473,8 +473,12 @@ class MultiTrack:
                     db_b = mel_spectrogram_plain(
                         wave, *self._sr_operands(sr, mode), **kw)
                 else:
-                    db_b = mel_spectrogram_cuda(
-                        wave, self._sr_kernel_operands(sr, mode), **kw)
+                    # the card launches on the prepared slabs; the CPU
+                    # route reads C, S and fb alone
+                    ops = ((self._sr_kernel_operands(sr, mode),)
+                           if self.device.type == "cuda"
+                           else self._sr_operands(sr, mode))
+                    db_b = mel_spectrogram_cuda(wave, *ops, sr=sr, **kw)
                 frame = torch.arange(n_frames_pad, device=self.device)
                 fmask = (frame[None, :] < n_valid[:, None])[:, :, None]
                 smax = torch.where(fmask, db_b, -torch.inf).amax(dim=(1, 2))

@@ -518,3 +518,169 @@ def test_cuda_kernels_match_plain_with_a_padded_last_tile(setup, mode):
         d = (got["f32"] - plain).abs().flatten()
         assert d.max().item() < GREY_STEP
         assert d.kthvalue(int(np.ceil(0.99 * d.numel()))).values.item() < 0.01
+
+
+# Rates of 7056-sample windows and more at the session's settings, and the
+# tier each kernel takes there: no resident parity block holds them; a
+# resident fast block (bf16 samples) holds them up to 250 kHz at one or two
+# m-tiles.
+ULTRASONIC = [176400, 192000, 250000, 384000]
+TIER = {"parity": {sr: "chunked" for sr in ULTRASONIC},
+        "fast": {176400: "resident", 192000: "resident", 250000: "resident",
+                 384000: "chunked"}}
+
+
+def _kernel_operands(c, s, fb, mode, device="cuda"):
+    ops = K.operands_from_numpy(c, s, fb, device)
+    if mode == "fast":
+        ops = K.operands_bf16(*ops)
+    return K.prepare_operands(*ops, mode)
+
+
+def _agree_with_plain(got, plain, mode, what):
+    """The kernels' tolerance of the plain version: parity chip_smoke's
+    f32_agree rule (atol/rtol, and in bins 60 dB or more under their
+    frame's peak an f32 floor of 1e-6 of its amplitude, at most 0.1% of
+    them: over long windows both f32 sums leave such bins a few hundredths
+    of a dB apart), as the 120 ms windows above; fast one grey step at
+    most and 0.01 dB at the 99th percentile."""
+    if mode == "parity":
+        _chip_smoke().check_f32(got, plain, what)
+    else:
+        d = (got - plain).abs().flatten()
+        assert d.max().item() < GREY_STEP
+        assert d.kthvalue(int(np.ceil(0.99 * d.numel()))).values.item() < 0.01
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["parity", "fast"])
+@pytest.mark.parametrize("sr", ULTRASONIC)
+def test_chunked_tier_matches_plain_on_the_card(sr, mode):
+    """One second of noise at each rate, B = 2 and B = 1: every launch
+    takes the rate's tier, int16 is bit-equal to f32, batch rows are
+    independent, and the outputs keep the kernels' tolerance of the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    win, hop, c, s, fb = _setup(sr)
+    ops = _kernel_operands(c, s, fb, mode)
+    i16 = (np.random.default_rng(sr).standard_normal((2, sr)) * 3000).astype(
+        np.int16)
+    padded = np.stack([reflect_pad_center(w, win) for w in i16])
+    x = {"i16": torch.from_numpy(padded).cuda(),
+         "f32": torch.from_numpy(padded.astype(np.float32)
+                                 * np.float32(2.0**-15)).cuda()}
+    kw = dict(win=win, hop=hop, n_frames=n_frames_for(i16.shape[1], win, hop),
+              mode=mode)
+    before = dict(K.LAUNCHES_BY_TIER)
+    got = {k: K.mel_spectrogram_cuda(v, ops, **kw) for k, v in x.items()}
+    one = K.mel_spectrogram_cuda(x["f32"][1], ops, **kw)
+    tier = TIER[mode][sr]
+    assert K.LAUNCHES_BY_TIER == dict(before, **{tier: before[tier] + 3})
+    plain = K.mel_spectrogram_plain(x["f32"], ops.c, ops.s, ops.fb, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got["i16"], got["f32"])
+    assert torch.equal(one, got["f32"][1])
+    _agree_with_plain(got["f32"], plain, mode, f"{mode} {sr} Hz")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["parity", "fast"])
+def test_resident_tier_up_to_96_khz_on_the_card(mode):
+    """Every rate up to 96 kHz at the session's settings keeps the resident
+    tier (the launches of the songs and the hour), within the kernels'
+    tolerance of the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for sr in (*RATES, 88200, 96000):
+        win, hop, c, s, fb = _setup(sr)
+        ops = _kernel_operands(c, s, fb, mode)
+        wav = (np.random.default_rng(sr).standard_normal(sr) * 3000).astype(
+            np.int16)
+        x = torch.from_numpy(reflect_pad_center(wav, win)).cuda()
+        kw = dict(win=win, hop=hop, n_frames=n_frames_for(sr, win, hop),
+                  mode=mode)
+        before = K.LAUNCHES_BY_TIER["resident"]
+        got = K.mel_spectrogram_cuda(x, ops, **kw)
+        assert K.LAUNCHES_BY_TIER["resident"] == before + 1, sr
+        _agree_with_plain(got, K.mel_spectrogram_plain(
+            x, ops.c, ops.s, ops.fb, **kw), mode, f"{mode} {sr} Hz")
+
+
+@pytest.mark.gpu
+def test_split_kernel_raises_where_no_tier_fits_on_the_card():
+    """The split kernel has no chunked tier: at 176.4 kHz it launches
+    nothing and raises the ValueError that names the shape and the bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    win, hop, c, s, fb = _setup(176400)
+    ops = K.prepare_operands(*K.operands_split(
+        *K.operands_from_numpy(c, s, fb, "cuda")), "split")
+    x = torch.zeros(win + 4 * hop, device="cuda")
+    before = K.LAUNCHES
+    with pytest.raises(ValueError, match=rf"split .*win={win}, hop={hop}"):
+        K.mel_spectrogram_cuda(x, ops, win=win, hop=hop, n_frames=5,
+                               mode="split")
+    assert K.LAUNCHES == before
+
+
+class _FakeLib:
+    """A kernel library whose launcher reports ``plan`` and returns
+    ``err``, launching nothing."""
+
+    def __init__(self, plan, err):
+        self.plan, self.err = plan, err
+        for name in K.ENTRY_POINTS.values():
+            setattr(self, name, self._entry)
+
+    def _entry(self, *args):
+        plan = args[-1]._obj
+        for k, v in zip(("tier", "mt", "stages", "chunk", "smem", "avail"),
+                        self.plan):
+            setattr(plan, k, v)
+        return self.err
+
+    @staticmethod
+    def msv_cuda_error_string(err):
+        return b"invalid configuration argument"
+
+
+def _fake_launch(plan, err, mode="parity"):
+    win, hop, c, s, fb = _setup(8000)
+    ops = K.prepare_operands(*K.operands_from_numpy(c, s, fb), mode)
+    wave = torch.zeros((1, win + 3 * hop))
+    out = torch.empty((4, fb.shape[1]))
+    return K._launch(_FakeLib(plan, err), mode, wave, ops, out, win, hop, 4,
+                     fb.shape[1], 0)
+
+
+def test_launch_raises_value_error_where_no_tier_fits():
+    with pytest.raises(ValueError) as e:
+        _fake_launch((0, 0, 0, 0, 240000, 232448), 9)
+    msg = str(e.value)
+    for part in ("parity", "win=320", "hop=80", "n_mel=257", "240000",
+                 "232448"):
+        assert part in msg
+
+
+def test_launch_reports_the_launchers_choice():
+    assert _fake_launch((2, 4, 3, 512, 217988, 232448), 0) == {
+        "tier": "chunked", "mt": 4, "stages": 3, "chunk": 512,
+        "smem_bytes": 217988}
+    with pytest.raises(RuntimeError, match="invalid configuration"):
+        _fake_launch((1, 4, 3, 0, 100000, 232448), 9)
+
+
+def test_launches_by_tier_counts_card_launches_alone(rng):
+    """LAUNCHES_BY_TIER has one count per tier and, like LAUNCHES, does not
+    count the CPU route."""
+    assert set(K.LAUNCHES_BY_TIER) == set(K.TIERS) == {"resident", "chunked"}
+    win, hop, c, s, fb = _setup(8000)
+    before = dict(K.LAUNCHES_BY_TIER)
+    K.mel_spectrogram_cuda(
+        torch.from_numpy(reflect_pad_center(_signal(rng, 4000), win)),
+        *K.operands_from_numpy(c, s, fb), win=win, hop=hop,
+        n_frames=n_frames_for(4000, win, hop))
+    assert K.LAUNCHES_BY_TIER == before

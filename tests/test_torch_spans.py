@@ -310,3 +310,54 @@ def test_device_trace_writes_the_spans_and_clears_them(tmp_path):
     # the profiler's own range lies inside, on the same time base (us)
     assert outer["ts"] - 1e3 <= rng["ts"]
     assert rng["ts"] + rng["dur"] <= outer["ts"] + outer["dur"] + 1e3
+
+
+def test_each_mel_launch_is_a_span_under_its_group(tmp_path):
+    """One ``mel.launch`` span a rate group, inside the group's
+    ``add_tracks.kernel_minmax`` stage, with the launch's shape; on the CPU
+    the route is the kernels' plain version: tier "plain", the launcher's
+    numbers 0."""
+    stereo, mono = _wavs(tmp_path)
+    mt = msv_tpu_torch.MultiTrack(device="cpu")
+    with _profile():
+        mt.add_tracks([0, 1], [stereo, mono])
+    spans = profiling.recorded()
+    launches = _by_name(spans, "mel.launch")
+    stages = {s.span_id: s for s in _by_name(spans,
+                                             "add_tracks.kernel_minmax")}
+    assert len(launches) == len(stages) >= 1
+    assert sum(s.attrs["batch"] for s in launches) == 2
+    for s in launches:
+        assert s.parent_id in stages
+        assert dict(s.attrs, batch=None) == {
+            "sr": 16000, "batch": None, "win": 640, "hop": 160,
+            "n_fft": 1024, "n_mel": 385, "mode": "parity", "tier": "plain",
+            "mt": 0, "stages": 0, "chunk": 0, "smem_bytes": 0}
+
+
+def test_streaming_records_a_mel_launch_a_segment():
+    """Each streamed segment's launch is a ``mel.launch`` span with the
+    caller's rate."""
+    from msv_tpu_torch.config import SpecSetting, derive_stft_params
+    from msv_tpu_torch.kernels import spectrogram_cuda as K
+    from msv_tpu_torch.ops.dft import windowed_dft_matrices
+    from msv_tpu_torch.ops.mel import calc_mel_fb_default
+    from msv_tpu_torch.ops.windows import default_stft_window
+    from msv_tpu_torch.parallel.streaming import (_seg_plan_for,
+                                                  streaming_spec_db)
+
+    sr = 8000
+    p = derive_stft_params(sr, SpecSetting())
+    c, s = windowed_dft_matrices(default_stft_window(p.win_length, p.n_fft),
+                                 p.n_fft)
+    ops = K.prepare_operands(*K.operands_from_numpy(
+        c, s, calc_mel_fb_default(sr, p.n_fft)))
+    wav = np.random.default_rng(3).standard_normal(3 * sr).astype(np.float32)
+    with _profile():
+        db, n_frames, *_ = streaming_spec_db(
+            wav, p.win_length, p.hop_length, ops, None, None,
+            chunk_frames=64, seg_chunks=2, sr=sr)
+    launches = _by_name(profiling.recorded(), "mel.launch")
+    assert len(launches) == len(_seg_plan_for(n_frames, 64, 2)) > 1
+    assert {(s.attrs["sr"], s.attrs["tier"], s.attrs["batch"])
+            for s in launches} == {(sr, "plain", 1)}

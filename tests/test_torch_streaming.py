@@ -235,14 +235,21 @@ def test_long_track_image_within_one_step(long_sessions):
 def test_fast_mode_session_takes_the_bf16_operands(tmp_path, monkeypatch,
                                                    rng):
     """Under set_precision_mode("fast") every session launch, one-shot or
-    streamed, gets mode="fast" and the bf16 operands, prepared for it."""
+    streamed, gets mode="fast" and the bf16 operands: a streamed one
+    prepared for it; on the CPU a group's as (C, S, fb) alone, since the
+    CPU route reads no slabs."""
     seen = []
     real = K.mel_spectrogram_cuda
 
-    def spy(padded, ops, **kw):
-        seen.append((kw["mode"], ops.mode, ops.c.dtype, ops.slabs.dtype,
-                     ops.fb.dtype))
-        return real(padded, ops, **kw)
+    def spy(padded, *ops, **kw):
+        if len(ops) == 1:
+            (o,) = ops
+            seen.append((kw["mode"], o.mode, o.c.dtype, o.slabs.dtype,
+                         o.fb.dtype))
+        else:
+            c, s, fb = ops
+            seen.append((kw["mode"], None, c.dtype, s.dtype, fb.dtype))
+        return real(padded, *ops, **kw)
 
     monkeypatch.setattr(tmt, "mel_spectrogram_cuda", spy)
     monkeypatch.setattr(tstream, "mel_spectrogram_cuda", spy)
@@ -257,7 +264,8 @@ def test_fast_mode_session_takes_the_bf16_operands(tmp_path, monkeypatch,
     with precision_mode_scope("fast"):
         mt.add_tracks([0, 1], paths)
     bf = torch.bfloat16
-    assert seen == [("fast", "fast", bf, bf, bf)] * 2  # a group, a segment
+    assert seen == [("fast", None, bf, bf, bf),  # a group
+                    ("fast", "fast", bf, bf, bf)]  # a segment
     assert mt._state[1].n_frames_pad == 4096  # the streamed one
     parity = msv_tpu_torch.MultiTrack(device="cpu")
     parity.add_tracks([0, 1], paths)
