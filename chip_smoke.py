@@ -43,20 +43,30 @@ Phases, each printing its lines:
               and bf16 kernels at 384, 250 and 192 kHz (windows of 15 360,
               10 000 and 7680 samples, n_fft 16 384, 16 384 and 8192) on
               300 s of audio per row (30 001 frames), f32 and int16 input,
-              batch 1 and 2: the tier each launch takes (parity chunked at
-              all three; fast resident at 192 and 250 kHz, chunked at 384),
-              int16 bit-equal to f32, batch rows independent; parity against
-              its plain version by f32_agree or, where a bin fails it,
-              within twice the plain version's own f32 error at that window
-              (its largest distance from a float64 witness on the card, in
-              amplitude relative to the frame's peak: window_agree), which
-              the bf16 kernel fails; fast against its plain version as in
-              3b; times of both kernels and the plain versions at 384 kHz;
-              then the survey session (the benchmark's survey384k: four 300
-              s mono PCM16 WAVs at 384, 250, 192 and 48 kHz) in
-              MultiTrack(device="cuda").add_tracks, in parity and in fast,
-              its launches by tier counted (its main path) and each plane
-              equal to the kernel's on the session's padded wave;
+              batch 1 and 2: the tier each launch takes, as tier_for says
+              (parity the FFT tier at all three, on the record the session
+              makes, without C or S; fast resident at 192 and 250 kHz,
+              chunked at 384), int16 bit-equal to f32, batch rows
+              independent; parity against its plain version by f32_agree
+              or, where a bin fails it, within twice the plain version's own
+              f32 error at that window (its largest distance from a float64
+              witness on the card, in amplitude relative to the frame's
+              peak: window_agree), which the bf16 kernel fails; fast
+              against its plain version as in 3b; times of both kernels
+              (f32 and int16 input, B = 1) and the plain versions at each
+              rate, the FFT tier beside its bound and beside
+              torch.fft.rfft + magnitude + mel + dB (library_ms, the
+              yardstick: the port never calls it); the parity chunked
+              tier as the FFT tier, at 176.4 kHz and f_overlap 3 (n_fft
+              24 576: no FFT plan), 300 s a row, its time beside its bound
+              and the plain version, and a session of one such file whose
+              launch takes it; then the survey session
+              (the benchmark's survey384k: four 300 s mono PCM16 WAVs at
+              384, 250, 192 and 48 kHz) in MultiTrack(device="cuda")
+              .add_tracks, in parity and in fast, its launches by tier
+              counted (its main path: parity 3 FFT and 1 resident), no C
+              or S built at the parity session's FFT-tier rates, and each
+              plane equal to the kernel's on the session's padded wave;
   4. session  the user's path: MultiTrack(device="cuda").add_tracks on seven
               240 s stereo PCM16 WAVs at 8/16/22.05/24/44.1/44.1/48 kHz (six
               kernel launch groups), a 500-row full-width image of every
@@ -275,6 +285,7 @@ What bounds each kernel is measured apart by msv_tpu_torch/kernels/probe.py
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1132,7 +1143,7 @@ def split_ab(K, rng, minutes=30, seg=32768):
 # files (30 001 frames), and the tier each kernel takes there.
 SURVEY_RATES = [384000, 250000, 192000]
 SURVEY_SECONDS = 300.0
-SURVEY_TIER = {"parity": {sr: "chunked" for sr in SURVEY_RATES},
+SURVEY_TIER = {"parity": {sr: "fft" for sr in SURVEY_RATES},
                "fast": {384000: "chunked", 250000: "resident",
                         192000: "resident"}}
 # frames per block of the plain version and the f64 witness in 3d
@@ -1171,66 +1182,247 @@ def window_agree(got, plain, wit):
     return agree | near, agree, own
 
 
-def survey_against_plain(K, got, x, ops, win, hop, n_frames):
-    """3d's comparisons of one rate's (2, n_frames, n_mel) kernel planes
-    ``got`` (by mode) on the f32 wave ``x`` against the plain versions, in
-    blocks of WINDOW_BLOCK frames.  Returns each mode's largest |dB error|
-    and a note."""
-    wide = tuple(t.double() for t in ops)
-    out_of_f32, n_bins, own, err = 0, 0, 0.0, {"parity": 0.0}
-    fast_err, fast_told = [], False
-    for a in range(0, n_frames, WINDOW_BLOCK):
-        b = min(n_frames, a + WINDOW_BLOCK)
-        seg = x[..., a * hop:(b - 1) * hop + win]
-        kw = dict(win=win, hop=hop, n_frames=b - a)
-        plain = K.mel_spectrogram_plain(seg, *ops, **kw)
-        wit = f64_witness_cuda(seg, *wide, win, hop, b - a)
-        par = got["parity"][..., a:b, :]
+def fft_bound(rec, padded, n_frames):
+    """(bound_ms, bound_by) of one FFT-tier launch on ``padded``: the larger
+    of its operations (a real FFT of n_fft points a frame, 2.5 n log2 n,
+    the magnitude, 3 a bin, and the mel pass, 2 a weight) over the f32 SIMT
+    peak, and its bytes (the wave, the window, the twiddles and the band
+    tables read once, the dB plane written once) over the HBM rate."""
+    rows = 1 if padded.ndim == 1 else padded.shape[0]
+    n, n_mel = rec.n_fft, rec.fb.shape[-1]
+    ops = rows * n_frames * (2.5 * n * math.log2(n) + 3 * rec.n_freq
+                             + 2 * rec.wts.shape[0])
+    nbytes = (sum(t.numel() * t.element_size() for t in (
+        padded, rec.window, rec.twiddles, rec.wts, rec.bands, rec.woff))
+        + 4 * rows * n_frames * n_mel)
+    t_ops, t_bytes = ops / PEAK_FLOPS["simt"], nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def library_mel(x, rec, win, hop, n_frames):
+    """The yardstick of the FFT tier, which the port never calls: the same
+    dB plane by torch.fft.rfft of the windowed frames (zero-padded to n_fft
+    at the kernel's left offset), the magnitude, the mel product (true f32)
+    and the dB, in blocks of WINDOW_BLOCK frames of the f32 wave ``x``."""
+    from msv_tpu_torch.config import precision_for
+
+    left = (rec.n_fft - win) // 2
+    out = torch.empty((n_frames, rec.fb.shape[-1]), device=x.device)
+    with precision_for("parity"):
+        for a in range(0, n_frames, WINDOW_BLOCK):
+            b = min(n_frames, a + WINDOW_BLOCK)
+            fr = x[a * hop:(b - 1) * hop + win].unfold(0, win, hop)
+            fr = fr * rec.window
+            fr = torch.nn.functional.pad(fr, (left, rec.n_fft - win - left))
+            mel = torch.fft.rfft(fr).abs() @ rec.fb.to(x.device)
+            out[a:b] = torch.where(mel > 1e-18, 20.0 * torch.log10(mel),
+                                   -360.0)
+    return out
+
+
+class ParityAgainstPlain:
+    """3d's holding of parity planes against the plain version, block by
+    block: every bin within window_agree, at most FLOOR_SHARE of them out
+    of f32_agree (``done``); the largest |dB error|, the bins out of
+    f32_agree and the plain version's own f32 error."""
+
+    def __init__(self, K, ops, win, hop):
+        self.K, self.ops, self.win, self.hop = K, ops, win, hop
+        self.wide = tuple(t.double() for t in ops)
+        self.out_of_f32, self.n_bins, self.own, self.err = 0, 0, 0.0, 0.0
+
+    def block(self, par, seg, a, b):
+        """Hold ``par`` (frames [a, b) of a plane) against the plain
+        version on ``seg``, the wave of those frames; returns (plain,
+        witness)."""
+        win, hop = self.win, self.hop
+        plain = self.K.mel_spectrogram_plain(seg, *self.ops, win=win,
+                                             hop=hop, n_frames=b - a)
+        wit = f64_witness_cuda(seg, *self.wide, win, hop, b - a)
         agree, f32_ok, e = window_agree(par, plain, wit)
         out = int((~agree).sum())
         check(out == 0, f"{win}-sample windows, parity, frames {a}-{b}: "
               f"{out} bins out of window_agree (plain's own f32 error {e:.3g}"
               f" of the peak)")
-        out_of_f32 += int((~f32_ok).sum())
-        n_bins += agree.numel()
-        own = max(own, e)
-        err["parity"] = max(err["parity"], (par - plain).abs().max().item())
+        self.out_of_f32 += int((~f32_ok).sum())
+        self.n_bins += agree.numel()
+        self.own = max(self.own, e)
+        self.err = max(self.err, (par - plain).abs().max().item())
+        return plain, wit
+
+    def done(self):
+        check(self.out_of_f32 <= FLOOR_SHARE * self.n_bins,
+              f"{self.win}-sample windows: {self.out_of_f32} of "
+              f"{self.n_bins} bins out of f32_agree")
+        return (f"parity: {self.out_of_f32} of {self.n_bins} bins out of "
+                f"f32_agree, within twice plain's own f32 error "
+                f"{self.own:.3g} of the peak")
+
+
+def survey_against_plain(K, got, x, ops, win, hop, n_frames):
+    """3d's comparisons of one rate's (2, n_frames, n_mel) kernel planes
+    ``got`` (by mode) on the f32 wave ``x`` against the plain versions, in
+    blocks of WINDOW_BLOCK frames.  Returns each mode's largest |dB error|
+    and a note."""
+    parity = ParityAgainstPlain(K, ops, win, hop)
+    err = {}
+    fast_err, fast_told = [], False
+    for a in range(0, n_frames, WINDOW_BLOCK):
+        b = min(n_frames, a + WINDOW_BLOCK)
+        seg = x[..., a * hop:(b - 1) * hop + win]
+        kw = dict(win=win, hop=hop, n_frames=b - a)
+        plain, wit = parity.block(got["parity"][..., a:b, :], seg, a, b)
         fast = got["fast"][..., a:b, :]
         if a == 0:  # the rule tells the bf16 kernel apart
             fast_told = not bool(window_agree(fast, plain, wit)[0].all())
         fast_err.append((fast - K.mel_spectrogram_plain(
             seg, *ops, mode="fast", **kw)).abs().flatten())
         del plain, wit
-    check(out_of_f32 <= FLOOR_SHARE * n_bins, f"{win}-sample windows: "
-          f"{out_of_f32} of {n_bins} bins out of f32_agree")
+    note = parity.done()
     check(fast_told, f"{win}-sample windows: the bf16 kernel meets "
           f"window_agree")
     fe = torch.cat(fast_err)
+    err["parity"] = parity.err
     err["fast"], p99 = fe.max().item(), quantile(fe, 0.99)
     check(err["fast"] < GREY_STEP and p99 < 0.01, f"{win}-sample windows, "
           f"fast vs plain: max {err['fast']} dB, p99 {p99} dB")
-    return err, (f"parity: {out_of_f32} of {n_bins} bins out of f32_agree, "
-                 f"within twice plain's own f32 error {own:.3g} of the peak; "
-                 f"fast: max {err['fast']:.3g} dB p99 {p99:.3g} dB, and out "
-                 f"of window_agree")
+    return err, (f"{note}; fast: max {err['fast']:.3g} dB p99 {p99:.3g} dB, "
+                 f"and out of window_agree")
+
+
+# 3d's parity chunked tier: 176.4 kHz at f_overlap 3 (windows of 7056
+# samples, which no resident parity block holds; n_fft 24 576, not a power
+# of two: no FFT plan), as the viewer's and the CLI's f_overlap set it
+CHUNKED_SR, CHUNKED_F_OVERLAP = 176400, 3
+
+
+def survey_chunked(K, rng, d):
+    """3d: the parity kernel's chunked tier at CHUNKED_SR and
+    CHUNKED_F_OVERLAP, 300 s a row, f32 and int16 input, B = 1 and 2, on
+    the record kernel_record makes: each launch chunked, as tier_for says;
+    int16 bit-equal to f32; rows independent; against its plain version as
+    the FFT tier (ParityAgainstPlain); times of the kernel (f32 and int16,
+    B = 1), its bound and the plain version; then a session of one such
+    file at that setting, its launch in the chunked tier and its plane the
+    kernel's.  Returns (head, max |dB error|, the session's chunked
+    launches)."""
+    from msv_tpu_torch import MultiTrack
+    from msv_tpu_torch.config import SpecSetting, derive_stft_params
+    from msv_tpu_torch.io.audio import write_wav
+    from msv_tpu_torch.ops.dft import windowed_dft_matrices
+    from msv_tpu_torch.ops.framing import n_frames_for, reflect_pad_center
+    from msv_tpu_torch.ops.mel import calc_mel_fb_default
+    from msv_tpu_torch.ops.windows import default_stft_window
+
+    sr, setting = CHUNKED_SR, SpecSetting(f_overlap=CHUNKED_F_OVERLAP)
+    p = derive_stft_params(sr, setting)
+    win, hop, n_fft = p.win_length, p.hop_length, p.n_fft
+    window = default_stft_window(win, n_fft)
+    ops = K.operands_from_numpy(*windowed_dft_matrices(window, n_fft),
+                                calc_mel_fb_default(sr, n_fft), "cuda")
+    n_mel = ops[2].shape[1]
+    rec = K.kernel_record("parity", window, ops[2], win=win, hop=hop,
+                          n_fft=n_fft, device=ops[2].device,
+                          dense=lambda: ops)
+    what = f"chunked {sr} Hz f_overlap {CHUNKED_F_OVERLAP}"
+    check(not rec.fft and K.tier_for("parity", win, hop, n_fft, n_mel,
+                                     rec.wts.shape[0]) == "chunked",
+          f"{what}: tier_for is not chunked")
+    i16 = make_signal(rng, sr, SURVEY_SECONDS, 2)
+    path = os.path.join(d, f"chunked_{sr}.wav")
+    write_wav(path, i16[0].astype(np.float32) / 32768.0, sr)
+    n_frames = n_frames_for(i16.shape[1], win, hop)
+    padded = np.stack([reflect_pad_center(x, win) for x in i16])
+    wave = {"i16": torch.from_numpy(padded).cuda(),
+            "f32": torch.from_numpy(padded.astype(np.float32)
+                                    * np.float32(2.0**-15)).cuda()}
+    del i16, padded
+    kw = dict(win=win, hop=hop, n_frames=n_frames)
+    before = dict(K.LAUNCHES_BY_TIER)
+    two = {k: K.mel_spectrogram_cuda(v, rec, **kw) for k, v in wave.items()}
+    one = {k: K.mel_spectrogram_cuda(v[1], rec, **kw)
+           for k, v in wave.items()}
+    check(K.LAUNCHES_BY_TIER == dict(before, chunked=before["chunked"] + 4),
+          f"{what}: launches by tier {K.LAUNCHES_BY_TIER}")
+    torch.cuda.synchronize()
+    check(all(torch.equal(g["i16"], g["f32"]) for g in (one, two)),
+          f"{what}: int16 route != f32 route")
+    check(torch.equal(one["f32"], two["f32"][1]),
+          f"{what}: B=1 != row 1 of B=2")
+    parity = ParityAgainstPlain(K, ops, win, hop)
+    for a in range(0, n_frames, WINDOW_BLOCK):
+        b = min(n_frames, a + WINDOW_BLOCK)
+        parity.block(two["f32"][..., a:b, :],
+                     wave["f32"][..., a * hop:(b - 1) * hop + win], a, b)
+    note = parity.done()
+    del one, two
+    x1 = wave["f32"][0]
+    ms = cuda_ms(lambda: K.mel_spectrogram_cuda(x1, rec, **kw))
+    ms_i16 = cuda_ms(lambda: K.mel_spectrogram_cuda(wave["i16"][0], rec,
+                                                    **kw))
+    plain_ms = cuda_ms(lambda: K.mel_spectrogram_plain(x1, *ops, **kw))
+    bnd = bound(K, "parity", x1, ops, n_frames)
+    del wave, rec, ops
+    torch.cuda.empty_cache()
+    # ---- the session: counts from here to the end of add_tracks
+    torch.cuda.synchronize()
+    reset_counts(K)
+    mt = MultiTrack(setting, device="cuda")
+    mt.add_tracks([0], [path])
+    torch.cuda.synchronize()
+    n, tiers = read_counts(K), dict(K.LAUNCHES_BY_TIER)
+    # ---- end of the session
+    check(n == counts(parity=1) and tiers == dict(resident=0, chunked=1,
+                                                  fft=0),
+          f"{what} session: launches {n}, by tier {tiers}")
+    tr, st = mt.tracks[0], mt._state[0]
+    padded, nf, nfp = mt._prep_padded(tr)
+    direct = K.mel_spectrogram_cuda(
+        torch.from_numpy(padded).cuda(), mt._sr_kernel_operands(sr, "parity"),
+        win=win, hop=hop, n_frames=nfp)
+    check(torch.equal(st.spec_db[:nf], direct[:nf]),
+          f"{what} session: the plane != the kernel's on its padded wave")
+    print(f"[survey] {what}: win {win} hop {hop} n_fft {n_fft} n_mel {n_mel}"
+          f" B=1,2 frames {n_frames}: i16==f32, rows independent; {note}; "
+          f"B=1: parity chunked {ms:.3f} ms (i16 {ms_i16:.3f}), bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]}; {100 * bnd[0] / ms:.1f}%), plain "
+          f"{plain_ms:.3f} ms; session launches by tier {tiers}, its plane "
+          f"the kernel's", flush=True)
+    del mt, direct
+    torch.cuda.empty_cache()
+    return ((ms, plain_ms, f"{sr} Hz f_overlap {CHUNKED_F_OVERLAP}, B=1, "
+             f"f32, {n_frames} frames x {n_mel} mel", *bnd, None),
+            parity.err, tiers["chunked"])
 
 
 def phase_survey(K, rng, work):
-    """3d: the chunked tier at the survey's rates, then the survey session.
-    Returns (paths, heads, errs, chunked): the sessions' resident-tier
-    launches for the launch line, each mode's headline at 384 kHz and
-    largest |dB error| against its plain version, and each survey
-    session's chunked-tier launches."""
+    """3d: the FFT tier (parity) and the bf16 kernel at the survey's rates,
+    the parity chunked tier (survey_chunked), then the survey session.
+    Returns (paths, heads, errs, tier_launches): the sessions'
+    resident-tier launches for the launch line, each kernel's headline
+    (parity's FFT tier and fast at 384 kHz, parity's FFT tier with its
+    library_ms; "chunked": the parity chunked tier) and largest |dB error|
+    against its plain version, and the sessions' launches of each one's
+    tier (parity "fft", fast "chunked", "chunked" the parity chunked
+    tier's)."""
     from msv_tpu_torch import MultiTrack, precision_mode_scope
     from msv_tpu_torch.io.audio import write_wav
     from msv_tpu_torch.ops.framing import n_frames_for, reflect_pad_center
+    from msv_tpu_torch.ops.windows import default_stft_window
 
     d = tempfile.mkdtemp(prefix="msv_chip_survey_", dir=work)
     files, heads, errs = [], {}, {"parity": 0.0, "fast": 0.0}
     for sr in SURVEY_RATES:
         win, hop, ops = operands(sr, "cuda")
-        rec = {"parity": K.prepare_operands(*ops, "parity"),
+        n_fft = 2 * (ops[2].shape[0] - 1)
+        rec = {"parity": K.kernel_record(
+                   "parity", default_stft_window(win, n_fft), ops[2],
+                   win=win, hop=hop, n_fft=n_fft, device=ops[2].device,
+                   dense=lambda: ops),
                "fast": K.prepare_operands(*K.operands_bf16(*ops), "fast")}
+        check(rec["parity"].c is None and rec["parity"].slabs is None,
+              f"{sr} Hz: the FFT tier's record holds C/S")
         i16 = make_signal(rng, sr, SURVEY_SECONDS, 2)
         files.append(os.path.join(d, f"survey_{sr}.wav"))
         write_wav(files[-1], i16[0].astype(np.float32) / 32768.0, sr)
@@ -1247,6 +1439,8 @@ def phase_survey(K, rng, work):
             kw = dict(win=win, hop=hop, n_frames=n_frames, mode=mode)
             what = f"survey {sr} Hz {mode}"
             tier = SURVEY_TIER[mode][sr]
+            check(K.tier_for(mode, win, hop, n_fft, n_mel, K.band_weights(
+                ops[2])) == tier, f"{what}: tier_for is not {tier}")
             before = dict(K.LAUNCHES_BY_TIER)
             two = {k: K.mel_spectrogram_cuda(v, rec[mode], **kw)
                    for k, v in wave.items()}
@@ -1272,13 +1466,21 @@ def phase_survey(K, rng, work):
                 wave["i16"][0], rec[mode], **kw))
             plain_ms = cuda_ms(lambda: K.mel_spectrogram_plain(x1, *ops,
                                                                **kw))
+            if mode == "parity":
+                bnd = fft_bound(rec[mode], x1, n_frames)
+                lib_ms = cuda_ms(lambda: library_mel(x1, rec[mode], win, hop,
+                                                     n_frames))
+            else:
+                bnd = bound(K, mode, x1, K.operands_bf16(*ops), n_frames)
+                lib_ms = None
             line.append(f"{mode} {tier} {ms:.3f} ms (i16 {ms_i16:.3f}), "
-                        f"plain {plain_ms:.3f} ms")
+                        f"bound {bnd[0]:.4f} ms ({bnd[1]}; "
+                        f"{100 * bnd[0] / ms:.1f}%), plain {plain_ms:.3f} ms"
+                        + ("" if lib_ms is None
+                           else f", library {lib_ms:.3f} ms"))
             if sr == 384000:
                 heads[mode] = (ms, plain_ms, f"{sr} Hz, B=1, f32, {n_frames}"
-                               f" frames x {n_mel} mel", *bound(
-                                   K, mode, x1, ops if mode == "parity"
-                                   else K.operands_bf16(*ops), n_frames))
+                               f" frames x {n_mel} mel", *bnd, lib_ms)
         err, note = survey_against_plain(K, got, wave["f32"], ops, win, hop,
                                          n_frames)
         for mode in errs:
@@ -1288,12 +1490,13 @@ def phase_survey(K, rng, work):
               + "; ".join(line), flush=True)
         del wave, got, ops, rec
         torch.cuda.empty_cache()
+    heads["chunked"], errs["chunked"], chunked = survey_chunked(K, rng, d)
 
     files.append(os.path.join(d, "survey_48000.wav"))
     write_wav(files[-1], make_signal(rng, 48000, SURVEY_SECONDS, 1)[0]
               .astype(np.float32) / 32768.0, 48000)
     ids = list(range(len(files)))
-    paths, chunked = [], {}
+    paths, tier_launches = [], {}
     for mode in ("parity", "fast"):
         # ---- the survey session: counts from here to the end of add_tracks
         torch.cuda.synchronize()
@@ -1306,10 +1509,16 @@ def phase_survey(K, rng, work):
         add_s = time.perf_counter() - t0
         n, tiers = read_counts(K), dict(K.LAUNCHES_BY_TIER)
         # ---- end of the survey session
-        want = sum(SURVEY_TIER[mode][sr] == "chunked" for sr in SURVEY_RATES)
-        check(n == counts(**{mode: len(ids)})
-              and tiers == {"resident": len(ids) - want, "chunked": want},
-              f"{mode} survey session: launches {n}, by tier {tiers}")
+        want = {tier: sum(SURVEY_TIER[mode][sr] == tier
+                          for sr in SURVEY_RATES) for tier in K.TIERS}
+        want["resident"] += len(ids) - len(SURVEY_RATES)
+        check(n == counts(**{mode: len(ids)}) and tiers == want,
+              f"{mode} survey session: launches {n}, by tier {tiers}, "
+              f"{want} expected")
+        no_dft = [sr for sr in SURVEY_RATES
+                  if "parity" not in mt._operands[sr]]
+        check(no_dft == (SURVEY_RATES if mode == "parity" else []),
+              f"{mode} survey session: no C/S built at {no_dft} Hz")
         for i in ids:
             tr, st = mt.tracks[i], mt._state[i]
             padded, nf, nfp = mt._prep_padded(tr)
@@ -1325,15 +1534,17 @@ def phase_survey(K, rng, work):
         print(f"[survey] {mode} session: add_tracks of {len(ids)} x "
               f"{SURVEY_SECONDS:.0f} s mono PCM16 at "
               f"{[mt.tracks[i].sr for i in ids]} Hz {add_s:.3f} s; launches "
-              f"by tier {tiers}, each plane equal to the kernel's; stage "
-              f"seconds, host clock: {json.dumps(stages)}", flush=True)
+              f"by tier {tiers}, each plane equal to the kernel's; no C/S "
+              f"at {no_dft} Hz; stage seconds, host clock: "
+              f"{json.dumps(stages)}", flush=True)
         paths.append((f"{'' if mode == 'parity' else 'fast '}survey session"
                       " (resident tier)",
                       counts(**{mode: tiers["resident"]})))
-        chunked[mode] = tiers["chunked"]
+        tier_launches[mode] = tiers["fft" if mode == "parity" else "chunked"]
         del mt
         torch.cuda.empty_cache()
-    return paths, heads, errs, chunked
+    tier_launches["chunked"] = chunked
+    return paths, heads, errs, tier_launches
 
 
 def write_hour_wav(rng, path, sr=48000, minutes=60):
@@ -4353,8 +4564,8 @@ def main():
             K, np.random.default_rng(SEED + 1))
         errs["split"], heads["split"], split_path, _ = phase_split(
             K, np.random.default_rng(SEED + 4))
-        survey_paths, survey_heads, survey_errs, chunked = phase_survey(
-            K, np.random.default_rng(SEED + 5), work)
+        survey = phase_survey(K, np.random.default_rng(SEED + 5), work)
+        survey_paths, survey_heads, survey_errs, survey_launches = survey
         streaming, (hour, eight) = phase_streaming(
             K, np.random.default_rng(SEED + 2), work)
         paths = list(zip(
@@ -4396,23 +4607,29 @@ def main():
             "shape": shape,
             "card": smi,
         })
-    # the chunked tier (no TPU kernel of its own: the Pallas kernel holds
-    # whole windows in VMEM); its launches are the survey sessions'
-    for mode, name in (("parity", "mel_db_tf32_chunked_kernel"),
-                       ("fast", "mel_db_bf16_chunked_kernel")):
-        ms, plain_ms, shape, bound_ms, bound_by = survey_heads[mode]
+    # the survey's tiers (no TPU kernel of their own: the Pallas kernel
+    # holds whole windows in VMEM): parity's FFT tier, fast's chunked tier,
+    # parity's chunked tier (at an n_fft with no FFT plan); their launches
+    # are the sessions' of 3d
+    for mode, name, source in (
+            ("parity", "mel_db_fft_kernel", K.FFT_SOURCE),
+            ("fast", "mel_db_bf16_chunked_kernel", K.SOURCES["fast"]),
+            ("chunked", "mel_db_tf32_chunked_kernel", K.SOURCES["parity"])):
+        ms, plain_ms, shape, bound_ms, bound_by, lib_ms = survey_heads[mode]
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": os.path.relpath(K.SOURCES[mode]),
+            "source": os.path.relpath(source),
             "replaces": "msv_tpu/kernels/spectrogram_pallas.py:411",
-            "launches": chunked[mode],
+            "launches": survey_launches[mode],
             "max_abs_err": survey_errs[mode],
             "ms": ms,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
-            "library_ms": None,
+            # torch.fft.rfft + magnitude + mel + dB (parity), never called
+            # by the port
+            "library_ms": lib_ms,
             "shape": shape,
             "card": smi,
         })

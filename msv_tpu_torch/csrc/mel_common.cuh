@@ -1,11 +1,13 @@
-// Device helpers shared by the three fused mel dB kernels:
-// mel_spectrogram.cu (f32 parity mode, 3xTF32), mel_spectrogram_bf16.cu (bf16
-// fast mode) and mel_spectrogram_split.cu (split-f32 mode, wgmma).  All
-// stage samples, compute the DFT magnitude of a tile of frequency bins into
-// shared memory, then run mel_tile: a sparse-band mel accumulation from
-// shared-memory band tables, stores coalesced, the dB written by the tile
-// that ends a band (in split form: each product as three bf16 products
-// over hi/lo planes of the magnitude and the filterbank).
+// Device helpers shared by the fused mel dB kernels: mel_spectrogram.cu
+// (f32 parity mode, 3xTF32), mel_spectrogram_bf16.cu (bf16 fast mode),
+// mel_spectrogram_split.cu (split-f32 mode, wgmma) and, for the parity
+// mode's FFT tier, mel_spectrogram_fft.cu.  The first three stage samples,
+// compute the DFT magnitude of a tile of frequency bins into shared memory,
+// then run mel_tile: a sparse-band mel accumulation from shared-memory band
+// tables, stores coalesced, the dB written by the tile that ends a band (in
+// split form: each product as three bf16 products over hi/lo planes of the
+// magnitude and the filterbank).  The FFT tier holds one frame's whole
+// spectrum and runs mel_frame, the same band-sparse pass over one frame.
 //
 // They share the staging ring of C/S slabs (bulk copies completing on
 // mbarriers, below), the chunked tier's sample staging (parity and fast,
@@ -362,8 +364,9 @@ __device__ __forceinline__ void stage_chunk(S* dst, int cs,
 // it on the launch's span): the tier (kNoTier where none fits: nothing was
 // launched and `smem` is the least a block would need), the m-tiles, the
 // ring's stages, the chunk's samples (chunked tier), the block's shared
-// memory and the most a block may use.
-enum Tier : int { kNoTier = 0, kResident = 1, kChunked = 2 };
+// memory and the most a block may use.  kFft is the parity launch's third
+// tier (mel_spectrogram_fft.cu), which takes no C/S slabs.
+enum Tier : int { kNoTier = 0, kResident = 1, kChunked = 2, kFft = 3 };
 
 struct Plan {
   int tier, mt, stages, chunk, smem, avail;
@@ -524,6 +527,69 @@ __device__ __forceinline__ void mel_empty_bands(float* o, const int* bands,
       const int f = h * 32 + lane;
       if (f < nf) o[static_cast<long long>(f) * n_mel + m] = kDbFloor;
     }
+  }
+}
+
+// The mel pass of one frame (the FFT tier's: a block per frame), its
+// magnitudes contiguous in shared memory, mag[k] for k < n_freq.  The band
+// tables (bands, woff) are staged in shared memory at `tab` (3 * n_mel
+// ints).  Warp w of the block's NW takes BPW consecutive bands at a time,
+// w * BPW + NW * BPW * i on: lane l sums bins lo + l, lo + l + 32, ... of
+// each in increasing order, the BPW bands' loads in flight together, weights
+// read where they are in device memory (coalesced: a band's weights are
+// contiguous), and a fixed butterfly adds the 32 partial sums, so every lane
+// gets the same bits: deterministic, no atomics, and the int16 route
+// bit-equal to the f32 route.  The sums go to `sums` in shared memory
+// (n_mel floats), and after a barrier the block writes the frame's row of
+// dB `o` with coalesced stores.  Bands with no support read 0: -360 dB.
+template <int NW, int BPW>
+__device__ __forceinline__ void mel_frame(const float* mag, int* tab,
+                                          float* sums,
+                                          const int* __restrict__ bands,
+                                          const int* __restrict__ woff,
+                                          const float* __restrict__ wts,
+                                          float* __restrict__ o, int n_mel,
+                                          int tid) {
+  int* sband = tab;           // [lo, hi) of band m at 2m
+  int* soff = tab + 2 * n_mel;
+  for (int i = tid; i < 2 * n_mel; i += 32 * NW) sband[i] = __ldg(bands + i);
+  for (int i = tid; i < n_mel; i += 32 * NW) soff[i] = __ldg(woff + i);
+  __syncthreads();
+  const int lane = tid & 31, warp = tid >> 5;
+  for (int m0 = warp * BPW; m0 < n_mel; m0 += NW * BPW) {
+    int lo[BPW], len[BPW], most = 0;
+    const float* w[BPW];
+    float part[BPW];
+#pragma unroll
+    for (int u = 0; u < BPW; ++u) {
+      const int m = m0 + u;
+      lo[u] = m < n_mel ? sband[2 * m] : 0;
+      len[u] = m < n_mel ? sband[2 * m + 1] - lo[u] : 0;
+      w[u] = wts + (m < n_mel ? soff[m] : 0);  // w[u][i]: bin lo + i
+      part[u] = 0.0f;
+      most = max(most, len[u]);
+    }
+    for (int i = lane; i < most; i += 32) {
+#pragma unroll
+      for (int u = 0; u < BPW; ++u)
+        if (i < len[u]) part[u] = fmaf(mag[lo[u] + i], __ldg(w[u] + i),
+                                       part[u]);
+    }
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1)
+#pragma unroll
+      for (int u = 0; u < BPW; ++u)
+        part[u] += __shfl_xor_sync(0xffffffffu, part[u], s);
+    if (lane == 0) {
+#pragma unroll
+      for (int u = 0; u < BPW; ++u)
+        if (m0 + u < n_mel) sums[m0 + u] = part[u];
+    }
+  }
+  __syncthreads();
+  for (int m = tid; m < n_mel; m += 32 * NW) {
+    const float v = sums[m];
+    o[m] = v > kAmin ? logf(v) * kDbScale : kDbFloor;
   }
 }
 

@@ -42,10 +42,9 @@ import torch
 
 from .config import (get_engine, get_precision_mode, precision_for,
                      precision_mode_is_explicit)
-from .kernels.spectrogram_cuda import (mel_spectrogram_cuda,
+from .kernels.spectrogram_cuda import (kernel_record, mel_spectrogram_cuda,
                                        mel_spectrogram_plain, operands_bf16,
-                                       operands_from_numpy, prepare_operands,
-                                       round_bf16)
+                                       operands_from_numpy, round_bf16)
 from .ops.decibel import amp_to_db, power_to_db
 from .ops.dft import windowed_dft_matrices
 from .ops.framing import n_frames_for, reflect_pad_center
@@ -106,24 +105,35 @@ def _features_core(padded_b, c, s, fb, *, win, hop, n_frames, log, mode,
 
 
 @functools.lru_cache(maxsize=32)
+def _feature_fb(sr, n_fft, n_mel, fmin, fmax, mel_norm):
+    return calc_mel_fb(sr, n_fft, n_mel, fmin, fmax, mel_norm, np.float32)
+
+
+@functools.lru_cache(maxsize=32)
 def feature_operands(sr, win, n_fft, n_mel, fmin, fmax, mel_norm, mode,
                      device):
     """(C, S, fb) of the frontend on ``device``: unscaled hann DFT pair and
     the ``mel_norm`` filterbank, f32 for parity and bf16 for fast (kept
     apart from the session's operands, whose window and norm differ)."""
     c, s = windowed_dft_matrices(hann(win, False), n_fft)
-    fb = calc_mel_fb(sr, n_fft, n_mel, fmin, fmax, mel_norm, np.float32)
+    fb = _feature_fb(sr, n_fft, n_mel, fmin, fmax, mel_norm)
     ops = operands_from_numpy(c, s, fb, device)
     return operands_bf16(*ops) if mode == "fast" else ops
 
 
 @functools.lru_cache(maxsize=32)
 def feature_kernel_operands(sr, win, n_fft, n_mel, fmin, fmax, mel_norm,
-                            mode, device):
-    """``feature_operands`` laid out for the ``mode`` kernel
-    (``prepare_operands``), made once per setting and device."""
-    return prepare_operands(*feature_operands(
-        sr, win, n_fft, n_mel, fmin, fmax, mel_norm, mode, device), mode)
+                            mode, device, hop):
+    """The ``mode`` kernel's record of the frontend (``kernel_record``),
+    made once per setting, hop and device: where its launches take the FFT
+    tier, from the window and the filterbank, with no C or S built; else
+    ``feature_operands`` laid out."""
+    return kernel_record(
+        mode, hann(win, False), _feature_fb(sr, n_fft, n_mel, fmin, fmax,
+                                            mel_norm),
+        win=win, hop=hop, n_fft=n_fft, device=device,
+        dense=lambda: feature_operands(sr, win, n_fft, n_mel, fmin, fmax,
+                                       mel_norm, mode, device))
 
 
 def _check_precision(precision, default="fast"):
@@ -272,7 +282,8 @@ def _log_mel(wav, sr, *, n_mel, win_length, hop_length, n_fft, win_ms,
     elif fused:
         out = mel_spectrogram_cuda(
             padded.contiguous(),
-            feature_kernel_operands(*setting, precision, device), **frames)
+            feature_kernel_operands(*setting, precision, device,
+                                    hop_length), **frames)
     else:
         c, s, fb = feature_operands(*setting, "parity", device)
         out = _features_core(padded, c, s, fb, win=win_length,

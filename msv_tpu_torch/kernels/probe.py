@@ -43,6 +43,19 @@ A variant that does not touch a mode's sources is not timed for that mode.
 With ``--sass`` it also prints the opcode counts of each kernel's f32,
 four-m-tile instantiation in ``base`` (``cuobjdump -sass``).
 
+``--fft`` times variants of the parity mode's FFT tier instead
+(``csrc/mel_spectrogram_fft.cu``, ``FFT_VARIANTS``) at ``--rates`` (default
+the survey's 384, 250 and 192 kHz), each against the plain version:
+
+* ``base``: the source as it is;
+* ``minb2``: n_fft 16 384 (M = 8192) at two blocks an SM
+  (``__launch_bounds__(256, 2)``: 128 registers a thread, none spilled)
+  instead of three;
+* ``r32_16_16``: n_fft 16 384's passes in the order 32, 16, 16;
+* ``bands8``: the mel pass eight bands a warp at a time instead of four;
+* ``no_mel``: without the mel pass and the dB (the FFT and the magnitudes
+  alone; its output is not the function).
+
 The launches do not go through ``mel_spectrogram_cuda`` and are not counted
 in ``LAUNCHES``.  Prints one line per (variant, mode, rate), then a JSON
 object of the times.
@@ -135,6 +148,23 @@ VARIANTS["bare_no_stage"] = VARIANTS["bare"] + [
       for f in ("mel_spectrogram_bf16.cu", "mel_spectrogram_split.cu"))]
 
 _SOURCES = {m: os.path.basename(K.SOURCES[m]) for m in K.MODES}
+_FFT_SOURCE = os.path.basename(K.FFT_SOURCE)
+_PLAN_8192 = ("  static constexpr int T = 256, R0 = 16, R1 = 16, R2 = 32, "
+              "MINB = 3;\n")
+# variant -> ([(text, replacement)] in the FFT source, {n_fft: radices})
+FFT_VARIANTS = {
+    "base": ([], {}),
+    "minb2": ([(_PLAN_8192, _PLAN_8192.replace("MINB = 3", "MINB = 2"))],
+              {}),
+    "r32_16_16": ([(_PLAN_8192, _PLAN_8192.replace(
+        "R0 = 16, R1 = 16, R2 = 32", "R0 = 32, R1 = 16, R2 = 16"))],
+        {16384: (32, 16, 16)}),
+    "bands8": ([("constexpr int kBandsAtOnce = 4;",
+                 "constexpr int kBandsAtOnce = 8;")], {}),
+    "no_mel": ([("  msv::mel_frame<TH / 32, kBandsAtOnce>(",
+                 "  if (n_mel < 0) msv::mel_frame<TH / 32, kBandsAtOnce>(")],
+               {}),
+}
 
 
 def touches(name, mode):
@@ -223,6 +253,106 @@ def build_all(names, modes, verbose=False):
     return libs
 
 
+def build_fft(names, verbose=False):
+    """One library of the FFT source per variant; all nvcc runs at once."""
+    jobs = []
+    for name in names:
+        d = os.path.join(PROBE_DIR, "fft_" + name)
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+        shutil.copy(os.path.join(_CSRC, "mel_common.cuh"), d)
+        with open(K.FFT_SOURCE) as fh:
+            text = fh.read()
+        for old, new in FFT_VARIANTS[name][0]:
+            if old not in text:
+                raise RuntimeError(f"variant {name}: {_FFT_SOURCE} no longer "
+                                   f"holds {old!r}")
+            text = text.replace(old, new)
+        with open(os.path.join(d, _FFT_SOURCE), "w") as fh:
+            fh.write(text)
+        jobs.append((name, d, subprocess.Popen(
+            [K._nvcc(), *K.NVCC_FLAGS, "-shared", "-o",
+             os.path.join(d, "libprobe.so"), os.path.join(d, _FFT_SOURCE)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = {}
+    for name, d, proc in jobs:
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed: {' '.join(proc.args)}\n{out}")
+        if verbose:  # registers and spills of each instantiation
+            lines = out.splitlines()
+            for i, ln in enumerate(lines):
+                if "Compiling entry function" in ln:
+                    inst = ln.split("mel_db_fft_kernel")[-1].split("E")[0]
+                    print(f"[ptxas] fft_{name} {inst}: "
+                          + "; ".join(x.strip() for x in lines[i + 1:i + 4]
+                                      if "stack" in x or "registers" in x))
+        lib = ctypes.CDLL(os.path.join(d, "libprobe.so"))
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn = getattr(lib, K.FFT_ENTRY_POINT)
+        fn.argtypes = [p, i, ll, ll, i, *[p] * 6, *[i] * 6, p, p]
+        fn.restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def probe_fft(args):
+    """Time each FFT_VARIANTS entry at args.rates against the plain
+    version; prints one line per (variant, rate) and returns the times."""
+    from ..config import SpecSetting, derive_stft_params
+    from ..ops.framing import n_frames_for, reflect_pad_center
+    from ..ops.mel import calc_mel_fb_default
+    from ..ops.windows import default_stft_window
+
+    names = list(dict.fromkeys(v for v in args.variants
+                               if v in FFT_VARIANTS)) or ["base"]
+    libs = build_fft(names, args.ptxas)
+    rng = np.random.default_rng(20261018)
+    results = {}
+    for sr in args.rates:
+        p = derive_stft_params(sr, SpecSetting())
+        win, hop, n_fft = p.win_length, p.hop_length, p.n_fft
+        fb = calc_mel_fb_default(sr, n_fft)
+        rec = K.prepare_fft_operands(default_stft_window(win, n_fft),
+                                     torch.from_numpy(fb).cuda(), n_fft)
+        n = int(args.seconds * sr)
+        wav = (0.1 * rng.standard_normal(n)).astype(np.float32)
+        n_frames = n_frames_for(n, win, hop)
+        x = torch.from_numpy(reflect_pad_center(wav, win)).cuda()
+        out = torch.empty((n_frames, fb.shape[1]), device="cuda")
+        want = K.mel_spectrogram_cuda(x, rec, win=win, hop=hop,
+                                      n_frames=n_frames)
+        for name in names:
+            radices = FFT_VARIANTS[name][1].get(n_fft)
+            tw = rec.twiddles if radices is None else torch.from_numpy(
+                K.fft_twiddles(n_fft, radices)).cuda()
+            fn = getattr(libs[name], K.FFT_ENTRY_POINT)
+            stream = torch.cuda.current_stream().cuda_stream
+            plan = K._Plan()
+
+            def run():
+                err = fn(x.data_ptr(), 0, x.numel(), x.numel(), 1,
+                         rec.window.data_ptr(), tw.data_ptr(),
+                         rec.wts.data_ptr(), rec.bands.data_ptr(),
+                         rec.woff.data_ptr(), out.data_ptr(), win, hop,
+                         n_frames, n_fft, fb.shape[1], tw.shape[0], stream,
+                         ctypes.byref(plan))
+                if err:
+                    raise RuntimeError(f"fft {name}: error {err}")
+
+            out.fill_(float("nan"))
+            ms = time_ms(run, args.reps)
+            note = ""
+            if name != "no_mel":
+                err = (out - want).abs().max().item()
+                note = f" (max |dB| vs the built kernel {err:.3g})"
+            results[f"fft_{name}/{sr}"] = ms
+            print(f"[probe] fft_{name:9s} {sr:6d} Hz B=1 {n_frames} frames, "
+                  f"n_fft {n_fft}, smem {plan.smem}: {ms:.4f} ms{note}",
+                  flush=True)
+    return results
+
+
 def _operands(sr, mode):
     from ..config import SpecSetting, derive_stft_params
     from ..ops.dft import windowed_dft_matrices
@@ -261,17 +391,26 @@ def main():
     ap.add_argument("--seconds", type=float, default=240.0)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--rates", type=int, nargs="+", default=[48000, 8000])
-    ap.add_argument("--variants", nargs="+", default=list(VARIANTS))
+    ap.add_argument("--variants", nargs="+",
+                    default=list(VARIANTS) + list(FFT_VARIANTS))
     ap.add_argument("--modes", nargs="+", default=list(K.MODES),
                     choices=K.MODES)
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--ptxas", action="store_true",
                     help="print nvcc's output (registers, spills)")
+    ap.add_argument("--fft", action="store_true",
+                    help="time FFT_VARIANTS of the FFT tier instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("probe: no CUDA device")
+    if args.fft:
+        if args.rates == [48000, 8000]:
+            args.rates = [384000, 250000, 192000]
+        print(json.dumps(probe_fft(args)))
+        return
     from ..ops.framing import n_frames_for, reflect_pad_center
 
+    args.variants = [v for v in args.variants if v in VARIANTS]
     libs = build_all(args.variants, args.modes, args.ptxas)
     if args.sass:
         for mode, kernel in (("parity", "mel_db_tf32_kernelIfLi4E"),

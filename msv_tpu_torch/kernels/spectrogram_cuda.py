@@ -5,7 +5,10 @@ in its three modes:
 
 * ``mode="parity"``: f32 operands, both schedules
   (``msv_tpu_torch/csrc/mel_spectrogram.cu``, the DFT pair in 3xTF32 on
-  the tensor cores, ``mma.sync``);
+  the tensor cores, ``mma.sync``), and, for windows whose samples no
+  resident block holds, the FFT tier (``msv_tpu_torch/csrc/
+  mel_spectrogram_fft.cu``: a real FFT of n_fft points in f32 shared
+  memory, no C/S);
 * ``mode="fast"``: bf16 operands with f32 accumulation
   (``msv_tpu_torch/csrc/mel_spectrogram_bf16.cu``, tensor-core
   ``mma.sync``);
@@ -16,22 +19,29 @@ in its three modes:
 Each source's header says what bounds it on an H100 and how its design
 answers that; all include ``csrc/mel_common.cuh``: the staging ring of C/S
 slabs, the chunked tier's sample staging, the launchers' plan, the leftover
-bin and the mel pass with its dB.  Each launcher takes the resident tier
-where a block holds its frames' samples, else (parity and fast) the
-chunked one (``TIERS``), and reports its choice.  They are built with
+bin and the mel pass with its dB.  One rule, ``tier_for``, says which tier
+(``TIERS``) a launch takes: the resident tier where a block holds its
+frames' samples; else, in parity mode where n_fft is a power of two with
+an FFT plan (``FFT_PLANS``), the FFT tier; else (parity and fast) the
+chunked one.  ``kernel_record`` makes the record of that tier, and every
+launcher reports its choice.  The sources are built with
 ``nvcc`` at first use into one library under ``build/msv_tpu_torch/``
 beside the package, keyed on the hash of the sources and the header, and
 loaded as a plain C library.
 
 A kernel takes the reflect-padded 1-D wave ``(L,)`` or ``(B, L)`` (f32, or
 int16 scaled by 2^-15 as it is loaded) and masks ragged edges itself.  Each
-kernel takes its operands as a ``MelOperands`` record from
-``prepare_operands``: C and S cut into slabs laid out as the kernel's
+kernel takes its operands as a ``MelOperands`` record: from
+``prepare_operands``, C and S cut into slabs laid out as the kernel's
 shared-memory image, the last bin's columns kept apart, ``fb`` and its band
-supports, made once per rate and cached by the caller.  Given plain
-``(C, S, fb)`` (``(win, n_freq)``, ``(win, n_freq)``, ``(n_freq, n_mel)``;
-f32 for parity, bf16 from ``operands_bf16`` for fast, the ``(2, ...)`` hi/lo
-stacks of ``operands_split`` for split) the wrapper prepares them per call.
+supports; for the FFT tier from ``prepare_fft_operands``, the window, the
+twiddles and the band supports, and no C or S; ``kernel_record`` makes
+the one a launch's tier reads.  Records are made once per rate and cached
+by the caller.  Given plain ``(C, S, fb)`` (``(win,
+n_freq)``, ``(win, n_freq)``, ``(n_freq, n_mel)``; f32 for parity, bf16
+from ``operands_bf16`` for fast, the ``(2, ...)`` hi/lo stacks of
+``operands_split`` for split) the wrapper prepares them per call, where
+the launch's tier reads C and S.
 
 ``mel_spectrogram_plain`` is the same function in torch ops, in every
 mode.  The wrapper ``mel_spectrogram_cuda`` takes it only for tensors on the
@@ -39,13 +49,14 @@ CPU; for CUDA tensors it launches the mode's kernel or raises.
 """
 
 import ctypes
+import dataclasses
+import functools
 import hashlib
 import math
 import os
 import shutil
 import subprocess
 import threading
-from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -65,6 +76,8 @@ SOURCES = {
     "fast": os.path.join(_PKG_DIR, "csrc", "mel_spectrogram_bf16.cu"),
     "split": os.path.join(_PKG_DIR, "csrc", "mel_spectrogram_split.cu"),
 }
+# The parity mode's FFT tier.
+FFT_SOURCE = os.path.join(_PKG_DIR, "csrc", "mel_spectrogram_fft.cu")
 # Device code every source includes (the ring, the leftover bin, the mel pass).
 HEADER = os.path.join(_PKG_DIR, "csrc", "mel_common.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "msv_tpu_torch")
@@ -76,12 +89,23 @@ MODES = ("parity", "fast", "split")
 ENTRY_POINTS = {"parity": "msv_mel_spectrogram",
                 "fast": "msv_mel_spectrogram_bf16",
                 "split": "msv_mel_spectrogram_split"}
+FFT_ENTRY_POINT = "msv_mel_spectrogram_fft"
 # The launchers' tiers, by the number a launcher reports (0: none fits):
 # "resident" stages every sample of a block's frames once; "chunked" (the
-# parity and fast kernels, where no resident block fits: at the session's
-# settings parity from 176.4 kHz on, fast at 384 kHz) stages them in chunks
-# along the window, again for every frequency tile.
-TIERS = ("resident", "chunked")
+# parity and fast kernels, where no resident block fits and, in parity, no
+# FFT plan does: at the session's settings fast at 384 kHz) stages them in
+# chunks along the window, again for every frequency tile; "fft" (parity,
+# where no resident block fits and n_fft has a plan: at the session's
+# settings from 176.4 kHz on) takes each frame's real FFT in shared memory.
+# tier_for says which a launch takes.
+TIERS = ("resident", "chunked", "fft")
+# n_fft -> the FFT tier's radix passes over its n_fft / 2 complex points
+# (csrc/mel_spectrogram_fft.cu's FftPlan; the twiddle table follows them).
+FFT_PLANS = {4096: (16, 16, 8), 8192: (16, 16, 16), 16384: (16, 16, 32),
+             32768: (16, 32, 32)}
+# The shared memory a block may use on an H100 (opt-in, bytes), by which
+# tier_for judges whether a resident block fits, as the launchers do.
+SMEM_BLOCK_BYTES = 232448
 # Kernel launches made by mel_spectrogram_cuda (the CPU route does not
 # count): the total, by precision mode (the kernel it launched) and by tier.
 LAUNCHES = 0
@@ -113,7 +137,7 @@ def build() -> ctypes.CDLL:
         if _LIB is not None:
             return _LIB
         h = hashlib.sha256()
-        for path in (*(SOURCES[m] for m in MODES), HEADER):
+        for path in (*(SOURCES[m] for m in MODES), FFT_SOURCE, HEADER):
             with open(path, "rb") as f:
                 h.update(f.read())
         tag = h.hexdigest()[:16]
@@ -122,9 +146,10 @@ def build() -> ctypes.CDLL:
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"
             # one nvcc per source, all at once, then one link
-            objs = [f"{tmp}.{m}.o" for m in MODES]
-            cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", o, SOURCES[m]]
-                    for m, o in zip(MODES, objs)]
+            srcs = {**SOURCES, "fft": FFT_SOURCE}
+            objs = [f"{tmp}.{m}.o" for m in srcs]
+            cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", o, src]
+                    for o, src in zip(objs, srcs.values())]
             procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True)
                      for c in cmds]
@@ -152,6 +177,11 @@ def build() -> ctypes.CDLL:
             getattr(lib, name).argtypes = [*wave, *[p] * 7, *shape,
                                            *[i] * 5, p, p]
             getattr(lib, name).restype = ctypes.c_int
+        # window, twiddles, wts, bands, woff, out; win, hop, n_frames,
+        # n_fft, n_mel, n_tw; the stream and the plan
+        getattr(lib, FFT_ENTRY_POINT).argtypes = [*wave, *[p] * 6, *[i] * 6,
+                                                  p, p]
+        getattr(lib, FFT_ENTRY_POINT).restype = ctypes.c_int
         lib.msv_cuda_error_string.argtypes = [ctypes.c_int]
         lib.msv_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -197,6 +227,145 @@ def mel_bands(fb):
     zero = torch.zeros_like(lo)
     return torch.stack([torch.where(has, lo, zero), torch.where(has, hi, zero)],
                        dim=1).to(torch.int32).contiguous()
+
+
+def band_weights(fb) -> int:
+    """The compact filterbank's length (``MelOperands.wts``): the bins of
+    every band's support, summed.  ``fb`` is a tensor or a numpy array."""
+    bands = mel_bands(torch.as_tensor(fb))
+    return int((bands[:, 1] - bands[:, 0]).sum())
+
+
+def _ceil(a, b):
+    return -(-a // b) * b
+
+
+def _resident_bytes(mode, win, hop, n_mel, n_wts):
+    """The shared memory of ``mode``'s smallest resident block (one m-tile,
+    three ring stages): its launcher's ``fixed_bytes(1, ...) + 3 *
+    SLAB_BYTES`` (csrc/mel_spectrogram.cu, csrc/mel_spectrogram_bf16.cu).
+    No resident block fits where this passes the card's limit."""
+    ks, nb, row = SLAB_LAYOUT[mode]
+    win_p = _ceil(win, ks)
+    rows = 16 + (win_p - 1) // hop  # staged rows of 16 frames' windows
+    if mode == "parity":  # f32 samples and magnitudes
+        esize, stride = 4, _ceil(hop, 8) + 12
+        samples = (nb + 1) * 17 + rows * stride
+    else:  # bf16; odd hops stage two copies
+        esize, stride = 2, _ceil(_ceil(hop + 16, 8), 16) + 8
+        samples = (nb + 1) * 18 + (2 if hop & 1 else 1) * rows * stride
+    slab = 2 * ks * row * esize
+    return (_ceil(128 + esize * samples, 16)
+            + _ceil(12 * n_mel + esize * n_wts, 16) + 3 * slab)
+
+
+def _fft_block_bytes(n_fft, n_mel):
+    """The FFT tier's shared memory a block (csrc/mel_spectrogram_fft.cu's
+    block_bytes): the n_fft / 2 points padded by one in 16, or the
+    magnitudes, the band sums and the band tables, whichever is more."""
+    m = n_fft // 2
+    return max(8 * (m + m // 16), 4 * (m + 4 + 4 * n_mel))
+
+
+def tier_for(mode, win, hop, n_fft, n_mel, n_wts):
+    """The tier (``TIERS``) a launch of ``mode``'s kernel takes at this
+    shape: n_mel bands whose compact filterbank holds ``n_wts`` weights
+    (``band_weights``).  "resident" where a resident block fits the card
+    (``SMEM_BLOCK_BYTES``, as the launchers judge it); else, in parity, "fft"
+    where n_fft has an FFT plan (``FFT_PLANS``: a power of two, 4096 to 32
+    768, at least ``win``) and its block fits; else "chunked".  The split
+    kernel has its resident tier alone (its launcher raises where that does
+    not fit).  At the session's settings: parity "fft" from 176.4 kHz on
+    (n_fft 8192 and 16 384), fast "chunked" at 384 kHz, every other rate
+    "resident".  Callers ask it before they build operands: only the
+    resident and chunked tiers read C and S."""
+    if mode not in MODES:
+        raise ValueError(f"unknown precision mode: {mode!r}")
+    if mode == "split" or (_resident_bytes(mode, win, hop, n_mel, n_wts)
+                           <= SMEM_BLOCK_BYTES):
+        return "resident"
+    if (mode == "parity" and n_fft in FFT_PLANS and win <= n_fft
+            and _fft_block_bytes(n_fft, n_mel) <= SMEM_BLOCK_BYTES):
+        return "fft"
+    return "chunked"
+
+
+# key -> what reads_dft and kernel_record derive from a named filterbank and
+# window: "n_wts" (band_weights) and "fft" (the FFT tier's record on the
+# host), made once a process
+_NAMED: dict = {}
+
+
+def _named(key, what, make):
+    if key is None:
+        return make()
+    entry = _NAMED.setdefault(key, {})
+    if what not in entry:
+        entry[what] = make()
+    return entry[what]
+
+
+def _as_f32(fb):
+    return (fb.to(torch.float32) if isinstance(fb, torch.Tensor)
+            else torch.from_numpy(np.ascontiguousarray(fb, np.float32)))
+
+
+def reads_dft(mode, fb, *, win, hop, n_fft, device, key=None) -> bool:
+    """Whether ``kernel_record``'s record of ``mode``'s kernel at this shape
+    on ``device`` holds C and S: everywhere but on a card where the launch
+    takes the FFT tier (``tier_for``).  ``fb`` is the ``(n_freq, n_mel)``
+    filterbank (numpy or a tensor); ``key`` as ``kernel_record``'s."""
+    if torch.device(device).type != "cuda":
+        return True
+    n_wts = _named(key, "n_wts", lambda: band_weights(_as_f32(fb)))
+    return tier_for(mode, win, hop, n_fft, fb.shape[-1], n_wts) != "fft"
+
+
+def kernel_record(mode, window, fb, *, win, hop, n_fft, device, dense,
+                  key=None):
+    """The ``MelOperands`` record that a launch of ``mode``'s kernel at this
+    shape reads on ``device``: the one rule by which the session, streaming
+    and the frontend make it.  Where ``reads_dft``, ``prepare_operands(
+    *dense(), mode)``: ``dense`` is a callable that gives the mode's (C, S,
+    fb) on ``device`` and is called only then.  Else the FFT tier's record,
+    ``prepare_fft_operands`` of the analysis window ``window`` (the one C
+    and S are made with) and the f32 filterbank ``fb`` (numpy or a tensor),
+    the tables its kernel reads moved to ``device`` (``MelOperands.to``).
+    ``key``, a hashable name of (window, fb) for a caller that makes them
+    by a rule (the session: its rate), keeps the host-side tables once a
+    process.  The caller caches the record."""
+    if reads_dft(mode, fb, win=win, hop=hop, n_fft=n_fft, device=device,
+                 key=key):
+        return prepare_operands(*dense(), mode)
+    if window is None:
+        raise ValueError(f"win={win}, hop={hop}, n_fft={n_fft} take the FFT "
+                         f"tier, whose record needs the analysis window")
+    rec = _named(key, "fft", lambda: prepare_fft_operands(
+        window, _as_f32(fb), n_fft))
+    return rec.to(device)
+
+
+@functools.lru_cache(maxsize=8)
+def fft_twiddles(n_fft: int, radices: tuple | None = None) -> np.ndarray:
+    """The FFT tier's twiddle table for ``n_fft`` and its radix passes
+    (``radices``, by default its ``FFT_PLANS`` entry), ``(n_tw, 2)`` f32
+    (re, im) rows: W_n_fft^k = exp(-2 pi i k / n_fft) for k
+    in [0, n_fft / 4] (the split of the packed half-length FFT into the real
+    FFT's bins), then for each radix pass after the first, with NS the
+    product of the radices before it and R its own, W_{NS R}^{r k} at row
+    (r - 1) * NS + k, r in [1, R), k < NS.  Each value is computed in
+    float64 (cos and sin of an exact fraction of a turn) and rounded once
+    to f32."""
+    radices = radices or FFT_PLANS[n_fft]
+    turns = [np.arange(n_fft // 4 + 1) / n_fft]
+    ns = radices[0]
+    for r in radices[1:]:
+        rk = np.arange(1, r)[:, None] * np.arange(ns)[None, :]
+        turns.append((rk % (ns * r) / (ns * r)).ravel())
+        ns *= r
+    phase = 2.0 * np.pi * np.concatenate(turns)
+    return np.ascontiguousarray(
+        np.stack([np.cos(phase), -np.sin(phase)], axis=1), dtype=np.float32)
 
 
 def operands_bf16(c, s, fb):
@@ -325,18 +494,22 @@ def _check_operand_types(c, s, fb, mode):
                 f"{maker}); {name} is {t.dtype} {tuple(t.shape)}")
 
 
-@dataclass(frozen=True, eq=False)
+@dataclasses.dataclass(frozen=True, eq=False)
 class MelOperands:
     """One mode's kernel operands, laid out once per rate by
-    ``prepare_operands``; ``mel_spectrogram_cuda`` takes it in place of
-    ``(c, s, fb)``."""
+    ``prepare_operands`` (C/S slabs: the resident and chunked tiers) or
+    ``prepare_fft_operands`` (the FFT tier: no C, S, slabs or tail);
+    ``mel_spectrogram_cuda`` takes it in place of ``(c, s, fb)``."""
 
     mode: str
     # (win, n_freq), the mode's dtype (the plain version's); split: the
-    # (2, win, n_freq) hi/lo stack
-    c: torch.Tensor
-    s: torch.Tensor
-    fb: torch.Tensor  # (n_freq, n_mel), contiguous; split: (2, n_freq, n_mel)
+    # (2, win, n_freq) hi/lo stack; None in an FFT-tier record (dft())
+    c: torch.Tensor | None
+    s: torch.Tensor | None
+    # (n_freq, n_mel), contiguous; split: (2, n_freq, n_mel); in an FFT-tier
+    # record where it was made (its kernel reads the compact tables; dft()
+    # moves it)
+    fb: torch.Tensor
     bands: torch.Tensor  # (n_mel, 2) int32: mel_bands(fb)
     # the filterbank over each band's bins: band m's weights for bins
     # [lo, hi) are wts[woff[m] : woff[m] + hi - lo]; split: (n_wts, 2),
@@ -344,33 +517,76 @@ class MelOperands:
     wts: torch.Tensor
     woff: torch.Tensor  # (n_mel,) int32
     # (n_tiles, 2) int32: the bands [ma, mb) that each frequency tile's bins
-    # meet (the last tile's include bin n_freq - 1)
+    # meet (the last tile's include bin n_freq - 1); FFT tier: its one tile,
+    # all the bins
     tile_bands: torch.Tensor
     # parity, fast: (n_tiles, n_k, 2, ks, row): slab (t, j) is rows
     # [j*ks, (j+1)*ks) of bins [t*nb, (t+1)*nb) of C, then of S; zeros past
     # win, past bin n_freq - 2 and in columns [nb, row).
     # split: (n_tiles, n_k, 4, ks/8, nb/8, 8, 8): slab (t, j) as the planes
     # Ch, Cl, Sh, Sl, each cut into 8 x 8 core matrices: element [p, a, b,
-    # r, q] is row j*ks + 8*a + r, bin t*nb + 8*b + q of plane p
-    slabs: torch.Tensor
+    # r, q] is row j*ks + 8*a + r, bin t*nb + 8*b + q of plane p; None in
+    # an FFT-tier record
+    slabs: torch.Tensor | None
     # (win, 2): C[:, n_freq-1] and S[:, n_freq-1]; split: (win, 4), that
-    # column of Ch, Cl, Sh, Sl
-    tail: torch.Tensor
+    # column of Ch, Cl, Sh, Sl; None in an FFT-tier record
+    tail: torch.Tensor | None
     ks: int
     nb: int
     row: int
+    # the FFT tier's: the window (win,) f32 and fft_twiddles(n_fft) (n_tw, 2)
+    # f32; None in a record of slabs
+    window: torch.Tensor | None = None
+    twiddles: torch.Tensor | None = None
+
+    @property
+    def fft(self) -> bool:
+        """Whether this is an FFT-tier record (``prepare_fft_operands``)."""
+        return self.twiddles is not None
 
     @property
     def win(self):
-        return self.c.shape[-2]
+        return self.window.shape[0] if self.fft else self.c.shape[-2]
 
     @property
     def n_freq(self):
-        return self.c.shape[-1]
+        return self.fb.shape[-2]
+
+    @property
+    def n_fft(self):
+        return 2 * (self.n_freq - 1)
+
+    @property
+    def device(self):
+        """The device of the tensors the kernel reads."""
+        return self.window.device if self.fft else self.fb.device
 
     @property
     def n_tiles(self):
-        return self.slabs.shape[0]
+        return self.tile_bands.shape[0]
+
+    def dft(self):
+        """``(c, s, fb)`` for the plain version.  An FFT-tier record holds no
+        C or S: they are built here from its window
+        (``ops.dft.windowed_dft_matrices``, on the host, then moved to the
+        record's device), for the CPU route and plain comparisons only."""
+        if not self.fft:
+            return self.c, self.s, self.fb
+        from ..ops.dft import windowed_dft_matrices
+
+        c, s = windowed_dft_matrices(self.window.cpu().numpy(), self.n_fft)
+        return tuple(t.to(self.device) for t in (
+            torch.from_numpy(c), torch.from_numpy(s), self.fb))
+
+    def to(self, device):
+        """This FFT-tier record with the tensors its kernel reads (window,
+        twiddles, band tables) on ``device``; ``fb`` stays where it is."""
+        if not self.fft:
+            raise ValueError("to() moves FFT-tier records; prepare_operands "
+                             "makes a record of slabs on its operands' device")
+        return dataclasses.replace(self, **{
+            name: getattr(self, name).to(device) for name in (
+                "window", "twiddles", "bands", "wts", "woff", "tile_bands")})
 
 
 def prepare_operands(c, s, fb, mode="parity"):
@@ -426,6 +642,21 @@ def prepare_operands(c, s, fb, mode="parity"):
         slabs[..., :nb] = body.reshape(n_p, n_k, ks, n_tiles, nb).permute(
             3, 1, 0, 2, 4)
     tail = planes[:, :, n_bins].T.contiguous()
+    bands, wts, woff = _band_tables(fb, mode)
+    k0 = torch.arange(n_tiles, device=fb.device) * nb
+    k1 = torch.clamp(k0 + nb, max=n_bins)
+    k1[-1] = n_freq
+    lo, hi = bands[:, 0], bands[:, 1]
+    meets = ((lo < hi) & (lo < k1[:, None]) & (hi > k0[:, None]))
+    tile_bands = mel_bands(meets.T)
+    return MelOperands(mode, c, s, fb.contiguous(), bands, wts, woff,
+                       tile_bands, slabs, tail, ks, nb, row)
+
+
+def _band_tables(fb, mode):
+    """(bands, wts, woff) of a record: ``mel_bands(fb)`` and the filterbank
+    compacted to each band's bins, contiguous per band (for split each
+    weight as its (hi, lo) pair), band m's from woff[m]."""
     bands = mel_bands(fb)
     widths = (bands[:, 1] - bands[:, 0]).long()
     woff = torch.cumsum(widths, 0) - widths
@@ -434,15 +665,39 @@ def prepare_operands(c, s, fb, mode="parity"):
     pos = torch.arange(int(widths.sum()), device=fb.device)
     wts = fb[..., bands[band, 0].long() + pos - woff[band], band]
     wts = (wts.T if mode == "split" else wts).contiguous()
-    k0 = torch.arange(n_tiles, device=fb.device) * nb
-    k1 = torch.clamp(k0 + nb, max=n_bins)
-    k1[-1] = n_freq
-    lo, hi = bands[:, 0], bands[:, 1]
-    meets = ((lo < hi) & (lo < k1[:, None]) & (hi > k0[:, None]))
-    tile_bands = mel_bands(meets.T)
-    return MelOperands(mode, c, s, fb.contiguous(), bands, wts,
-                       woff.to(torch.int32), tile_bands, slabs, tail, ks, nb,
-                       row)
+    return bands, wts, woff.to(torch.int32)
+
+
+def prepare_fft_operands(window, fb, n_fft):
+    """The FFT tier's record (parity mode) from the analysis window
+    ``(win,)`` and the f32 filterbank ``(n_fft // 2 + 1, n_mel)`` (a tensor,
+    on the device the record is for; ``to`` moves a record): the window in
+    f32, the twiddle table ``fft_twiddles(n_fft)``, the band supports and
+    the compact filterbank.  It holds no C, S, slabs or tail: the kernel
+    applies the window to each frame, zero-pads it to n_fft at the left
+    offset (n_fft - win) // 2 (``ops.dft.n_pad_split``), and takes its FFT,
+    the function of ``windowed_dft_matrices(window, n_fft)``'s pair.  Made
+    once per rate and cached by the caller."""
+    if n_fft not in FFT_PLANS:
+        raise ValueError(f"the FFT tier has no plan for n_fft={n_fft} "
+                         f"(FFT_PLANS: {sorted(FFT_PLANS)})")
+    if fb.dtype != torch.float32 or fb.ndim != 2 or (
+            fb.shape[0] != n_fft // 2 + 1):
+        raise ValueError(f"fb must be a (n_fft // 2 + 1 = {n_fft // 2 + 1}, "
+                         f"n_mel) float32 tensor, got {fb.dtype} "
+                         f"{tuple(fb.shape)}")
+    window = torch.as_tensor(np.ascontiguousarray(
+        window.cpu().numpy() if isinstance(window, torch.Tensor) else window,
+        dtype=np.float32)).to(fb.device)
+    if window.ndim != 1 or not 1 <= window.shape[0] <= n_fft:
+        raise ValueError(f"window must be (win,) with 1 <= win <= n_fft, got "
+                         f"{tuple(window.shape)}")
+    fb = fb.contiguous()
+    bands, wts, woff = _band_tables(fb, "parity")
+    tile_bands = mel_bands(bands[:, :1] < bands[:, 1:]).reshape(1, 2)
+    return MelOperands("parity", None, None, fb, bands, wts, woff,
+                       tile_bands, None, None, 0, 0, 0, window,
+                       torch.from_numpy(fft_twiddles(n_fft)).to(fb.device))
 
 
 def _check_wave(padded, win, hop, n_frames):
@@ -481,8 +736,19 @@ def _check_record(padded, ops, win, hop, n_frames, mode):
     if ops.win != win:
         raise ValueError(f"operands prepared for win={ops.win}, got {win}")
     _check_wave(padded, win, hop, n_frames)
-    if ops.slabs.device != padded.device:
+    if ops.device != padded.device:
         raise ValueError("padded and the operands must be on one device")
+
+
+def _check_tier(ops, tier, win, hop, n_mel):
+    """Raise unless the operands (a record, or None for plain ``c, s, fb``)
+    are those of the launch's tier: an FFT-tier record for the FFT tier,
+    C/S for the others (``kernel_record`` makes the right one)."""
+    if (tier == "fft") != (ops is not None and ops.fft):
+        given = "an FFT-tier record" if tier != "fft" else "C/S operands"
+        raise ValueError(
+            f"{given} given to a {tier}-tier launch (win={win}, hop={hop}, "
+            f"n_mel={n_mel}): make the record with kernel_record")
 
 
 def _check_out(out, shape, device):
@@ -501,18 +767,27 @@ class _Plan(ctypes.Structure):
 
 
 def _launch(lib, mode, wave, ops, out, win, hop, n_frames, n_mel, stream):
-    """Launch ``mode``'s kernel; returns what its launcher chose, as the
-    ``mel.launch`` span's attributes.  Raises ValueError where no tier of
-    the kernel fits the card's shared memory (nothing was launched), and
-    RuntimeError where the launch failed."""
+    """Launch ``mode``'s kernel, or the FFT tier's for an FFT-tier record;
+    returns what its launcher chose, as the ``mel.launch`` span's
+    attributes.  Raises ValueError where no tier of the kernel fits the
+    card's shared memory (nothing was launched), and RuntimeError where the
+    launch failed."""
     plan = _Plan()
-    err = getattr(lib, ENTRY_POINTS[mode])(
-        wave.data_ptr(), int(wave.dtype == torch.int16), wave.shape[1],
-        wave.shape[1], wave.shape[0], ops.slabs.data_ptr(),
-        ops.tail.data_ptr(), ops.wts.data_ptr(), ops.bands.data_ptr(),
-        ops.woff.data_ptr(), ops.tile_bands.data_ptr(), out.data_ptr(), win,
-        hop, n_frames, ops.n_freq, n_mel, ops.n_tiles, ops.wts.shape[0],
-        ops.ks, ops.nb, ops.row, stream, ctypes.byref(plan))
+    head = (wave.data_ptr(), int(wave.dtype == torch.int16), wave.shape[1],
+            wave.shape[1], wave.shape[0])
+    if ops.fft:
+        err = getattr(lib, FFT_ENTRY_POINT)(
+            *head, ops.window.data_ptr(), ops.twiddles.data_ptr(),
+            ops.wts.data_ptr(), ops.bands.data_ptr(), ops.woff.data_ptr(),
+            out.data_ptr(), win, hop, n_frames, ops.n_fft, n_mel,
+            ops.twiddles.shape[0], stream, ctypes.byref(plan))
+    else:
+        err = getattr(lib, ENTRY_POINTS[mode])(
+            *head, ops.slabs.data_ptr(), ops.tail.data_ptr(),
+            ops.wts.data_ptr(), ops.bands.data_ptr(), ops.woff.data_ptr(),
+            ops.tile_bands.data_ptr(), out.data_ptr(), win, hop, n_frames,
+            ops.n_freq, n_mel, ops.n_tiles, ops.wts.shape[0], ops.ks,
+            ops.nb, ops.row, stream, ctypes.byref(plan))
     if plan.tier == 0 and plan.smem > 0:
         raise ValueError(
             f"no tier of the {mode} mel kernel fits win={win}, hop={hop}, "
@@ -534,7 +809,7 @@ def mel_spectrogram_cuda(padded, *operands, win, hop, n_frames,
 
     Frame k is ``padded[..., k*hop : k*hop + win]``.  ``mode`` picks the
     kernel.  ``operands`` are one ``MelOperands`` record of that mode
-    (``prepare_operands``), or ``c, s, fb``, which are then prepared for
+    (``kernel_record``), or ``c, s, fb``, which are then prepared for
     this call: f32 (``operands_from_numpy``) for "parity", their bf16
     copies (``operands_bf16``) for "fast", their (hi, lo) stacks
     (``operands_split``) for "split".  ``out``, if
@@ -542,11 +817,17 @@ def mel_spectrogram_cuda(padded, *operands, win, hop, n_frames,
     kernel writes (a row range of a larger plane, for instance) and that is
     returned.
 
+    The launch takes the tier of ``tier_for``, and raises ValueError where
+    the operands are not that tier's (``kernel_record`` makes them): C/S
+    (a record of slabs, or plain ``c, s, fb``) at an FFT-tier shape, an
+    FFT-tier record at any other.
+
     Each call is one ``mel.launch`` program span (``utils.profiling``) with
     ``sr`` (the caller's rate, or None), ``batch``, ``win``, ``hop``,
     ``n_fft`` (2 * (n_freq - 1)), ``n_mel``, ``mode`` and what the launcher
     chose: ``tier``, ``mt``, ``stages``, ``chunk`` and ``smem_bytes`` (the
-    CPU route: tier "plain", the rest 0).  It ends when the launch returns,
+    CPU route: tier "plain", the rest 0; the FFT tier: ``mt`` 1, a frame a
+    block, ``stages`` and ``chunk`` 0).  It ends when the launch returns,
     not when the kernel does.  Raises ValueError where no tier of the
     mode's kernel fits the card (the split kernel, which has no chunked
     tier, from 176.4 kHz on at the session's settings).
@@ -572,6 +853,8 @@ def mel_spectrogram_cuda(padded, *operands, win, hop, n_frames,
     with span("mel.launch", sr=sr, batch=batch, win=win, hop=hop,
               n_fft=2 * (n_freq - 1), n_mel=n_mel, mode=mode) as sp:
         if padded.device.type == "cpu":
+            if ops is not None:
+                c, s, fb = ops.dft()
             db = mel_spectrogram_plain(padded, c, s, fb, win=win, hop=hop,
                                        n_frames=n_frames, mode=mode)
             sp.set(tier="plain", mt=0, stages=0, chunk=0, smem_bytes=0)
@@ -589,6 +872,10 @@ def mel_spectrogram_cuda(padded, *operands, win, hop, n_frames,
         wave = padded if padded.ndim == 2 else padded.unsqueeze(0)
         if out is None:
             out = torch.empty(shape, dtype=torch.float32, device=wave.device)
+        _check_tier(ops, tier_for(
+            mode, win, hop, 2 * (n_freq - 1), n_mel,
+            band_weights(fb) if ops is None else ops.wts.shape[0]),
+            win, hop, n_mel)
         if ops is None:
             ops = prepare_operands(c, s, fb, mode)
         with torch.cuda.device(wave.device):

@@ -38,9 +38,9 @@ import numpy as np
 import torch
 
 from ..config import get_engine, get_precision_mode, precision_for
-from ..kernels.spectrogram_cuda import (MelOperands, mel_spectrogram_cuda,
-                                        mel_spectrogram_plain, operands_bf16,
-                                        prepare_operands)
+from ..kernels.spectrogram_cuda import (MelOperands, kernel_record,
+                                        mel_spectrogram_cuda,
+                                        mel_spectrogram_plain, operands_bf16)
 from ..ops.decibel import amp_to_db
 from ..ops.framing import n_frames_for
 from ..ops.stft import dft_magnitude, frame_device
@@ -102,37 +102,51 @@ def padded_slice(src, a: int, b: int, half: int, n: int, dtype=np.int16):
     return out  # anything beyond stays zero (bucket tail)
 
 
-def _device_operands(c, s, mel_fb, device, mode, route="kernel"):
+def _device_operands(c, s, mel_fb, device, mode, route="kernel", *, win,
+                     hop, window=None):
     """The operands of ``route`` (``_check_route``) on ``device``.  For the
-    kernel, ``mode``'s prepared record (``prepare_operands``), made once
-    for all segments: ``c`` may be that record already (``s`` and
-    ``mel_fb`` then None; its device is the one used), else tensors are
-    taken as they are, numpy arrays are shipped as f32, and f32 for fast
-    mode are rounded to bf16 here.  The other routes take (C, S, fb) in
-    f32, the kernel's plain version also those of a record.  ``mel_fb``
-    may be None (no filterbank)."""
+    kernel, ``mode``'s record (``kernel_record``), made once for all
+    segments: ``c`` may be that record already (``s`` and ``mel_fb`` then
+    None; its device is the one used), else tensors are taken as they are,
+    numpy arrays are shipped as f32, and f32 for fast mode are rounded to
+    bf16 here; where the launches take the FFT tier the record is made
+    from ``window`` (the analysis window C and S were made with) and
+    ``mel_fb``, and C and S are not shipped.  The other routes take (C, S,
+    fb) in f32, the kernel's plain version also those of a record.
+    ``mel_fb`` may be None (no filterbank)."""
     if isinstance(c, MelOperands):  # the segments go to its device
         if route == "torch" or c.mode != mode:
             raise ValueError(
                 f"operands prepared for the {c.mode!r} kernel do not fit "
                 f"this call (mode {mode!r}, {route} route)")
-        return c if route == "kernel" else (c.c, c.s, c.fb)
+        return c if route == "kernel" else c.dft()
     if device is None:
         if not isinstance(c, torch.Tensor):
             raise ValueError("streaming needs a device: pass device=, or "
                              "c and s as tensors on the device")
         device = c.device
-    ops = tuple(
-        None if a is None
-        else a.to(device) if isinstance(a, torch.Tensor)
-        else torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
-        for a in (c, s, mel_fb)
-    )
+
+    def dense():
+        return tuple(
+            None if a is None
+            else a.to(device) if isinstance(a, torch.Tensor)
+            else torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+                device)
+            for a in (c, s, mel_fb))
+
     if route != "kernel":
-        return tuple(None if a is None else a.to(torch.float32) for a in ops)
-    if mode == "fast" and ops[0].dtype != torch.bfloat16:
-        ops = operands_bf16(*ops)
-    return prepare_operands(*ops, mode)
+        return tuple(None if a is None else a.to(torch.float32)
+                     for a in dense())
+
+    def dense_mode():
+        ops = dense()
+        if mode == "fast" and ops[0].dtype != torch.bfloat16:
+            ops = operands_bf16(*ops)
+        return ops
+
+    return kernel_record(mode, window, mel_fb, win=win, hop=hop,
+                         n_fft=2 * (c.shape[-1] - 1), device=device,
+                         dense=dense_mode)
 
 
 def _fb_of(c, mel_fb):
@@ -219,7 +233,7 @@ def _run_segments(make_seg, seg_plan, n_frames, win, hop, ops, chunk_frames,
     device; one host sync at the end reads them.
     """
     if route == "kernel":
-        device, n_out = ops.slabs.device, ops.fb.shape[-1]
+        device, n_out = ops.device, ops.fb.shape[-1]
     else:
         c, _, fb = ops
         device = c.device
@@ -367,9 +381,12 @@ def streaming_spec_db(
     ``device`` defaults to the device of ``c`` (a tensor).
     ``c``, ``s``, ``mel_fb`` may be numpy f32, or tensors that are the
     mode's operands (f32, or bf16 for "fast"); for the kernel they are laid
-    out once (``prepare_operands``) for every segment.  ``c`` may also be
-    that prepared record of the mode (``s`` and ``mel_fb`` None), as the
-    session passes its cached one.
+    out once (``kernel_record``) for every segment.  Where the kernel's
+    launches take the FFT tier (parity, on a card, windows no resident
+    block holds: ``tier_for``) that record is made from ``window``, the
+    analysis window C and S were made with, and ``mel_fb``, and C and S are
+    not shipped.  ``c`` may also be that record of the mode (``s`` and
+    ``mel_fb`` None), as the session passes its cached one.
 
     ``keep_wav=True`` appends a 5th value: the reflect-padded, zero-tailed
     wave on the device, stitched from the shipped segments.  ``sr``, where
@@ -377,7 +394,8 @@ def streaming_spec_db(
     """
     route = _check_route(_fb_of(c, mel_fb), impl, transfer, n_fft, window)
     mode = get_precision_mode()
-    ops = _device_operands(c, s, mel_fb, device, mode, route)
+    ops = _device_operands(c, s, mel_fb, device, mode, route, win=win,
+                           hop=hop, window=window)
     # integer input is kept as the carrier: int16 raw PCM or the int32
     # multi-channel sum
     dtype = wav.dtype if wav.dtype in (np.int16, np.int32) else np.float32
@@ -397,16 +415,19 @@ def streaming_spec_db(
 
 def streaming_spec_db_mmap(path, win, hop, c, s, mel_fb=None,
                            chunk_frames: int = 4096, seg_chunks: int = 8,
-                           transfer: str = "auto", *, device=None):
+                           transfer: str = "auto", *, device=None,
+                           window=None):
     """Disk-streamed long-file spectrogram: segments are sliced straight
     from a memory-mapped mono WAV (PCM16 or float32), so host memory holds
     a segment or two, whatever the file's length.  Same results and
-    schedule as :func:`streaming_spec_db` on the same samples."""
+    schedule as :func:`streaming_spec_db` on the same samples (``window``
+    as there: for a record of the FFT tier)."""
     from ..io.audio import open_wav_mmap
 
     route = _check_route(_fb_of(c, mel_fb), "dft", transfer)
     mode = get_precision_mode()
-    ops = _device_operands(c, s, mel_fb, device, mode, route)
+    ops = _device_operands(c, s, mel_fb, device, mode, route, win=win,
+                           hop=hop, window=window)
     mm, sr = open_wav_mmap(path)
     n = len(mm)
     half = win // 2

@@ -47,9 +47,9 @@ from ..config import (FreqScale, SpecSetting, check_db_wire,
                       get_session_hbm_budget)
 from ..kernels.pipeline import (render_grey_q, render_rgb,
                                 spec_pipeline_batched)
-from ..kernels.spectrogram_cuda import (mel_spectrogram_cuda,
+from ..kernels.spectrogram_cuda import (kernel_record, mel_spectrogram_cuda,
                                         mel_spectrogram_plain, operands_bf16,
-                                        operands_from_numpy, prepare_operands)
+                                        operands_from_numpy, reads_dft)
 from ..parallel.streaming import streaming_spec_db
 from ..parallel.wirepack import fetch_unpack_spec_stream, pack_spec
 from ..ops.dft import windowed_dft_matrices
@@ -302,9 +302,11 @@ class MultiTrack:
         elif self.device.type != "cpu":
             raise ValueError(f"unsupported device: {self.device}")
         self.tracks: dict[int, AudioTrack] = {}
-        # sr -> {mode: (C, S, fb)} on device: f32 for parity, bf16 for fast;
-        # fb is None on the linear scale
-        self._operands: dict[int, dict[str, tuple]] = {}
+        # sr -> the rate's operands: "window" and "fb" (host), "shape" (win,
+        # hop, n_fft); {mode: (C, S, fb)} on device, f32 for parity, bf16
+        # for fast, fb None on the linear scale, made where something reads
+        # them (_reads_dft); ("prepared", mode): the kernel's record
+        self._operands: dict[int, dict] = {}
         self._state: dict[int, _TrackState] = {}
         # id -> EnvelopeState: the device wave of get_wav_image, built at
         # the first waveform render, or adopted from streaming
@@ -335,23 +337,52 @@ class MultiTrack:
         return self.setting.freq_scale == FreqScale.MEL
 
     def _ensure_sr_operands(self, track: AudioTrack) -> None:
+        """The rate's window and filterbank on the host, and its f32 C, S and
+        fb on the device where the session's path reads them
+        (``_reads_dft``): at a rate whose mel launches take the FFT tier it
+        builds and uploads no C or S."""
         if track.sr in self._operands:
             return
         self._log.debug("DFT/mel operand cache miss for sr=%d", track.sr)
-        window = default_stft_window(track.win_length, track.n_fft)
-        c, s = windowed_dft_matrices(window, track.n_fft)
-        fb = calc_mel_fb_default(track.sr, track.n_fft)
-        ops = operands_from_numpy(c, s, fb, self.device)
         self._operands[track.sr] = {
-            "parity": ops if self._use_mel else (*ops[:2], None)}
+            "window": default_stft_window(track.win_length, track.n_fft),
+            "fb": calc_mel_fb_default(track.sr, track.n_fft),
+            "shape": (track.win_length, track.hop_length, track.n_fft)}
+        if self._reads_dft(track.sr, get_precision_mode()):
+            self._sr_operands(track.sr, "parity")
+
+    def _kernel_args(self, sr: int, mode: str) -> tuple:
+        """(mode, window, fb) and the keywords of ``kernel_record`` and
+        ``reads_dft`` for rate ``sr``: the default window and filterbank,
+        named by the rate's shape."""
+        ops = self._operands[sr]
+        win, hop, n_fft = ops["shape"]
+        return (mode, ops["window"], ops["fb"]), dict(
+            win=win, hop=hop, n_fft=n_fft, device=self.device,
+            key=("session", sr, win, n_fft))
+
+    def _reads_dft(self, sr: int, mode: str) -> bool:
+        """Whether rate ``sr``'s spectrogram in ``mode`` reads C and S: on
+        the linear scale, under the "xla" engine (the plain version), and
+        where the mel kernel's record holds them (``reads_dft``: off the
+        card, and in every tier but the FFT tier)."""
+        if not self._use_mel or get_engine() == "xla":
+            return True
+        (mode, _, fb), kw = self._kernel_args(sr, mode)
+        return reads_dft(mode, fb, **kw)
 
     def _sr_operands(self, sr: int, mode: str) -> tuple:
-        """The operands of rate ``sr`` in precision ``mode``; the bf16
-        copies are made at the first fast-mode use and kept.  The linear
-        scale has no filterbank and keeps the f32 operands in every mode:
-        its route takes the session's mode as a GEMM precision (parity:
-        true f32; fast: TF32)."""
+        """The operands (C, S, fb) of rate ``sr`` in precision ``mode``,
+        made at the first use and kept: f32 on the device, and their bf16
+        copies at the first fast-mode use.  The linear scale has no
+        filterbank and keeps the f32 operands in every mode: its route
+        takes the session's mode as a GEMM precision (parity: true f32;
+        fast: TF32)."""
         ops = self._operands[sr]
+        if "parity" not in ops:
+            c, s = windowed_dft_matrices(ops["window"], ops["shape"][2])
+            dev = operands_from_numpy(c, s, ops["fb"], self.device)
+            ops["parity"] = dev if self._use_mel else (*dev[:2], None)
         if not self._use_mel:
             return ops["parity"]
         if mode not in ops:
@@ -359,12 +390,15 @@ class MultiTrack:
         return ops[mode]
 
     def _sr_kernel_operands(self, sr: int, mode: str):
-        """The mel kernel's operands of rate ``sr`` in precision ``mode``,
-        laid out for it (``prepare_operands``) at the first use and kept."""
+        """The mel kernel's record of rate ``sr`` in precision ``mode``
+        (``kernel_record``: of the FFT tier, or of ``_sr_operands``' C and
+        S), made at the first use and kept."""
         ops = self._operands[sr]
         key = ("prepared", mode)
         if key not in ops:
-            ops[key] = prepare_operands(*self._sr_operands(sr, mode), mode)
+            args, kw = self._kernel_args(sr, mode)
+            ops[key] = kernel_record(
+                *args, dense=lambda: self._sr_operands(sr, mode), **kw)
         return ops[key]
 
     # ------------------------------------------------------- spectrograms

@@ -17,6 +17,7 @@ step; p99 < 0.01 dB): the two compute the same function and differ only
 where a sum lands by a rounding boundary of the bf16 magnitude.
 """
 
+import functools
 import types
 
 import numpy as np
@@ -521,20 +522,44 @@ def test_cuda_kernels_match_plain_with_a_padded_last_tile(setup, mode):
 
 
 # Rates of 7056-sample windows and more at the session's settings, and the
-# tier each kernel takes there: no resident parity block holds them; a
-# resident fast block (bf16 samples) holds them up to 250 kHz at one or two
-# m-tiles.
+# tier each kernel takes there: no resident parity block holds them, and
+# their n_fft (8192, 16 384) has an FFT plan; a resident fast block (bf16
+# samples) holds them up to 250 kHz at one or two m-tiles.
 ULTRASONIC = [176400, 192000, 250000, 384000]
-TIER = {"parity": {sr: "chunked" for sr in ULTRASONIC},
+TIER = {"parity": {sr: "fft" for sr in ULTRASONIC},
         "fast": {176400: "resident", 192000: "resident", 250000: "resident",
                  384000: "chunked"}}
 
 
-def _kernel_operands(c, s, fb, mode, device="cuda"):
+# (sr, t_overlap, f_overlap) -> n_fft and the parity tier: the FFT tier
+# exactly where no resident parity block fits and n_fft has a plan
+FFT_SHAPES = [
+    ((96000, 4, 1), 4096, "resident"),
+    ((96000, 1, 1), 4096, "fft"),        # hop = win: 16 frames' rows overflow
+    ((176400, 4, 1), 8192, "fft"),
+    ((192000, 4, 1), 8192, "fft"),
+    ((250000, 4, 1), 16384, "fft"),
+    ((384000, 4, 1), 16384, "fft"),
+    ((384000, 4, 2), 32768, "fft"),
+    ((176400, 4, 3), 24576, "chunked"),  # not a power of two
+    ((384000, 4, 4), 65536, "chunked"),  # no plan
+]
+
+
+def _dense(c, s, fb, mode, device="cuda"):
+    """The mode's (C, S, fb) on ``device``: f32, or their bf16 copies."""
     ops = K.operands_from_numpy(c, s, fb, device)
-    if mode == "fast":
-        ops = K.operands_bf16(*ops)
-    return K.prepare_operands(*ops, mode)
+    return K.operands_bf16(*ops) if mode == "fast" else ops
+
+
+def _kernel_operands(c, s, fb, mode, device="cuda"):
+    return K.prepare_operands(*_dense(c, s, fb, mode, device), mode)
+
+
+def _tier(mode, win, hop, fb):
+    """tier_for at this shape, fb the session's (n_freq, n_mel) filterbank."""
+    return K.tier_for(mode, win, hop, 2 * (fb.shape[0] - 1), fb.shape[1],
+                      K.band_weights(fb))
 
 
 def _agree_with_plain(got, plain, mode, what):
@@ -555,16 +580,27 @@ def _agree_with_plain(got, plain, mode, what):
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["parity", "fast"])
 @pytest.mark.parametrize("sr", ULTRASONIC)
-def test_chunked_tier_matches_plain_on_the_card(sr, mode):
+def test_ultrasonic_tiers_match_plain_on_the_card(sr, mode):
     """One second of noise at each rate, B = 2 and B = 1: every launch
-    takes the rate's tier, int16 is bit-equal to f32, batch rows are
-    independent, and the outputs keep the kernels' tolerance of the plain
-    version."""
+    takes the rate's tier on the record kernel_record makes, as the
+    session's (parity the FFT tier, without C or S; fast resident or
+    chunked), tier_for names it, int16 is bit-equal to f32, batch rows are
+    independent, and the outputs keep their tolerance of the plain version:
+    parity f32_agree and chip_smoke's window_agree (within twice the plain
+    version's own f32 error against float64 at these windows), fast one
+    grey step."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     win, hop, c, s, fb = _setup(sr)
-    ops = _kernel_operands(c, s, fb, mode)
+    assert _tier(mode, win, hop, fb) == TIER[mode][sr]
+    n_fft = 2 * (fb.shape[0] - 1)
+    ops = K.kernel_record(mode, default_stft_window(win, n_fft), fb, win=win,
+                          hop=hop, n_fft=n_fft, device=torch.device("cuda"),
+                          dense=lambda: _dense(c, s, fb, mode))
+    assert ops.fft == (TIER[mode][sr] == "fft")
+    if ops.fft:
+        assert ops.c is None and ops.slabs is None and ops.tail is None
     i16 = (np.random.default_rng(sr).standard_normal((2, sr)) * 3000).astype(
         np.int16)
     padded = np.stack([reflect_pad_center(w, win) for w in i16])
@@ -578,19 +614,27 @@ def test_chunked_tier_matches_plain_on_the_card(sr, mode):
     one = K.mel_spectrogram_cuda(x["f32"][1], ops, **kw)
     tier = TIER[mode][sr]
     assert K.LAUNCHES_BY_TIER == dict(before, **{tier: before[tier] + 3})
-    plain = K.mel_spectrogram_plain(x["f32"], ops.c, ops.s, ops.fb, **kw)
+    dense = K.operands_from_numpy(c, s, fb, "cuda")
+    plain = K.mel_spectrogram_plain(x["f32"], *dense, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got["i16"], got["f32"])
     assert torch.equal(one, got["f32"][1])
     _agree_with_plain(got["f32"], plain, mode, f"{mode} {sr} Hz")
+    if mode == "fast":
+        return
+    cs = _chip_smoke()
+    wit = cs.f64_witness_cuda(x["f32"], *(t.double() for t in dense), win,
+                              hop, kw["n_frames"])
+    agree, _, own = cs.window_agree(got["f32"], plain, wit)
+    assert bool(agree.all()), (sr, int((~agree).sum()), own)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["parity", "fast"])
 def test_resident_tier_up_to_96_khz_on_the_card(mode):
     """Every rate up to 96 kHz at the session's settings keeps the resident
-    tier (the launches of the songs and the hour), within the kernels'
-    tolerance of the plain version."""
+    tier (the launches of the songs and the hour), as tier_for says, within
+    the kernels' tolerance of the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -605,8 +649,140 @@ def test_resident_tier_up_to_96_khz_on_the_card(mode):
         before = K.LAUNCHES_BY_TIER["resident"]
         got = K.mel_spectrogram_cuda(x, ops, **kw)
         assert K.LAUNCHES_BY_TIER["resident"] == before + 1, sr
+        assert _tier(mode, win, hop, fb) == "resident", sr
         _agree_with_plain(got, K.mel_spectrogram_plain(
             x, ops.c, ops.s, ops.fb, **kw), mode, f"{mode} {sr} Hz")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,n_fft,tier",
+                         [s for s in FFT_SHAPES if s[2] != "resident"],
+                         ids=[f"{s[0][0]}-t{s[0][1]}-f{s[0][2]}"
+                              for s in FFT_SHAPES if s[2] != "resident"])
+def test_parity_tiers_past_the_resident_block_on_the_card(shape, n_fft, tier):
+    """Parity launches where no resident block fits, at every FFT plan
+    (n_fft 4096 to 32 768) and where n_fft has none (the chunked tier), on
+    kernel_record's record: one second of noise, B = 2, each launch in
+    tier_for's tier, int16 bit-equal to f32, within f32_agree and
+    chip_smoke's window_agree of the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sr, t_overlap, f_overlap = shape
+    p = derive_stft_params(sr, SpecSetting(t_overlap=t_overlap,
+                                           f_overlap=f_overlap))
+    win, hop = p.win_length, p.hop_length
+    window = default_stft_window(win, p.n_fft)
+    c, s = windowed_dft_matrices(window, p.n_fft)
+    fb = calc_mel_fb_default(sr, p.n_fft)
+    dense = K.operands_from_numpy(c, s, fb, "cuda")
+    ops = K.kernel_record("parity", window, fb, win=win, hop=hop,
+                          n_fft=p.n_fft, device=torch.device("cuda"),
+                          dense=lambda: dense)
+    assert ops.fft == (tier == "fft")
+    i16 = (np.random.default_rng(sr).standard_normal((2, sr)) * 3000).astype(
+        np.int16)
+    padded = np.stack([reflect_pad_center(w, win) for w in i16])
+    x = {"i16": torch.from_numpy(padded).cuda(),
+         "f32": torch.from_numpy(padded.astype(np.float32)
+                                 * np.float32(2.0**-15)).cuda()}
+    kw = dict(win=win, hop=hop, n_frames=n_frames_for(sr, win, hop))
+    before = dict(K.LAUNCHES_BY_TIER)
+    got = {k: K.mel_spectrogram_cuda(v, ops, **kw) for k, v in x.items()}
+    assert K.LAUNCHES_BY_TIER == dict(before, **{tier: before[tier] + 2})
+    assert _tier("parity", win, hop, fb) == tier
+    plain = K.mel_spectrogram_plain(x["f32"], *dense, **kw)
+    cs = _chip_smoke()
+    wit = cs.f64_witness_cuda(x["f32"], *(t.double() for t in dense), win,
+                              hop, kw["n_frames"])
+    torch.cuda.synchronize()
+    assert torch.equal(got["i16"], got["f32"])
+    _agree_with_plain(got["f32"], plain, "parity", f"parity {shape}")
+    agree, _, own = cs.window_agree(got["f32"], plain, wit)
+    assert bool(agree.all()), (shape, int((~agree).sum()), own)
+
+
+# FFT_SHAPES' rates, t_overlap and f_overlap, every pairing
+TIER_GRID = [(sr, t_overlap, f_overlap)
+             for sr in (96000, 176400, 192000, 250000, 384000)
+             for t_overlap in (1, 4) for f_overlap in (1, 2, 3, 4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["parity", "fast"])
+def test_tier_for_is_the_dense_launchers_choice_on_the_card(mode):
+    """Over TIER_GRID, tier_for says "resident" exactly where the mode's
+    dense launcher, given a record of slabs, takes its resident tier (it
+    judges by the card's own shared-memory limit, tier_for by
+    SMEM_BLOCK_BYTES): one frame launched on C and S of zeros, as the
+    choice reads shapes alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lib = K.build()
+    dtype = torch.float32 if mode == "parity" else torch.bfloat16
+    stream = torch.cuda.current_stream().cuda_stream
+    for sr, t_overlap, f_overlap in TIER_GRID:
+        p = derive_stft_params(sr, SpecSetting(t_overlap=t_overlap,
+                                               f_overlap=f_overlap))
+        win, hop = p.win_length, p.hop_length
+        fb = torch.from_numpy(calc_mel_fb_default(sr, p.n_fft)).cuda()
+        zeros = torch.zeros((win, fb.shape[0]), dtype=dtype, device="cuda")
+        ops = K.prepare_operands(zeros, zeros, fb.to(dtype), mode)
+        n_mel = fb.shape[1]
+        plan = K._launch(lib, mode, torch.zeros((1, win), device="cuda"),
+                         ops, torch.empty((1, 1, n_mel), device="cuda"),
+                         win, hop, 1, n_mel, stream)
+        want = K.tier_for(mode, win, hop, p.n_fft, n_mel, ops.wts.shape[0])
+        assert (plan["tier"] == "resident") == (want == "resident"), (
+            sr, t_overlap, f_overlap, plan, want)
+        del zeros, ops
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+# The first 16 hex digits of the sha256 of each resident launch's plane: 30 s
+# of seeded int16 noise (numpy's default_rng(sr)), B = 2, the session's
+# settings, as the parity and bf16 kernels computed them before the FFT
+# tier existed (mel_spectrogram.cu and mel_spectrogram_bf16.cu, then as
+# now; the same launch plans), built by the CUDA toolkit of the card's
+# machine for an NVIDIA H100 80GB HBM3.  Another toolkit may compile the
+# kernels to other bits: recompute them there from those sources.
+RESIDENT_DIGESTS = {
+    "parity/8000": "37b6dfadd5254085", "fast/8000": "7613d384191a793b",
+    "parity/16000": "2941a6629891a33d", "fast/16000": "e79309bdbefe3f93",
+    "parity/22050": "732885214db18990", "fast/22050": "97c03da02247ee4d",
+    "parity/24000": "39e0be9c58b0c828", "fast/24000": "e87a7746a1211a64",
+    "parity/44100": "056f3ecb032da3a8", "fast/44100": "d4e0afe364a48d40",
+    "parity/48000": "6233e2dc0f095e7a", "fast/48000": "55483e419ba22405",
+    "parity/88200": "576e5bda8fc8b1a6", "fast/88200": "272d7b4ad20b8c93",
+    "parity/96000": "9df025b0f04e2a95", "fast/96000": "33e1c614335043ea",
+}
+
+
+@pytest.mark.gpu
+def test_resident_launches_keep_their_bits_beside_the_fft_tier_on_the_card():
+    """The songs', the hour's and 88.2-96 kHz launches stay in the resident
+    tier with the planes' bits the dense kernels gave before the FFT tier
+    was added (RESIDENT_DIGESTS), in parity and fast."""
+    import hashlib
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for key, want in RESIDENT_DIGESTS.items():
+        mode, sr = key.split("/")
+        sr = int(sr)
+        win, hop, c, s, fb = _setup(sr)
+        ops = _kernel_operands(c, s, fb, mode)
+        i16 = (np.random.default_rng(sr).standard_normal((2, 30 * sr))
+               * 3000).astype(np.int16)
+        x = torch.from_numpy(np.stack([reflect_pad_center(w, win)
+                                       for w in i16])).cuda()
+        before = K.LAUNCHES_BY_TIER["resident"]
+        y = K.mel_spectrogram_cuda(x, ops, win=win, hop=hop, mode=mode,
+                                   n_frames=n_frames_for(30 * sr, win, hop))
+        assert K.LAUNCHES_BY_TIER["resident"] == before + 1, key
+        got = hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16]
+        assert got == want, key
 
 
 @pytest.mark.gpu
@@ -631,11 +807,12 @@ class _FakeLib:
     ``err``, launching nothing."""
 
     def __init__(self, plan, err):
-        self.plan, self.err = plan, err
-        for name in K.ENTRY_POINTS.values():
-            setattr(self, name, self._entry)
+        self.plan, self.err, self.called = plan, err, []
+        for name in (*K.ENTRY_POINTS.values(), K.FFT_ENTRY_POINT):
+            setattr(self, name, functools.partial(self._entry, name))
 
-    def _entry(self, *args):
+    def _entry(self, name, *args):
+        self.called.append(name)
         plan = args[-1]._obj
         for k, v in zip(("tier", "mt", "stages", "chunk", "smem", "avail"),
                         self.plan):
@@ -647,13 +824,24 @@ class _FakeLib:
         return b"invalid configuration argument"
 
 
-def _fake_launch(plan, err, mode="parity"):
-    win, hop, c, s, fb = _setup(8000)
-    ops = K.prepare_operands(*K.operands_from_numpy(c, s, fb), mode)
+def _fake_launch(plan, err, mode="parity", sr=8000, called=None):
+    """K._launch on a fake library, with the record the rate's tier reads
+    (tier_for: an FFT-tier record from 176.4 kHz on in parity); the entry
+    points it called go to ``called``."""
+    win, hop, c, s, fb = _setup(sr)
+    if _tier(mode, win, hop, fb) == "fft":
+        n_fft = 2 * (fb.shape[0] - 1)
+        ops = K.prepare_fft_operands(default_stft_window(win, n_fft),
+                                     torch.from_numpy(fb), n_fft)
+    else:
+        ops = K.prepare_operands(*K.operands_from_numpy(c, s, fb), mode)
     wave = torch.zeros((1, win + 3 * hop))
     out = torch.empty((4, fb.shape[1]))
-    return K._launch(_FakeLib(plan, err), mode, wave, ops, out, win, hop, 4,
-                     fb.shape[1], 0)
+    lib = _FakeLib(plan, err)
+    got = K._launch(lib, mode, wave, ops, out, win, hop, 4, fb.shape[1], 0)
+    if called is not None:
+        called += lib.called
+    return got
 
 
 def test_launch_raises_value_error_where_no_tier_fits():
@@ -676,7 +864,8 @@ def test_launch_reports_the_launchers_choice():
 def test_launches_by_tier_counts_card_launches_alone(rng):
     """LAUNCHES_BY_TIER has one count per tier and, like LAUNCHES, does not
     count the CPU route."""
-    assert set(K.LAUNCHES_BY_TIER) == set(K.TIERS) == {"resident", "chunked"}
+    assert set(K.LAUNCHES_BY_TIER) == set(K.TIERS) == {"resident", "chunked",
+                                                       "fft"}
     win, hop, c, s, fb = _setup(8000)
     before = dict(K.LAUNCHES_BY_TIER)
     K.mel_spectrogram_cuda(
@@ -684,3 +873,314 @@ def test_launches_by_tier_counts_card_launches_alone(rng):
         *K.operands_from_numpy(c, s, fb), win=win, hop=hop,
         n_frames=n_frames_for(4000, win, hop))
     assert K.LAUNCHES_BY_TIER == before
+
+
+# The FFT tier's rule and tables (CPU): tier_for against the launchers'
+# shared-memory arithmetic, the twiddle table, and a numpy float32 model of
+# csrc/mel_spectrogram_fft.cu's radix passes against np.fft.rfft.
+
+SONGS_HOUR_48K = [8000, 16000, 22050, 24000, 44100, 48000]
+
+
+@pytest.mark.parametrize("mode", ["parity", "fast", "split"])
+@pytest.mark.parametrize("sr", SONGS_HOUR_48K)
+def test_tier_for_keeps_every_songs_hour_and_48_khz_shape_resident(sr, mode):
+    win, hop, _, _, fb = _setup(sr)
+    assert _tier(mode, win, hop, fb) == "resident"
+
+
+def test_resident_bytes_are_the_launchers():
+    """The smallest resident block's bytes at the survey's rates, as the
+    parity and bf16 launchers add them up (csrc/mel_spectrogram.cu,
+    csrc/mel_spectrogram_bf16.cu): 229 KB at 176.4 kHz and 415 KB at 384
+    kHz in parity, 240 KB at 384 kHz in fast, against 227 KB a block."""
+    got = {}
+    for mode, sr in (("parity", 176400), ("parity", 384000),
+                     ("fast", 250000), ("fast", 384000)):
+        win, hop, _, _, fb = _setup(sr)
+        got[mode, sr] = K._resident_bytes(mode, win, hop, fb.shape[1],
+                                          K.band_weights(fb))
+    assert got == {("parity", 176400): 234944, ("parity", 384000): 425264,
+                   ("fast", 250000): 198000, ("fast", 384000): 245712}
+    assert K.SMEM_BLOCK_BYTES == 232448
+
+
+@pytest.mark.parametrize("shape,n_fft,tier", FFT_SHAPES,
+                         ids=[f"{s[0][0]}-t{s[0][1]}-f{s[0][2]}"
+                              for s in FFT_SHAPES])
+def test_tier_for_takes_fft_where_no_resident_parity_block_fits(shape, n_fft,
+                                                                tier):
+    sr, t_overlap, f_overlap = shape
+    p = derive_stft_params(sr, SpecSetting(t_overlap=t_overlap,
+                                           f_overlap=f_overlap))
+    fb = calc_mel_fb_default(sr, p.n_fft)
+    n_mel, n_wts = fb.shape[1], K.band_weights(fb)
+    fits = K._resident_bytes("parity", p.win_length, p.hop_length, n_mel,
+                             n_wts) <= K.SMEM_BLOCK_BYTES
+    assert p.n_fft == n_fft
+    assert fits == (tier == "resident")
+    assert (tier == "fft") == (not fits and n_fft in K.FFT_PLANS)
+    assert K.tier_for("parity", p.win_length, p.hop_length, n_fft, n_mel,
+                      n_wts) == tier
+    # fast mode has no FFT tier
+    assert K.tier_for("fast", p.win_length, p.hop_length, n_fft, n_mel,
+                      n_wts) in ("resident", "chunked")
+
+
+@pytest.mark.parametrize("sr,tier", [(8000, "resident"), (384000, "fft"),
+                                     (176400, "fft")])
+def test_launch_takes_the_entry_point_of_the_records_tier(sr, tier):
+    """A launch of the FFT tier's record calls the FFT kernel's entry point,
+    and its plan reads as tier "fft"; a record of slabs the dense one."""
+    called = []
+    plan = (3, 1, 0, 0, 69632, 232448) if tier == "fft" else (
+        1, 4, 3, 0, 100000, 232448)
+    got = _fake_launch(plan, 0, sr=sr, called=called)
+    assert got["tier"] == tier
+    assert called == [K.FFT_ENTRY_POINT if tier == "fft"
+                      else K.ENTRY_POINTS["parity"]]
+
+
+@pytest.mark.parametrize("sr", [8000, 48000, 176400, 384000])
+def test_kernel_record_makes_the_record_of_the_launchs_tier(sr, monkeypatch):
+    """kernel_record on a card (the move of the tables stubbed): the FFT
+    tier's record, made from the window and fb alone (C and S not asked
+    for), exactly where tier_for says "fft"; else prepare_operands of what
+    ``dense`` gives.  Off the card and in fast mode every record holds C
+    and S (reads_dft)."""
+    monkeypatch.setattr(K.MelOperands, "to", lambda self, device: self)
+    win, hop, c, s, fb = _setup(sr)
+    n_fft = 2 * (fb.shape[0] - 1)
+    window = default_stft_window(win, n_fft)
+    asked = []
+
+    def dense():
+        asked.append(sr)
+        return K.operands_from_numpy(c, s, fb)
+
+    kw = dict(win=win, hop=hop, n_fft=n_fft)
+    fft = _tier("parity", win, hop, fb) == "fft"
+    assert fft == (sr > 96000)
+    rec = K.kernel_record("parity", window, fb, device="cuda", dense=dense,
+                          **kw)
+    assert rec.fft == fft and asked == ([] if fft else [sr])
+    assert K.reads_dft("parity", fb, device="cuda", **kw) == (not fft)
+    if fft:
+        assert torch.equal(rec.window, torch.from_numpy(window))
+        with pytest.raises(ValueError, match="analysis window"):
+            K.kernel_record("parity", None, fb, device="cuda", dense=dense,
+                            **kw)
+    assert K.reads_dft("parity", fb, device="cpu", **kw)
+    assert K.reads_dft("fast", fb, device="cuda", **kw)
+    if not fft:
+        cpu = K.kernel_record("parity", window, fb, device="cpu",
+                              dense=dense, **kw)
+        assert not cpu.fft and cpu.slabs is not None
+
+
+def test_kernel_record_keeps_a_named_pairs_tables_once(monkeypatch):
+    """With a key, the band weights and the FFT tier's host record of a
+    named (window, fb) are made once a process."""
+    monkeypatch.setattr(K.MelOperands, "to", lambda self, device: self)
+    monkeypatch.setattr(K, "_NAMED", {})
+    win, hop, _, _, fb = _setup(192000)
+    n_fft = 2 * (fb.shape[0] - 1)
+    window = default_stft_window(win, n_fft)
+    made = []
+    real = K.prepare_fft_operands
+    monkeypatch.setattr(K, "prepare_fft_operands",
+                        lambda *a: made.append(1) or real(*a))
+    kw = dict(win=win, hop=hop, n_fft=n_fft, device="cuda", dense=None,
+              key=("test", 192000))
+    one = K.kernel_record("parity", window, fb, **kw)
+    two = K.kernel_record("parity", window, fb, **kw)
+    assert one is two and made == [1]
+    assert set(K._NAMED[("test", 192000)]) == {"n_wts", "fft"}
+
+
+def _tier_cases():
+    win, hop, c, s, fb = _setup(8000)
+    slab = K.prepare_operands(*K.operands_from_numpy(c, s, fb))
+    win, hop, _, _, fb = _setup(192000)
+    n_fft = 2 * (fb.shape[0] - 1)
+    rec = K.prepare_fft_operands(default_stft_window(win, n_fft),
+                                 torch.from_numpy(fb), n_fft)
+    return [("plain-resident", None, "resident", None),
+            ("plain-chunked", None, "chunked", None),
+            ("plain-fft", None, "fft", "C/S operands given to a fft-tier"),
+            ("slabs-resident", slab, "resident", None),
+            ("slabs-chunked", slab, "chunked", None),
+            ("slabs-fft", slab, "fft", "C/S operands given to a fft-tier"),
+            ("fft-fft", rec, "fft", None),
+            ("fft-resident", rec, "resident",
+             "an FFT-tier record given to a resident-tier"),
+            ("fft-chunked", rec, "chunked",
+             "an FFT-tier record given to a chunked-tier")]
+
+
+@pytest.mark.parametrize("case", _tier_cases(), ids=lambda c: c[0])
+def test_a_launch_raises_on_another_tiers_operands(case):
+    """The wrapper's check before a card launch: C/S (plain, or a record of
+    slabs) at an FFT-tier shape and an FFT-tier record at any other raise
+    ValueError and name kernel_record; it rebuilds nothing."""
+    _, ops, tier, msg = case
+    if msg is None:
+        K._check_tier(ops, tier, 320, 80, 257)
+    else:
+        with pytest.raises(ValueError, match=msg) as e:
+            K._check_tier(ops, tier, 320, 80, 257)
+        assert "kernel_record" in str(e.value)
+
+
+def test_streaming_makes_the_fft_record_from_the_window(monkeypatch):
+    """Streaming given C, S and fb where its launches take the FFT tier
+    makes kernel_record's record from ``window`` and ships no C or S; with
+    no window it raises; a record passes as it is."""
+    from msv_tpu_torch.parallel import streaming
+
+    monkeypatch.setattr(K.MelOperands, "to", lambda self, device: self)
+    win, hop, c, s, fb = _setup(192000)
+    window = default_stft_window(win, 2 * (fb.shape[0] - 1))
+    kw = dict(win=win, hop=hop)
+    rec = streaming._device_operands(c, s, fb, "cuda", "parity", window=window,
+                                     **kw)
+    assert rec.fft and rec.c is None
+    assert torch.equal(rec.window, torch.from_numpy(window))
+    with pytest.raises(ValueError, match="analysis window"):
+        streaming._device_operands(c, s, fb, "cuda", "parity", **kw)
+    assert streaming._device_operands(rec, None, None, None, "parity",
+                                      **kw) is rec
+
+
+@pytest.mark.parametrize("n_fft", sorted(K.FFT_PLANS))
+def test_fft_twiddles_match_exp_to_f32_rounding(n_fft):
+    """Every entry of the table is exp(-2 pi i t) of its fraction of a turn
+    t, rounded once to f32 (within half an f32 ulp of the float64 value,
+    and no further than numpy's own f32 rounding of it)."""
+    tw = K.fft_twiddles(n_fft)
+    radices = K.FFT_PLANS[n_fft]
+    turns = [np.arange(n_fft // 4 + 1) / n_fft]
+    ns = radices[0]
+    for r in radices[1:]:
+        rr, k = np.meshgrid(np.arange(1, r), np.arange(ns), indexing="ij")
+        turns.append((rr * k / (ns * r)).ravel())
+        ns *= r
+    assert ns == n_fft // 2
+    want = np.exp(-2j * np.pi * np.concatenate(turns))
+    assert tw.dtype == np.float32 and tw.shape == (len(want), 2)
+    for got, ref in ((tw[:, 0], want.real), (tw[:, 1], want.imag)):
+        assert np.array_equal(got, ref.astype(np.float32))
+        ulp = np.spacing(np.abs(ref).astype(np.float32))
+        assert np.all(np.abs(got - ref) <= 0.5 * ulp)
+
+
+_COS32 = np.cos(2 * np.pi * np.arange(16) / 32).astype(np.float32)
+_SIN32 = np.sin(2 * np.pi * np.arange(16) / 32).astype(np.float32)
+_COS32[8] = 0.0  # cos(pi / 2): the kernel's table holds the exact zero
+
+
+def _dft_in_registers(v):
+    """The kernel's in-register DFT of the last axis (R points), in
+    complex64: radix-2 decimation in frequency over W_32^t, then the
+    bit-reversal."""
+    v = v.copy()
+    r_pts = v.shape[-1]
+    size = r_pts
+    while size >= 2:
+        h = size // 2
+        for i in range(0, r_pts, size):
+            for j in range(h):
+                a, b = v[..., i + j].copy(), v[..., i + j + h].copy()
+                d = a - b
+                t = j * (32 // size)
+                v[..., i + j] = a + b
+                v[..., i + j + h] = d if t == 0 else d * np.complex64(
+                    complex(_COS32[t], -_SIN32[t]))
+        size = h
+    bits = r_pts.bit_length() - 1
+    return v[..., [int(format(i, f"0{bits}b")[::-1], 2)
+                   for i in range(r_pts)]]
+
+
+def _fft_model(x, n_fft):
+    """|rfft| of real (F, n_fft) float32 frames by the kernel's plan: the
+    packed half-length points, the Stockham radix passes with the table's
+    twiddles, the split of bins k and M - k."""
+    tw = K.fft_twiddles(n_fft)
+    tw = (tw[:, 0] + 1j * tw[:, 1]).astype(np.complex64)
+    m = n_fft // 2
+    z = (x[:, 0::2] + 1j * x[:, 1::2]).astype(np.complex64)
+    off, ns = m // 2 + 1, 1
+    for r in K.FFT_PLANS[n_fft]:
+        j = np.arange(m // r)
+        k = j & (ns - 1)
+        v = z[:, j[:, None] + np.arange(r)[None, :] * (m // r)]
+        if ns > 1:
+            v[:, :, 1:] *= tw[off + (np.arange(1, r)[None, :] - 1) * ns
+                              + k[:, None]][None]
+            off += (r - 1) * ns
+        z = np.empty_like(z)
+        z[:, ((j - k) * r + k)[:, None] + np.arange(r)[None, :] * ns] = (
+            _dft_in_registers(v))
+        ns *= r
+    kk = np.arange(m // 2 + 1)
+    a, b = z[:, kk], z[:, (m - kk) & (m - 1)]
+    e = np.float32(0.5) * (a + np.conj(b))
+    o = (np.float32(0.5) * (a.imag + b.imag)
+         + 1j * np.float32(0.5) * (b.real - a.real)).astype(np.complex64)
+    t = o * tw[kk]
+    mag = np.empty((x.shape[0], m + 1), np.float32)
+    mag[:, m - kk] = np.abs(e - t)
+    mag[:, kk] = np.abs(e + t)
+    return mag
+
+
+@pytest.mark.parametrize("n_fft", [8192, 16384])
+def test_fft_model_of_the_radix_passes_matches_rfft(n_fft):
+    """The planned passes in float32 reproduce |rfft| (float64) of a windowed,
+    zero-padded noise frame and of a tone within f32 error: at most 1e-6 of
+    the frame's peak bin, and 3e-7 in rms relative to the spectrum's rms,
+    as numpy's own float32 FFT."""
+    rng = np.random.default_rng(n_fft)
+    win = n_fft * 15 // 16
+    left = (n_fft - win) // 2
+    x = np.zeros((2, n_fft), np.float32)
+    w = default_stft_window(win, n_fft)
+    x[0, left:left + win] = w * rng.standard_normal(win).astype(np.float32)
+    x[1, left:left + win] = w * np.sin(
+        2 * np.pi * 0.0123 * np.arange(win)).astype(np.float32)
+    got = _fft_model(x, n_fft)
+    ref = np.abs(np.fft.rfft(x.astype(np.float64), axis=1))
+    peak = ref.max(axis=1, keepdims=True)
+    assert np.all(np.abs(got - ref) <= 1e-6 * peak)
+    rms = np.sqrt(((got - ref) ** 2).mean(axis=1) / (ref ** 2).mean(axis=1))
+    assert np.all(rms < 3e-7), rms
+
+
+def test_fft_records_hold_no_dft_operands(rng):
+    """An FFT-tier record carries the window, the twiddles and the band
+    tables, and no C, S, slabs or tail; its plain operands are built on
+    demand, and the CPU route on it equals the route on C, S and fb."""
+    sr = 192000
+    win, hop, c, s, fb = _setup(sr)
+    n_fft = 2 * (fb.shape[0] - 1)
+    window = default_stft_window(win, n_fft)
+    rec = K.prepare_fft_operands(window, torch.from_numpy(fb), n_fft)
+    assert rec.fft and (rec.c, rec.s, rec.slabs, rec.tail) == (None,) * 4
+    assert (rec.win, rec.n_fft, rec.mode) == (win, n_fft, "parity")
+    assert torch.equal(rec.window, torch.from_numpy(window))
+    assert rec.twiddles.shape == K.fft_twiddles(n_fft).shape
+    dense = K.prepare_operands(*K.operands_from_numpy(c, s, fb))
+    for name in ("bands", "wts", "woff"):
+        assert torch.equal(getattr(rec, name), getattr(dense, name))
+    dc, ds, dfb = rec.dft()
+    assert torch.equal(dc, torch.from_numpy(c)) and torch.equal(
+        ds, torch.from_numpy(s)) and dfb is rec.fb
+    x = torch.from_numpy(reflect_pad_center(_signal(rng, 3 * hop), win))
+    kw = dict(win=win, hop=hop, n_frames=n_frames_for(3 * hop, win, hop))
+    assert torch.equal(K.mel_spectrogram_cuda(x, rec, **kw),
+                       K.mel_spectrogram_cuda(x, dense, **kw))
+    with pytest.raises(ValueError, match="no plan"):
+        K.prepare_fft_operands(window, torch.from_numpy(fb), 12288)
+    with pytest.raises(ValueError, match="operands prepared for mode"):
+        K.mel_spectrogram_cuda(x, rec, mode="fast", **kw)

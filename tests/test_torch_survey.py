@@ -136,10 +136,11 @@ def test_the_first_screen_pngs(survey, refs):
 
 def _f64_db(x, ops, win, hop, n_frames):
     """The kernels' function in float64 on the same int16 wave and the same
-    f32 operands."""
+    f32 operands ``(C, S, fb)``."""
+    c, s, fb = (t.double() for t in ops)
     frames = (x.double() * 2.0**-15).unfold(0, win, hop)[:n_frames]
-    re, im = frames @ ops.c.double(), frames @ ops.s.double()
-    mel = torch.sqrt(re * re + im * im) @ ops.fb.double()
+    re, im = frames @ c, frames @ s
+    mel = torch.sqrt(re * re + im * im) @ fb
     return torch.where(mel > 1e-18, 20.0 * torch.log10(mel), -360.0)
 
 
@@ -164,12 +165,15 @@ def _agree_as_plain(got, plain, wit):
 
 
 @pytest.mark.gpu
-def test_a_400_s_384_khz_file_streams_through_the_chunked_tier_on_the_card():
+def test_a_400_s_384_khz_file_streams_through_the_fft_tier_on_the_card():
     """400 s at 384 kHz is 40 001 frames, over the session's streaming
-    threshold: streamed in two segments, each one chunked-tier launch of the
-    parity kernel, against the kernel's plain version over the same padded
-    wave in blocks, by a tolerance derived from the plain route's own f32
-    error (``_agree_as_plain``), which the bf16 kernel fails."""
+    threshold: streamed in two segments, each one FFT-tier launch of the
+    parity kernel on the record ``kernel_record`` makes, as the session's,
+    against the kernel's plain version over the same padded wave in blocks,
+    by a tolerance derived from the plain route's own f32 error
+    (``_agree_as_plain``), which the bf16 kernel fails.  Given C, S and fb
+    instead, streaming makes the same record from ``window`` (the same
+    plane on 30 s) and raises without it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from msv_tpu_torch.config import derive_stft_params
@@ -185,11 +189,14 @@ def test_a_400_s_384_khz_file_streams_through_the_chunked_tier_on_the_card():
     sr = 384000
     p = derive_stft_params(sr, SpecSetting())
     win, hop = p.win_length, p.hop_length
-    c, s = dft.windowed_dft_matrices(default_stft_window(win, p.n_fft),
-                                     p.n_fft)
-    f32 = K.operands_from_numpy(c, s, calc_mel_fb_default(sr, p.n_fft),
-                                "cuda")
-    ops = K.prepare_operands(*f32)
+    window = default_stft_window(win, p.n_fft)
+    c, s = dft.windowed_dft_matrices(window, p.n_fft)
+    fb = calc_mel_fb_default(sr, p.n_fft)
+    f32 = K.operands_from_numpy(c, s, fb, "cuda")
+    ops = K.kernel_record("parity", window, fb, win=win, hop=hop,
+                          n_fft=p.n_fft, device=torch.device("cuda"),
+                          dense=lambda: f32)
+    assert ops.fft and ops.c is None
     wav = (np.random.default_rng(400).standard_normal(400 * sr)
            * 3000).astype(np.int16)
     before = dict(K.LAUNCHES_BY_TIER)
@@ -197,15 +204,21 @@ def test_a_400_s_384_khz_file_streams_through_the_chunked_tier_on_the_card():
                                                  None, sr=sr)
     n_seg = len(_seg_plan_for(n_frames, 4096, 8))
     assert n_frames == 40001 > STREAMING_FRAME_THRESHOLD and n_seg == 2
-    assert K.LAUNCHES_BY_TIER == dict(before,
-                                      chunked=before["chunked"] + n_seg)
+    assert K.LAUNCHES_BY_TIER == dict(before, fft=before["fft"] + n_seg)
+    short = wav[:30 * sr]
+    with pytest.raises(ValueError, match="analysis window"):
+        streaming_spec_db(short, win, hop, c, s, fb, device="cuda")
+    assert torch.equal(
+        streaming_spec_db(short, win, hop, c, s, fb, window=window,
+                          device="cuda")[0],
+        streaming_spec_db(short, win, hop, ops, None, None)[0])
     x = torch.from_numpy(reflect_pad_center(wav, win)).cuda()
     kw = dict(win=win, hop=hop)
     for a in range(0, n_frames, 8192):
         b = min(n_frames, a + 8192)
         seg = x[a * hop:(b - 1) * hop + win]
         plain = K.mel_spectrogram_plain(seg, *f32, n_frames=b - a, **kw)
-        wit = _f64_db(seg, ops, n_frames=b - a, **kw)
+        wit = _f64_db(seg, f32, n_frames=b - a, **kw)
         ok, floor = _agree_as_plain(db[a:b], plain, wit)
         print(f"frames {a}-{b}: plain's f32 floor {floor:.3g} of the peak, "
               f"{int((~ok).sum())} bins out")
@@ -218,3 +231,99 @@ def test_a_400_s_384_khz_file_streams_through_the_chunked_tier_on_the_card():
             del fast, got
     valid = db[:n_frames]
     assert (smin, smax) == (float(valid.min()), float(valid.max()))
+
+
+class _Track:
+    """The parameters of a track at ``sr`` under the survey's setting."""
+
+    def __init__(self, sr):
+        from msv_tpu_torch.config import derive_stft_params
+
+        p = derive_stft_params(sr, SpecSetting())
+        self.sr, self.n_fft = sr, p.n_fft
+        self.win_length, self.hop_length = p.win_length, p.hop_length
+
+
+def test_a_card_session_builds_no_dft_operands_at_the_fft_tier_rates(
+        monkeypatch):
+    """Without a card: a session on "cuda" (the device check stubbed, the
+    uploads recorded instead of made) marks the parity launches at 384, 250
+    and 192 kHz as the FFT tier's and builds and uploads no C or S for them,
+    while the 48 kHz rate keeps its resident tier and its f32 C, S and fb;
+    in fast mode every rate reads C and S."""
+    from msv_tpu_torch import precision_mode_scope
+    from msv_tpu_torch.session import multitrack
+
+    from msv_tpu_torch.kernels import spectrogram_cuda as K
+
+    uploads = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(multitrack, "operands_from_numpy",
+                        lambda c, s, fb, device: uploads.append(
+                            (c.shape, str(device))) or (c, s, fb))
+    # the FFT tier's tables stay on the host
+    monkeypatch.setattr(K.MelOperands, "to", lambda self, device: self)
+    mt = MultiTrack(SpecSetting(), device="cuda")
+    for sr in RATES:
+        mt._ensure_sr_operands(_Track(sr))
+
+    def tiers(mode):
+        return [K.tier_for(mode, *mt._operands[sr]["shape"][:2],
+                           mt._operands[sr]["shape"][2],
+                           mt._operands[sr]["fb"].shape[1],
+                           K.band_weights(mt._operands[sr]["fb"]))
+                for sr in RATES]
+
+    assert tiers("parity") == ["fft", "fft", "fft", "resident"]
+    assert [mt._reads_dft(sr, "parity") for sr in RATES] == [
+        False, False, False, True]
+    assert [sr for sr in RATES if "parity" in mt._operands[sr]] == [48000]
+    assert [mt._sr_kernel_operands(sr, "parity").fft
+            for sr in RATES[:3]] == [True, True, True]
+    assert uploads == [((1920, 1025), "cuda")]
+    with precision_mode_scope("fast"):
+        assert all(mt._reads_dft(sr, "fast") for sr in RATES)
+        assert tiers("fast") == ["chunked", "resident", "resident",
+                                 "resident"]
+
+
+@pytest.mark.gpu
+def test_the_frontend_takes_the_fft_tier_at_384_khz_on_the_card():
+    """log_mel_spectrogram in parity at 384 kHz (25 ms windows of 9600
+    samples, n_fft 16 384: no resident parity block holds them) launches
+    the FFT tier, as tier_for says, on a record made without C or S (the
+    frontend's C/S cache is not touched), within chip_smoke's window_agree
+    of the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import importlib.util
+    import os
+
+    from msv_tpu_torch import features
+    from msv_tpu_torch.kernels import spectrogram_cuda as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sr = 384000
+    wav = (np.random.default_rng(9).standard_normal((2, sr)) * 0.1).astype(
+        np.float32)
+    misses = features.feature_operands.cache_info().misses
+    before = dict(K.LAUNCHES_BY_TIER)
+    got = features.log_mel_spectrogram(wav, sr, precision="parity")
+    assert K.LAUNCHES_BY_TIER == dict(before, fft=before["fft"] + 1)
+    assert features.feature_operands.cache_info().misses == misses
+    win, hop, n_fft = 9600, 3840, 16384
+    setting = (sr, win, n_fft, 128, 0.0, None, "slaney")
+    dense = features.feature_operands(*setting, "parity",
+                                      torch.device("cuda"))
+    padded = features.pad_batch(wav, win).cuda()
+    kw = dict(win=win, hop=hop, n_frames=got.shape[1])
+    plain = K.mel_spectrogram_plain(padded, *dense, **kw)
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec_ = importlib.util.spec_from_file_location("chip_smoke", path)
+    cs = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(cs)
+    wit = cs.f64_witness_cuda(padded, *(t.double() for t in dense), win, hop,
+                              kw["n_frames"])
+    agree, _, own = cs.window_agree(got, plain, wit)
+    assert bool(agree.all()), (int((~agree).sum()), own)
