@@ -556,6 +556,19 @@ def operands(sr, device):
     return p.win_length, p.hop_length, ops
 
 
+def session_route(tr, device="cuda"):
+    """The ``MelRoute`` a session on ``device`` makes for track ``tr``'s
+    rate: the default window and filterbank at the track's window, hop and
+    n_fft."""
+    from msv_tpu_torch.kernels.spectrogram_cuda import MelRoute
+    from msv_tpu_torch.ops.mel import calc_mel_fb_default
+    from msv_tpu_torch.ops.windows import default_stft_window
+
+    return MelRoute(default_stft_window(tr.win_length, tr.n_fft),
+                    calc_mel_fb_default(tr.sr, tr.n_fft), win=tr.win_length,
+                    hop=tr.hop_length, n_fft=tr.n_fft, device=device)
+
+
 def make_signal(rng, sr, seconds, rows):
     """int16 rows: a few swept tones over noise, as PCM16 audio."""
     n = int(seconds * sr)
@@ -742,7 +755,7 @@ def phase_session(K, rng, work):
         err10, note10 = check_f32(got10, cpu10, "10 s track: CUDA vs CPU")
         tr10 = cpu.tracks[0]
         padded10, nf10, _ = cpu._prep_padded(tr10)
-        wit = f64_witness(padded10, *cpu._sr_operands(tr10.sr, "parity"),
+        wit = f64_witness(padded10, *operands(tr10.sr, "cpu")[2],
                           tr10.win_length, tr10.hop_length, nf10).float()
         wit_err = {name: check_f32(x, wit, f"10 s track: {name} vs the f64 "
                                    f"witness")
@@ -792,7 +805,7 @@ def phase_session(K, rng, work):
         tr, st = mf.tracks[ids[-1]], mf._state[ids[-1]]
         padded, nf, _ = mf._prep_padded(tr)
         want = K.mel_spectrogram_plain(
-            torch.from_numpy(padded).cuda(), *mf._sr_operands(tr.sr, "parity"),
+            torch.from_numpy(padded).cuda(), *operands(tr.sr, "cuda")[2],
             win=tr.win_length, hop=tr.hop_length, n_frames=nf, mode="fast")
         err = (st.spec_db[:nf] - want).abs()
         e_max, e_p99 = err.max().item(), quantile(err, 0.99)
@@ -1300,7 +1313,7 @@ CHUNKED_SR, CHUNKED_F_OVERLAP = 176400, 3
 def survey_chunked(K, rng, d):
     """3d: the parity kernel's chunked tier at CHUNKED_SR and
     CHUNKED_F_OVERLAP, 300 s a row, f32 and int16 input, B = 1 and 2, on
-    the record kernel_record makes: each launch chunked, as tier_for says;
+    the record a MelRoute makes: each launch chunked, as tier_for says;
     int16 bit-equal to f32; rows independent; against its plain version as
     the FFT tier (ParityAgainstPlain); times of the kernel (f32 and int16,
     B = 1), its bound and the plain version; then a session of one such
@@ -1322,9 +1335,9 @@ def survey_chunked(K, rng, d):
     ops = K.operands_from_numpy(*windowed_dft_matrices(window, n_fft),
                                 calc_mel_fb_default(sr, n_fft), "cuda")
     n_mel = ops[2].shape[1]
-    rec = K.kernel_record("parity", window, ops[2], win=win, hop=hop,
-                          n_fft=n_fft, device=ops[2].device,
-                          dense=lambda: ops)
+    rec = K.MelRoute(window, ops[2], win=win, hop=hop, n_fft=n_fft,
+                     device=ops[2].device,
+                     dense=lambda: ops[:2]).record("parity")
     what = f"chunked {sr} Hz f_overlap {CHUNKED_F_OVERLAP}"
     check(not rec.fft and K.tier_for("parity", win, hop, n_fft, n_mel,
                                      rec.wts.shape[0]) == "chunked",
@@ -1379,7 +1392,7 @@ def survey_chunked(K, rng, d):
     tr, st = mt.tracks[0], mt._state[0]
     padded, nf, nfp = mt._prep_padded(tr)
     direct = K.mel_spectrogram_cuda(
-        torch.from_numpy(padded).cuda(), mt._sr_kernel_operands(sr, "parity"),
+        torch.from_numpy(padded).cuda(), session_route(tr).record("parity"),
         win=win, hop=hop, n_frames=nfp)
     check(torch.equal(st.spec_db[:nf], direct[:nf]),
           f"{what} session: the plane != the kernel's on its padded wave")
@@ -1416,10 +1429,10 @@ def phase_survey(K, rng, work):
     for sr in SURVEY_RATES:
         win, hop, ops = operands(sr, "cuda")
         n_fft = 2 * (ops[2].shape[0] - 1)
-        rec = {"parity": K.kernel_record(
-                   "parity", default_stft_window(win, n_fft), ops[2],
-                   win=win, hop=hop, n_fft=n_fft, device=ops[2].device,
-                   dense=lambda: ops),
+        rec = {"parity": K.MelRoute(
+                   default_stft_window(win, n_fft), ops[2], win=win,
+                   hop=hop, n_fft=n_fft, device=ops[2].device,
+                   dense=lambda: ops[:2]).record("parity"),
                "fast": K.prepare_operands(*K.operands_bf16(*ops), "fast")}
         check(rec["parity"].c is None and rec["parity"].slabs is None,
               f"{sr} Hz: the FFT tier's record holds C/S")
@@ -1502,9 +1515,15 @@ def phase_survey(K, rng, work):
         torch.cuda.synchronize()
         reset_counts(K)
         t0 = time.perf_counter()
-        with precision_mode_scope(mode):
-            mt = MultiTrack(device="cuda")
-            mt.add_tracks(ids, files)
+        built, upload = [], K.operands_from_numpy  # windows of C/S made
+        K.operands_from_numpy = (lambda c, *a: built.append(c.shape[0])
+                                 or upload(c, *a))
+        try:
+            with precision_mode_scope(mode):
+                mt = MultiTrack(device="cuda")
+                mt.add_tracks(ids, files)
+        finally:
+            K.operands_from_numpy = upload
         torch.cuda.synchronize()
         add_s = time.perf_counter() - t0
         n, tiers = read_counts(K), dict(K.LAUNCHES_BY_TIER)
@@ -1515,8 +1534,8 @@ def phase_survey(K, rng, work):
         check(n == counts(**{mode: len(ids)}) and tiers == want,
               f"{mode} survey session: launches {n}, by tier {tiers}, "
               f"{want} expected")
-        no_dft = [sr for sr in SURVEY_RATES
-                  if "parity" not in mt._operands[sr]]
+        wins = {tr.sr: tr.win_length for tr in mt.tracks.values()}
+        no_dft = [sr for sr in SURVEY_RATES if wins[sr] not in built]
         check(no_dft == (SURVEY_RATES if mode == "parity" else []),
               f"{mode} survey session: no C/S built at {no_dft} Hz")
         for i in ids:
@@ -1524,7 +1543,7 @@ def phase_survey(K, rng, work):
             padded, nf, nfp = mt._prep_padded(tr)
             direct = K.mel_spectrogram_cuda(
                 torch.from_numpy(padded).cuda(),
-                mt._sr_kernel_operands(tr.sr, mode), win=tr.win_length,
+                session_route(tr).record(mode), win=tr.win_length,
                 hop=tr.hop_length, n_frames=nfp, mode=mode)
             check(torch.equal(st.spec_db[:nf], direct[:nf]),
                   f"{mode} survey session: the {tr.sr} Hz plane != the "
@@ -1627,10 +1646,11 @@ def phase_streaming(K, rng, work, minutes=60, stereo_s=480.0):
                                       333.68)
         wcrop_s = time.perf_counter() - t0
         tr0 = mt.tracks[0]
+        route = session_route(tr0)
+        route.record("parity")
         t0 = time.perf_counter()
         mm_db, mm_n, mm_min, mm_max = streaming_spec_db_mmap(
-            hour, tr0.win_length, tr0.hop_length,
-            mt._sr_kernel_operands(48000, "parity"), None)
+            hour, tr0.win_length, tr0.hop_length, route, None)
         torch.cuda.synchronize()
         mmap_s = time.perf_counter() - t0
         launches = read_counts(K)
@@ -1679,7 +1699,7 @@ def phase_streaming(K, rng, work, minutes=60, stereo_s=480.0):
             tr, s_ = mt.tracks[i], mt._state[i]
             ref = one_shot(K, tr._wav_int, tr.scale, tr.win_length,
                            tr.hop_length, s_.n_frames,
-                           mt._sr_operands(tr.sr, "parity"))
+                           operands(tr.sr, "cuda")[2])
             got = s_.spec_db[: s_.n_frames]
             errs.append((got - ref).abs().max().item())
             equal.append(torch.equal(got, ref))
@@ -1710,9 +1730,8 @@ def phase_streaming(K, rng, work, minutes=60, stereo_s=480.0):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = streaming_spec_db(tr0._wav_int, tr0.win_length,
-                                    tr0.hop_length,
-                                    mt._sr_kernel_operands(48000, "parity"),
-                                    None, keep_wav=kw)
+                                    tr0.hop_length, route, None,
+                                    keep_wav=kw)
             torch.cuda.synchronize()
             keep[kw].append(time.perf_counter() - t0)
             del out
@@ -1749,7 +1768,7 @@ def phase_streaming(K, rng, work, minutes=60, stereo_s=480.0):
 
         # ---- the 8-minute track through linear streaming (no filterbank)
         tr1 = mt.tracks[1]
-        c, s, _ = mt._sr_operands(tr1.sr, "parity")
+        c, s, _ = operands(tr1.sr, "cuda")[2]
         win, hop = tr1.win_length, tr1.hop_length
         del mt
         torch.cuda.empty_cache()
@@ -1822,7 +1841,7 @@ def phase_features(K, rng):
         res = {}
         for mode in ("fast", "parity"):
             ops = features.feature_operands(sr, win, next_pow2(win), n_mel,
-                                            0.0, None, "slaney", "parity",
+                                            0.0, None, "slaney",
                                             xs[name].device)
             want = K.mel_spectrogram_plain(padded, *ops, win=win, hop=hop,
                                            n_frames=n_frames, mode=mode)
@@ -4345,8 +4364,11 @@ def phase_wire(K, smi, song, hour, work, dev="cuda"):
     wav = np.array(mm)
     del mm
     win, hop, ops = operands(sr, card)
-    recs = {"parity": K.prepare_operands(*ops, "parity"),
-            "fast": K.prepare_operands(*K.operands_bf16(*ops), "fast")}
+    route = K.MelRoute(None, ops[2], win=win, hop=hop,
+                       n_fft=2 * (ops[2].shape[0] - 1), device=card,
+                       dense=lambda: ops[:2])
+    for mode in ("parity", "fast"):
+        route.record(mode)  # laid out once, before the timed runs
     seg_log = []
     real_pack = S._pack_segment
 
@@ -4369,7 +4391,7 @@ def phase_wire(K, smi, song, hour, work, dev="cuda"):
                 torch.cuda.synchronize()
                 reset_counts(K)
                 t0 = time.perf_counter()
-                out = S.streaming_spec_db(wav, win, hop, recs[mode], None,
+                out = S.streaming_spec_db(wav, win, hop, route, None,
                                           None, transfer=transfer)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0

@@ -40,10 +40,9 @@ import math
 import numpy as np
 import torch
 
-from .config import (get_engine, get_precision_mode, precision_for,
+from .config import (get_precision_mode, precision_for,
                      precision_mode_is_explicit)
-from .kernels.spectrogram_cuda import (kernel_record, mel_spectrogram_cuda,
-                                       mel_spectrogram_plain, operands_bf16,
+from .kernels.spectrogram_cuda import (MelRoute, mel_spectrogram_cuda,
                                        operands_from_numpy, round_bf16)
 from .ops.decibel import amp_to_db, power_to_db
 from .ops.dft import windowed_dft_matrices
@@ -110,30 +109,27 @@ def _feature_fb(sr, n_fft, n_mel, fmin, fmax, mel_norm):
 
 
 @functools.lru_cache(maxsize=32)
-def feature_operands(sr, win, n_fft, n_mel, fmin, fmax, mel_norm, mode,
-                     device):
-    """(C, S, fb) of the frontend on ``device``: unscaled hann DFT pair and
-    the ``mel_norm`` filterbank, f32 for parity and bf16 for fast (kept
-    apart from the session's operands, whose window and norm differ)."""
+def feature_operands(sr, win, n_fft, n_mel, fmin, fmax, mel_norm, device):
+    """(C, S, fb) of the frontend on ``device`` in f32: unscaled hann DFT
+    pair and the ``mel_norm`` filterbank (kept apart from the session's
+    operands, whose window and norm differ)."""
     c, s = windowed_dft_matrices(hann(win, False), n_fft)
     fb = _feature_fb(sr, n_fft, n_mel, fmin, fmax, mel_norm)
-    ops = operands_from_numpy(c, s, fb, device)
-    return operands_bf16(*ops) if mode == "fast" else ops
+    return operands_from_numpy(c, s, fb, device)
 
 
 @functools.lru_cache(maxsize=32)
-def feature_kernel_operands(sr, win, n_fft, n_mel, fmin, fmax, mel_norm,
-                            mode, device, hop):
-    """The ``mode`` kernel's record of the frontend (``kernel_record``),
-    made once per setting, hop and device: where its launches take the FFT
-    tier, from the window and the filterbank, with no C or S built; else
-    ``feature_operands`` laid out."""
-    return kernel_record(
-        mode, hann(win, False), _feature_fb(sr, n_fft, n_mel, fmin, fmax,
-                                            mel_norm),
-        win=win, hop=hop, n_fft=n_fft, device=device,
-        dense=lambda: feature_operands(sr, win, n_fft, n_mel, fmin, fmax,
-                                       mel_norm, mode, device))
+def _feature_route(sr, win, n_fft, n_mel, fmin, fmax, mel_norm, device,
+                   hop):
+    """The fused route of the frontend (``MelRoute``: unscaled hann, the
+    ``mel_norm`` filterbank), one per setting, device and hop, its C and S
+    those of ``feature_operands``, built where a launch reads them."""
+    return MelRoute(hann(win, False),
+                    _feature_fb(sr, n_fft, n_mel, fmin, fmax, mel_norm),
+                    win=win, hop=hop, n_fft=n_fft, device=device,
+                    dense=lambda: feature_operands(
+                        sr, win, n_fft, n_mel, fmin, fmax, mel_norm,
+                        device)[:2])
 
 
 def _check_precision(precision, default="fast"):
@@ -274,18 +270,12 @@ def _log_mel(wav, sr, *, n_mel, win_length, hop_length, n_fft, win_ms,
     fused = fused and log == "amp_db" and spec == "magnitude"
     setting = (sr, win_length, n_fft, n_mel, float(fmin),
                None if fmax is None else float(fmax), mel_norm)
-    frames = dict(win=win_length, hop=hop_length, n_frames=n_frames,
-                  mode=precision)
-    if fused and get_engine() == "xla":
-        out = mel_spectrogram_plain(
-            padded, *feature_operands(*setting, precision, device), **frames)
-    elif fused:
-        out = mel_spectrogram_cuda(
-            padded.contiguous(),
-            feature_kernel_operands(*setting, precision, device,
-                                    hop_length), **frames)
+    if fused:
+        out = _feature_route(*setting, device, hop_length)(
+            padded.contiguous(), n_frames, mode=precision,
+            launch=mel_spectrogram_cuda)
     else:
-        c, s, fb = feature_operands(*setting, "parity", device)
+        c, s, fb = feature_operands(*setting, device)
         out = _features_core(padded, c, s, fb, win=win_length,
                              hop=hop_length, n_frames=n_frames, log=log,
                              mode=precision, spec=spec)
@@ -390,7 +380,7 @@ def whisper_log_mel(wav, sr: int = 16000, *, n_mel: int = 80,
         wav = np.pad(wav, ((0, 0), (0, n_samples - wav.shape[1])))
     padded = pad_batch(wav, win).to(device)
     c, s, fb = feature_operands(sr, win, n_fft, n_mel, 0.0, 8000.0,
-                                "slaney", "parity", device)
+                                "slaney", device)
     out = _whisper_core(padded, c, s, fb, win=win, hop=hop,
                         n_frames=n_frames_for(n_samples, win, hop),
                         n_valid=n_valid, mode=precision)

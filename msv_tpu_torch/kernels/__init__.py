@@ -5,7 +5,7 @@ spectrogram and the render pipelines as torch ops (``pipeline``)."""
 
 from .pipeline import (render_grey_q, render_rgb, spec_pipeline,
                        spec_pipeline_batched)
-from .spectrogram_cuda import (MelOperands, kernel_record,
+from .spectrogram_cuda import (MelOperands, MelRoute,
                                mel_spectrogram_cuda, mel_spectrogram_plain,
                                operands_bf16, operands_split,
                                prepare_fft_operands, prepare_operands,
@@ -13,7 +13,7 @@ from .spectrogram_cuda import (MelOperands, kernel_record,
 
 __all__ = [
     "MelOperands",
-    "kernel_record",
+    "MelRoute",
     "mel_spectrogram_cuda",
     "mel_spectrogram_plain",
     "operands_bf16",

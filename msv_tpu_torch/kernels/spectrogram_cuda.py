@@ -23,11 +23,13 @@ bin and the mel pass with its dB.  One rule, ``tier_for``, says which tier
 (``TIERS``) a launch takes: the resident tier where a block holds its
 frames' samples; else, in parity mode where n_fft is a power of two with
 an FFT plan (``FFT_PLANS``), the FFT tier; else (parity and fast) the
-chunked one.  ``kernel_record`` makes the record of that tier, and every
-launcher reports its choice.  The sources are built with
-``nvcc`` at first use into one library under ``build/msv_tpu_torch/``
-beside the package, keyed on the hash of the sources and the header, and
-loaded as a plain C library.
+chunked one, and every launcher reports its choice.  ``MelRoute`` is the
+one owner of a caller's route (the kernel, its plain version under the
+"xla" engine, or the CPU route) and of the operands it reads: the
+session, streaming and the log-mel frontend hold routes and call them.
+The sources are built with ``nvcc`` at first use into one library under
+``build/msv_tpu_torch/`` beside the package, keyed on the hash of the
+sources and the header, and loaded as a plain C library.
 
 A kernel takes the reflect-padded 1-D wave ``(L,)`` or ``(B, L)`` (f32, or
 int16 scaled by 2^-15 as it is loaded) and masks ragged edges itself.  Each
@@ -35,9 +37,8 @@ kernel takes its operands as a ``MelOperands`` record: from
 ``prepare_operands``, C and S cut into slabs laid out as the kernel's
 shared-memory image, the last bin's columns kept apart, ``fb`` and its band
 supports; for the FFT tier from ``prepare_fft_operands``, the window, the
-twiddles and the band supports, and no C or S; ``kernel_record`` makes
-the one a launch's tier reads.  Records are made once per rate and cached
-by the caller.  Given plain ``(C, S, fb)`` (``(win,
+twiddles and the band supports, and no C or S; a route makes the one a
+launch's tier reads and keeps it.  Given plain ``(C, S, fb)`` (``(win,
 n_freq)``, ``(win, n_freq)``, ``(n_freq, n_mel)``; f32 for parity, bf16
 from ``operands_bf16`` for fast, the ``(2, ...)`` hi/lo stacks of
 ``operands_split`` for split) the wrapper prepares them per call, where
@@ -61,7 +62,8 @@ import threading
 import numpy as np
 import torch
 
-from ..config import precision_for
+from ..config import get_engine, precision_for
+from ..ops.dft import windowed_dft_matrices
 from ..ops.stft import frame_device
 from ..utils.debug import check_nan
 from ..utils.profiling import span
@@ -188,14 +190,17 @@ def build() -> ctypes.CDLL:
         return lib
 
 
+def _as_f32(a):
+    return (a.to(torch.float32) if isinstance(a, torch.Tensor)
+            else torch.from_numpy(np.ascontiguousarray(a, np.float32)))
+
+
 def operands_from_numpy(c, s, fb, device="cpu"):
-    """(C, S, fb) as contiguous f32 tensors on ``device``, from the host
-    builders' ``(win, n_freq)``, ``(win, n_freq)`` and ``(n_freq, n_mel)``
-    arrays (``ops.dft.windowed_dft_matrices``, ``ops.mel``)."""
-    return tuple(
-        torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
-        for a in (c, s, fb)
-    )
+    """(C, S, fb) as f32 tensors on ``device``, from the host builders'
+    ``(win, n_freq)``, ``(win, n_freq)`` and ``(n_freq, n_mel)`` arrays
+    (``ops.dft.windowed_dft_matrices``, ``ops.mel``; contiguous), or from
+    tensors (bf16 ones widened)."""
+    return tuple(_as_f32(a).to(device) for a in (c, s, fb))
 
 
 def operands_from_pallas(c3d, s3d, fb3d, win, n_freq, n_mel, device="cpu"):
@@ -288,61 +293,6 @@ def tier_for(mode, win, hop, n_fft, n_mel, n_wts):
             and _fft_block_bytes(n_fft, n_mel) <= SMEM_BLOCK_BYTES):
         return "fft"
     return "chunked"
-
-
-# key -> what reads_dft and kernel_record derive from a named filterbank and
-# window: "n_wts" (band_weights) and "fft" (the FFT tier's record on the
-# host), made once a process
-_NAMED: dict = {}
-
-
-def _named(key, what, make):
-    if key is None:
-        return make()
-    entry = _NAMED.setdefault(key, {})
-    if what not in entry:
-        entry[what] = make()
-    return entry[what]
-
-
-def _as_f32(fb):
-    return (fb.to(torch.float32) if isinstance(fb, torch.Tensor)
-            else torch.from_numpy(np.ascontiguousarray(fb, np.float32)))
-
-
-def reads_dft(mode, fb, *, win, hop, n_fft, device, key=None) -> bool:
-    """Whether ``kernel_record``'s record of ``mode``'s kernel at this shape
-    on ``device`` holds C and S: everywhere but on a card where the launch
-    takes the FFT tier (``tier_for``).  ``fb`` is the ``(n_freq, n_mel)``
-    filterbank (numpy or a tensor); ``key`` as ``kernel_record``'s."""
-    if torch.device(device).type != "cuda":
-        return True
-    n_wts = _named(key, "n_wts", lambda: band_weights(_as_f32(fb)))
-    return tier_for(mode, win, hop, n_fft, fb.shape[-1], n_wts) != "fft"
-
-
-def kernel_record(mode, window, fb, *, win, hop, n_fft, device, dense,
-                  key=None):
-    """The ``MelOperands`` record that a launch of ``mode``'s kernel at this
-    shape reads on ``device``: the one rule by which the session, streaming
-    and the frontend make it.  Where ``reads_dft``, ``prepare_operands(
-    *dense(), mode)``: ``dense`` is a callable that gives the mode's (C, S,
-    fb) on ``device`` and is called only then.  Else the FFT tier's record,
-    ``prepare_fft_operands`` of the analysis window ``window`` (the one C
-    and S are made with) and the f32 filterbank ``fb`` (numpy or a tensor),
-    the tables its kernel reads moved to ``device`` (``MelOperands.to``).
-    ``key``, a hashable name of (window, fb) for a caller that makes them
-    by a rule (the session: its rate), keeps the host-side tables once a
-    process.  The caller caches the record."""
-    if reads_dft(mode, fb, win=win, hop=hop, n_fft=n_fft, device=device,
-                 key=key):
-        return prepare_operands(*dense(), mode)
-    if window is None:
-        raise ValueError(f"win={win}, hop={hop}, n_fft={n_fft} take the FFT "
-                         f"tier, whose record needs the analysis window")
-    rec = _named(key, "fft", lambda: prepare_fft_operands(
-        window, _as_f32(fb), n_fft))
-    return rec.to(device)
 
 
 @functools.lru_cache(maxsize=8)
@@ -572,8 +522,6 @@ class MelOperands:
         record's device), for the CPU route and plain comparisons only."""
         if not self.fft:
             return self.c, self.s, self.fb
-        from ..ops.dft import windowed_dft_matrices
-
         c, s = windowed_dft_matrices(self.window.cpu().numpy(), self.n_fft)
         return tuple(t.to(self.device) for t in (
             torch.from_numpy(c), torch.from_numpy(s), self.fb))
@@ -743,12 +691,12 @@ def _check_record(padded, ops, win, hop, n_frames, mode):
 def _check_tier(ops, tier, win, hop, n_mel):
     """Raise unless the operands (a record, or None for plain ``c, s, fb``)
     are those of the launch's tier: an FFT-tier record for the FFT tier,
-    C/S for the others (``kernel_record`` makes the right one)."""
+    C/S for the others (``MelRoute.record`` makes the right one)."""
     if (tier == "fft") != (ops is not None and ops.fft):
         given = "an FFT-tier record" if tier != "fft" else "C/S operands"
         raise ValueError(
             f"{given} given to a {tier}-tier launch (win={win}, hop={hop}, "
-            f"n_mel={n_mel}): make the record with kernel_record")
+            f"n_mel={n_mel}): MelRoute makes the record of its tier")
 
 
 def _check_out(out, shape, device):
@@ -809,7 +757,7 @@ def mel_spectrogram_cuda(padded, *operands, win, hop, n_frames,
 
     Frame k is ``padded[..., k*hop : k*hop + win]``.  ``mode`` picks the
     kernel.  ``operands`` are one ``MelOperands`` record of that mode
-    (``kernel_record``), or ``c, s, fb``, which are then prepared for
+    (``MelRoute.record``), or ``c, s, fb``, which are then prepared for
     this call: f32 (``operands_from_numpy``) for "parity", their bf16
     copies (``operands_bf16``) for "fast", their (hi, lo) stacks
     (``operands_split``) for "split".  ``out``, if
@@ -818,7 +766,7 @@ def mel_spectrogram_cuda(padded, *operands, win, hop, n_frames,
     returned.
 
     The launch takes the tier of ``tier_for``, and raises ValueError where
-    the operands are not that tier's (``kernel_record`` makes them): C/S
+    the operands are not that tier's (``MelRoute.record`` makes them): C/S
     (a record of slabs, or plain ``c, s, fb``) at an FFT-tier shape, an
     FFT-tier record at any other.
 
@@ -888,3 +836,128 @@ def mel_spectrogram_cuda(padded, *operands, win, hop, n_frames,
     LAUNCHES_BY_TIER[plan["tier"]] += 1
     check_nan(out, f"the {mode} mel kernel")
     return out
+
+
+def _kept(store, what, make):
+    """``store[what]``, made by ``make()`` at the first ask."""
+    if what not in store:
+        store[what] = make()
+    return store[what]
+
+
+class MelRoute:
+    """The mel dB spectrogram of one analysis ``window`` (``win``
+    samples), f32 filterbank ``fb`` (numpy or a tensor), ``hop`` and
+    ``n_fft`` on ``device``, in either precision mode, and the operands it
+    reads: the one place that decides how a launch runs, for the session,
+    streaming and the log-mel frontend.
+
+    ``route(padded, n_frames, mode=, out=None, sr=None)`` returns the dB
+    plane and decides at each call:
+
+    * under ``config.set_engine("xla")``: ``mel_spectrogram_plain`` on the
+      mode's dense ``(C, S, fb)``, with no ``mel.launch`` span;
+    * on the CPU: ``mel_spectrogram_cuda``'s CPU route on them (its span's
+      tier "plain");
+    * on a card: ``mel_spectrogram_cuda`` on the record of ``tier_for``'s
+      tier, ``prepare_fft_operands``' at the FFT tier (no C or S is built),
+      else ``prepare_operands``' of the dense operands.
+
+    ``launch``, the kernel's entry, is ``mel_spectrogram_cuda`` unless the
+    caller names its own binding of it (the session and streaming do, so
+    that a wrapper set on their module sees their launches).
+
+    Each form is built at its first use and kept as long as the route: one
+    f32 ``(C, S, fb)`` for both modes, its bf16 copies, a record a mode.
+    C and S are ``windowed_dft_matrices(window, n_fft)``, or what
+    ``dense()``, a callable a caller gives, returns (numpy or tensors;
+    ``window`` may then be None where no launch takes the FFT tier).  A
+    window or C of another length than ``win`` raises ValueError.  ``key``,
+    a hashable name of (window, fb) for a caller that makes them by a rule
+    (the session: its rate), keeps the band weights and the FFT tier's
+    host tables once a process."""
+
+    # key -> {"n_wts": band_weights(fb), "fft": the FFT tier's record on
+    # the host} of a named (window, fb)
+    _TABLES: dict = {}
+
+    def __init__(self, window, fb, *, win, hop, n_fft, device, dense=None,
+                 key=None):
+        if window is None and dense is None:
+            raise ValueError("a MelRoute needs the analysis window or C and S")
+        if window is not None and len(window) != win:
+            raise ValueError(f"a window of {len(window)} samples for "
+                             f"win={win}")
+        self.window, self.fb, self.key = window, fb, key
+        self.win, self.hop, self.n_fft = win, hop, n_fft
+        self.device = torch.device(device)
+        self._given = dense
+        # "n_wts" and "fft" (where no key names the tables), "f32", "bf16"
+        # and ("record", mode)
+        self._forms = {}
+
+    def _table(self, what, make):
+        return _kept(self._forms if self.key is None
+                     else MelRoute._TABLES.setdefault(self.key, {}),
+                     what, make)
+
+    def tier(self, mode) -> str:
+        """The tier (``TIERS``) of this route's ``mode`` launches on a
+        card."""
+        n_wts = self._table("n_wts", lambda: band_weights(self.fb))
+        return tier_for(mode, self.win, self.hop, self.n_fft,
+                        self.fb.shape[-1], n_wts)
+
+    def prepare(self, mode):
+        """Build the f32 C, S and fb on the device now, where this route's
+        ``mode`` calls read them: everywhere but on a card whose launches
+        take the FFT tier."""
+        if (get_engine() == "xla" or self.device.type != "cuda"
+                or self.tier(mode) != "fft"):
+            self._f32()
+
+    def _f32(self):
+        return _kept(self._forms, "f32", self._make_f32)
+
+    def _make_f32(self):
+        c, s = (self._given() if self._given is not None
+                else windowed_dft_matrices(self.window, self.n_fft))
+        if c.shape[-2] != self.win:
+            raise ValueError(f"C and S of {c.shape[-2]} rows for "
+                             f"win={self.win}")
+        return operands_from_numpy(c, s, self.fb, self.device)
+
+    def dense(self, mode="parity"):
+        """The mode's ``(C, S, fb)`` on the device: f32, or their bf16
+        copies (``operands_bf16``) in fast mode."""
+        if mode != "fast":
+            return self._f32()
+        return _kept(self._forms, "bf16", lambda: operands_bf16(*self._f32()))
+
+    def record(self, mode) -> MelOperands:
+        """The ``MelOperands`` record a card's ``mode`` launch reads: of
+        the FFT tier, made from the window and the filterbank (its tables
+        moved to the device), or ``prepare_operands`` of ``dense(mode)``."""
+        return _kept(self._forms, ("record", mode),
+                     lambda: self._make_record(mode))
+
+    def _make_record(self, mode):
+        if self.tier(mode) != "fft":
+            return prepare_operands(*self.dense(mode), mode)
+        if self.window is None:
+            raise ValueError(
+                f"win={self.win}, hop={self.hop}, n_fft={self.n_fft} take the "
+                f"FFT tier, whose record needs the analysis window")
+        return self._table("fft", lambda: prepare_fft_operands(
+            self.window, _as_f32(self.fb), self.n_fft)).to(self.device)
+
+    def __call__(self, padded, n_frames, *, mode, out=None, sr=None,
+                 launch=None):
+        kw = dict(win=self.win, hop=self.hop, n_frames=n_frames, mode=mode)
+        if get_engine() == "xla":
+            db = mel_spectrogram_plain(padded, *self.dense(mode), **kw)
+            return db if out is None else out.copy_(db)
+        ops = ((self.record(mode),) if self.device.type == "cuda"
+               else self.dense(mode))
+        return (launch or mel_spectrogram_cuda)(padded, *ops, out=out, sr=sr,
+                                                **kw)

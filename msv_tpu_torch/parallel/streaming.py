@@ -37,10 +37,8 @@ alone.
 import numpy as np
 import torch
 
-from ..config import get_engine, get_precision_mode, precision_for
-from ..kernels.spectrogram_cuda import (MelOperands, kernel_record,
-                                        mel_spectrogram_cuda,
-                                        mel_spectrogram_plain, operands_bf16)
+from ..config import get_precision_mode, precision_for
+from ..kernels.spectrogram_cuda import MelRoute, mel_spectrogram_cuda
 from ..ops.decibel import amp_to_db
 from ..ops.framing import n_frames_for
 from ..ops.stft import dft_magnitude, frame_device
@@ -102,73 +100,38 @@ def padded_slice(src, a: int, b: int, half: int, n: int, dtype=np.int16):
     return out  # anything beyond stays zero (bucket tail)
 
 
-def _device_operands(c, s, mel_fb, device, mode, route="kernel", *, win,
-                     hop, window=None):
-    """The operands of ``route`` (``_check_route``) on ``device``.  For the
-    kernel, ``mode``'s record (``kernel_record``), made once for all
-    segments: ``c`` may be that record already (``s`` and ``mel_fb`` then
-    None; its device is the one used), else tensors are taken as they are,
-    numpy arrays are shipped as f32, and f32 for fast mode are rounded to
-    bf16 here; where the launches take the FFT tier the record is made
-    from ``window`` (the analysis window C and S were made with) and
-    ``mel_fb``, and C and S are not shipped.  The other routes take (C, S,
-    fb) in f32, the kernel's plain version also those of a record.
-    ``mel_fb`` may be None (no filterbank)."""
-    if isinstance(c, MelOperands):  # the segments go to its device
-        if route == "torch" or c.mode != mode:
-            raise ValueError(
-                f"operands prepared for the {c.mode!r} kernel do not fit "
-                f"this call (mode {mode!r}, {route} route)")
-        return c if route == "kernel" else c.dft()
+def _segment_operands(c, s, mel_fb, device, impl, transfer, *, win, hop,
+                      n_fft=None, window=None):
+    """What every segment reads: a ``MelRoute`` for the mel kernel (``c``
+    itself where it is one, on its own device; else made over the given C
+    and S of ``win`` rows, on ``device`` or theirs), or ``(C, S, fb)`` in
+    f32 on the device for the torch-op step (``impl="fft"``, or no
+    filterbank).  Raises on what no route takes."""
+    route = isinstance(c, MelRoute)
+    if impl not in ("dft", "pallas", "fft"):
+        raise ValueError(f"unknown impl: {impl!r}")
+    if impl == "fft" and (n_fft is None or window is None):
+        raise ValueError("impl='fft' requires n_fft and window")
+    if impl == "pallas" and mel_fb is None and not route:
+        raise ValueError("impl='pallas' requires mel_fb")
+    if transfer not in ("auto", "raw", "pack", "pack1"):
+        raise ValueError(f"unknown transfer: {transfer!r}")
+    if route:
+        if impl == "fft" or (c.win, c.hop) != (win, hop):
+            raise ValueError(f"a route of win={c.win}, hop={c.hop} given to "
+                             f"impl={impl!r}, win={win}, hop={hop}")
+        return c
     if device is None:
         if not isinstance(c, torch.Tensor):
             raise ValueError("streaming needs a device: pass device=, or "
                              "c and s as tensors on the device")
         device = c.device
-
-    def dense():
-        return tuple(
-            None if a is None
-            else a.to(device) if isinstance(a, torch.Tensor)
-            else torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
-                device)
-            for a in (c, s, mel_fb))
-
-    if route != "kernel":
-        return tuple(None if a is None else a.to(torch.float32)
-                     for a in dense())
-
-    def dense_mode():
-        ops = dense()
-        if mode == "fast" and ops[0].dtype != torch.bfloat16:
-            ops = operands_bf16(*ops)
-        return ops
-
-    return kernel_record(mode, window, mel_fb, win=win, hop=hop,
-                         n_fft=2 * (c.shape[-1] - 1), device=device,
-                         dense=dense_mode)
-
-
-def _fb_of(c, mel_fb):
-    """The filterbank: ``mel_fb``, or that of a prepared record ``c``."""
-    return c.fb if isinstance(c, MelOperands) else mel_fb
-
-
-def _check_route(mel_fb, impl, transfer, n_fft=None, window=None):
-    """The route: "kernel" (the fused kernel), "plain" (its plain version,
-    under ``config.set_engine("xla")``) or "torch" (msv_tpu's per-chunk
-    step as torch ops); raises on what no route takes."""
-    if impl not in ("dft", "pallas", "fft"):
-        raise ValueError(f"unknown impl: {impl!r}")
-    if impl == "fft" and (n_fft is None or window is None):
-        raise ValueError("impl='fft' requires n_fft and window")
-    if impl == "pallas" and mel_fb is None:
-        raise ValueError("impl='pallas' requires mel_fb")
-    if transfer not in ("auto", "raw", "pack", "pack1"):
-        raise ValueError(f"unknown transfer: {transfer!r}")
     if impl == "fft" or mel_fb is None:
-        return "torch"
-    return "plain" if get_engine() == "xla" else "kernel"
+        return tuple(None if a is None else torch.as_tensor(
+            a, dtype=torch.float32, device=device) for a in (c, s, mel_fb))
+    return MelRoute(window, mel_fb, win=win, hop=hop,
+                    n_fft=2 * (c.shape[-1] - 1), device=device,
+                    dense=lambda: (c, s))
 
 
 def _pack_segment(seg_np, transfer):
@@ -216,11 +179,10 @@ def _torch_segment(seg, ops, out, *, win, hop, chunk_frames, scale, window,
 
 def _run_segments(make_seg, seg_plan, n_frames, win, hop, ops, chunk_frames,
                   *, mode, keep_wav=False, scale=_PCM16_SCALE, window=None,
-                  n_fft=None, route="kernel", transfer="auto", sr=None):
+                  n_fft=None, transfer="auto", sr=None):
     """Segment k's host slice (its carrier: int16, int32 or f32) -> device
-    (raw, or packed for ``transfer`` and unpacked there) -> one kernel
-    launch (``ops`` a prepared record), the kernel's plain version
-    (``route`` "plain", the "xla" engine) or the torch-op step (``ops`` =
+    (raw, or packed for ``transfer`` and unpacked there) -> one call of
+    the mel route (``ops`` a ``MelRoute``) or the torch-op step (``ops`` =
     (C, S, fb)) into rows [f0, f0 + seg_frames) of the output plane.  The
     device reads int16 at the PCM16 scale and f32; other carriers become
     ``carrier * scale`` in f32 (exact: power-of-two scales).
@@ -232,7 +194,8 @@ def _run_segments(make_seg, seg_plan, n_frames, win, hop, ops, chunk_frames,
     copy before it rewrites that buffer.  Per-segment min/max stay on the
     device; one host sync at the end reads them.
     """
-    if route == "kernel":
+    mel = isinstance(ops, MelRoute)
+    if mel:
         device, n_out = ops.device, ops.fb.shape[-1]
     else:
         c, _, fb = ops
@@ -304,14 +267,10 @@ def _run_segments(make_seg, seg_plan, n_frames, win, hop, ops, chunk_frames,
             seg = torch.from_numpy(read_form(seg_np))
         else:
             seg = device_form(wirepack.unpack_torch(packed, device))
-        if route == "kernel":
-            rows = mel_spectrogram_cuda(seg, ops, win=win, hop=hop,
-                                        n_frames=seg_frames, mode=mode,
-                                        out=db[f0 : f0 + seg_frames], sr=sr)
-        elif route == "plain":
-            rows = db[f0 : f0 + seg_frames]
-            rows.copy_(mel_spectrogram_plain(seg, *ops, win=win, hop=hop,
-                                             n_frames=seg_frames, mode=mode))
+        if mel:
+            rows = ops(seg, seg_frames, mode=mode,
+                       out=db[f0 : f0 + seg_frames], sr=sr,
+                       launch=mel_spectrogram_cuda)
         else:
             rows = _torch_segment(seg, ops, db[f0 : f0 + seg_frames],
                                   win=win, hop=hop, chunk_frames=chunk_frames,
@@ -380,22 +339,21 @@ def streaming_spec_db(
     version (``mel_spectrogram_plain``) on the same device instead.
     ``device`` defaults to the device of ``c`` (a tensor).
     ``c``, ``s``, ``mel_fb`` may be numpy f32, or tensors that are the
-    mode's operands (f32, or bf16 for "fast"); for the kernel they are laid
-    out once (``kernel_record``) for every segment.  Where the kernel's
-    launches take the FFT tier (parity, on a card, windows no resident
-    block holds: ``tier_for``) that record is made from ``window``, the
-    analysis window C and S were made with, and ``mel_fb``, and C and S are
-    not shipped.  ``c`` may also be that record of the mode (``s`` and
-    ``mel_fb`` None), as the session passes its cached one.
+    mode's operands (f32, or bf16 for "fast"); the kernel's segments call
+    one ``MelRoute`` over them, made for this call.  Where its launches
+    take the FFT tier (parity, on a card, windows no resident block holds:
+    ``tier_for``) the route's record is made from ``window``, the analysis
+    window C and S were made with, and ``mel_fb``, and C and S are not
+    shipped.  ``c`` may also be a ``MelRoute`` of this ``win`` and ``hop``
+    (``s`` and ``mel_fb`` None), as the session passes its own; the
+    segments then go to its device, and it runs in the session's mode.
 
     ``keep_wav=True`` appends a 5th value: the reflect-padded, zero-tailed
     wave on the device, stitched from the shipped segments.  ``sr``, where
     given, goes on each launch's ``mel.launch`` span.
     """
-    route = _check_route(_fb_of(c, mel_fb), impl, transfer, n_fft, window)
-    mode = get_precision_mode()
-    ops = _device_operands(c, s, mel_fb, device, mode, route, win=win,
-                           hop=hop, window=window)
+    ops = _segment_operands(c, s, mel_fb, device, impl, transfer, win=win,
+                            hop=hop, n_fft=n_fft, window=window)
     # integer input is kept as the carrier: int16 raw PCM or the int32
     # multi-channel sum
     dtype = wav.dtype if wav.dtype in (np.int16, np.int32) else np.float32
@@ -408,9 +366,10 @@ def streaming_spec_db(
         return padded_slice(wav, a, a + seg_len, half, len(wav), dtype=dtype)
 
     return _run_segments(make_seg, seg_plan, n_frames, win, hop, ops,
-                         chunk_frames, mode=mode, keep_wav=keep_wav,
-                         scale=scale, window=window if impl == "fft" else None,
-                         n_fft=n_fft, route=route, transfer=transfer, sr=sr)
+                         chunk_frames, mode=get_precision_mode(),
+                         keep_wav=keep_wav, scale=scale,
+                         window=window if impl == "fft" else None,
+                         n_fft=n_fft, transfer=transfer, sr=sr)
 
 
 def streaming_spec_db_mmap(path, win, hop, c, s, mel_fb=None,
@@ -424,10 +383,8 @@ def streaming_spec_db_mmap(path, win, hop, c, s, mel_fb=None,
     as there: for a record of the FFT tier)."""
     from ..io.audio import open_wav_mmap
 
-    route = _check_route(_fb_of(c, mel_fb), "dft", transfer)
-    mode = get_precision_mode()
-    ops = _device_operands(c, s, mel_fb, device, mode, route, win=win,
-                           hop=hop, window=window)
+    ops = _segment_operands(c, s, mel_fb, device, "dft", transfer, win=win,
+                            hop=hop, window=window)
     mm, sr = open_wav_mmap(path)
     n = len(mm)
     half = win // 2
@@ -441,5 +398,5 @@ def streaming_spec_db_mmap(path, win, hop, c, s, mel_fb=None,
         return padded_slice(mm, a, a + seg_len, half, n, dtype=dtype)
 
     return _run_segments(make_seg, seg_plan, n_frames, win, hop, ops,
-                         chunk_frames, mode=mode, route=route,
+                         chunk_frames, mode=get_precision_mode(),
                          transfer=transfer, sr=sr)

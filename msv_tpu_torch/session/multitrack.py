@@ -3,18 +3,18 @@
 
 Host Python owns file I/O and the global-dB state machine; the device owns
 every per-sample computation.  On the mel scale every track's spectrogram
-goes through the fused CUDA kernel of the session's precision mode
-(``kernels/spectrogram_cuda.py``: the f32 kernel under "parity", the bf16
-kernel under "fast"), or through its plain version on the same device
-under ``config.set_engine("xla")``; on the linear scale through ``spec_pipeline_batched``
-(torch ops, f32).  Tracks that share a bucket ``(sr, n_frames_pad, wire)``
-go as one batched call (each track then owns a copy of its plane), and a
-track over STREAMING_FRAME_THRESHOLD frames goes alone through segmented
-streaming (``parallel/streaming.py``), whose device wave the track keeps
-for its waveform images.  Renders are torch ops over the cached device dB
-planes and device waves (``render/envelope.py`` for the waveform), and
-adaptive multi-resolution crops over slice-local or background-built
-planes (``ops/multires.py``).
+goes through the rate's route in the session's precision mode
+(``kernels/spectrogram_cuda.py::MelRoute``: the fused CUDA kernel, f32
+under "parity" and bf16 under "fast", or its plain version on the same
+device under ``config.set_engine("xla")``); on the linear scale through
+``spec_pipeline_batched`` (torch ops, f32).  Tracks that share a bucket
+``(sr, n_frames_pad, wire)`` go as one batched call (each track then owns a
+copy of its plane), and a track over STREAMING_FRAME_THRESHOLD frames goes
+alone through segmented streaming (``parallel/streaming.py``), whose device
+wave the track keeps for its waveform images.  Renders are torch ops over
+the cached device dB planes and device waves (``render/envelope.py`` for
+the waveform), and adaptive multi-resolution crops over slice-local or
+background-built planes (``ops/multires.py``).
 
 Device memory: ``hbm_budget_bytes`` (or config.set_session_hbm_budget)
 bounds the cached per-track device state.  Past it the least-recently-used
@@ -42,14 +42,11 @@ import numpy as np
 import torch
 
 from ..config import (FreqScale, SpecSetting, check_db_wire,
-                      derive_stft_params, get_db_wire, get_engine,
-                      get_image_wire, get_precision_mode,
-                      get_session_hbm_budget)
+                      derive_stft_params, get_db_wire, get_image_wire,
+                      get_precision_mode, get_session_hbm_budget)
 from ..kernels.pipeline import (render_grey_q, render_rgb,
                                 spec_pipeline_batched)
-from ..kernels.spectrogram_cuda import (kernel_record, mel_spectrogram_cuda,
-                                        mel_spectrogram_plain, operands_bf16,
-                                        operands_from_numpy, reads_dft)
+from ..kernels.spectrogram_cuda import MelRoute, mel_spectrogram_cuda
 from ..parallel.streaming import streaming_spec_db
 from ..parallel.wirepack import fetch_unpack_spec_stream, pack_spec
 from ..ops.dft import windowed_dft_matrices
@@ -302,11 +299,10 @@ class MultiTrack:
         elif self.device.type != "cpu":
             raise ValueError(f"unsupported device: {self.device}")
         self.tracks: dict[int, AudioTrack] = {}
-        # sr -> the rate's operands: "window" and "fb" (host), "shape" (win,
-        # hop, n_fft); {mode: (C, S, fb)} on device, f32 for parity, bf16
-        # for fast, fb None on the linear scale, made where something reads
-        # them (_reads_dft); ("prepared", mode): the kernel's record
-        self._operands: dict[int, dict] = {}
+        # sr -> the rate's operands: on the mel scale its MelRoute, on the
+        # linear scale (C, S, None), f32 on the device (its route takes the
+        # session's mode as a GEMM precision: parity true f32, fast TF32)
+        self._operands: dict[int, MelRoute | tuple] = {}
         self._state: dict[int, _TrackState] = {}
         # id -> EnvelopeState: the device wave of get_wav_image, built at
         # the first waveform render, or adopted from streaming
@@ -337,69 +333,29 @@ class MultiTrack:
         return self.setting.freq_scale == FreqScale.MEL
 
     def _ensure_sr_operands(self, track: AudioTrack) -> None:
-        """The rate's window and filterbank on the host, and its f32 C, S and
-        fb on the device where the session's path reads them
-        (``_reads_dft``): at a rate whose mel launches take the FFT tier it
-        builds and uploads no C or S."""
+        """The rate's operands at its first add: on the mel scale its route
+        (``MelRoute``: the default window and filterbank, named by the
+        rate's shape), its f32 C, S and fb on the device where its launches
+        in the session's mode read them (``MelRoute.prepare``: none at a
+        rate whose launches take the FFT tier on a card); on the linear
+        scale its f32 C and S."""
         if track.sr in self._operands:
             return
         self._log.debug("DFT/mel operand cache miss for sr=%d", track.sr)
-        self._operands[track.sr] = {
-            "window": default_stft_window(track.win_length, track.n_fft),
-            "fb": calc_mel_fb_default(track.sr, track.n_fft),
-            "shape": (track.win_length, track.hop_length, track.n_fft)}
-        if self._reads_dft(track.sr, get_precision_mode()):
-            self._sr_operands(track.sr, "parity")
-
-    def _kernel_args(self, sr: int, mode: str) -> tuple:
-        """(mode, window, fb) and the keywords of ``kernel_record`` and
-        ``reads_dft`` for rate ``sr``: the default window and filterbank,
-        named by the rate's shape."""
-        ops = self._operands[sr]
-        win, hop, n_fft = ops["shape"]
-        return (mode, ops["window"], ops["fb"]), dict(
-            win=win, hop=hop, n_fft=n_fft, device=self.device,
-            key=("session", sr, win, n_fft))
-
-    def _reads_dft(self, sr: int, mode: str) -> bool:
-        """Whether rate ``sr``'s spectrogram in ``mode`` reads C and S: on
-        the linear scale, under the "xla" engine (the plain version), and
-        where the mel kernel's record holds them (``reads_dft``: off the
-        card, and in every tier but the FFT tier)."""
-        if not self._use_mel or get_engine() == "xla":
-            return True
-        (mode, _, fb), kw = self._kernel_args(sr, mode)
-        return reads_dft(mode, fb, **kw)
-
-    def _sr_operands(self, sr: int, mode: str) -> tuple:
-        """The operands (C, S, fb) of rate ``sr`` in precision ``mode``,
-        made at the first use and kept: f32 on the device, and their bf16
-        copies at the first fast-mode use.  The linear scale has no
-        filterbank and keeps the f32 operands in every mode: its route
-        takes the session's mode as a GEMM precision (parity: true f32;
-        fast: TF32)."""
-        ops = self._operands[sr]
-        if "parity" not in ops:
-            c, s = windowed_dft_matrices(ops["window"], ops["shape"][2])
-            dev = operands_from_numpy(c, s, ops["fb"], self.device)
-            ops["parity"] = dev if self._use_mel else (*dev[:2], None)
+        window = default_stft_window(track.win_length, track.n_fft)
         if not self._use_mel:
-            return ops["parity"]
-        if mode not in ops:
-            ops[mode] = operands_bf16(*ops["parity"])
-        return ops[mode]
-
-    def _sr_kernel_operands(self, sr: int, mode: str):
-        """The mel kernel's record of rate ``sr`` in precision ``mode``
-        (``kernel_record``: of the FFT tier, or of ``_sr_operands``' C and
-        S), made at the first use and kept."""
-        ops = self._operands[sr]
-        key = ("prepared", mode)
-        if key not in ops:
-            args, kw = self._kernel_args(sr, mode)
-            ops[key] = kernel_record(
-                *args, dense=lambda: self._sr_operands(sr, mode), **kw)
-        return ops[key]
+            c, s = windowed_dft_matrices(window, track.n_fft)
+            self._operands[track.sr] = (
+                *(torch.from_numpy(a).to(self.device) for a in (c, s)), None)
+            return
+        route = MelRoute(window, calc_mel_fb_default(track.sr, track.n_fft),
+                         win=track.win_length, hop=track.hop_length,
+                         n_fft=track.n_fft, device=self.device,
+                         key=("session", track.sr, track.win_length,
+                              track.n_fft))
+        # the upload falls in add_tracks.operands, not in the launch's stage
+        route.prepare(get_precision_mode())
+        self._operands[track.sr] = route
 
     # ------------------------------------------------------- spectrograms
 
@@ -455,10 +411,9 @@ class MultiTrack:
         whole-file transfer."""
         src = (track._wav_int if track._wav_int is not None
                else np.asarray(track.wav, np.float32))
-        mode = get_precision_mode()
-        ops = ((self._sr_kernel_operands(track.sr, mode), None, None)
-               if self._use_mel and get_engine() != "xla"
-               else self._sr_operands(track.sr, mode))
+        ops = self._operands[track.sr]
+        if self._use_mel:
+            ops = (ops, None, None)
         db, n_valid, smin, smax, wav_dev = streaming_spec_db(
             src, track.win_length, track.hop_length, *ops,
             keep_wav=True, scale=track.scale, sr=track.sr,
@@ -490,29 +445,20 @@ class MultiTrack:
             wave = torch.from_numpy(np.stack([p[0] for p in preps]))
         with self.timer.stage("add_tracks.h2d"):
             wave = wave.to(self.device)
-        mode = get_precision_mode()
         n_valid = torch.tensor([p[1] for p in preps], device=self.device)
-        kw = dict(win=tr0.win_length, hop=tr0.hop_length,
-                  n_frames=n_frames_pad, mode=mode)
         if not self._use_mel:
             with self.timer.stage("add_tracks.linear_minmax"):
                 # int16 carriers are PCM16 (2^-15); the rest arrive in f32
                 db_b, smin, smax = spec_pipeline_batched(
-                    wave, *self._sr_operands(sr, mode), n_valid,
-                    use_mel=False, **kw)
+                    wave, *self._operands[sr], n_valid,
+                    use_mel=False, win=tr0.win_length, hop=tr0.hop_length,
+                    n_frames=n_frames_pad, mode=get_precision_mode())
                 mm = torch.stack([smin, smax]).cpu().numpy()  # one sync
         else:
             with self.timer.stage("add_tracks.kernel_minmax"):
-                if get_engine() == "xla":
-                    db_b = mel_spectrogram_plain(
-                        wave, *self._sr_operands(sr, mode), **kw)
-                else:
-                    # the card launches on the prepared slabs; the CPU
-                    # route reads C, S and fb alone
-                    ops = ((self._sr_kernel_operands(sr, mode),)
-                           if self.device.type == "cuda"
-                           else self._sr_operands(sr, mode))
-                    db_b = mel_spectrogram_cuda(wave, *ops, sr=sr, **kw)
+                db_b = self._operands[sr](
+                    wave, n_frames_pad, mode=get_precision_mode(), sr=sr,
+                    launch=mel_spectrogram_cuda)
                 frame = torch.arange(n_frames_pad, device=self.device)
                 fmask = (frame[None, :] < n_valid[:, None])[:, :, None]
                 smax = torch.where(fmask, db_b, -torch.inf).amax(dim=(1, 2))

@@ -27,6 +27,7 @@ import msv_tpu_torch  # noqa: E402
 from msv_tpu_torch import config as tcfg  # noqa: E402
 from msv_tpu_torch import features as tfeat  # noqa: E402
 from msv_tpu_torch.io.audio import write_wav  # noqa: E402
+from msv_tpu_torch.kernels import spectrogram_cuda as K  # noqa: E402
 from msv_tpu_torch.parallel import streaming as tstream  # noqa: E402
 from msv_tpu_torch.session import multitrack as tmt  # noqa: E402
 
@@ -60,19 +61,28 @@ def paths(tmp_path):
 
 
 def _count(monkeypatch):
-    """{'kernel': n, 'plain': n}: calls of the kernel's wrapper and of its
-    plain version by the session, streaming and the frontend."""
+    """{'kernel': n, 'plain': n}: calls of the kernel's wrapper by the
+    session, streaming and the frontend, and of its plain version by their
+    mel routes (not the plain calls of the wrapper's own CPU route)."""
     calls = {"kernel": 0, "plain": 0}
+    inside = []
+    real_cuda, real_plain = K.mel_spectrogram_cuda, K.mel_spectrogram_plain
+
+    def kernel(*a, **kw):
+        calls["kernel"] += 1
+        inside.append(1)
+        try:
+            return real_cuda(*a, **kw)
+        finally:
+            inside.pop()
+
+    def plain(*a, **kw):
+        calls["plain"] += not inside
+        return real_plain(*a, **kw)
+
     for mod in (tmt, tstream, tfeat):
-        for name, key in (("mel_spectrogram_cuda", "kernel"),
-                          ("mel_spectrogram_plain", "plain")):
-            real = getattr(mod, name)
-
-            def wrapper(*a, _real=real, _key=key, **kw):
-                calls[_key] += 1
-                return _real(*a, **kw)
-
-            monkeypatch.setattr(mod, name, wrapper)
+        monkeypatch.setattr(mod, "mel_spectrogram_cuda", kernel)
+    monkeypatch.setattr(K, "mel_spectrogram_plain", plain)
     return calls
 
 

@@ -85,24 +85,25 @@ def test_fast_matches_jax(sr, n_mel, window, rng):
 
 def test_fused_route_launches_the_mode_kernel(rng, monkeypatch):
     """amp_db magnitude goes through the kernel wrapper in the chosen mode
-    with its operands, one (B, L) call; other routes do not."""
+    with its operands (on the CPU the mode's C, S and fb), one (B, L)
+    call; other routes do not."""
     from msv_tpu_torch import features
 
     seen = []
     real = K.mel_spectrogram_cuda
 
-    def spy(padded, ops, **kw):
-        seen.append((tuple(padded.shape), kw["mode"], ops.mode,
-                     ops.slabs.dtype))
-        return real(padded, ops, **kw)
+    def spy(padded, *ops, **kw):
+        seen.append((tuple(padded.shape), kw["mode"], ops[0].dtype,
+                     ops[2].dtype))
+        return real(padded, *ops, **kw)
 
     monkeypatch.setattr(features, "mel_spectrogram_cuda", spy)
     wav = _noise(rng, 8000, batch=3)
     _port(wav, 8000, n_mel=32)
     _port(wav, 8000, n_mel=32, precision="parity")
     _port(wav, 8000, n_mel=32, log="power_db")
-    assert seen == [((3, 8200), "fast", "fast", torch.bfloat16),
-                    ((3, 8200), "parity", "parity", torch.float32)]
+    assert seen == [((3, 8200), "fast", torch.bfloat16, torch.bfloat16),
+                    ((3, 8200), "parity", torch.float32, torch.float32)]
 
 
 def test_default_follows_explicit_global_precision(rng):

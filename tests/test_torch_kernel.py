@@ -582,7 +582,7 @@ def _agree_with_plain(got, plain, mode, what):
 @pytest.mark.parametrize("sr", ULTRASONIC)
 def test_ultrasonic_tiers_match_plain_on_the_card(sr, mode):
     """One second of noise at each rate, B = 2 and B = 1: every launch
-    takes the rate's tier on the record kernel_record makes, as the
+    takes the rate's tier on the record MelRoute makes, as the
     session's (parity the FFT tier, without C or S; fast resident or
     chunked), tier_for names it, int16 is bit-equal to f32, batch rows are
     independent, and the outputs keep their tolerance of the plain version:
@@ -595,9 +595,9 @@ def test_ultrasonic_tiers_match_plain_on_the_card(sr, mode):
     win, hop, c, s, fb = _setup(sr)
     assert _tier(mode, win, hop, fb) == TIER[mode][sr]
     n_fft = 2 * (fb.shape[0] - 1)
-    ops = K.kernel_record(mode, default_stft_window(win, n_fft), fb, win=win,
-                          hop=hop, n_fft=n_fft, device=torch.device("cuda"),
-                          dense=lambda: _dense(c, s, fb, mode))
+    ops = K.MelRoute(default_stft_window(win, n_fft), fb, win=win, hop=hop,
+                     n_fft=n_fft, device="cuda",
+                     dense=lambda: (c, s)).record(mode)
     assert ops.fft == (TIER[mode][sr] == "fft")
     if ops.fft:
         assert ops.c is None and ops.slabs is None and ops.tail is None
@@ -662,7 +662,7 @@ def test_resident_tier_up_to_96_khz_on_the_card(mode):
 def test_parity_tiers_past_the_resident_block_on_the_card(shape, n_fft, tier):
     """Parity launches where no resident block fits, at every FFT plan
     (n_fft 4096 to 32 768) and where n_fft has none (the chunked tier), on
-    kernel_record's record: one second of noise, B = 2, each launch in
+    MelRoute's record: one second of noise, B = 2, each launch in
     tier_for's tier, int16 bit-equal to f32, within f32_agree and
     chip_smoke's window_agree of the plain version."""
     if not torch.cuda.is_available():
@@ -676,9 +676,8 @@ def test_parity_tiers_past_the_resident_block_on_the_card(shape, n_fft, tier):
     c, s = windowed_dft_matrices(window, p.n_fft)
     fb = calc_mel_fb_default(sr, p.n_fft)
     dense = K.operands_from_numpy(c, s, fb, "cuda")
-    ops = K.kernel_record("parity", window, fb, win=win, hop=hop,
-                          n_fft=p.n_fft, device=torch.device("cuda"),
-                          dense=lambda: dense)
+    ops = K.MelRoute(window, fb, win=win, hop=hop, n_fft=p.n_fft,
+                     device="cuda", dense=lambda: (c, s)).record("parity")
     assert ops.fft == (tier == "fft")
     i16 = (np.random.default_rng(sr).standard_normal((2, sr)) * 3000).astype(
         np.int16)
@@ -943,46 +942,58 @@ def test_launch_takes_the_entry_point_of_the_records_tier(sr, tier):
 
 @pytest.mark.parametrize("sr", [8000, 48000, 176400, 384000])
 def test_kernel_record_makes_the_record_of_the_launchs_tier(sr, monkeypatch):
-    """kernel_record on a card (the move of the tables stubbed): the FFT
-    tier's record, made from the window and fb alone (C and S not asked
-    for), exactly where tier_for says "fft"; else prepare_operands of what
-    ``dense`` gives.  Off the card and in fast mode every record holds C
-    and S (reads_dft)."""
+    """MelRoute on a card (the uploads and the move of the tables stubbed):
+    the FFT tier's record, made from the window and fb alone (no C or S
+    built), exactly where tier_for says "fft"; else prepare_operands of the
+    route's C and S.  Off the card and in fast mode the route reads C and
+    S (prepare builds them)."""
     monkeypatch.setattr(K.MelOperands, "to", lambda self, device: self)
     win, hop, c, s, fb = _setup(sr)
     n_fft = 2 * (fb.shape[0] - 1)
     window = default_stft_window(win, n_fft)
     asked = []
+    real = K.operands_from_numpy
 
-    def dense():
-        asked.append(sr)
-        return K.operands_from_numpy(c, s, fb)
+    def upload(c, s, fb, device):
+        asked.append(str(device))
+        return real(c, s, fb)
 
-    kw = dict(win=win, hop=hop, n_fft=n_fft)
+    monkeypatch.setattr(K, "operands_from_numpy", upload)
+
+    def route(device="cuda"):
+        return K.MelRoute(window, fb, win=win, hop=hop, n_fft=n_fft,
+                          device=device)
+
     fft = _tier("parity", win, hop, fb) == "fft"
     assert fft == (sr > 96000)
-    rec = K.kernel_record("parity", window, fb, device="cuda", dense=dense,
-                          **kw)
-    assert rec.fft == fft and asked == ([] if fft else [sr])
-    assert K.reads_dft("parity", fb, device="cuda", **kw) == (not fft)
+    r = route()
+    r.prepare("parity")
+    assert r.tier("parity") == ("fft" if fft else "resident")
+    assert asked == ([] if fft else ["cuda"])
+    assert (r.record("parity").fft == fft
+            and asked == ([] if fft else ["cuda"]))
     if fft:
-        assert torch.equal(rec.window, torch.from_numpy(window))
+        assert torch.equal(r.record("parity").window,
+                           torch.from_numpy(window))
         with pytest.raises(ValueError, match="analysis window"):
-            K.kernel_record("parity", None, fb, device="cuda", dense=dense,
-                            **kw)
-    assert K.reads_dft("parity", fb, device="cpu", **kw)
-    assert K.reads_dft("fast", fb, device="cuda", **kw)
+            K.MelRoute(None, fb, win=win, hop=hop, n_fft=n_fft,
+                       device="cuda", dense=lambda: (c, s)).record("parity")
+    else:
+        assert r.record("parity").slabs is not None
+    asked.clear()
+    route(device="cpu").prepare("parity")
+    route().prepare("fast")
+    assert asked == ["cpu", "cuda"]
     if not fft:
-        cpu = K.kernel_record("parity", window, fb, device="cpu",
-                              dense=dense, **kw)
+        cpu = route(device="cpu").record("parity")
         assert not cpu.fft and cpu.slabs is not None
 
 
 def test_kernel_record_keeps_a_named_pairs_tables_once(monkeypatch):
     """With a key, the band weights and the FFT tier's host record of a
-    named (window, fb) are made once a process."""
+    named (window, fb) are made once a process, whatever route asks."""
     monkeypatch.setattr(K.MelOperands, "to", lambda self, device: self)
-    monkeypatch.setattr(K, "_NAMED", {})
+    monkeypatch.setattr(K.MelRoute, "_TABLES", {})
     win, hop, _, _, fb = _setup(192000)
     n_fft = 2 * (fb.shape[0] - 1)
     window = default_stft_window(win, n_fft)
@@ -990,12 +1001,12 @@ def test_kernel_record_keeps_a_named_pairs_tables_once(monkeypatch):
     real = K.prepare_fft_operands
     monkeypatch.setattr(K, "prepare_fft_operands",
                         lambda *a: made.append(1) or real(*a))
-    kw = dict(win=win, hop=hop, n_fft=n_fft, device="cuda", dense=None,
+    kw = dict(win=win, hop=hop, n_fft=n_fft, device="cuda",
               key=("test", 192000))
-    one = K.kernel_record("parity", window, fb, **kw)
-    two = K.kernel_record("parity", window, fb, **kw)
+    one = K.MelRoute(window, fb, **kw).record("parity")
+    two = K.MelRoute(window, fb, **kw).record("parity")
     assert one is two and made == [1]
-    assert set(K._NAMED[("test", 192000)]) == {"n_wts", "fft"}
+    assert set(K.MelRoute._TABLES[("test", 192000)]) == {"n_wts", "fft"}
 
 
 def _tier_cases():
@@ -1022,34 +1033,80 @@ def _tier_cases():
 def test_a_launch_raises_on_another_tiers_operands(case):
     """The wrapper's check before a card launch: C/S (plain, or a record of
     slabs) at an FFT-tier shape and an FFT-tier record at any other raise
-    ValueError and name kernel_record; it rebuilds nothing."""
+    ValueError and name MelRoute; it rebuilds nothing."""
     _, ops, tier, msg = case
     if msg is None:
         K._check_tier(ops, tier, 320, 80, 257)
     else:
         with pytest.raises(ValueError, match=msg) as e:
             K._check_tier(ops, tier, 320, 80, 257)
-        assert "kernel_record" in str(e.value)
+        assert "MelRoute" in str(e.value)
 
 
 def test_streaming_makes_the_fft_record_from_the_window(monkeypatch):
     """Streaming given C, S and fb where its launches take the FFT tier
-    makes kernel_record's record from ``window`` and ships no C or S; with
-    no window it raises; a record passes as it is."""
+    makes a route whose record comes from ``window``, with no C or S
+    shipped; with no window the record raises; a route passes as it
+    is."""
     from msv_tpu_torch.parallel import streaming
 
     monkeypatch.setattr(K.MelOperands, "to", lambda self, device: self)
     win, hop, c, s, fb = _setup(192000)
     window = default_stft_window(win, 2 * (fb.shape[0] - 1))
     kw = dict(win=win, hop=hop)
-    rec = streaming._device_operands(c, s, fb, "cuda", "parity", window=window,
-                                     **kw)
-    assert rec.fft and rec.c is None
+    route = streaming._segment_operands(c, s, fb, "cuda", "dft", "auto",
+                                        window=window, **kw)
+    rec = route.record("parity")
+    assert rec.fft and rec.c is None and "f32" not in route._forms
     assert torch.equal(rec.window, torch.from_numpy(window))
     with pytest.raises(ValueError, match="analysis window"):
-        streaming._device_operands(c, s, fb, "cuda", "parity", **kw)
-    assert streaming._device_operands(rec, None, None, None, "parity",
-                                      **kw) is rec
+        streaming._segment_operands(c, s, fb, "cuda", "dft", "auto",
+                                    **kw).record("parity")
+    assert streaming._segment_operands(route, None, None, None, "dft",
+                                       "auto", **kw) is route
+
+
+@pytest.mark.parametrize("engine", ["auto", "xla"])
+@pytest.mark.parametrize("mode", ["parity", "fast"])
+def test_a_route_on_the_cpu_is_the_plain_version(mode, engine):
+    """A MelRoute on the CPU, B = 2 into an ``out`` plane and B = 1: its
+    plane is mel_spectrogram_plain's on the mode's dense operands bit for
+    bit, under either engine; under "auto" each call is one ``mel.launch``
+    span (tier "plain", the caller's rate), under "xla" none, as the
+    session, streaming and the frontend recorded them before they held
+    routes."""
+    from msv_tpu_torch import config as tcfg
+    from msv_tpu_torch.utils import profiling
+
+    win, hop, c, s, fb = _setup(16000)
+    n_fft = 2 * (fb.shape[0] - 1)
+    route = K.MelRoute(default_stft_window(win, n_fft), fb, win=win,
+                       hop=hop, n_fft=n_fft, device="cpu")
+    dense = K.operands_from_numpy(c, s, fb)
+    if mode == "fast":
+        dense = K.operands_bf16(*dense)
+    x = torch.from_numpy(_signal(np.random.default_rng(5), 4000, batch=2))
+    n_frames = (x.shape[1] - win) // hop + 1
+    kw = dict(win=win, hop=hop, n_frames=n_frames, mode=mode)
+    want = K.mel_spectrogram_plain(x, *dense, **kw)
+    want1 = K.mel_spectrogram_plain(x[1], *dense, **kw)
+    out = torch.empty_like(want)
+    profiling.clear()
+    tcfg.set_engine(engine)
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            got = route(x, n_frames, mode=mode, out=out, sr=16000)
+            one = route(x[1], n_frames, mode=mode)
+    finally:
+        tcfg.set_engine("auto")
+    spans = [(sp.attrs["sr"], sp.attrs["batch"], sp.attrs["mode"],
+              sp.attrs["tier"]) for sp in profiling.recorded()
+             if sp.name == "mel.launch"]
+    profiling.clear()
+    assert got is out and torch.equal(got, want) and torch.equal(one, want1)
+    assert spans == ([] if engine == "xla" else [
+        (16000, 2, mode, "plain"), (None, 1, mode, "plain")])
 
 
 @pytest.mark.parametrize("n_fft", sorted(K.FFT_PLANS))

@@ -212,7 +212,7 @@ def test_unported_paths_raise_not_implemented(sessions):
     bound = 0.5 * (st.smax - st.smin) / 1023 + 1e-4
     f32 = port.get_spec_db(0, wire="f32")
     assert np.abs(port.get_spec_db(0, wire="q10") - f32).max() <= bound
-    c, s, fb = port._operands[8000]["parity"]
+    c, s, fb = port._operands[8000].dense()
     wav = (np.random.default_rng(2).standard_normal(4000) * 3000).astype(
         np.int16)
     got, want = (msv_tpu_torch.streaming_spec_db(wav, 320, 80, c, s, fb,

@@ -340,7 +340,6 @@ def test_streaming_records_a_mel_launch_a_segment():
     caller's rate."""
     from msv_tpu_torch.config import SpecSetting, derive_stft_params
     from msv_tpu_torch.kernels import spectrogram_cuda as K
-    from msv_tpu_torch.ops.dft import windowed_dft_matrices
     from msv_tpu_torch.ops.mel import calc_mel_fb_default
     from msv_tpu_torch.ops.windows import default_stft_window
     from msv_tpu_torch.parallel.streaming import (_seg_plan_for,
@@ -348,10 +347,9 @@ def test_streaming_records_a_mel_launch_a_segment():
 
     sr = 8000
     p = derive_stft_params(sr, SpecSetting())
-    c, s = windowed_dft_matrices(default_stft_window(p.win_length, p.n_fft),
-                                 p.n_fft)
-    ops = K.prepare_operands(*K.operands_from_numpy(
-        c, s, calc_mel_fb_default(sr, p.n_fft)))
+    ops = K.MelRoute(default_stft_window(p.win_length, p.n_fft),
+                     calc_mel_fb_default(sr, p.n_fft), win=p.win_length,
+                     hop=p.hop_length, n_fft=p.n_fft, device="cpu")
     wav = np.random.default_rng(3).standard_normal(3 * sr).astype(np.float32)
     with _profile():
         db, n_frames, *_ = streaming_spec_db(

@@ -235,21 +235,15 @@ def test_long_track_image_within_one_step(long_sessions):
 def test_fast_mode_session_takes_the_bf16_operands(tmp_path, monkeypatch,
                                                    rng):
     """Under set_precision_mode("fast") every session launch, one-shot or
-    streamed, gets mode="fast" and the bf16 operands: a streamed one
-    prepared for it; on the CPU a group's as (C, S, fb) alone, since the
-    CPU route reads no slabs."""
+    streamed, gets mode="fast" and the bf16 operands, from the rate's route
+    called in that mode; on the CPU as (C, S, fb) alone, since the CPU
+    route reads no slabs."""
     seen = []
     real = K.mel_spectrogram_cuda
 
-    def spy(padded, *ops, **kw):
-        if len(ops) == 1:
-            (o,) = ops
-            seen.append((kw["mode"], o.mode, o.c.dtype, o.slabs.dtype,
-                         o.fb.dtype))
-        else:
-            c, s, fb = ops
-            seen.append((kw["mode"], None, c.dtype, s.dtype, fb.dtype))
-        return real(padded, *ops, **kw)
+    def spy(padded, c, s, fb, **kw):
+        seen.append((kw["mode"], c.dtype, s.dtype, fb.dtype))
+        return real(padded, c, s, fb, **kw)
 
     monkeypatch.setattr(tmt, "mel_spectrogram_cuda", spy)
     monkeypatch.setattr(tstream, "mel_spectrogram_cuda", spy)
@@ -264,11 +258,56 @@ def test_fast_mode_session_takes_the_bf16_operands(tmp_path, monkeypatch,
     with precision_mode_scope("fast"):
         mt.add_tracks([0, 1], paths)
     bf = torch.bfloat16
-    assert seen == [("fast", None, bf, bf, bf),  # a group
-                    ("fast", "fast", bf, bf, bf)]  # a segment
+    assert seen == [("fast", bf, bf, bf),  # a group
+                    ("fast", bf, bf, bf)]  # a segment
     assert mt._state[1].n_frames_pad == 4096  # the streamed one
     parity = msv_tpu_torch.MultiTrack(device="cpu")
     parity.add_tracks([0, 1], paths)
     for tid in (0, 1):
         d = np.abs(mt.get_spec_db(tid) - parity.get_spec_db(tid))
         assert np.percentile(d, 99) < GREY_STEP
+
+
+@pytest.mark.parametrize("case", ["window", "c_rows", "route_win",
+                                  "route_mode"])
+def test_streaming_holds_its_operands_to_the_call(case, monkeypatch):
+    """What streaming is given is held to the call: a ``window`` or C and
+    S of another length than ``win`` raise ValueError (the segments are
+    framed with ``win``), as does a route of another ``win``; a route
+    given as ``c`` runs in the session's precision mode, the plane that of
+    the same call on C, S and fb."""
+    win, hop, c, s, fb = _setup()
+    window = default_stft_window(win, 2 * (c.shape[-1] - 1))
+    wav = (np.random.default_rng(4).standard_normal(SR) * 3000).astype(
+        np.int16)
+    route = K.MelRoute(window, fb, win=win, hop=hop,
+                       n_fft=2 * (c.shape[-1] - 1), device="cpu")
+    if case == "window":
+        with pytest.raises(ValueError, match="a window of"):
+            tstream.streaming_spec_db(wav, win, hop, c, s, fb,
+                                      window=window[:-2], device="cpu")
+    elif case == "c_rows":
+        with pytest.raises(ValueError, match="rows for win"):
+            tstream.streaming_spec_db(wav, win - 2, hop, c, s, fb,
+                                      device="cpu")
+    elif case == "route_win":
+        with pytest.raises(ValueError, match="a route of win"):
+            tstream.streaming_spec_db(wav, win - 2, hop, route, None, None)
+    else:
+        seen = []
+        real = tstream.mel_spectrogram_cuda
+
+        def spy(padded, c, s, fb, **kw):
+            seen.append((kw["mode"], c.dtype))
+            return real(padded, c, s, fb, **kw)
+
+        monkeypatch.setattr(tstream, "mel_spectrogram_cuda", spy)
+        for mode in ("fast", "parity"):
+            with precision_mode_scope(mode):
+                got = tstream.streaming_spec_db(wav, win, hop, route, None,
+                                                None)[0]
+                want = tstream.streaming_spec_db(wav, win, hop, c, s, fb,
+                                                 device="cpu")[0]
+            assert torch.equal(got, want), mode
+        assert seen == [("fast", torch.bfloat16)] * 2 + [
+            ("parity", torch.float32)] * 2

@@ -168,12 +168,12 @@ def _agree_as_plain(got, plain, wit):
 def test_a_400_s_384_khz_file_streams_through_the_fft_tier_on_the_card():
     """400 s at 384 kHz is 40 001 frames, over the session's streaming
     threshold: streamed in two segments, each one FFT-tier launch of the
-    parity kernel on the record ``kernel_record`` makes, as the session's,
+    parity kernel on the record a ``MelRoute`` makes, as the session's,
     against the kernel's plain version over the same padded wave in blocks,
     by a tolerance derived from the plain route's own f32 error
     (``_agree_as_plain``), which the bf16 kernel fails.  Given C, S and fb
-    instead, streaming makes the same record from ``window`` (the same
-    plane on 30 s) and raises without it."""
+    instead, streaming makes a route of the same record from ``window``
+    (the same plane on 30 s) and raises without it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from msv_tpu_torch.config import derive_stft_params
@@ -193,10 +193,10 @@ def test_a_400_s_384_khz_file_streams_through_the_fft_tier_on_the_card():
     c, s = dft.windowed_dft_matrices(window, p.n_fft)
     fb = calc_mel_fb_default(sr, p.n_fft)
     f32 = K.operands_from_numpy(c, s, fb, "cuda")
-    ops = K.kernel_record("parity", window, fb, win=win, hop=hop,
-                          n_fft=p.n_fft, device=torch.device("cuda"),
-                          dense=lambda: f32)
-    assert ops.fft and ops.c is None
+    ops = K.MelRoute(window, fb, win=win, hop=hop, n_fft=p.n_fft,
+                     device="cuda")
+    rec = ops.record("parity")
+    assert ops.tier("parity") == "fft" and rec.fft and rec.c is None
     wav = (np.random.default_rng(400).standard_normal(400 * sr)
            * 3000).astype(np.int16)
     before = dict(K.LAUNCHES_BY_TIER)
@@ -247,18 +247,16 @@ class _Track:
 def test_a_card_session_builds_no_dft_operands_at_the_fft_tier_rates(
         monkeypatch):
     """Without a card: a session on "cuda" (the device check stubbed, the
-    uploads recorded instead of made) marks the parity launches at 384, 250
-    and 192 kHz as the FFT tier's and builds and uploads no C or S for them,
-    while the 48 kHz rate keeps its resident tier and its f32 C, S and fb;
-    in fast mode every rate reads C and S."""
+    uploads recorded instead of made) routes the parity launches at 384,
+    250 and 192 kHz to the FFT tier and builds and uploads no C or S for
+    them, while the 48 kHz rate keeps its resident tier and its f32 C, S
+    and fb; in fast mode every rate's route reads C and S."""
     from msv_tpu_torch import precision_mode_scope
-    from msv_tpu_torch.session import multitrack
-
     from msv_tpu_torch.kernels import spectrogram_cuda as K
 
     uploads = []
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(multitrack, "operands_from_numpy",
+    monkeypatch.setattr(K, "operands_from_numpy",
                         lambda c, s, fb, device: uploads.append(
                             (c.shape, str(device))) or (c, s, fb))
     # the FFT tier's tables stay on the host
@@ -266,25 +264,14 @@ def test_a_card_session_builds_no_dft_operands_at_the_fft_tier_rates(
     mt = MultiTrack(SpecSetting(), device="cuda")
     for sr in RATES:
         mt._ensure_sr_operands(_Track(sr))
-
-    def tiers(mode):
-        return [K.tier_for(mode, *mt._operands[sr]["shape"][:2],
-                           mt._operands[sr]["shape"][2],
-                           mt._operands[sr]["fb"].shape[1],
-                           K.band_weights(mt._operands[sr]["fb"]))
-                for sr in RATES]
-
-    assert tiers("parity") == ["fft", "fft", "fft", "resident"]
-    assert [mt._reads_dft(sr, "parity") for sr in RATES] == [
-        False, False, False, True]
-    assert [sr for sr in RATES if "parity" in mt._operands[sr]] == [48000]
-    assert [mt._sr_kernel_operands(sr, "parity").fft
-            for sr in RATES[:3]] == [True, True, True]
+    routes = [mt._operands[sr] for sr in RATES]
+    assert [r.tier("parity") for r in routes] == [
+        "fft", "fft", "fft", "resident"]
+    assert [r.record("parity").fft for r in routes[:3]] == [True, True, True]
     assert uploads == [((1920, 1025), "cuda")]
     with precision_mode_scope("fast"):
-        assert all(mt._reads_dft(sr, "fast") for sr in RATES)
-        assert tiers("fast") == ["chunked", "resident", "resident",
-                                 "resident"]
+        assert [r.tier("fast") for r in routes] == [
+            "chunked", "resident", "resident", "resident"]
 
 
 @pytest.mark.gpu
@@ -313,8 +300,7 @@ def test_the_frontend_takes_the_fft_tier_at_384_khz_on_the_card():
     assert features.feature_operands.cache_info().misses == misses
     win, hop, n_fft = 9600, 3840, 16384
     setting = (sr, win, n_fft, 128, 0.0, None, "slaney")
-    dense = features.feature_operands(*setting, "parity",
-                                      torch.device("cuda"))
+    dense = features.feature_operands(*setting, torch.device("cuda"))
     padded = features.pad_batch(wav, win).cuda()
     kw = dict(win=win, hop=hop, n_frames=got.shape[1])
     plain = K.mel_spectrogram_plain(padded, *dense, **kw)
