@@ -569,6 +569,26 @@ def session_route(tr, device="cuda"):
                     hop=tr.hop_length, n_fft=tr.n_fft, device=device)
 
 
+def host_padded(tr):
+    """(padded, n_frames, n_frames_pad): a session track's kernel input
+    built on the host, the reference of the batch row the session
+    assembles on the device: ``reflect_pad_center``, a zero tail to
+    n_frames_pad frames (or a cut), and for the "f32" wire an integer
+    carrier cast to f32 and scaled."""
+    from msv_tpu_torch.ops.framing import reflect_pad_center
+    from msv_tpu_torch.session.multitrack import _frame_counts
+
+    n_frames, n_frames_pad = _frame_counts(tr)
+    need = (n_frames_pad - 1) * tr.hop_length + tr.win_length
+    src = (tr._wav_int if tr._wav_int is not None
+           else np.asarray(tr.wav, np.float32))
+    padded = reflect_pad_center(src, tr.win_length)
+    padded = np.pad(padded, (0, max(0, need - len(padded))))[:need]
+    if tr.wire == "f32" and padded.dtype != np.float32:
+        padded = padded.astype(np.float32) * np.float32(tr.scale)
+    return padded, n_frames, n_frames_pad
+
+
 def make_signal(rng, sr, seconds, rows):
     """int16 rows: a few swept tones over noise, as PCM16 audio."""
     n = int(seconds * sr)
@@ -754,7 +774,7 @@ def phase_session(K, rng, work):
         cpu10 = torch.from_numpy(cpu.get_spec_db(0))
         err10, note10 = check_f32(got10, cpu10, "10 s track: CUDA vs CPU")
         tr10 = cpu.tracks[0]
-        padded10, nf10, _ = cpu._prep_padded(tr10)
+        padded10, nf10, _ = host_padded(tr10)
         wit = f64_witness(padded10, *operands(tr10.sr, "cpu")[2],
                           tr10.win_length, tr10.hop_length, nf10).float()
         wit_err = {name: check_f32(x, wit, f"10 s track: {name} vs the f64 "
@@ -803,7 +823,7 @@ def phase_session(K, rng, work):
         check(img_f.shape == img.shape, f"fast image {img_f.shape}")
         # the 48 kHz track against the plain version on its padded wave
         tr, st = mf.tracks[ids[-1]], mf._state[ids[-1]]
-        padded, nf, _ = mf._prep_padded(tr)
+        padded, nf, _ = host_padded(tr)
         want = K.mel_spectrogram_plain(
             torch.from_numpy(padded).cuda(), *operands(tr.sr, "cuda")[2],
             win=tr.win_length, hop=tr.hop_length, n_frames=nf, mode="fast")
@@ -1390,7 +1410,7 @@ def survey_chunked(K, rng, d):
                                                   fft=0),
           f"{what} session: launches {n}, by tier {tiers}")
     tr, st = mt.tracks[0], mt._state[0]
-    padded, nf, nfp = mt._prep_padded(tr)
+    padded, nf, nfp = host_padded(tr)
     direct = K.mel_spectrogram_cuda(
         torch.from_numpy(padded).cuda(), session_route(tr).record("parity"),
         win=win, hop=hop, n_frames=nfp)
@@ -1540,7 +1560,7 @@ def phase_survey(K, rng, work):
               f"{mode} survey session: no C/S built at {no_dft} Hz")
         for i in ids:
             tr, st = mt.tracks[i], mt._state[i]
-            padded, nf, nfp = mt._prep_padded(tr)
+            padded, nf, nfp = host_padded(tr)
             direct = K.mel_spectrogram_cuda(
                 torch.from_numpy(padded).cuda(),
                 session_route(tr).record(mode), win=tr.win_length,

@@ -50,7 +50,7 @@ from ..kernels.spectrogram_cuda import MelRoute, mel_spectrogram_cuda
 from ..parallel.streaming import streaming_spec_db
 from ..parallel.wirepack import fetch_unpack_spec_stream, pack_spec
 from ..ops.dft import windowed_dft_matrices
-from ..ops.framing import n_frames_for, reflect_pad_center
+from ..ops.framing import n_frames_for
 from ..ops.mel import calc_mel_fb_default, hz_to_mel, mel_to_hz
 from ..ops.multires import (adaptive_auto_n_mel, adaptive_frame_count,
                             multires_mel_spec_db_range, range_sample_window)
@@ -86,6 +86,61 @@ def _frame_counts(track):
     n_frames = n_frames_for(track.n_samples, track.win_length,
                             track.hop_length)
     return n_frames, round_up_to(max(n_frames, 1), FRAME_BUCKET)
+
+
+def _carrier(track):
+    """(samples, scale): the track's decoded samples as they are, the
+    integer carrier where one exists, else the f32 mono (scale 1)."""
+    if track._wav_int is not None:
+        return track._wav_int, track.scale
+    return np.asarray(track.wav, np.float32), 1.0
+
+
+def _carrier_name(a: np.ndarray) -> str:
+    """"i16", "i32" or "f32": the dtype a carrier crosses to the device in."""
+    return f"{a.dtype.kind}{8 * a.dtype.itemsize}"
+
+
+def pad_group_on_device(carriers, win_length: int, need: int,
+                        dtype: torch.dtype, device) -> torch.Tensor:
+    """The (B, need) kernel input of a group: row b is ``carriers[b]``
+    ((samples, scale) pairs) reflect-padded by win_length // 2 on both
+    sides as ``reflect_pad_center`` pads it, zero-extended or cut to
+    ``need`` (more than the two edges), in ``dtype``.
+
+    Each carrier crosses to ``device`` once, as it is and no longer than
+    its row holds; the edges are filled there from the row itself.  An
+    integer carrier going into a float batch is cast and then multiplied
+    by its scale in f32 on the device: both are exact (the scale is a power
+    of two), so the row holds the bits of the host's
+    ``astype(np.float32) * np.float32(scale)``.  Into a batch of the
+    carrier's own dtype the samples go unscaled (int16 rows: the kernel
+    applies 2^-15)."""
+    half = win_length // 2
+    out = torch.empty((len(carriers), need), dtype=dtype, device=device)
+    for row, (src, scale) in zip(out, carriers):
+        n = len(src)
+        if n < half + 1:
+            raise ValueError(
+                f"signal too short for win_length={win_length}: "
+                f"need at least {half + 1} samples, got {n}")
+        host = torch.from_numpy(src[: need - half])
+        body = row[half : half + len(host)]
+        if host.dtype == dtype:
+            body.copy_(host)
+        else:
+            # to the device first: a copy that also casts would cast on
+            # the host
+            torch.mul(host.to(device), scale, out=body)
+        # left: row[p] = wav[half - p] = row[2 * half - p] for p < half
+        row[:half] = row[half + 1 : 2 * half + 1].flip(0)
+        # right: row[half + n + q] = wav[n - 2 - q], as far as the row goes
+        r = max(0, min(half, need - half - n))
+        if r:
+            e = half + n
+            row[e : e + r] = row[e - 1 - r : e - 1].flip(0)
+        row[2 * half + n :].zero_()
+    return out
 
 
 def _crop_cols(track, px_per_sec: float, start_sec: float, end_sec: float):
@@ -359,26 +414,6 @@ class MultiTrack:
 
     # ------------------------------------------------------- spectrograms
 
-    def _prep_padded(self, track):
-        """(padded, n_frames, n_frames_pad): the reflect-padded wave in the
-        track's kernel input type, zero-extended to n_frames_pad frames."""
-        win, hop = track.win_length, track.hop_length
-        n_frames, n_frames_pad = _frame_counts(track)
-        src = (
-            track._wav_int
-            if track._wav_int is not None
-            else track.wav.astype(np.float32)
-        )
-        padded = reflect_pad_center(src, win)
-        need = (n_frames_pad - 1) * hop + win
-        if len(padded) < need:
-            padded = np.pad(padded, (0, need - len(padded)))
-        padded = padded[:need]
-        if track.wire == "f32" and padded.dtype != np.float32:
-            # other integer carriers: exact power-of-two scale on the host
-            padded = padded.astype(np.float32) * np.float32(track.scale)
-        return padded, n_frames, n_frames_pad
-
     def _compute_specs(self, id_list) -> None:
         """One batched call per bucket (sr, n_frames_pad, wire): a kernel
         launch on the mel scale, ``spec_pipeline_batched`` on the linear
@@ -409,8 +444,7 @@ class MultiTrack:
         The streamed (reflect-padded) wave stays on the device and becomes
         the track's envelope buffer: a later get_wav_image costs no second
         whole-file transfer."""
-        src = (track._wav_int if track._wav_int is not None
-               else np.asarray(track.wav, np.float32))
+        src, _ = _carrier(track)
         ops = self._operands[track.sr]
         if self._use_mel:
             ops = (ops, None, None)
@@ -436,16 +470,29 @@ class MultiTrack:
         return st
 
     def _calc_spec_group(self, ids, sr: int, n_frames_pad: int) -> None:
-        """Same-bucket tracks stacked into one (B, L) kernel launch (or one
+        """Same-bucket tracks in one (B, L) kernel launch (or one
         ``spec_pipeline_batched`` call on the linear scale), with the
-        per-track dB min/max over valid frames and one host sync."""
+        per-track dB min/max over valid frames and one host sync.  The
+        batch is assembled on the device from one upload of each track's
+        carrier (``pad_group_on_device``): int16 for the "i16" wire, else
+        f32."""
         tr0 = self.tracks[ids[0]]
+        win = tr0.win_length
+        need = (n_frames_pad - 1) * tr0.hop_length + win
         with self.timer.stage("add_tracks.host_prep"):
-            preps = [self._prep_padded(self.tracks[i]) for i in ids]
-            wave = torch.from_numpy(np.stack([p[0] for p in preps]))
+            n_frames = [_frame_counts(self.tracks[i])[0] for i in ids]
+            carriers = [_carrier(self.tracks[i]) for i in ids]
         with self.timer.stage("add_tracks.h2d"):
-            wave = wave.to(self.device)
-        n_valid = torch.tensor([p[1] for p in preps], device=self.device)
+            sent = [a[: need - win // 2] for a, _ in carriers]
+            with span("session.upload", route="device_pad", tracks=len(ids),
+                      carrier="+".join(sorted({_carrier_name(a)
+                                               for a in sent})),
+                      bytes=sum(a.nbytes for a in sent)):
+                wave = pad_group_on_device(
+                    carriers, win, need,
+                    torch.int16 if tr0.wire == "i16" else torch.float32,
+                    self.device)
+        n_valid = torch.tensor(n_frames, device=self.device)
         if not self._use_mel:
             with self.timer.stage("add_tracks.linear_minmax"):
                 # int16 carriers are PCM16 (2^-15); the rest arrive in f32
@@ -469,7 +516,7 @@ class MultiTrack:
             # a plane of its own: a view would keep the group's storage
             # alive through a spill of this track
             st.spec_db = db_b[b].clone() if len(ids) > 1 else db_b[b]
-            st.n_frames = preps[b][1]
+            st.n_frames = n_frames[b]
             st.n_frames_pad = n_frames_pad
             st.n_out = int(db_b.shape[2])
             st.smin = float(mm[0, b])

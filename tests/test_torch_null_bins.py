@@ -76,7 +76,7 @@ def planes(tmp_path_factory):
     ref = msv_tpu.MultiTrack()
     ref.add_tracks([0], [path])
     tr = port.tracks[0]
-    padded, n_frames, _ = port._prep_padded(tr)
+    padded, n_frames, _ = cs.host_padded(tr)
     wit = cs.f64_witness(padded, *port._operands[tr.sr].dense(),
                          tr.win_length, tr.hop_length, n_frames)
     return (torch.from_numpy(port.get_spec_db(0)).double(),

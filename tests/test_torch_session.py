@@ -171,6 +171,118 @@ def test_same_bucket_tracks_share_one_launch(sessions, monkeypatch):
     assert sorted(calls) == [(1,), (1,), (2,)]  # 8 kHz, 48 kHz, the pair
 
 
+def _host_batch(carriers, win, need, dtype):
+    """The group's batch built on the host: ``reflect_pad_center``, a zero
+    tail to ``need`` (or a cut), an integer carrier of a float batch cast
+    to f32 and scaled, then ``np.stack``."""
+    from msv_tpu_torch.ops.framing import reflect_pad_center
+
+    rows = []
+    for src, scale in carriers:
+        p = reflect_pad_center(src, win)
+        p = np.pad(p, (0, max(0, need - len(p))))[:need]
+        if dtype == torch.float32 and p.dtype != np.float32:
+            p = p.astype(np.float32) * np.float32(scale)
+        rows.append(p)
+    return np.stack(rows)
+
+
+class _Len:
+    """What ``_frame_counts`` reads of a track."""
+
+    def __init__(self, n, win, hop):
+        self.n_samples, self.win_length, self.hop_length = n, win, hop
+
+
+def _pcm16(rng, n):
+    return rng.integers(-(1 << 15), 1 << 15, n).astype(np.int16)
+
+
+# case -> (carriers of (samples, scale) at 44.1 kHz, the batch dtype); a
+# track's length in hops (h), the window's half (half)
+UPLOAD_CASES = {
+    "i16": (lambda r, h, half: [(_pcm16(r, 100 * h + 321), 2.0**-15)],
+            torch.int16),
+    "i32_stereo_sum": (lambda r, h, half: [(
+        _pcm16(r, 100 * h + 321) + _pcm16(r, 100 * h + 321).astype(np.int32),
+        2.0**-15)], torch.float32),
+    "i32_flac24": (lambda r, h, half: [(
+        r.integers(-(1 << 23), 1 << 23, 100 * h + 321).astype(np.int32),
+        2.0**-23)], torch.float32),
+    "f32": (lambda r, h, half: [(
+        r.standard_normal(100 * h + 321).astype(np.float32), 1.0)],
+        torch.float32),
+    "pair_unequal": (lambda r, h, half: [(_pcm16(r, 100 * h + 321), 2.0**-15),
+                                         (_pcm16(r, 140 * h + 7), 2.0**-15)],
+                     torch.int16),
+    "i32_and_f32": (lambda r, h, half: [
+        (_pcm16(r, 90 * h).astype(np.int32) * 2, 2.0**-15),
+        (r.standard_normal(90 * h + 11).astype(np.float32), 1.0)],
+        torch.float32),
+    # 256 frames exactly and hop - 1 samples more: the row cuts the right
+    # reflection
+    "need_short": (lambda r, h, half: [(_pcm16(r, 256 * h - 1), 2.0**-15)],
+                   torch.int16),
+    "shortest": (lambda r, h, half: [(_pcm16(r, half + 1), 2.0**-15)],
+                 torch.int16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UPLOAD_CASES))
+def test_the_group_batch_built_on_the_device_is_the_host_batch(case):
+    """``pad_group_on_device`` gives the bits of the host's reflect pad,
+    zero tail and stack (and f32 scale), for each carrier, a group of
+    tracks of unequal length, a row shorter and longer than the
+    reflect-padded wave, and the shortest track the pad accepts."""
+    p = msv_tpu_torch.config.derive_stft_params(
+        44100, msv_tpu_torch.SpecSetting())
+    win, hop, half = p.win_length, p.hop_length, p.win_length // 2
+    build, dtype = UPLOAD_CASES[case]
+    carriers = build(np.random.default_rng(len(case)), hop, half)
+    (nfp,) = {tmt._frame_counts(_Len(len(a), win, hop))[1]
+              for a, _ in carriers}
+    need = (nfp - 1) * hop + win
+    padded_len = max(len(a) for a, _ in carriers) + 2 * half
+    assert (need < padded_len) == (case == "need_short")
+    got = tmt.pad_group_on_device(carriers, win, need, dtype, "cpu")
+    want = _host_batch(carriers, win, need, dtype)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert np.array_equal(got.numpy().view(np.uint8), want.view(np.uint8))
+
+
+def test_each_launch_reads_the_host_batch_of_its_group(sessions,
+                                                       monkeypatch):
+    """The session's launches (8 kHz int16, the 44.1 kHz int16 pair, the
+    48 kHz float track) read the host-built batch of their group; a track
+    shorter than the pad accepts raises reflect_pad_center's error."""
+    _, _, paths = sessions
+    seen = []
+    real = tmt.mel_spectrogram_cuda
+
+    def recording(padded, *args, **kw):
+        seen.append(padded.clone())
+        return real(padded, *args, **kw)
+
+    monkeypatch.setattr(tmt, "mel_spectrogram_cuda", recording)
+    mt = msv_tpu_torch.MultiTrack(device="cpu")
+    mt.add_tracks(list(range(len(paths))), paths)
+    groups = {}  # in the session's order: by first track
+    for i, tr in mt.tracks.items():
+        groups.setdefault((tr.sr, tmt._frame_counts(tr)[1], tr.wire),
+                          []).append(i)
+    assert len(seen) == len(groups) == 3
+    for got, ids in zip(seen, groups.values()):
+        want = _host_batch([tmt._carrier(mt.tracks[i]) for i in ids],
+                           mt.tracks[ids[0]].win_length, got.shape[1],
+                           got.dtype)
+        assert got.shape == want.shape
+        assert np.array_equal(got.numpy().view(np.uint8),
+                              want.view(np.uint8))
+    with pytest.raises(ValueError, match="too short"):
+        tmt.pad_group_on_device([(np.zeros(960, np.int16), 1.0)], 1920,
+                                10_000, torch.int16, "cpu")
+
+
 def test_remove_track_renormalizes_like_jax(sessions):
     _, _, paths = sessions
     ref = msv_tpu.MultiTrack()

@@ -202,6 +202,18 @@ def test_an_open_gives_the_add_tracks_tree(tmp_path):
             "add_tracks.budget", "add_tracks.db_state"} <= under
     for s in _descendants(spans, root):
         assert root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns
+    # one upload a group (the stereo sum and the mono PCM16 differ in wire),
+    # under its h2d stage, of the carriers' own bytes
+    h2d = _by_name(spans, "add_tracks.h2d")
+    ups = _by_name(spans, "session.upload")
+    assert len(ups) == len(h2d) == 2
+    assert sorted(u.parent_id for u in ups) == sorted(s.span_id for s in h2d)
+    carriers = {"i32": mt.tracks[0]._wav_int, "i16": mt.tracks[1]._wav_int}
+    assert sorted(u.attrs["carrier"] for u in ups) == ["i16", "i32"]
+    for u in ups:
+        assert u.attrs == {"route": "device_pad", "tracks": 1,
+                           "carrier": u.attrs["carrier"],
+                           "bytes": carriers[u.attrs["carrier"]].nbytes}
     stages = mt.timer.summary()
     assert {"add_tracks", "add_tracks.decode", "add_tracks.operands",
             "add_tracks.spec", "add_tracks.host_prep", "add_tracks.h2d",

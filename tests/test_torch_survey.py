@@ -313,3 +313,98 @@ def test_the_frontend_takes_the_fft_tier_at_384_khz_on_the_card():
                               kw["n_frames"])
     agree, _, own = cs.window_agree(got, plain, wit)
     assert bool(agree.all()), (int((~agree).sum()), own)
+
+
+@pytest.fixture(scope="module")
+def upload_wavs(tmp_path_factory):
+    """10 s files: a 384 kHz mono PCM16 (an int16 carrier), a 44.1 kHz
+    stereo PCM16 (an int32 sum) and a 44.1 kHz float WAV of noise (no
+    integer carrier), the last two of one group."""
+    from msv_tpu_torch.io.audio import write_wav
+
+    d = tmp_path_factory.mktemp("upload")
+    g = torch.Generator().manual_seed(23)
+    noise = np.random.default_rng(23).standard_normal(441000) * 0.1
+    paths = []
+    for name, sr, x, bits in (
+            ("mono384k", 384000, signals.song(g, 384000, 10.0, 1, "cpu"), 16),
+            ("stereo44k", 44100, signals.song(g, 44100, 10.0, 2, "cpu"), 16),
+            ("float44k", 44100, noise.astype(np.float32)[None], 32)):
+        paths.append(str(d / f"{name}.wav"))
+        if bits == 16:
+            signals.write_wav(paths[-1], x, sr)
+        else:
+            write_wav(paths[-1], x, sr, bits=32)
+    return paths
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["parity", "fast"])
+@pytest.mark.parametrize("scale", ["mel", "linear"])
+def test_a_card_session_pads_each_group_on_the_card_bit_for_bit(
+        upload_wavs, scale, mode):
+    """A card session of the three files gives each plane, smin and smax
+    bit for bit as the rate's route (mel) or ``spec_pipeline_batched``
+    (linear) gives them on the batch padded and stacked on the host
+    (``chip_smoke.host_padded``), in parity and fast; each group's
+    ``session.upload`` span has route "device_pad" and the carriers'
+    bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import importlib.util
+    import os
+
+    from msv_tpu_torch import precision_mode_scope
+    from msv_tpu_torch.kernels.pipeline import spec_pipeline_batched
+    from msv_tpu_torch.session import multitrack as tmt
+    from msv_tpu_torch.utils import profiling
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec_ = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(cs)
+    setting = SpecSetting(freq_scale=FreqScale.LINEAR if scale == "linear"
+                          else FreqScale.MEL)
+    profiling.clear()
+    with precision_mode_scope(mode):
+        mt = MultiTrack(setting, device="cuda")
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            mt.add_tracks([0, 1, 2], upload_wavs)
+        ups = [s for s in profiling.recorded() if s.name == "session.upload"]
+        profiling.clear()
+        assert [mt.tracks[i].wire for i in range(3)] == ["i16", "f32", "f32"]
+        assert mt.tracks[2]._wav_int is None
+        groups = {}
+        for i, tr in mt.tracks.items():
+            groups.setdefault((tr.sr, tmt._frame_counts(tr)[1]), []).append(i)
+        assert sorted(groups.values()) == [[0], [1, 2]]
+        assert sorted(u.attrs["tracks"] for u in ups) == [1, 2]
+        for (sr, nfp), ids in groups.items():
+            trs = [mt.tracks[i] for i in ids]
+            rows = [cs.host_padded(tr) for tr in trs]
+            wave = torch.from_numpy(np.stack([r[0] for r in rows])).cuda()
+            n_valid = [r[1] for r in rows]
+            if scale == "mel":
+                db = mt._operands[sr](wave, nfp, mode=mode, sr=sr)
+                mm = [(float(db[b, :nf].min()), float(db[b, :nf].max()))
+                      for b, nf in enumerate(n_valid)]
+            else:
+                db, smin, smax = spec_pipeline_batched(
+                    wave, *mt._operands[sr],
+                    torch.tensor(n_valid, device="cuda"), use_mel=False,
+                    win=trs[0].win_length, hop=trs[0].hop_length,
+                    n_frames=nfp, mode=mode)
+                mm = list(zip(smin.tolist(), smax.tolist()))
+            for b, i in enumerate(ids):
+                st = mt._state[i]
+                assert torch.equal(st.spec_db, db[b]), (scale, mode, sr, i)
+                assert (st.smin, st.smax) == mm[b], (scale, mode, sr, i)
+            (up,) = [u for u in ups if u.attrs["tracks"] == len(ids)]
+            assert up.attrs == {
+                "route": "device_pad", "tracks": len(ids),
+                "carrier": {1: "i16", 2: "f32+i32"}[len(ids)],
+                "bytes": sum(tmt._carrier(tr)[0].nbytes for tr in trs)}
+        del mt, wave, db
+        torch.cuda.empty_cache()
