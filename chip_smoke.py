@@ -67,6 +67,17 @@ Phases, each printing its lines:
               counted (its main path: parity 3 FFT and 1 resident), no C
               or S built at the parity session's FFT-tier rates, and each
               plane equal to the kernel's on the session's padded wave;
+              then the FFT tier's linear form (linear_db_fft_kernel) at
+              384, 250, 192 and 96 kHz (n_fft 16 384, 16 384, 8192 and
+              4096), 300 s a row, f32 and int16 input, batch 1 and 2, on a
+              LinearRoute's record: each launch fft, int16 bit-equal to f32,
+              rows independent, against the dense pair in true f32
+              (spec_pipeline) as the mel FFT tier against its plain
+              version, its time beside its bound, the pair's and
+              torch.fft.rfft + magnitude + dB's; and the survey session on
+              the linear scale, its linear launches by tier counted from
+              zero (3 fft, 1 gemm), no C or S built at 384, 250 and 192 kHz,
+              each plane its route's on the session's padded wave;
   4. session  the user's path: MultiTrack(device="cuda").add_tracks on seven
               240 s stereo PCM16 WAVs at 8/16/22.05/24/44.1/44.1/48 kHz (six
               kernel launch groups), a 500-row full-width image of every
@@ -360,6 +371,8 @@ def reset_counts(K):
         K.LAUNCHES_BY_MODE[mode] = 0
     for tier in K.LAUNCHES_BY_TIER:
         K.LAUNCHES_BY_TIER[tier] = 0
+    for tier in K.LINEAR_LAUNCHES_BY_TIER:
+        K.LINEAR_LAUNCHES_BY_TIER[tier] = 0
 
 
 def read_counts(K):
@@ -1186,11 +1199,14 @@ WINDOW_BLOCK = 4096
 def f64_witness_cuda(x, c, s, fb, win, hop, n_frames):
     """f64_witness on the card, for windows too long for the host: the
     kernels' function in float64 torch on a (..., L) wave (int16 or f32)
-    and the float64 copies of the f32 (C, S, fb)."""
+    and the float64 copies of the f32 (C, S, fb); ``fb`` None is the
+    linear scale, every bin's dB."""
     x = x.double() * (2.0**-15 if x.dtype == torch.int16 else 1.0)
     fr = x.unfold(-1, win, hop)[..., :n_frames, :]
     re, im = fr @ c, fr @ s
-    mel = torch.sqrt(re * re + im * im) @ fb
+    mel = torch.sqrt(re * re + im * im)
+    if fb is not None:
+        mel = mel @ fb
     return torch.where(mel > 1e-18, 20.0 * torch.log10(mel), -360.0)
 
 
@@ -1220,35 +1236,47 @@ def fft_bound(rec, padded, n_frames):
     of its operations (a real FFT of n_fft points a frame, 2.5 n log2 n,
     the magnitude, 3 a bin, and the mel pass, 2 a weight) over the f32 SIMT
     peak, and its bytes (the wave, the window, the twiddles and the band
-    tables read once, the dB plane written once) over the HBM rate."""
+    tables read once, the dB plane written once) over the HBM rate.  A
+    ``LinearOperands`` record (the linear form) has no mel pass and no band
+    tables, and writes every bin."""
+    from msv_tpu_torch.kernels.spectrogram_cuda import LinearOperands
+
     rows = 1 if padded.ndim == 1 else padded.shape[0]
-    n, n_mel = rec.n_fft, rec.fb.shape[-1]
-    ops = rows * n_frames * (2.5 * n * math.log2(n) + 3 * rec.n_freq
-                             + 2 * rec.wts.shape[0])
-    nbytes = (sum(t.numel() * t.element_size() for t in (
-        padded, rec.window, rec.twiddles, rec.wts, rec.bands, rec.woff))
-        + 4 * rows * n_frames * n_mel)
+    n, n_freq = rec.n_fft, rec.n_fft // 2 + 1
+    if isinstance(rec, LinearOperands):
+        n_out, mel, tables = n_freq, 0, (rec.window, rec.twiddles)
+    else:
+        n_out, mel = rec.fb.shape[-1], 2 * rec.wts.shape[0]
+        tables = (rec.window, rec.twiddles, rec.wts, rec.bands, rec.woff)
+    ops = rows * n_frames * (2.5 * n * math.log2(n) + 3 * n_freq + mel)
+    nbytes = (sum(t.numel() * t.element_size() for t in (padded, *tables))
+              + 4 * rows * n_frames * n_out)
     t_ops, t_bytes = ops / PEAK_FLOPS["simt"], nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def library_mel(x, rec, win, hop, n_frames):
+def library_db(x, rec, win, hop, n_frames):
     """The yardstick of the FFT tier, which the port never calls: the same
     dB plane by torch.fft.rfft of the windowed frames (zero-padded to n_fft
-    at the kernel's left offset), the magnitude, the mel product (true f32)
-    and the dB, in blocks of WINDOW_BLOCK frames of the f32 wave ``x``."""
+    at the kernel's left offset), the magnitude, the mel product (true f32;
+    none for a ``LinearOperands`` record) and the dB, in blocks of
+    WINDOW_BLOCK frames of the f32 wave ``x``."""
     from msv_tpu_torch.config import precision_for
 
+    fb = getattr(rec, "fb", None)
     left = (rec.n_fft - win) // 2
-    out = torch.empty((n_frames, rec.fb.shape[-1]), device=x.device)
+    out = torch.empty((n_frames, rec.n_fft // 2 + 1 if fb is None
+                       else fb.shape[-1]), device=x.device)
     with precision_for("parity"):
         for a in range(0, n_frames, WINDOW_BLOCK):
             b = min(n_frames, a + WINDOW_BLOCK)
             fr = x[a * hop:(b - 1) * hop + win].unfold(0, win, hop)
             fr = fr * rec.window
             fr = torch.nn.functional.pad(fr, (left, rec.n_fft - win - left))
-            mel = torch.fft.rfft(fr).abs() @ rec.fb.to(x.device)
+            mel = torch.fft.rfft(fr).abs()
+            if fb is not None:
+                mel = mel @ fb.to(x.device)
             out[a:b] = torch.where(mel > 1e-18, 20.0 * torch.log10(mel),
                                    -360.0)
     return out
@@ -1258,11 +1286,16 @@ class ParityAgainstPlain:
     """3d's holding of parity planes against the plain version, block by
     block: every bin within window_agree, at most FLOOR_SHARE of them out
     of f32_agree (``done``); the largest |dB error|, the bins out of
-    f32_agree and the plain version's own f32 error."""
+    f32_agree and the plain version's own f32 error.  The plain version is
+    ``plain(seg, n_frames)``, by default the mel kernel's on ``ops`` (C, S,
+    fb); the witness is the function of ``ops`` in float64 (fb None: the
+    linear scale)."""
 
-    def __init__(self, K, ops, win, hop):
-        self.K, self.ops, self.win, self.hop = K, ops, win, hop
-        self.wide = tuple(t.double() for t in ops)
+    def __init__(self, K, ops, win, hop, plain=None):
+        self.win, self.hop = win, hop
+        self.plain = plain or (lambda seg, n: K.mel_spectrogram_plain(
+            seg, *ops, win=win, hop=hop, n_frames=n))
+        self.wide = tuple(None if t is None else t.double() for t in ops)
         self.out_of_f32, self.n_bins, self.own, self.err = 0, 0, 0.0, 0.0
 
     def block(self, par, seg, a, b):
@@ -1270,8 +1303,7 @@ class ParityAgainstPlain:
         version on ``seg``, the wave of those frames; returns (plain,
         witness)."""
         win, hop = self.win, self.hop
-        plain = self.K.mel_spectrogram_plain(seg, *self.ops, win=win,
-                                             hop=hop, n_frames=b - a)
+        plain = self.plain(seg, b - a)
         wit = f64_witness_cuda(seg, *self.wide, win, hop, b - a)
         agree, f32_ok, e = window_agree(par, plain, wit)
         out = int((~agree).sum())
@@ -1429,16 +1461,161 @@ def survey_chunked(K, rng, d):
             parity.err, tiers["chunked"])
 
 
+# 3d's linear FFT tier: the rates of the benchmark's survey384k_linear whose
+# groups take it (n_fft 16 384, 16 384 and 8192) and 96 kHz (4096, the
+# smallest plan), 300 s a row
+LINEAR_RATES = [384000, 250000, 192000, 96000]
+
+
+def survey_linear(K, rng, files):
+    """3d on the linear scale: the FFT tier's linear form at LINEAR_RATES,
+    f32 and int16 input, B = 1 and 2, on a LinearRoute's record: each
+    launch fft, as tier_for says (fast: gemm); int16 bit-equal to f32; rows
+    independent; against the dense pair in true f32 (spec_pipeline, the
+    "gemm" tier) by ParityAgainstPlain; times of the kernel (f32 and int16,
+    B = 1), its bound, the pair and torch.fft.rfft + magnitude + dB
+    (library_db).  Then a parity session of the survey's ``files`` (384,
+    250, 192 and 48 kHz) on the linear scale: its linear launches by tier,
+    counted from zero (3 fft, 1 gemm), no C/S built at the FFT-tier rates,
+    each plane equal to a fresh route's on the track's host-padded wave.
+    Returns (the 384 kHz head, max |dB error|, the session's fft
+    launches)."""
+    from msv_tpu_torch import MultiTrack, precision_mode_scope
+    from msv_tpu_torch.config import (FreqScale, SpecSetting,
+                                      derive_stft_params)
+    from msv_tpu_torch.kernels.pipeline import spec_pipeline
+    from msv_tpu_torch.ops.framing import n_frames_for, reflect_pad_center
+    from msv_tpu_torch.ops.windows import default_stft_window
+
+    linear = SpecSetting(freq_scale=FreqScale.LINEAR)
+
+    def route_at(sr):
+        p = derive_stft_params(sr, linear)
+        return K.LinearRoute(default_stft_window(p.win_length, p.n_fft),
+                             win=p.win_length, hop=p.hop_length,
+                             n_fft=p.n_fft, device="cuda")
+
+    head, err = None, 0.0
+    for sr in LINEAR_RATES:
+        route = route_at(sr)
+        win, hop, n_fft, n_out = route.win, route.hop, route.n_fft, route.n_out
+        what = f"linear {sr} Hz"
+        check((route.tier("parity"), route.tier("fast")) == ("fft", "gemm"),
+              f"{what}: tier_for gives {route.tier('parity')} in parity, "
+              f"{route.tier('fast')} in fast")
+        rec = route.record()
+        i16 = make_signal(rng, sr, SURVEY_SECONDS, 2)
+        n_frames = n_frames_for(i16.shape[1], win, hop)
+        padded = np.stack([reflect_pad_center(x, win) for x in i16])
+        wave = {"i16": torch.from_numpy(padded).cuda(),
+                "f32": torch.from_numpy(padded.astype(np.float32)
+                                        * np.float32(2.0**-15)).cuda()}
+        del i16, padded
+        kw = dict(win=win, hop=hop, n_frames=n_frames)
+        before = dict(K.LINEAR_LAUNCHES_BY_TIER)
+        two = {k: K.linear_spectrogram_cuda(v, rec, sr=sr, **kw)
+               for k, v in wave.items()}
+        one = {k: K.linear_spectrogram_cuda(v[1], rec, sr=sr, **kw)
+               for k, v in wave.items()}
+        check(K.LINEAR_LAUNCHES_BY_TIER == dict(before,
+                                                fft=before["fft"] + 4),
+              f"{what}: linear launches by tier {K.LINEAR_LAUNCHES_BY_TIER}")
+        torch.cuda.synchronize()
+        check(tuple(two["f32"].shape) == (2, n_frames, n_out)
+              and bool(torch.isfinite(two["f32"]).all()),
+              f"{what}: shape {tuple(two['f32'].shape)} or not finite")
+        check(all(torch.equal(g["i16"], g["f32"]) for g in (one, two)),
+              f"{what}: int16 route != f32 route")
+        check(torch.equal(one["f32"], two["f32"][1]),
+              f"{what}: B=1 != row 1 of B=2")
+        del one
+        c, s = route.dense()
+
+        def pair(seg, n):
+            return spec_pipeline(seg, c, s, None, n, win=win, hop=hop,
+                                 n_frames=n, use_mel=False, mode="parity")[0]
+
+        parity = ParityAgainstPlain(K, (c, s, None), win, hop, plain=pair)
+        for a in range(0, n_frames, WINDOW_BLOCK):
+            b = min(n_frames, a + WINDOW_BLOCK)
+            parity.block(two["f32"][..., a:b, :],
+                         wave["f32"][..., a * hop:(b - 1) * hop + win], a, b)
+        note, e = parity.done(), parity.err
+        err = max(err, e)
+        del two, parity
+        x1 = wave["f32"][0]
+        ms = cuda_ms(lambda: K.linear_spectrogram_cuda(x1, rec, **kw))
+        ms_i16 = cuda_ms(lambda: K.linear_spectrogram_cuda(wave["i16"][0],
+                                                           rec, **kw))
+        plain_ms = cuda_ms(lambda: pair(x1, n_frames))
+        bnd = fft_bound(rec, x1, n_frames)
+        lib_ms = cuda_ms(lambda: library_db(x1, rec, win, hop, n_frames))
+        print(f"[survey] {what} win {win} hop {hop} n_fft {n_fft} B=1,2 "
+              f"frames {n_frames} x {n_out} bins: i16==f32, rows "
+              f"independent; {note}; max |dB error| {e:.3g}; B=1: fft "
+              f"{ms:.3f} ms (i16 {ms_i16:.3f}), bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}; {100 * bnd[0] / ms:.1f}%), plain {plain_ms:.3f} "
+              f"ms, library {lib_ms:.3f} ms", flush=True)
+        if head is None:
+            head = (ms, plain_ms, f"{sr} Hz, B=1, f32, {n_frames} frames x "
+                    f"{n_out} bins", *bnd, lib_ms)
+        del wave, c, s, route, rec
+        torch.cuda.empty_cache()
+
+    # ---- the linear survey session: counts from here to the end of
+    # add_tracks
+    torch.cuda.synchronize()
+    reset_counts(K)
+    t0 = time.perf_counter()
+    built, upload = [], K.operands_from_numpy  # windows of C/S made
+    K.operands_from_numpy = (lambda c, *a: built.append(c.shape[0])
+                             or upload(c, *a))
+    try:
+        with precision_mode_scope("parity"):
+            mt = MultiTrack(linear, device="cuda")
+            mt.add_tracks(list(range(len(files))), files)
+    finally:
+        K.operands_from_numpy = upload
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    n, tiers = read_counts(K), dict(K.LINEAR_LAUNCHES_BY_TIER)
+    # ---- end of the linear survey session
+    rates = [tr.sr for tr in mt.tracks.values()]
+    check(n == counts() and tiers == dict(fft=len(SURVEY_RATES), gemm=len(
+          files) - len(SURVEY_RATES)), f"linear survey session at {rates} "
+          f"Hz: mel launches {n}, linear launches by tier {tiers}")
+    wins = {tr.sr: tr.win_length for tr in mt.tracks.values()}
+    with_dft = [sr for sr in rates if wins[sr] in built]
+    check(with_dft == [sr for sr in rates if sr not in SURVEY_RATES],
+          f"linear survey session: C/S built at {with_dft} Hz")
+    for i, tr in mt.tracks.items():
+        padded, nf, nfp = host_padded(tr)
+        direct, _, _ = route_at(tr.sr)(torch.from_numpy(padded).cuda(), nfp,
+                                       nf, mode="parity")
+        check(torch.equal(mt._state[i].spec_db[:nf], direct[:nf]),
+              f"linear survey session: the {tr.sr} Hz plane != its route's "
+              f"on its padded wave")
+    print(f"[survey] linear session: add_tracks of {len(files)} x "
+          f"{SURVEY_SECONDS:.0f} s mono PCM16 at {rates} Hz {add_s:.3f} s; "
+          f"linear launches by tier {tiers}, each plane its route's; C/S "
+          f"only at {with_dft} Hz", flush=True)
+    del mt
+    torch.cuda.empty_cache()
+    return head, err, tiers["fft"]
+
+
 def phase_survey(K, rng, work):
     """3d: the FFT tier (parity) and the bf16 kernel at the survey's rates,
-    the parity chunked tier (survey_chunked), then the survey session.
+    the parity chunked tier (survey_chunked), the survey session, then the
+    FFT tier's linear form and the linear survey session (survey_linear).
     Returns (paths, heads, errs, tier_launches): the sessions'
     resident-tier launches for the launch line, each kernel's headline
     (parity's FFT tier and fast at 384 kHz, parity's FFT tier with its
-    library_ms; "chunked": the parity chunked tier) and largest |dB error|
-    against its plain version, and the sessions' launches of each one's
-    tier (parity "fft", fast "chunked", "chunked" the parity chunked
-    tier's)."""
+    library_ms; "chunked": the parity chunked tier; "linear": the linear
+    form with its library_ms) and largest |dB error| against its plain
+    version, and the sessions' launches of each one's tier (parity "fft",
+    fast "chunked", "chunked" the parity chunked tier's, "linear" the
+    linear session's "fft")."""
     from msv_tpu_torch import MultiTrack, precision_mode_scope
     from msv_tpu_torch.io.audio import write_wav
     from msv_tpu_torch.ops.framing import n_frames_for, reflect_pad_center
@@ -1501,8 +1678,8 @@ def phase_survey(K, rng, work):
                                                                **kw))
             if mode == "parity":
                 bnd = fft_bound(rec[mode], x1, n_frames)
-                lib_ms = cuda_ms(lambda: library_mel(x1, rec[mode], win, hop,
-                                                     n_frames))
+                lib_ms = cuda_ms(lambda: library_db(x1, rec[mode], win, hop,
+                                                    n_frames))
             else:
                 bnd = bound(K, mode, x1, K.operands_bf16(*ops), n_frames)
                 lib_ms = None
@@ -1583,6 +1760,8 @@ def phase_survey(K, rng, work):
         del mt
         torch.cuda.empty_cache()
     tier_launches["chunked"] = chunked
+    heads["linear"], errs["linear"], tier_launches["linear"] = survey_linear(
+        K, rng, files)
     return paths, heads, errs, tier_launches
 
 
@@ -4650,27 +4829,33 @@ def main():
             "card": smi,
         })
     # the survey's tiers (no TPU kernel of their own: the Pallas kernel
-    # holds whole windows in VMEM): parity's FFT tier, fast's chunked tier,
-    # parity's chunked tier (at an n_fft with no FFT plan); their launches
-    # are the sessions' of 3d
-    for mode, name, source in (
-            ("parity", "mel_db_fft_kernel", K.FFT_SOURCE),
-            ("fast", "mel_db_bf16_chunked_kernel", K.SOURCES["fast"]),
-            ("chunked", "mel_db_tf32_chunked_kernel", K.SOURCES["parity"])):
+    # holds whole windows in VMEM, and the TPU's linear scale is XLA's DFT
+    # pair): parity's FFT tier, fast's chunked tier, parity's chunked tier
+    # (at an n_fft with no FFT plan), the FFT tier's linear form; their
+    # launches are the sessions' of 3d
+    pallas = "msv_tpu/kernels/spectrogram_pallas.py:411"
+    for mode, name, source, replaces in (
+            ("parity", "mel_db_fft_kernel", K.FFT_SOURCE, pallas),
+            ("fast", "mel_db_bf16_chunked_kernel", K.SOURCES["fast"],
+             pallas),
+            ("chunked", "mel_db_tf32_chunked_kernel", K.SOURCES["parity"],
+             pallas),
+            ("linear", "linear_db_fft_kernel", K.FFT_SOURCE,
+             "msv_tpu/kernels/pipeline.py:35")):
         ms, plain_ms, shape, bound_ms, bound_by, lib_ms = survey_heads[mode]
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": os.path.relpath(source),
-            "replaces": "msv_tpu/kernels/spectrogram_pallas.py:411",
+            "replaces": replaces,
             "launches": survey_launches[mode],
             "max_abs_err": survey_errs[mode],
             "ms": ms,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
-            # torch.fft.rfft + magnitude + mel + dB (parity), never called
-            # by the port
+            # torch.fft.rfft + magnitude (+ mel) + dB, never called by the
+            # port
             "library_ms": lib_ms,
             "shape": shape,
             "card": smi,

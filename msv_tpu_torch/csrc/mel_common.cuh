@@ -7,7 +7,8 @@
 // tables, stores coalesced, the dB written by the tile that ends a band (in
 // split form: each product as three bf16 products over hi/lo planes of the
 // magnitude and the filterbank).  The FFT tier holds one frame's whole
-// spectrum and runs mel_frame, the same band-sparse pass over one frame.
+// spectrum and runs mel_frame, the same band-sparse pass over one frame (its
+// linear-scale form writes every bin's dB instead, amp_db).
 //
 // They share the staging ring of C/S slabs (bulk copies completing on
 // mbarriers, below), the chunked tier's sample staging (parity and fast,
@@ -42,6 +43,12 @@ __device__ __forceinline__ float load_sample(const float* p, long long i) {
 
 __device__ __forceinline__ float load_sample(const int16_t* p, long long i) {
   return static_cast<float>(p[i]) * 3.0517578125e-05f;  // exact 2^-15
+}
+
+// dB of an amplitude (or a band sum) as every kernel writes it: 20 ln(v) /
+// ln(10), and -360 dB at or under the 1e-18 floor.
+__device__ __forceinline__ float amp_db(float v) {
+  return v > kAmin ? logf(v) * kDbScale : kDbFloor;
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -588,8 +595,7 @@ __device__ __forceinline__ void mel_frame(const float* mag, int* tab,
   }
   __syncthreads();
   for (int m = tid; m < n_mel; m += 32 * NW) {
-    const float v = sums[m];
-    o[m] = v > kAmin ? logf(v) * kDbScale : kDbFloor;
+    o[m] = amp_db(sums[m]);
   }
 }
 

@@ -10,7 +10,14 @@
 //   dB  = 20*ln(mel)/ln(10) if mel > 1e-18 else -360
 //
 // by a real FFT of n_fft points in f32 instead of the product of the frame
-// with the (win, n_fft/2 + 1) windowed DFT matrices C and S.
+// with the (win, n_fft/2 + 1) windowed DFT matrices C and S.  Its linear-scale
+// form (linear_db_fft_kernel, msv_linear_spectrogram_fft) runs the same
+// load, passes and split (frame_magnitudes) and writes the dB of every bin,
+//
+//   dB[k] = 20*ln(|X[k]|)/ln(10) if |X[k]| > 1e-18 else -360,  k <= n_fft/2,
+//
+// in place of the linear route's dense GEMM pair (kernels/pipeline.py::
+// spec_pipeline_batched, 15 360 x 8193 C and S at 384 kHz).
 //
 // What it replaces: the parity kernel's chunked tier
 // (mel_spectrogram.cu::mel_db_tf32_chunked_kernel), which took these windows
@@ -61,7 +68,11 @@
 //    (X[k] = E + W^k O, |X[M - k]| = |E - W^k O|), the magnitudes go over
 //    the points, and mel_common.cuh's mel_frame runs the band-sparse mel
 //    pass and the dB: a warp a few bands at a time, lanes along the bins,
-//    so its loads of the weights are coalesced and several in flight.
+//    so its loads of the weights are coalesced and several in flight.  The
+//    linear form stores each thread's bins k and M - k as dB straight from
+//    registers: a warp's 32 consecutive bins, coalesced, and no barrier or
+//    shared memory after the split (a 384 kHz track's plane is 0.98 GB, so
+//    there the stores, about 0.3 ms at the HBM rate, join the passes).
 //  * Registers against blocks: M = 8192 takes 256 threads of 32 points at
 //    three blocks an SM, as many as its 70 KB of shared memory allow: 80
 //    registers a thread, about 150 bytes of them spilled to L1, and the
@@ -70,6 +81,8 @@
 //    3.93 ms at two blocks an SM and 128 registers, kernels/probe.py
 //    --fft); M = 4096 takes 256 threads of 16 points (80 registers, three
 //    blocks an SM or more).
+
+#include <type_traits>
 
 #include "mel_common.cuh"
 
@@ -293,25 +306,27 @@ __device__ __forceinline__ float2 load_point(const T* __restrict__ w,
   return p;
 }
 
-// One block per (frame, batch row): the frame's real FFT of N = 2M points in
-// shared memory, its magnitudes, then the mel pass and the dB.
+// The split's bins a thread holds: k = tid + q * T for k <= M / 2.
+template <int M>
+__host__ __device__ constexpr int split_bins() {
+  return (M / 2 + FftPlan<M>::T) / FftPlan<M>::T;
+}
+
+// The magnitudes of one frame's real FFT of N = 2M points, by the block
+// that owns it (a block per frame and batch row), in registers: lo[q] =
+// |X[k]| and hi[q] = |X[M - k]| for k = tid + q * T <= M / 2 (hi is not set
+// at k = M / 2).  The frame's points pass through `buf` in shared memory;
+// the block has passed its last barrier on return, so `buf` may still be
+// read by other threads until the caller's next __syncthreads().
 template <typename T, int M>
-__global__ void __launch_bounds__(FftPlan<M>::T, FftPlan<M>::MINB)
-mel_db_fft_kernel(const T* __restrict__ wave, long long wave_stride,
-                  long long wave_len, const float* __restrict__ window,
-                  const float2* __restrict__ tw,
-                  const int* __restrict__ bands, const int* __restrict__ woff,
-                  const float* __restrict__ wts, float* __restrict__ out,
-                  int win, int hop, int n_frames, int n_mel, int left) {
+__device__ __forceinline__ void frame_magnitudes(
+    const T* __restrict__ w, long long g0, long long wave_len,
+    const float* __restrict__ window, const float2* __restrict__ tw, int win,
+    int left, float2* buf, int tid, float (&lo_mag)[split_bins<M>()],
+    float (&hi_mag)[split_bins<M>()]) {
   using P = FftPlan<M>;
   using Tab = FftTable<M>;
   constexpr int TH = P::T;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float2* buf = reinterpret_cast<float2*>(smem);
-  const int tid = threadIdx.x;
-  const int f = blockIdx.x;
-  const T* w = wave + static_cast<long long>(blockIdx.y) * wave_stride;
-  const long long g0 = static_cast<long long>(f) * hop;
   // pairs (s, s + 1), s = 2n - left, start at aligned addresses
   const bool paired =
       (left & 1) == 0 &&
@@ -337,10 +352,8 @@ mel_db_fft_kernel(const T* __restrict__ wave, long long wave_stride,
   // the split: bins k and M - k from Z[k] and Z[M - k] (Z[M] = Z[0]):
   // E = (Z[k] + conj Z[M-k]) / 2, O = -i (Z[k] - conj Z[M-k]) / 2,
   // X[k] = E + W_N^k O and X[M - k] = conj(E - W_N^k O)
-  constexpr int NQ = (M / 2 + TH) / TH;  // k = tid + q * TH <= M / 2
-  float lo_mag[NQ], hi_mag[NQ];
 #pragma unroll
-  for (int q = 0; q < NQ; ++q) {
+  for (int q = 0; q < split_bins<M>(); ++q) {
     const int k = tid + q * TH;
     if (k <= M / 2) {
       const float2 a = buf[pad(k)], b = buf[pad((M - k) & (M - 1))];
@@ -352,6 +365,28 @@ mel_db_fft_kernel(const T* __restrict__ wave, long long wave_stride,
       hi_mag[q] = sqrtf(xm.x * xm.x + xm.y * xm.y);
     }
   }
+}
+
+// One block per (frame, batch row): the frame's real FFT of N = 2M points in
+// shared memory, its magnitudes, then the mel pass and the dB.
+template <typename T, int M>
+__global__ void __launch_bounds__(FftPlan<M>::T, FftPlan<M>::MINB)
+mel_db_fft_kernel(const T* __restrict__ wave, long long wave_stride,
+                  long long wave_len, const float* __restrict__ window,
+                  const float2* __restrict__ tw,
+                  const int* __restrict__ bands, const int* __restrict__ woff,
+                  const float* __restrict__ wts, float* __restrict__ out,
+                  int win, int hop, int n_frames, int n_mel, int left) {
+  constexpr int TH = FftPlan<M>::T;
+  constexpr int NQ = split_bins<M>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* buf = reinterpret_cast<float2*>(smem);
+  const int tid = threadIdx.x;
+  const int f = blockIdx.x;
+  const T* w = wave + static_cast<long long>(blockIdx.y) * wave_stride;
+  float lo_mag[NQ], hi_mag[NQ];
+  frame_magnitudes<T, M>(w, static_cast<long long>(f) * hop, wave_len,
+                         window, tw, win, left, buf, tid, lo_mag, hi_mag);
   __syncthreads();  // every point is read: the magnitudes go over them
   float* mag = reinterpret_cast<float*>(smem);  // mag[k], k <= M
 #pragma unroll
@@ -371,64 +406,123 @@ mel_db_fft_kernel(const T* __restrict__ wave, long long wave_stride,
       n_mel, tid);
 }
 
-// Shared memory of a block: the padded points, or the magnitudes (M + 1),
-// the band sums and the band tables (4 words a band) after them, whichever
-// is more.
+// The linear scale's epilogue: one block per (frame, batch row), the same
+// FFT and magnitudes, and the dB of every bin k in [0, M] written straight
+// from registers, row (batch row, frame) of M + 1 floats.  Consecutive
+// threads hold consecutive bins k (and M - k), so each warp's stores are
+// coalesced; no filterbank, no second barrier.
+template <typename T, int M>
+__global__ void __launch_bounds__(FftPlan<M>::T, FftPlan<M>::MINB)
+linear_db_fft_kernel(const T* __restrict__ wave, long long wave_stride,
+                     long long wave_len, const float* __restrict__ window,
+                     const float2* __restrict__ tw, float* __restrict__ out,
+                     int win, int hop, int n_frames, int left) {
+  constexpr int TH = FftPlan<M>::T;
+  constexpr int NQ = split_bins<M>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int f = blockIdx.x;
+  const T* w = wave + static_cast<long long>(blockIdx.y) * wave_stride;
+  float lo_mag[NQ], hi_mag[NQ];
+  frame_magnitudes<T, M>(w, static_cast<long long>(f) * hop, wave_len,
+                         window, tw, win, left,
+                         reinterpret_cast<float2*>(smem), tid, lo_mag,
+                         hi_mag);
+  float* o =
+      out + (static_cast<long long>(blockIdx.y) * n_frames + f) * (M + 1);
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    const int k = tid + q * TH;
+    if (k <= M / 2) {
+      o[k] = msv::amp_db(lo_mag[q]);
+      if (k != M / 2) o[M - k] = msv::amp_db(hi_mag[q]);
+    }
+  }
+}
+
+// Shared memory of a block: the padded points, or (the mel epilogue, n_mel
+// > 0) the magnitudes (M + 1), the band sums and the band tables (4 words a
+// band) after them, whichever is more.
 template <int M>
 size_t block_bytes(int n_mel) {
   const size_t points = sizeof(float2) * buffer_points<M>();
-  const size_t mel = 4 * (static_cast<size_t>(M) + 4 + 4 * n_mel);
+  const size_t mel = n_mel > 0 ? 4 * (static_cast<size_t>(M) + 4 + 4 * n_mel)
+                               : 0;
   return points > mel ? points : mel;
 }
 
-template <typename T, int M>
-int launch_m(const void* wave, long long wave_stride, long long wave_len,
-             int batch, const float* window, const float2* tw,
-             const int* bands, const int* woff, const float* wts, float* out,
-             int win, int hop, int n_frames, int n_mel, int n_tw,
-             msv::Plan* plan, cudaStream_t stream) {
-  if (n_tw != FftTable<M>::SIZE)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = block_bytes<M>(n_mel);
+// Launch `kernel` (a block of FftPlan<M>::T threads per frame and batch row)
+// with `smem` bytes of shared memory, or report on `plan` that it does not
+// fit the card.
+template <int M, typename... Params, typename... Args>
+int launch_fft(void (*kernel)(Params...), size_t smem, int n_frames,
+               int batch, msv::Plan* plan, cudaStream_t stream,
+               Args... args) {
   *plan = {msv::kFft, 1, 0, 0, static_cast<int>(smem), plan->avail};
   if (smem > static_cast<size_t>(plan->avail)) {
     plan->tier = msv::kNoTier;
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
   cudaError_t err = cudaFuncSetAttribute(
-      mel_db_fft_kernel<T, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(n_frames, batch);
-  mel_db_fft_kernel<T, M><<<grid, FftPlan<M>::T, smem, stream>>>(
-      static_cast<const T*>(wave), wave_stride, wave_len, window, tw, bands,
-      woff, wts, out, win, hop, n_frames, n_mel, (2 * M - win) / 2);
+  kernel<<<dim3(n_frames, batch), FftPlan<M>::T, smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch(const void* wave, long long wave_stride, long long wave_len,
-           int batch, const float* window, const float2* tw,
-           const int* bands, const int* woff, const float* wts, float* out,
-           int win, int hop, int n_frames, int n_fft, int n_mel, int n_tw,
-           msv::Plan* plan, cudaStream_t stream) {
+// f(std::integral_constant<int, M>) for the plan of n_fft = 2M, after the
+// card's shared memory is read into `plan`; cudaErrorInvalidValue, calling
+// nothing, for an n_fft without a plan or a table of another size.
+template <typename F>
+int with_plan(int n_fft, int n_tw, msv::Plan* plan, F&& f) {
   msv::SmemLimits lim;
   if (const int err = msv::smem_limits(&lim)) return err;
   plan->avail = static_cast<int>(lim.block);
+  auto run = [&](auto m) {
+    return n_tw == FftTable<decltype(m)::value>::SIZE
+               ? f(m)
+               : static_cast<int>(cudaErrorInvalidValue);
+  };
   switch (n_fft / 2) {
-#define MSV_FFT(M)                                                           \
-  case M:                                                                    \
-    return launch_m<T, M>(wave, wave_stride, wave_len, batch, window, tw,    \
-                          bands, woff, wts, out, win, hop, n_frames, n_mel,  \
-                          n_tw, plan, stream);
-    MSV_FFT(2048)
-    MSV_FFT(4096)
-    MSV_FFT(8192)
-    MSV_FFT(16384)
-#undef MSV_FFT
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 2048: return run(std::integral_constant<int, 2048>{});
+    case 4096: return run(std::integral_constant<int, 4096>{});
+    case 8192: return run(std::integral_constant<int, 8192>{});
+    case 16384: return run(std::integral_constant<int, 16384>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <typename T>
+int launch_mel(const void* wave, long long wave_stride, long long wave_len,
+               int batch, const float* window, const float2* tw,
+               const int* bands, const int* woff, const float* wts,
+               float* out, int win, int hop, int n_frames, int n_fft,
+               int n_mel, int n_tw, msv::Plan* plan, cudaStream_t stream) {
+  return with_plan(n_fft, n_tw, plan, [&](auto m) {
+    constexpr int M = decltype(m)::value;
+    return launch_fft<M>(mel_db_fft_kernel<T, M>, block_bytes<M>(n_mel),
+                         n_frames, batch, plan, stream,
+                         static_cast<const T*>(wave), wave_stride, wave_len,
+                         window, tw, bands, woff, wts, out, win, hop,
+                         n_frames, n_mel, (2 * M - win) / 2);
+  });
+}
+
+template <typename T>
+int launch_linear(const void* wave, long long wave_stride,
+                  long long wave_len, int batch, const float* window,
+                  const float2* tw, float* out, int win, int hop,
+                  int n_frames, int n_fft, int n_tw, msv::Plan* plan,
+                  cudaStream_t stream) {
+  return with_plan(n_fft, n_tw, plan, [&](auto m) {
+    constexpr int M = decltype(m)::value;
+    return launch_fft<M>(linear_db_fft_kernel<T, M>, block_bytes<M>(0),
+                         n_frames, batch, plan, stream,
+                         static_cast<const T*>(wave), wave_stride, wave_len,
+                         window, tw, out, win, hop, n_frames,
+                         (2 * M - win) / 2);
+  });
 }
 
 }  // namespace
@@ -454,7 +548,7 @@ int msv_mel_spectrogram_fft(const void* wave, int wave_is_i16,
                             int n_mel, int n_tw, void* stream, int* plan) {
   msv::Plan* pl = reinterpret_cast<msv::Plan*>(plan);
   *pl = {};
-  if (win < 1 || win > n_fft || n_fft % 2 != 0 ||
+  if (win < 1 || win > n_fft || n_fft % 2 != 0 || n_mel < 1 ||
       reinterpret_cast<uintptr_t>(twiddles) % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* wd = static_cast<const float*>(window);
@@ -462,12 +556,37 @@ int msv_mel_spectrogram_fft(const void* wave, int wave_is_i16,
   const float* wt = static_cast<const float*>(wts);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (wave_is_i16)
-    return launch<int16_t>(wave, wave_stride, wave_len, batch, wd, tw, bands,
+    return launch_mel<int16_t>(wave, wave_stride, wave_len, batch, wd, tw,
+                               bands, woff, wt, out, win, hop, n_frames,
+                               n_fft, n_mel, n_tw, pl, st);
+  return launch_mel<float>(wave, wave_stride, wave_len, batch, wd, tw, bands,
                            woff, wt, out, win, hop, n_frames, n_fft, n_mel,
                            n_tw, pl, st);
-  return launch<float>(wave, wave_stride, wave_len, batch, wd, tw, bands,
-                       woff, wt, out, win, hop, n_frames, n_fft, n_mel, n_tw,
-                       pl, st);
+}
+
+// The linear scale's form of the same launch: no filterbank; out: (batch,
+// n_frames, n_fft / 2 + 1) f32, the dB of every bin.  Arguments and return
+// as msv_mel_spectrogram_fft's.
+int msv_linear_spectrogram_fft(const void* wave, int wave_is_i16,
+                               long long wave_stride, long long wave_len,
+                               int batch, const void* window,
+                               const void* twiddles, float* out, int win,
+                               int hop, int n_frames, int n_fft, int n_tw,
+                               void* stream, int* plan) {
+  msv::Plan* pl = reinterpret_cast<msv::Plan*>(plan);
+  *pl = {};
+  if (win < 1 || win > n_fft || n_fft % 2 != 0 ||
+      reinterpret_cast<uintptr_t>(twiddles) % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* wd = static_cast<const float*>(window);
+  const float2* tw = static_cast<const float2*>(twiddles);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wave_is_i16)
+    return launch_linear<int16_t>(wave, wave_stride, wave_len, batch, wd, tw,
+                                  out, win, hop, n_frames, n_fft, n_tw, pl,
+                                  st);
+  return launch_linear<float>(wave, wave_stride, wave_len, batch, wd, tw, out,
+                              win, hop, n_frames, n_fft, n_tw, pl, st);
 }
 
 }  // extern "C"

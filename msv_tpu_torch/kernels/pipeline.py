@@ -1,8 +1,9 @@
 """Spectrogram and render pipelines as torch ops, ported from
 ``msv_tpu/kernels/pipeline.py``.
 
-``spec_pipeline`` / ``spec_pipeline_batched`` (the session's linear route;
-``use_mel=True`` is kept for tests):
+``spec_pipeline`` / ``spec_pipeline_batched`` (the linear route's "gemm"
+tier, ``kernels/spectrogram_cuda.py::LinearRoute``; ``use_mel=True`` is kept
+for tests):
 
     frames (a strided view) -> windowed-DFT GEMM pair -> magnitude
     -> [mel GEMM] -> amp_to_db (log10) -> masked min/max
@@ -70,12 +71,20 @@ def spec_pipeline(padded, c, s, mel_fb, n_valid, *, win, hop, n_frames,
         if use_mel:
             spec = spec @ mel_fb
     db = amp_to_db(spec)
+    smin, smax = masked_minmax(db, n_valid)
+    return db, smin, smax
+
+
+def masked_minmax(db, n_valid):
+    """(smin, smax) of dB planes (..., n_frames, n_out) over their first
+    ``n_valid`` frames (an int, or a tensor of one per leading row): the
+    rows of a bucket's zero padding are left out."""
     n_valid = torch.as_tensor(n_valid, device=db.device)
-    frame = torch.arange(n_frames, device=db.device)
+    frame = torch.arange(db.shape[-2], device=db.device)
     fmask = (frame < n_valid[..., None])[..., None]
     smax = torch.where(fmask, db, -torch.inf).amax(dim=(-2, -1))
     smin = torch.where(fmask, db, torch.inf).amin(dim=(-2, -1))
-    return db, smin, smax
+    return smin, smax
 
 
 def spec_pipeline_batched(padded_b, c, s, mel_fb, n_valid, *, win, hop,

@@ -27,6 +27,10 @@ chunked one, and every launcher reports its choice.  ``MelRoute`` is the
 one owner of a caller's route (the kernel, its plain version under the
 "xla" engine, or the CPU route) and of the operands it reads: the
 session, streaming and the log-mel frontend hold routes and call them.
+The linear scale has its own owner, ``LinearRoute`` (the session and
+streaming): the FFT tier's linear form (``linear_spectrogram_cuda``, every
+bin's dB, no filterbank) where ``tier_for`` gives "fft" with no mel bands,
+else the dense pair of ``pipeline.spec_pipeline_batched``.
 The sources are built with ``nvcc`` at first use into one library under
 ``build/msv_tpu_torch/`` beside the package, keyed on the hash of the
 sources and the header, and loaded as a plain C library.
@@ -67,6 +71,7 @@ from ..ops.dft import windowed_dft_matrices
 from ..ops.stft import frame_device
 from ..utils.debug import check_nan
 from ..utils.profiling import span
+from .pipeline import masked_minmax, spec_pipeline_batched
 
 _AMIN = 1e-18
 _DB_SCALE = 20.0 / math.log(10.0)
@@ -92,6 +97,9 @@ ENTRY_POINTS = {"parity": "msv_mel_spectrogram",
                 "fast": "msv_mel_spectrogram_bf16",
                 "split": "msv_mel_spectrogram_split"}
 FFT_ENTRY_POINT = "msv_mel_spectrogram_fft"
+# The FFT tier's linear-scale form (the same source): every bin's dB, no
+# filterbank.
+LINEAR_ENTRY_POINT = "msv_linear_spectrogram_fft"
 # The launchers' tiers, by the number a launcher reports (0: none fits):
 # "resident" stages every sample of a block's frames once; "chunked" (the
 # parity and fast kernels, where no resident block fits and, in parity, no
@@ -101,6 +109,12 @@ FFT_ENTRY_POINT = "msv_mel_spectrogram_fft"
 # settings from 176.4 kHz on) takes each frame's real FFT in shared memory.
 # tier_for says which a launch takes.
 TIERS = ("resident", "chunked", "fft")
+# The linear scale's tiers on a card: "fft", the FFT tier's linear form
+# (parity, where n_fft has an FFT plan: at the session's settings from 96
+# kHz on), else "gemm", the dense windowed-DFT GEMM pair of
+# ``kernels/pipeline.py::spec_pipeline_batched`` (fast mode's TF32 GEMMs at
+# every rate).  ``LinearRoute`` takes them.
+LINEAR_TIERS = ("gemm", "fft")
 # n_fft -> the FFT tier's radix passes over its n_fft / 2 complex points
 # (csrc/mel_spectrogram_fft.cu's FftPlan; the twiddle table follows them).
 FFT_PLANS = {4096: (16, 16, 8), 8192: (16, 16, 16), 16384: (16, 16, 32),
@@ -113,6 +127,9 @@ SMEM_BLOCK_BYTES = 232448
 LAUNCHES = 0
 LAUNCHES_BY_MODE = {mode: 0 for mode in MODES}
 LAUNCHES_BY_TIER = {tier: 0 for tier in TIERS}
+# Calls of the linear route on a card, by tier (``LinearRoute``; the CPU
+# route does not count).
+LINEAR_LAUNCHES_BY_TIER = {tier: 0 for tier in LINEAR_TIERS}
 # nvcc's report (registers, shared memory, spills) from the last build.
 BUILD_REPORT = ""
 
@@ -184,6 +201,11 @@ def build() -> ctypes.CDLL:
         getattr(lib, FFT_ENTRY_POINT).argtypes = [*wave, *[p] * 6, *[i] * 6,
                                                   p, p]
         getattr(lib, FFT_ENTRY_POINT).restype = ctypes.c_int
+        # window, twiddles, out; win, hop, n_frames, n_fft, n_tw; the stream
+        # and the plan
+        getattr(lib, LINEAR_ENTRY_POINT).argtypes = [*wave, *[p] * 3,
+                                                     *[i] * 5, p, p]
+        getattr(lib, LINEAR_ENTRY_POINT).restype = ctypes.c_int
         lib.msv_cuda_error_string.argtypes = [ctypes.c_int]
         lib.msv_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -199,8 +221,10 @@ def operands_from_numpy(c, s, fb, device="cpu"):
     """(C, S, fb) as f32 tensors on ``device``, from the host builders'
     ``(win, n_freq)``, ``(win, n_freq)`` and ``(n_freq, n_mel)`` arrays
     (``ops.dft.windowed_dft_matrices``, ``ops.mel``; contiguous), or from
-    tensors (bf16 ones widened)."""
-    return tuple(_as_f32(a).to(device) for a in (c, s, fb))
+    tensors (bf16 ones widened); ``fb`` None (the linear scale) stays
+    None."""
+    return tuple(None if a is None else _as_f32(a).to(device)
+                 for a in (c, s, fb))
 
 
 def operands_from_pallas(c3d, s3d, fb3d, win, n_freq, n_mel, device="cpu"):
@@ -267,12 +291,14 @@ def _resident_bytes(mode, win, hop, n_mel, n_wts):
 def _fft_block_bytes(n_fft, n_mel):
     """The FFT tier's shared memory a block (csrc/mel_spectrogram_fft.cu's
     block_bytes): the n_fft / 2 points padded by one in 16, or the
-    magnitudes, the band sums and the band tables, whichever is more."""
+    magnitudes, the band sums and the band tables, whichever is more; the
+    points alone on the linear scale (``n_mel`` None)."""
     m = n_fft // 2
-    return max(8 * (m + m // 16), 4 * (m + 4 + 4 * n_mel))
+    return max(8 * (m + m // 16), 0 if n_mel is None
+               else 4 * (m + 4 + 4 * n_mel))
 
 
-def tier_for(mode, win, hop, n_fft, n_mel, n_wts):
+def tier_for(mode, win, hop, n_fft, n_mel, n_wts=0):
     """The tier (``TIERS``) a launch of ``mode``'s kernel takes at this
     shape: n_mel bands whose compact filterbank holds ``n_wts`` weights
     (``band_weights``).  "resident" where a resident block fits the card
@@ -283,16 +309,22 @@ def tier_for(mode, win, hop, n_fft, n_mel, n_wts):
     not fit).  At the session's settings: parity "fft" from 176.4 kHz on
     (n_fft 8192 and 16 384), fast "chunked" at 384 kHz, every other rate
     "resident".  Callers ask it before they build operands: only the
-    resident and chunked tiers read C and S."""
+    resident and chunked tiers read C and S.
+
+    ``n_mel`` None is the linear scale (``LINEAR_TIERS``): "fft" in parity
+    where n_fft has an FFT plan, ``win`` fits it and the block fits the
+    card (at the session's settings from 96 kHz on, n_fft 4096 to 16 384),
+    else "gemm"."""
     if mode not in MODES:
         raise ValueError(f"unknown precision mode: {mode!r}")
+    fft = (mode == "parity" and n_fft in FFT_PLANS and win <= n_fft
+           and _fft_block_bytes(n_fft, n_mel) <= SMEM_BLOCK_BYTES)
+    if n_mel is None:
+        return "fft" if fft else "gemm"
     if mode == "split" or (_resident_bytes(mode, win, hop, n_mel, n_wts)
                            <= SMEM_BLOCK_BYTES):
         return "resident"
-    if (mode == "parity" and n_fft in FFT_PLANS and win <= n_fft
-            and _fft_block_bytes(n_fft, n_mel) <= SMEM_BLOCK_BYTES):
-        return "fft"
-    return "chunked"
+    return "fft" if fft else "chunked"
 
 
 @functools.lru_cache(maxsize=8)
@@ -616,6 +648,21 @@ def _band_tables(fb, mode):
     return bands, wts, woff.to(torch.int32)
 
 
+def _fft_window(window, n_fft):
+    """The analysis window of an FFT-tier record as an f32 tensor on the
+    host; raises where n_fft has no plan or the window does not fit it."""
+    if n_fft not in FFT_PLANS:
+        raise ValueError(f"the FFT tier has no plan for n_fft={n_fft} "
+                         f"(FFT_PLANS: {sorted(FFT_PLANS)})")
+    window = torch.as_tensor(np.ascontiguousarray(
+        window.cpu().numpy() if isinstance(window, torch.Tensor) else window,
+        dtype=np.float32))
+    if window.ndim != 1 or not 1 <= window.shape[0] <= n_fft:
+        raise ValueError(f"window must be (win,) with 1 <= win <= n_fft, got "
+                         f"{tuple(window.shape)}")
+    return window
+
+
 def prepare_fft_operands(window, fb, n_fft):
     """The FFT tier's record (parity mode) from the analysis window
     ``(win,)`` and the f32 filterbank ``(n_fft // 2 + 1, n_mel)`` (a tensor,
@@ -626,20 +673,13 @@ def prepare_fft_operands(window, fb, n_fft):
     offset (n_fft - win) // 2 (``ops.dft.n_pad_split``), and takes its FFT,
     the function of ``windowed_dft_matrices(window, n_fft)``'s pair.  Made
     once per rate and cached by the caller."""
-    if n_fft not in FFT_PLANS:
-        raise ValueError(f"the FFT tier has no plan for n_fft={n_fft} "
-                         f"(FFT_PLANS: {sorted(FFT_PLANS)})")
+    window = _fft_window(window, n_fft)
     if fb.dtype != torch.float32 or fb.ndim != 2 or (
             fb.shape[0] != n_fft // 2 + 1):
         raise ValueError(f"fb must be a (n_fft // 2 + 1 = {n_fft // 2 + 1}, "
                          f"n_mel) float32 tensor, got {fb.dtype} "
                          f"{tuple(fb.shape)}")
-    window = torch.as_tensor(np.ascontiguousarray(
-        window.cpu().numpy() if isinstance(window, torch.Tensor) else window,
-        dtype=np.float32)).to(fb.device)
-    if window.ndim != 1 or not 1 <= window.shape[0] <= n_fft:
-        raise ValueError(f"window must be (win,) with 1 <= win <= n_fft, got "
-                         f"{tuple(window.shape)}")
+    window = window.to(fb.device)
     fb = fb.contiguous()
     bands, wts, woff = _band_tables(fb, "parity")
     tile_bands = mel_bands(bands[:, :1] < bands[:, 1:]).reshape(1, 2)
@@ -715,15 +755,23 @@ class _Plan(ctypes.Structure):
 
 
 def _launch(lib, mode, wave, ops, out, win, hop, n_frames, n_mel, stream):
-    """Launch ``mode``'s kernel, or the FFT tier's for an FFT-tier record;
-    returns what its launcher chose, as the ``mel.launch`` span's
-    attributes.  Raises ValueError where no tier of the kernel fits the
-    card's shared memory (nothing was launched), and RuntimeError where the
-    launch failed."""
+    """Launch ``mode``'s kernel, the FFT tier's for an FFT-tier record, or
+    its linear form for a ``LinearOperands`` record (``n_mel`` None);
+    returns what its launcher chose, as the ``mel.launch`` (or
+    ``linear.launch``) span's attributes.  Raises ValueError where no tier
+    of the kernel fits the card's shared memory (nothing was launched), and
+    RuntimeError where the launch failed."""
     plan = _Plan()
     head = (wave.data_ptr(), int(wave.dtype == torch.int16), wave.shape[1],
             wave.shape[1], wave.shape[0])
-    if ops.fft:
+    linear = isinstance(ops, LinearOperands)
+    kernel = "linear FFT" if linear else f"{mode} mel"
+    if linear:
+        err = getattr(lib, LINEAR_ENTRY_POINT)(
+            *head, ops.window.data_ptr(), ops.twiddles.data_ptr(),
+            out.data_ptr(), win, hop, n_frames, ops.n_fft,
+            ops.twiddles.shape[0], stream, ctypes.byref(plan))
+    elif ops.fft:
         err = getattr(lib, FFT_ENTRY_POINT)(
             *head, ops.window.data_ptr(), ops.twiddles.data_ptr(),
             ops.wts.data_ptr(), ops.bands.data_ptr(), ops.woff.data_ptr(),
@@ -738,13 +786,12 @@ def _launch(lib, mode, wave, ops, out, win, hop, n_frames, n_mel, stream):
             ops.nb, ops.row, stream, ctypes.byref(plan))
     if plan.tier == 0 and plan.smem > 0:
         raise ValueError(
-            f"no tier of the {mode} mel kernel fits win={win}, hop={hop}, "
+            f"no tier of the {kernel} kernel fits win={win}, hop={hop}, "
             f"n_mel={n_mel}: a block needs {plan.smem} bytes of shared "
             f"memory, the card offers {plan.avail}")
     if err != 0:
         msg = lib.msv_cuda_error_string(err).decode()
-        raise RuntimeError(f"mel_spectrogram kernel ({mode}) launch failed: "
-                           f"{msg}")
+        raise RuntimeError(f"the {kernel} kernel's launch failed: {msg}")
     return {"tier": TIERS[plan.tier - 1], "mt": plan.mt,
             "stages": plan.stages, "chunk": plan.chunk,
             "smem_bytes": plan.smem}
@@ -961,3 +1008,188 @@ class MelRoute:
                else self.dense(mode))
         return (launch or mel_spectrogram_cuda)(padded, *ops, out=out, sr=sr,
                                                 **kw)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LinearOperands:
+    """The linear FFT tier's record (``prepare_linear_fft_operands``): what
+    its kernel reads, on one device, and no C, S or filterbank."""
+
+    window: torch.Tensor  # (win,) f32
+    twiddles: torch.Tensor  # fft_twiddles(n_fft): (n_tw, 2) f32
+    n_fft: int
+
+    @property
+    def win(self):
+        return self.window.shape[0]
+
+    @property
+    def device(self):
+        return self.window.device
+
+
+def prepare_linear_fft_operands(window, n_fft, device):
+    """The linear FFT tier's record on ``device``: the analysis window
+    ``(win,)`` in f32 and the twiddle table ``fft_twiddles(n_fft)``.  The
+    kernel windows each frame, zero-pads it to n_fft at the left offset
+    (n_fft - win) // 2 and takes its FFT, the function of
+    ``windowed_dft_matrices(window, n_fft)``'s pair."""
+    return LinearOperands(_fft_window(window, n_fft).to(device),
+                          torch.from_numpy(fft_twiddles(n_fft)).to(device),
+                          n_fft)
+
+
+def linear_spectrogram_cuda(padded, ops, *, win, hop, n_frames, out=None,
+                            sr=None):
+    """The linear-scale dB spectrogram by the FFT tier's linear form, on a
+    card: ``(n_frames, n_fft // 2 + 1)``, or ``(B, n_frames, n_fft // 2 +
+    1)`` for a ``(B, L)`` batch, float32.
+
+    Frame k is ``padded[..., k*hop : k*hop + win]`` (f32, or int16 scaled by
+    2^-15 as it is loaded) times the window of ``ops`` (a
+    ``LinearOperands`` record), zero-padded to n_fft; each bin is its real
+    FFT's magnitude in dB as every kernel of this module writes it, 20
+    ln|X| / ln 10 with the -360 dB floor.  ``out``, if given, is a
+    contiguous float32 tensor of the result's shape that the kernel writes.
+    Each call is one ``linear.launch`` program span with ``sr``, ``batch``,
+    ``win``, ``hop``, ``n_fft``, ``n_out``, ``tier`` "fft" and
+    ``smem_bytes``; it ends when the launch returns.  Tensors off a card
+    raise ValueError: the CPU takes ``LinearRoute``'s dense pair."""
+    if not isinstance(ops, LinearOperands):
+        raise TypeError("linear_spectrogram_cuda takes a LinearOperands "
+                        "record (LinearRoute.record)")
+    if ops.win != win:
+        raise ValueError(f"operands prepared for win={ops.win}, got {win}")
+    _check_wave(padded, win, hop, n_frames)
+    if padded.device.type != "cuda" or ops.device != padded.device:
+        raise ValueError("the linear FFT tier runs on a card, with padded "
+                         "and the operands on one device")
+    if not padded.is_contiguous():
+        raise ValueError("padded must be contiguous")
+    n_out = ops.n_fft // 2 + 1
+    shape = (n_frames, n_out) if padded.ndim == 1 else (
+        padded.shape[0], n_frames, n_out)
+    if out is not None:
+        _check_out(out, shape, padded.device)
+    wave = padded if padded.ndim == 2 else padded.unsqueeze(0)
+    with span("linear.launch", sr=sr, batch=wave.shape[0], win=win, hop=hop,
+              n_fft=ops.n_fft, n_out=n_out, tier="fft") as sp:
+        lib = build()
+        if out is None:
+            out = torch.empty(shape, dtype=torch.float32, device=wave.device)
+        with torch.cuda.device(wave.device):
+            stream = torch.cuda.current_stream(wave.device).cuda_stream
+            plan = _launch(lib, "parity", wave, ops, out, win, hop, n_frames,
+                           None, stream)
+        sp.set(smem_bytes=plan["smem_bytes"])
+    LINEAR_LAUNCHES_BY_TIER["fft"] += 1
+    check_nan(out, "the linear FFT kernel")
+    return out
+
+
+class LinearRoute:
+    """The linear-scale dB spectrogram (n_fft // 2 + 1 bins a frame) of one
+    analysis ``window`` (``win`` samples), ``hop`` and ``n_fft`` on
+    ``device``, in either precision mode, and the operands it reads: the one
+    place that decides how the linear scale runs, for the session and
+    streaming, as ``MelRoute`` is for the mel scale.
+
+    ``route(padded, n_frames, n_valid, mode=, out=None, sr=None,
+    pipeline=None)`` returns ``(db, smin, smax)``: the dB plane of a
+    ``(B, L)`` batch (or an ``(L,)`` wave) and the min/max over each row's
+    first ``n_valid`` frames.  It decides at each call, by ``tier_here``:
+
+    * "fft", on a card where ``tier_for(mode, ..., n_mel=None)`` is "fft"
+      (parity, an n_fft with an FFT plan) and the engine is not "xla":
+      ``linear_spectrogram_cuda`` on the record (``LinearOperands``: the
+      window and the twiddles; no C or S is built), then
+      ``pipeline.masked_minmax``;
+    * else the dense windowed-DFT pair: ``pipeline`` (by default
+      ``spec_pipeline_batched``; the session names its own binding of it)
+      on the route's f32 C and S, true f32 in parity and TF32 in fast, as
+      one ``linear.launch`` span of tier "gemm" on a card and "plain" on
+      the CPU (``smem_bytes`` 0).  On the FFT tier the dB is the kernels'
+      20 ln / ln 10, on the pair ``ops.decibel.amp_to_db``'s 20 log10: the
+      planes differ by rounding.
+
+    ``LINEAR_LAUNCHES_BY_TIER`` counts the card's calls.  C and S are
+    ``windowed_dft_matrices(window, n_fft)``, or what ``dense()``, a
+    callable a caller gives, returns; each form is built at its first use
+    and kept as long as the route."""
+
+    def __init__(self, window, *, win, hop, n_fft, device, dense=None):
+        if window is None and dense is None:
+            raise ValueError("a LinearRoute needs the analysis window or C "
+                             "and S")
+        if window is not None and len(window) != win:
+            raise ValueError(f"a window of {len(window)} samples for "
+                             f"win={win}")
+        self.window = window
+        self.win, self.hop, self.n_fft = win, hop, n_fft
+        self.device = torch.device(device)
+        self._given = dense
+        self._forms = {}  # "f32" (C, S) and "record"
+
+    @property
+    def n_out(self):
+        return self.n_fft // 2 + 1
+
+    def tier(self, mode) -> str:
+        """The tier (``LINEAR_TIERS``) of this route's ``mode`` calls on a
+        card."""
+        return tier_for(mode, self.win, self.hop, self.n_fft, None)
+
+    def tier_here(self, mode) -> str:
+        """The tier of a ``mode`` call on this route's device: "plain" on
+        the CPU, "gemm" under the "xla" engine, else ``tier(mode)``."""
+        if self.device.type != "cuda":
+            return "plain"
+        return "gemm" if get_engine() == "xla" else self.tier(mode)
+
+    def prepare(self, mode):
+        """Build the f32 C and S on the device now, where this route's
+        ``mode`` calls read them: everywhere but at the FFT tier."""
+        if self.tier_here(mode) != "fft":
+            self.dense()
+
+    def dense(self):
+        """The f32 ``(C, S)`` on the device."""
+        return _kept(self._forms, "f32", self._make_f32)
+
+    def _make_f32(self):
+        c, s = (self._given() if self._given is not None
+                else windowed_dft_matrices(self.window, self.n_fft))
+        if c.shape[-2] != self.win:
+            raise ValueError(f"C and S of {c.shape[-2]} rows for "
+                             f"win={self.win}")
+        return operands_from_numpy(c, s, None, self.device)[:2]
+
+    def record(self) -> LinearOperands:
+        """The FFT tier's record on the device, made from the window."""
+        if self.window is None:
+            raise ValueError(
+                f"win={self.win}, hop={self.hop}, n_fft={self.n_fft} take the "
+                f"linear FFT tier, whose record needs the analysis window")
+        return _kept(self._forms, "record", lambda: prepare_linear_fft_operands(
+            self.window, self.n_fft, self.device))
+
+    def __call__(self, padded, n_frames, n_valid, *, mode, out=None, sr=None,
+                 pipeline=None):
+        tier = self.tier_here(mode)
+        kw = dict(win=self.win, hop=self.hop, n_frames=n_frames)
+        if tier == "fft":
+            db = linear_spectrogram_cuda(padded, self.record(), out=out,
+                                         sr=sr, **kw)
+            return (db, *masked_minmax(db, n_valid))
+        rows = padded if padded.ndim == 2 else padded.unsqueeze(0)
+        with span("linear.launch", sr=sr, batch=rows.shape[0], win=self.win,
+                  hop=self.hop, n_fft=self.n_fft, n_out=self.n_out, tier=tier,
+                  smem_bytes=0):
+            db, smin, smax = (pipeline or spec_pipeline_batched)(
+                rows, *self.dense(), None, n_valid, use_mel=False, mode=mode,
+                **kw)
+        if tier == "gemm":
+            LINEAR_LAUNCHES_BY_TIER["gemm"] += 1
+        if padded.ndim == 1:
+            db, smin, smax = db[0], smin[0], smax[0]
+        return (db if out is None else out.copy_(db)), smin, smax

@@ -9,10 +9,14 @@ the fused mel dB kernel (``kernels/spectrogram_cuda.py``, the parity or the
 fast kernel) writing its rows of one preallocated ``(n_total, n_out)``
 plane, so no hour-long intermediate and no concatenation exists (under the
 "xla" engine, the kernel's plain version writes those rows).  Without
-the filterbank (``mel_fb=None``, the linear scale) or with ``impl="fft"``,
-each segment runs msv_tpu's per-chunk XLA step as torch ops instead (the
-DFT GEMM pair or ``torch.fft.rfft``, magnitude, [mel GEMM], log10 dB),
-``chunk_frames`` frames at a time.  On a card the schedule overlaps the
+the filterbank (``mel_fb=None``, the linear scale) the segments go through
+a ``LinearRoute`` (``kernels/spectrogram_cuda.py``): one launch of the FFT
+tier's linear form a segment where the route takes it (parity, on a card,
+an n_fft with an FFT plan), else msv_tpu's per-chunk XLA step as torch ops
+on the route's C and S (the DFT GEMM pair, magnitude, log10 dB),
+``chunk_frames`` frames at a time.  With ``impl="fft"`` each segment runs
+that step with ``torch.fft.rfft`` in place of the pair, and the mel GEMM
+where there is a filterbank.  On a card the schedule overlaps the
 host and the device: two pinned host buffers used in turn, a copy stream
 that ships segment k+1 while the compute stream runs segment k, and a
 per-segment masked min/max that stays on the device until one host sync at
@@ -38,7 +42,9 @@ import numpy as np
 import torch
 
 from ..config import get_precision_mode, precision_for
-from ..kernels.spectrogram_cuda import MelRoute, mel_spectrogram_cuda
+from ..kernels.spectrogram_cuda import (LinearRoute, MelRoute,
+                                        linear_spectrogram_cuda,
+                                        mel_spectrogram_cuda)
 from ..ops.decibel import amp_to_db
 from ..ops.framing import n_frames_for
 from ..ops.stft import dft_magnitude, frame_device
@@ -102,12 +108,12 @@ def padded_slice(src, a: int, b: int, half: int, n: int, dtype=np.int16):
 
 def _segment_operands(c, s, mel_fb, device, impl, transfer, *, win, hop,
                       n_fft=None, window=None):
-    """What every segment reads: a ``MelRoute`` for the mel kernel (``c``
-    itself where it is one, on its own device; else made over the given C
-    and S of ``win`` rows, on ``device`` or theirs), or ``(C, S, fb)`` in
-    f32 on the device for the torch-op step (``impl="fft"``, or no
-    filterbank).  Raises on what no route takes."""
-    route = isinstance(c, MelRoute)
+    """What every segment reads: a ``MelRoute`` for the mel kernel, or a
+    ``LinearRoute`` without a filterbank (``c`` itself where it is one, on
+    its own device; else made over the given C and S of ``win`` rows, on
+    ``device`` or theirs), or ``(C, S, fb)`` in f32 on the device for the
+    torch-op step (``impl="fft"``).  Raises on what no route takes."""
+    route = isinstance(c, (MelRoute, LinearRoute))
     if impl not in ("dft", "pallas", "fft"):
         raise ValueError(f"unknown impl: {impl!r}")
     if impl == "fft" and (n_fft is None or window is None):
@@ -126,12 +132,14 @@ def _segment_operands(c, s, mel_fb, device, impl, transfer, *, win, hop,
             raise ValueError("streaming needs a device: pass device=, or "
                              "c and s as tensors on the device")
         device = c.device
-    if impl == "fft" or mel_fb is None:
+    if impl == "fft":
         return tuple(None if a is None else torch.as_tensor(
             a, dtype=torch.float32, device=device) for a in (c, s, mel_fb))
-    return MelRoute(window, mel_fb, win=win, hop=hop,
-                    n_fft=2 * (c.shape[-1] - 1), device=device,
-                    dense=lambda: (c, s))
+    kw = dict(win=win, hop=hop, n_fft=2 * (c.shape[-1] - 1), device=device,
+              dense=lambda: (c, s))
+    if mel_fb is None:
+        return LinearRoute(window, **kw)
+    return MelRoute(window, mel_fb, **kw)
 
 
 def _pack_segment(seg_np, transfer):
@@ -182,8 +190,9 @@ def _run_segments(make_seg, seg_plan, n_frames, win, hop, ops, chunk_frames,
                   n_fft=None, transfer="auto", sr=None):
     """Segment k's host slice (its carrier: int16, int32 or f32) -> device
     (raw, or packed for ``transfer`` and unpacked there) -> one call of
-    the mel route (``ops`` a ``MelRoute``) or the torch-op step (``ops`` =
-    (C, S, fb)) into rows [f0, f0 + seg_frames) of the output plane.  The
+    the route (``ops`` a ``MelRoute`` or a ``LinearRoute``) or the torch-op
+    step (``ops`` = (C, S, fb)) into rows [f0, f0 + seg_frames) of the
+    output plane.  The
     device reads int16 at the PCM16 scale and f32; other carriers become
     ``carrier * scale`` in f32 (exact: power-of-two scales).
 
@@ -194,9 +203,10 @@ def _run_segments(make_seg, seg_plan, n_frames, win, hop, ops, chunk_frames,
     copy before it rewrites that buffer.  Per-segment min/max stay on the
     device; one host sync at the end reads them.
     """
-    mel = isinstance(ops, MelRoute)
-    if mel:
+    if isinstance(ops, MelRoute):
         device, n_out = ops.device, ops.fb.shape[-1]
+    elif isinstance(ops, LinearRoute):
+        device, n_out = ops.device, ops.n_out
     else:
         c, _, fb = ops
         device = c.device
@@ -267,17 +277,22 @@ def _run_segments(make_seg, seg_plan, n_frames, win, hop, ops, chunk_frames,
             seg = torch.from_numpy(read_form(seg_np))
         else:
             seg = device_form(wirepack.unpack_torch(packed, device))
-        if mel:
-            rows = ops(seg, seg_frames, mode=mode,
-                       out=db[f0 : f0 + seg_frames], sr=sr,
-                       launch=mel_spectrogram_cuda)
-        else:
-            rows = _torch_segment(seg, ops, db[f0 : f0 + seg_frames],
-                                  win=win, hop=hop, chunk_frames=chunk_frames,
-                                  scale=scale, window=window, n_fft=n_fft,
-                                  mode=mode)
         # rows at or after n_frames are zero-tail frames: not in the range
         n_valid = max(0, min(n_frames - f0, seg_frames))
+        rows = db[f0 : f0 + seg_frames]
+        if isinstance(ops, MelRoute):
+            ops(seg, seg_frames, mode=mode, out=rows, sr=sr,
+                launch=mel_spectrogram_cuda)
+        elif isinstance(ops, LinearRoute) and ops.tier_here(mode) == "fft":
+            # the launch alone: the min/max below is the segment's
+            linear_spectrogram_cuda(seg, ops.record(), win=win, hop=hop,
+                                    n_frames=seg_frames, out=rows, sr=sr)
+        else:
+            # the route's dense pair, in chunks of chunk_frames frames
+            _torch_segment(seg, ops if isinstance(ops, tuple) else (
+                *ops.dense(), None), rows, win=win, hop=hop,
+                chunk_frames=chunk_frames, scale=scale, window=window,
+                n_fft=n_fft, mode=mode)
         if n_valid:
             mins.append(rows[:n_valid].amin())
             maxs.append(rows[:n_valid].amax())
@@ -323,8 +338,10 @@ def streaming_spec_db(
 
     With ``mel_fb``, ``impl`` "dft" and "pallas" both run the CUDA kernel on
     each segment (ln-based dB; any hop is allowed).  ``mel_fb=None`` (the
-    linear scale) or ``impl="fft"`` (``torch.fft.rfft`` of the frames
-    times ``window``, zero-padded to ``n_fft``; both required) run torch
+    linear scale) with ``impl="dft"`` runs a ``LinearRoute``'s FFT tier on
+    each segment where it takes one (ln-based dB), else the DFT GEMM pair
+    on its C and S as torch ops (log10 dB).  ``impl="fft"`` (``torch.fft.rfft`` of the frames
+    times ``window``, zero-padded to ``n_fft``; both required) runs torch
     ops per segment, with msv_tpu's log10 dB.  Integer carriers: int16 with
     ``scale`` 2^-15 goes to the device as int16; int32 (a channel sum) and
     any other scale are scaled to f32 on the host, one segment at a time,
@@ -339,18 +356,19 @@ def streaming_spec_db(
     version (``mel_spectrogram_plain``) on the same device instead.
     ``device`` defaults to the device of ``c`` (a tensor).
     ``c``, ``s``, ``mel_fb`` may be numpy f32, or tensors that are the
-    mode's operands (f32, or bf16 for "fast"); the kernel's segments call
-    one ``MelRoute`` over them, made for this call.  Where its launches
-    take the FFT tier (parity, on a card, windows no resident block holds:
+    mode's operands (f32, or bf16 for "fast"); the segments call one
+    ``MelRoute`` (or, without ``mel_fb``, ``LinearRoute``) over them, made
+    for this call.  Where its calls take the FFT tier (parity, on a card:
     ``tier_for``) the route's record is made from ``window``, the analysis
-    window C and S were made with, and ``mel_fb``, and C and S are not
-    shipped.  ``c`` may also be a ``MelRoute`` of this ``win`` and ``hop``
-    (``s`` and ``mel_fb`` None), as the session passes its own; the
-    segments then go to its device, and it runs in the session's mode.
+    window C and S were made with (and ``mel_fb``), and C and S are not
+    shipped.  ``c`` may also be a ``MelRoute`` or a ``LinearRoute`` of this
+    ``win`` and ``hop`` (``s`` and ``mel_fb`` None), as the session passes
+    its own; the segments then go to its device, and it runs in the
+    session's mode.
 
     ``keep_wav=True`` appends a 5th value: the reflect-padded, zero-tailed
     wave on the device, stitched from the shipped segments.  ``sr``, where
-    given, goes on each launch's ``mel.launch`` span.
+    given, goes on each call's ``mel.launch`` or ``linear.launch`` span.
     """
     ops = _segment_operands(c, s, mel_fb, device, impl, transfer, win=win,
                             hop=hop, n_fft=n_fft, window=window)

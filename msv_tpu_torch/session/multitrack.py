@@ -7,7 +7,9 @@ goes through the rate's route in the session's precision mode
 (``kernels/spectrogram_cuda.py::MelRoute``: the fused CUDA kernel, f32
 under "parity" and bf16 under "fast", or its plain version on the same
 device under ``config.set_engine("xla")``); on the linear scale through
-``spec_pipeline_batched`` (torch ops, f32).  Tracks that share a bucket
+the rate's ``LinearRoute`` (the FFT tier's linear form in parity where n_fft
+has an FFT plan, else ``spec_pipeline_batched``'s dense GEMM pair, f32 in
+parity and TF32 in fast).  Tracks that share a bucket
 ``(sr, n_frames_pad, wire)`` go as one batched call (each track then owns a
 copy of its plane), and a track over STREAMING_FRAME_THRESHOLD frames goes
 alone through segmented streaming (``parallel/streaming.py``), whose device
@@ -44,12 +46,12 @@ import torch
 from ..config import (FreqScale, SpecSetting, check_db_wire,
                       derive_stft_params, get_db_wire, get_image_wire,
                       get_precision_mode, get_session_hbm_budget)
-from ..kernels.pipeline import (render_grey_q, render_rgb,
+from ..kernels.pipeline import (masked_minmax, render_grey_q, render_rgb,
                                 spec_pipeline_batched)
-from ..kernels.spectrogram_cuda import MelRoute, mel_spectrogram_cuda
+from ..kernels.spectrogram_cuda import (LinearRoute, MelRoute,
+                                        mel_spectrogram_cuda)
 from ..parallel.streaming import streaming_spec_db
 from ..parallel.wirepack import fetch_unpack_spec_stream, pack_spec
-from ..ops.dft import windowed_dft_matrices
 from ..ops.framing import n_frames_for
 from ..ops.mel import calc_mel_fb_default, hz_to_mel, mel_to_hz
 from ..ops.multires import (adaptive_auto_n_mel, adaptive_frame_count,
@@ -354,10 +356,9 @@ class MultiTrack:
         elif self.device.type != "cpu":
             raise ValueError(f"unsupported device: {self.device}")
         self.tracks: dict[int, AudioTrack] = {}
-        # sr -> the rate's operands: on the mel scale its MelRoute, on the
-        # linear scale (C, S, None), f32 on the device (its route takes the
-        # session's mode as a GEMM precision: parity true f32, fast TF32)
-        self._operands: dict[int, MelRoute | tuple] = {}
+        # sr -> the rate's route and its operands: a MelRoute on the mel
+        # scale, a LinearRoute on the linear scale
+        self._operands: dict[int, MelRoute | LinearRoute] = {}
         self._state: dict[int, _TrackState] = {}
         # id -> EnvelopeState: the device wave of get_wav_image, built at
         # the first waveform render, or adopted from streaming
@@ -388,26 +389,25 @@ class MultiTrack:
         return self.setting.freq_scale == FreqScale.MEL
 
     def _ensure_sr_operands(self, track: AudioTrack) -> None:
-        """The rate's operands at its first add: on the mel scale its route
-        (``MelRoute``: the default window and filterbank, named by the
-        rate's shape), its f32 C, S and fb on the device where its launches
-        in the session's mode read them (``MelRoute.prepare``: none at a
-        rate whose launches take the FFT tier on a card); on the linear
-        scale its f32 C and S."""
+        """The rate's route at its first add: on the mel scale a
+        ``MelRoute`` (the default window and filterbank, named by the rate's
+        shape), on the linear scale a ``LinearRoute`` (the default window),
+        with its f32 C and S (and fb) on the device where its calls in the
+        session's mode read them (``prepare``: none at a rate whose calls
+        take the FFT tier on a card)."""
         if track.sr in self._operands:
             return
         self._log.debug("DFT/mel operand cache miss for sr=%d", track.sr)
         window = default_stft_window(track.win_length, track.n_fft)
-        if not self._use_mel:
-            c, s = windowed_dft_matrices(window, track.n_fft)
-            self._operands[track.sr] = (
-                *(torch.from_numpy(a).to(self.device) for a in (c, s)), None)
-            return
-        route = MelRoute(window, calc_mel_fb_default(track.sr, track.n_fft),
-                         win=track.win_length, hop=track.hop_length,
-                         n_fft=track.n_fft, device=self.device,
-                         key=("session", track.sr, track.win_length,
-                              track.n_fft))
+        kw = dict(win=track.win_length, hop=track.hop_length,
+                  n_fft=track.n_fft, device=self.device)
+        if self._use_mel:
+            route = MelRoute(window, calc_mel_fb_default(track.sr,
+                                                         track.n_fft),
+                             key=("session", track.sr, track.win_length,
+                                  track.n_fft), **kw)
+        else:
+            route = LinearRoute(window, **kw)
         # the upload falls in add_tracks.operands, not in the launch's stage
         route.prepare(get_precision_mode())
         self._operands[track.sr] = route
@@ -437,19 +437,17 @@ class MultiTrack:
                                                             id)
 
     def _calc_spec_streaming(self, track, id) -> _TrackState:
-        """Long-track path: segmented streaming through the kernel of the
-        session's precision mode (the torch-op route on the linear scale),
-        with the track's carrier and scale.
+        """Long-track path: segmented streaming through the rate's route
+        in the session's precision mode, with the track's carrier and
+        scale.
 
         The streamed (reflect-padded) wave stays on the device and becomes
         the track's envelope buffer: a later get_wav_image costs no second
         whole-file transfer."""
         src, _ = _carrier(track)
-        ops = self._operands[track.sr]
-        if self._use_mel:
-            ops = (ops, None, None)
         db, n_valid, smin, smax, wav_dev = streaming_spec_db(
-            src, track.win_length, track.hop_length, *ops,
+            src, track.win_length, track.hop_length,
+            self._operands[track.sr], None, None,
             keep_wav=True, scale=track.scale, sr=track.sr,
         )
         self._env_states[id] = EnvelopeState.from_device(
@@ -470,9 +468,10 @@ class MultiTrack:
         return st
 
     def _calc_spec_group(self, ids, sr: int, n_frames_pad: int) -> None:
-        """Same-bucket tracks in one (B, L) kernel launch (or one
-        ``spec_pipeline_batched`` call on the linear scale), with the
-        per-track dB min/max over valid frames and one host sync.  The
+        """Same-bucket tracks in one (B, L) call of the rate's route (a
+        kernel launch on the mel scale; on the linear scale a kernel launch
+        or one ``spec_pipeline_batched`` call), with the per-track dB
+        min/max over valid frames and one host sync.  The
         batch is assembled on the device from one upload of each track's
         carrier (``pad_group_on_device``): int16 for the "i16" wire, else
         f32."""
@@ -496,20 +495,16 @@ class MultiTrack:
         if not self._use_mel:
             with self.timer.stage("add_tracks.linear_minmax"):
                 # int16 carriers are PCM16 (2^-15); the rest arrive in f32
-                db_b, smin, smax = spec_pipeline_batched(
-                    wave, *self._operands[sr], n_valid,
-                    use_mel=False, win=tr0.win_length, hop=tr0.hop_length,
-                    n_frames=n_frames_pad, mode=get_precision_mode())
+                db_b, smin, smax = self._operands[sr](
+                    wave, n_frames_pad, n_valid, mode=get_precision_mode(),
+                    sr=sr, pipeline=spec_pipeline_batched)
                 mm = torch.stack([smin, smax]).cpu().numpy()  # one sync
         else:
             with self.timer.stage("add_tracks.kernel_minmax"):
                 db_b = self._operands[sr](
                     wave, n_frames_pad, mode=get_precision_mode(), sr=sr,
                     launch=mel_spectrogram_cuda)
-                frame = torch.arange(n_frames_pad, device=self.device)
-                fmask = (frame[None, :] < n_valid[:, None])[:, :, None]
-                smax = torch.where(fmask, db_b, -torch.inf).amax(dim=(1, 2))
-                smin = torch.where(fmask, db_b, torch.inf).amin(dim=(1, 2))
+                smin, smax = masked_minmax(db_b, n_valid)
                 mm = torch.stack([smin, smax]).cpu().numpy()  # one sync
         for b, id in enumerate(ids):
             st = _TrackState()

@@ -362,7 +362,7 @@ def test_set_setting_mel_linear_mel(linear_paths):
     mt.set_setting(LINEAR)
     assert mt._env_states == {} and sorted(mt.tracks) == ids
     assert mt.get_channel(2) == 1
-    assert all(ops[2] is None for ops in mt._operands.values())
+    assert all(isinstance(r, K.LinearRoute) for r in mt._operands.values())
     lin = msv_tpu.MultiTrack(J_LINEAR)
     lin.add_tracks(ids, linear_paths, channels=[None, None, 1, None])
     for tid in ids:

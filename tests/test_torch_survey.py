@@ -4,7 +4,9 @@ files at 384, 250, 192 and 48 kHz opened together in one ``MultiTrack``
 against the benchmark's plain reference (``portbench/reference``: an FFT
 of n_fft points in float32, nothing of the program): each track's dB
 plane, the session's max_db, the grey heights of the rates aligned at
-384 kHz, and the first screen's crops as PNGs.
+384 kHz, and the first screen's crops as PNGs; and the same files on the
+linear scale (``survey384k_linear``), whose planes the CPU session makes by
+the dense pair over the same C and S.
 
 On the CPU the session takes the kernels' plain version (a DFT GEMM pair
 in float32) and the reference an FFT: the two differ by float32 rounding
@@ -61,6 +63,19 @@ def survey(tmp_path_factory):
     yield mt, tracks
     del mt
     dft._dft_matrices_cached.cache_clear()
+    gc.collect()
+
+
+@pytest.fixture(scope="module")
+def survey_linear(survey):
+    """The same four files opened on the linear scale
+    (``survey384k_linear``): a CPU session, so every rate takes the dense
+    pair, over the C and S the mel session built (``ops.dft``'s cache)."""
+    _, tracks = survey
+    mt = MultiTrack(SpecSetting(freq_scale=FreqScale.LINEAR), device="cpu")
+    mt.add_tracks(list(range(len(tracks))), [t["path"] for t in tracks])
+    yield mt
+    del mt
     gc.collect()
 
 
@@ -344,8 +359,8 @@ def upload_wavs(tmp_path_factory):
 def test_a_card_session_pads_each_group_on_the_card_bit_for_bit(
         upload_wavs, scale, mode):
     """A card session of the three files gives each plane, smin and smax
-    bit for bit as the rate's route (mel) or ``spec_pipeline_batched``
-    (linear) gives them on the batch padded and stacked on the host
+    bit for bit as the rate's route (``MelRoute`` or ``LinearRoute``)
+    gives them on the batch padded and stacked on the host
     (``chip_smoke.host_padded``), in parity and fast; each group's
     ``session.upload`` span has route "device_pad" and the carriers'
     bytes."""
@@ -355,7 +370,6 @@ def test_a_card_session_pads_each_group_on_the_card_bit_for_bit(
     import os
 
     from msv_tpu_torch import precision_mode_scope
-    from msv_tpu_torch.kernels.pipeline import spec_pipeline_batched
     from msv_tpu_torch.session import multitrack as tmt
     from msv_tpu_torch.utils import profiling
 
@@ -391,11 +405,9 @@ def test_a_card_session_pads_each_group_on_the_card_bit_for_bit(
                 mm = [(float(db[b, :nf].min()), float(db[b, :nf].max()))
                       for b, nf in enumerate(n_valid)]
             else:
-                db, smin, smax = spec_pipeline_batched(
-                    wave, *mt._operands[sr],
-                    torch.tensor(n_valid, device="cuda"), use_mel=False,
-                    win=trs[0].win_length, hop=trs[0].hop_length,
-                    n_frames=nfp, mode=mode)
+                db, smin, smax = mt._operands[sr](
+                    wave, nfp, torch.tensor(n_valid, device="cuda"),
+                    mode=mode, sr=sr)
                 mm = list(zip(smin.tolist(), smax.tolist()))
             for b, i in enumerate(ids):
                 st = mt._state[i]
@@ -408,3 +420,120 @@ def test_a_card_session_pads_each_group_on_the_card_bit_for_bit(
                 "bytes": sum(tmt._carrier(tr)[0].nbytes for tr in trs)}
         del mt, wave, db
         torch.cuda.empty_cache()
+
+
+# The survey on the linear scale (``survey384k_linear``): on the CPU every
+# rate takes the dense pair; the card's FFT tier is held to the same
+# reference in tests/test_torch_card_linear.py.
+
+LINEAR_CONFIG = registry.config("survey384k_linear")
+
+
+def test_the_linear_configuration_is_the_survey_on_the_linear_scale():
+    assert LINEAR_CONFIG["tracks"] == CONFIG["tracks"]
+    assert LINEAR_CONFIG["setting"] == dict(SETTING, freq_scale="linear")
+    assert LINEAR_CONFIG["reduced"] == []
+
+
+@pytest.mark.parametrize("tid", range(len(RATES)),
+                         ids=[f"{sr // 1000}k" for sr in RATES])
+def test_each_linear_plane_matches_the_plain_reference(survey, survey_linear,
+                                                       tid):
+    """Each linear plane (n_fft // 2 + 1 bins: 8193, 8193, 4097, 1025) and
+    the session's max_db against ``linear_db``, within the mel planes'
+    DB_TOL over bins within 60 dB of their frame's peak."""
+    _, tracks = survey
+    setting = LINEAR_CONFIG["setting"]
+    ref = spec.linear_db(spec.mono_f32(tracks[tid]["pcm"]),
+                         tracks[tid]["sr"], setting, "cpu")
+    got = torch.from_numpy(survey_linear.get_spec_db(tid))
+    assert got.shape == ref.shape
+    assert got.shape[1] == (8193, 8193, 4097, 1025)[tid]
+    assert check.db_gap(got, ref) < DB_TOL
+    assert survey_linear.max_sr == 384000
+
+
+def test_linear_streaming_through_the_route_matches_the_whole_plane(
+        survey, survey_linear):
+    """The 192 kHz track streamed through the session's own LinearRoute in
+    segments of 16 frames: the whole plane's values within atol 2e-3 dB,
+    rtol 1e-4 (one GEMM against several), and its min and max."""
+    from msv_tpu_torch.parallel.streaming import streaming_spec_db
+
+    mt, tracks = survey_linear, survey[1]
+    tr = mt.tracks[2]
+    route = mt._operands[tr.sr]
+    db, nf, smin, smax = streaming_spec_db(
+        tr._wav_int, tr.win_length, tr.hop_length, route, None, None,
+        chunk_frames=8, seg_chunks=2, sr=tr.sr)
+    whole = torch.from_numpy(mt.get_spec_db(2))
+    assert nf == whole.shape[0] == mt._state[2].n_frames
+    torch.testing.assert_close(db[:nf], whole, atol=2e-3, rtol=1e-4)
+    assert abs(smin - float(whole.min())) <= 2e-3 + 1e-4 * abs(smin)
+    assert abs(smax - float(whole.max())) <= 2e-3 + 1e-4 * abs(smax)
+
+
+def test_linear_streaming_at_the_fft_tier_launches_each_segment_alone(
+        survey, survey_linear, monkeypatch):
+    """Streaming the 192 kHz track where its route takes the FFT tier (the
+    tier stubbed, the launch stood in for by the route's dense pair): one
+    ``linear_spectrogram_cuda`` call a segment, on the route's record and
+    into its rows of the plane, and no call of the route itself (its
+    masked min/max is not computed beside streaming's own); the plane, its
+    min and max are the route's segment by segment."""
+    from msv_tpu_torch.kernels import spectrogram_cuda as K
+    from msv_tpu_torch.kernels.pipeline import spec_pipeline
+    from msv_tpu_torch.parallel import streaming
+
+    mt = survey_linear
+    tr = mt.tracks[2]
+    route = mt._operands[tr.sr]
+    launches = []
+
+    def launch(seg, rec, *, win, hop, n_frames, out, sr):
+        launches.append((rec, n_frames, sr))
+        db, _, _ = spec_pipeline(
+            seg, *route.dense(), None, n_frames, win=win, hop=hop,
+            n_frames=n_frames, use_mel=False, mode="parity")
+        return out.copy_(db)
+
+    monkeypatch.setattr(K.LinearRoute, "tier_here", lambda self, mode: "fft")
+    monkeypatch.setattr(K.LinearRoute, "record", lambda self: "record")
+    monkeypatch.setattr(K.LinearRoute, "__call__", None)
+    monkeypatch.setattr(streaming, "linear_spectrogram_cuda", launch)
+    db, nf, smin, smax = streaming.streaming_spec_db(
+        tr._wav_int, tr.win_length, tr.hop_length, route, None, None,
+        chunk_frames=8, seg_chunks=2, sr=tr.sr)
+    plan = streaming._seg_plan_for(nf, 8, 2)
+    assert launches == [("record", 8 * k, tr.sr) for k in plan]
+    whole = torch.from_numpy(mt.get_spec_db(2))
+    torch.testing.assert_close(db[:nf], whole, atol=2e-3, rtol=1e-4)
+    assert (smin, smax) == (float(db[:nf].min()), float(db[:nf].max()))
+
+
+def test_a_card_linear_session_builds_no_dft_operands_at_the_fft_tier_rates(
+        monkeypatch):
+    """Without a card: a linear session on "cuda" (the device check
+    stubbed, the uploads recorded instead of made) routes the parity calls
+    at 384, 250 and 192 kHz to the linear FFT tier and builds and uploads no
+    C or S for them; the 48 kHz route keeps the GEMM pair and its f32 C and
+    S; in fast mode every rate's route takes the pair."""
+    from msv_tpu_torch import precision_mode_scope
+    from msv_tpu_torch.kernels import spectrogram_cuda as K
+
+    uploads = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(K, "operands_from_numpy",
+                        lambda c, s, fb, device: uploads.append(
+                            (c.shape, fb, str(device))) or (c, s, fb))
+    mt = MultiTrack(SpecSetting(freq_scale=FreqScale.LINEAR), device="cuda")
+    for sr in RATES:
+        mt._ensure_sr_operands(_Track(sr))
+    routes = [mt._operands[sr] for sr in RATES]
+    assert all(isinstance(r, K.LinearRoute) for r in routes)
+    assert [r.tier_here("parity") for r in routes] == [
+        "fft", "fft", "fft", "gemm"]
+    assert [sorted(r._forms) for r in routes] == [[]] * 3 + [["f32"]]
+    assert uploads == [((1920, 1025), None, "cuda")]
+    with precision_mode_scope("fast"):
+        assert [r.tier_here("fast") for r in routes] == ["gemm"] * 4
