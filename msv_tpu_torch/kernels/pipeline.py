@@ -108,9 +108,15 @@ def blocked_matmul(a, b, block):
     of one shape and one contiguous layout, so a column's result does not
     depend on N."""
     k, n = b.shape
-    nb = -(-n // block)
-    bb = torch.nn.functional.pad(b, (0, nb * block - n))
-    bb = bb.reshape(k, nb, block).transpose(0, 1).contiguous()
+    nb, full = -(-n // block), n // block
+    # the blocks written straight from b: a padded copy beside them would
+    # hold a third b-sized buffer (a tall grey's is 1.5 GB)
+    bb = b.new_empty((nb, k, block))
+    bb[:full].copy_(b[:, : full * block].reshape(k, full, block)
+                    .transpose(0, 1))
+    if full < nb:
+        bb[full, :, : n - full * block].copy_(b[:, full * block :])
+        bb[full, :, n - full * block :].zero_()
     out = a.new_empty((nb, a.shape[0], block))
     for i in range(nb):
         torch.matmul(a, bb[i], out=out[i])

@@ -264,10 +264,11 @@ class EnvelopeState:
     @classmethod
     def from_device(cls, dev, n: int, offset: int, src_int=None,
                     src_f32=None, scale: float = 2.0**-15):
-        """Adopt an already-device-resident buffer (e.g. the streamed,
-        reflect-padded waveform from streaming_spec_db(keep_wav=True),
-        whose sample 0 sits at ``offset``) — the envelope then costs no
-        second whole-file transfer.  ``src_int`` (integer carriers) or
+        """Adopt an already-device-resident buffer (the streamed,
+        reflect-padded waveform from streaming_spec_db(keep_wav=True), or a
+        track's row of the session's group batch, whose sample 0 sits at
+        ``offset``) — the envelope then costs no second whole-file
+        transfer.  ``src_int`` (integer carriers) or
         ``src_f32`` (true-float sources) feeds the host-f32 view for the
         deep-zoom upsample branch."""
         if src_int is None and src_f32 is None:

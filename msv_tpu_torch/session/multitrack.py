@@ -11,9 +11,10 @@ the rate's ``LinearRoute`` (the FFT tier's linear form in parity where n_fft
 has an FFT plan, else ``spec_pipeline_batched``'s dense GEMM pair, f32 in
 parity and TF32 in fast).  Tracks that share a bucket
 ``(sr, n_frames_pad, wire)`` go as one batched call (each track then owns a
-copy of its plane), and a track over STREAMING_FRAME_THRESHOLD frames goes
-alone through segmented streaming (``parallel/streaming.py``), whose device
-wave the track keeps for its waveform images.  Renders are torch ops over
+copy of its plane and of its row of the batch), and a track over
+STREAMING_FRAME_THRESHOLD frames goes alone through segmented streaming
+(``parallel/streaming.py``).  The track keeps its row, or the streamed
+device wave, for its waveform images.  Renders are torch ops over
 the cached device dB planes and device waves (``render/envelope.py`` for
 the waveform), and adaptive multi-resolution crops over slice-local or
 background-built planes (``ops/multires.py``).
@@ -96,6 +97,20 @@ def _carrier(track):
     if track._wav_int is not None:
         return track._wav_int, track.scale
     return np.asarray(track.wav, np.float32), 1.0
+
+
+def _adopt_envelope(track, wave: torch.Tensor, offset: int) -> EnvelopeState:
+    """The track's envelope state over ``wave``, a device buffer already
+    holding the track's samples from index ``offset`` on (its integer
+    carrier as decoded, or their exact f32): its waveform images then cost
+    no second whole-file transfer.  The host carrier feeds the deep-zoom
+    branch."""
+    return EnvelopeState.from_device(
+        wave, track.n_samples, offset=offset, src_int=track._wav_int,
+        # true-float sources have no integer carrier; the deep-zoom
+        # branch then reads the f32 mono
+        src_f32=None if track._wav_int is not None else track.wav,
+        scale=track.scale)
 
 
 def _carrier_name(a: np.ndarray) -> str:
@@ -360,8 +375,9 @@ class MultiTrack:
         # scale, a LinearRoute on the linear scale
         self._operands: dict[int, MelRoute | LinearRoute] = {}
         self._state: dict[int, _TrackState] = {}
-        # id -> EnvelopeState: the device wave of get_wav_image, built at
-        # the first waveform render, or adopted from streaming
+        # id -> EnvelopeState: the device wave of get_wav_image, adopted at
+        # add time (the group's row or the streamed wave), else shipped at
+        # the first waveform render
         self._env_states: dict[int, EnvelopeState] = {}
         self._env_lock = threading.Lock()
         self._adaptive_db: dict[int, _AdaptiveBuild] = {}
@@ -450,14 +466,8 @@ class MultiTrack:
             self._operands[track.sr], None, None,
             keep_wav=True, scale=track.scale, sr=track.sr,
         )
-        self._env_states[id] = EnvelopeState.from_device(
-            wav_dev, track.n_samples, offset=track.win_length // 2,
-            src_int=track._wav_int,
-            # true-float sources have no integer carrier; the deep-zoom
-            # branch then reads the f32 mono
-            src_f32=None if track._wav_int is not None else track.wav,
-            scale=track.scale,
-        )
+        self._env_states[id] = _adopt_envelope(track, wav_dev,
+                                               track.win_length // 2)
         st = _TrackState()
         st.spec_db = db
         st.n_frames = n_valid
@@ -474,7 +484,7 @@ class MultiTrack:
         min/max over valid frames and one host sync.  The
         batch is assembled on the device from one upload of each track's
         carrier (``pad_group_on_device``): int16 for the "i16" wire, else
-        f32."""
+        f32; its rows then become the tracks' envelope buffers."""
         tr0 = self.tracks[ids[0]]
         win = tr0.win_length
         need = (n_frames_pad - 1) * tr0.hop_length + win
@@ -517,6 +527,29 @@ class MultiTrack:
             st.smin = float(mm[0, b])
             st.smax = float(mm[1, b])
             self._state[id] = st
+        self._adopt_group_rows(ids, wave, win // 2)
+
+    def _adopt_group_rows(self, ids, wave, half: int) -> None:
+        """Make each track's row of its group's batch ``wave`` (which the
+        route only reads) the track's envelope buffer, where the row holds
+        the whole track at ``[half : half + n]``: the first waveform crop
+        then ships nothing.  A row cut short (a hop over win / 2) leaves
+        the track to ``_env_state_for``'s upload."""
+        whole = [b for b, id in enumerate(ids)
+                 if wave.shape[1] - half >= self.tracks[id].n_samples]
+        if not whole:
+            return
+        with span("session.envelope", origin="adopted",
+                  tracks=len(whole)) as sp:
+            nbytes = 0
+            for b in whole:
+                # a row of its own, as for the plane: a view would keep
+                # the group's storage alive through a spill of this track
+                row = wave[b].clone() if len(ids) > 1 else wave[b]
+                self._env_states[ids[b]] = _adopt_envelope(
+                    self.tracks[ids[b]], row, half)
+                nbytes += row.untyped_storage().nbytes()
+            sp.set(bytes=nbytes)
 
     # ------------------------------------------------------------ tracks
 
@@ -1049,9 +1082,10 @@ class MultiTrack:
     # ------------------------------------------------------- waveform images
 
     def _env_state_for(self, id: int, track) -> EnvelopeState:
-        """The track's envelope state, its wave shipped to the device at the
-        first waveform render (integer carriers as they are: no f32 copy on
-        the host)."""
+        """The track's envelope state: the device wave adopted at add time
+        (a group's row or the streamed wave), else its wave shipped to the
+        device now (integer carriers as they are: no f32 copy on the host),
+        as after a spill or for a row cut short of the track."""
         self._touch(id)
         st = self._env_states.get(id)
         if st is None:
@@ -1060,10 +1094,13 @@ class MultiTrack:
             with self._env_lock:
                 st = self._env_states.get(id)
                 if st is None:
-                    st = EnvelopeState(
-                        None if track._wav_int is not None else track.wav,
-                        track._wav_int, n=track.n_samples,
-                        scale=track.scale, device=self.device)
+                    with span("session.envelope", origin="upload",
+                              tracks=1) as sp:
+                        st = EnvelopeState(
+                            None if track._wav_int is not None else track.wav,
+                            track._wav_int, n=track.n_samples,
+                            scale=track.scale, device=self.device)
+                        sp.set(bytes=st.dev.untyped_storage().nbytes())
                     self._env_states[id] = st
             self._enforce_hbm_budget(exclude=(id,))
         return st

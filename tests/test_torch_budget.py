@@ -47,8 +47,9 @@ def _session(paths, budget=None):
 
 
 def _per_track_bytes(wavs):
-    """One fully rendered track's device bytes (the envelope buffer is
-    bucket-padded, so it dominates these short tracks)."""
+    """One fully rendered track's device bytes (the envelope buffer, a
+    row of 256 frames' samples, and its sparse-table levels dominate these
+    short tracks)."""
     probe = _session(wavs[:1])
     probe.get_spec_image(0, 100.0, 120)
     probe.get_wav_image(0, 100.0, 60, -1.0, 1.0)

@@ -13,6 +13,8 @@ import msv_tpu_torch  # noqa: E402
 from msv_tpu_torch.io.audio import write_wav  # noqa: E402
 from msv_tpu_torch.kernels import pipeline  # noqa: E402
 from msv_tpu_torch.ops import multires  # noqa: E402
+from msv_tpu_torch.render.envelope import EnvelopeState  # noqa: E402
+from msv_tpu_torch.utils import profiling  # noqa: E402
 
 SR, SEC = 48000, 30.0
 
@@ -84,16 +86,20 @@ def test_spilling_a_grouped_track_frees_its_plane_on_the_card(card,
     mt = msv_tpu_torch.MultiTrack(device=card)
     mt.add_tracks([0, 1], paths)
     plane = mt._state[1].spec_db.untyped_storage().nbytes()
+    # a track's bytes after the add: its plane and its adopted row
+    one = mt._track_device_bytes(1)
+    assert one > plane and mt._track_device_bytes(0) == one
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     mt._spill_track(1)
-    assert before - torch.cuda.memory_allocated() >= plane
-    mt.hbm_budget_bytes = plane  # one plane: each render spills the other
+    # the spill frees the row with the plane
+    assert before - torch.cuda.memory_allocated() >= one
+    mt.hbm_budget_bytes = one  # one track: each render spills the other
     for _ in range(2):
         for i in (0, 1):
             np.testing.assert_array_equal(mt.get_spec_image(i, 100.0, 200),
                                           want[i])
-            assert mt.hbm_stats()["resident_bytes"] <= plane
+            assert mt.hbm_stats()["resident_bytes"] <= one
     assert mt.hbm_stats()["reuploads"] >= 3
 
 
@@ -117,3 +123,76 @@ def test_parity_torch_ops_ignore_the_process_tf32_flags(card):
                                torch.rand(1200, 24000, device=card),
                                height=347, banded=False)
     assert torch.backends.cuda.matmul.allow_tf32 and y.shape == (500, 1200)
+
+
+@pytest.mark.gpu
+def test_grouped_tracks_adopt_their_rows_on_the_card(card, tmp_path):
+    """A 384 kHz and a 48 kHz PCM16 track: add_tracks and a first screen
+    upload no wave for the envelopes (no "upload" span), and every crop of
+    the adopted rows is bit-equal to one of a state uploaded from the
+    carrier."""
+    rng = np.random.default_rng(25)
+    paths = []
+    for sr in (384000, 48000):
+        t = np.arange(int(10.0 * sr)) / sr
+        x = (0.3 * np.sin(2 * np.pi * 3000 * t * (1 + 0.1 * t))
+             + 0.05 * rng.standard_normal(len(t)))
+        p = str(tmp_path / f"s{sr}.wav")
+        write_wav(p, np.clip(x, -1, 1).astype(np.float32)[None], sr, bits=16)
+        paths.append(p)
+    views = [(100.0, 80, 0.0, 12.0), (2000.0, 80, 3.0, 3.6),
+             (800000.0, 64, 5.0, 5.001)]
+    mt = msv_tpu_torch.MultiTrack(device=card)
+    profiling.clear()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        mt.add_tracks([0, 1], paths)
+        for i in (0, 1):
+            mt.get_spec_image_crop(i, 100.0, 300, 0.0, 12.0)
+            mt.get_wav_image_crop(i, 100.0, 80, -1.0, 1.0, 0.0, 12.0)
+    spans = [s for s in profiling.recorded() if s.name == "session.envelope"]
+    profiling.clear()
+    assert sum(s.attrs["tracks"] for s in spans) == 2
+    assert all(s.attrs["origin"] == "adopted" for s in spans)
+    for i in (0, 1):
+        tr, env = mt.tracks[i], mt._env_states[i]
+        assert (env.origin == "adopted"
+                and env.dev.device.type == torch.device(card).type)
+        assert env.dev.dtype == torch.int16 and torch.equal(
+            env.dev[env.offset : env.offset + tr.n_samples].cpu(),
+            torch.from_numpy(tr._wav_int))
+        got = [mt.get_wav_image_crop(i, pps, h, -1.0, 1.0, a, b)
+               for pps, h, a, b in views]
+        mt._env_states[i] = EnvelopeState(None, tr._wav_int,
+                                          n=tr.n_samples, scale=tr.scale,
+                                          device=card)
+        for g, (pps, h, a, b) in zip(got, views):
+            np.testing.assert_array_equal(
+                g, mt.get_wav_image_crop(i, pps, h, -1.0, 1.0, a, b))
+
+
+@pytest.mark.gpu
+def test_blocked_matmul_holds_no_padded_copy_of_a_tall_grey(card):
+    """The render's GEMM over a tall grey (a linear plane under a higher
+    session rate) holds beside the grey only its column blocks, the
+    blocks' product and the result laid out from it, no padded copy of the
+    grey, and gives the bits of the padded-copy form."""
+    g = torch.Generator(device=card).manual_seed(25)
+    height, n = 3147, 6000
+    grey = torch.rand(height, n, device=card, generator=g)
+    wv = torch.rand(300, height, device=card, generator=g)
+    block = pipeline.RENDER_BLOCK
+    nb = -(-n // block)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with msv_tpu_torch.config.precision_for("parity"):
+        got = pipeline.blocked_matmul(wv, grey, block)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    assert extra <= 4 * nb * block * (height + 2 * wv.shape[0]) + (1 << 20)
+    bb = torch.nn.functional.pad(grey, (0, nb * block - n))
+    bb = bb.reshape(height, nb, block).transpose(0, 1).contiguous()
+    with msv_tpu_torch.config.precision_for("parity"):
+        want = torch.stack([wv @ bb[i] for i in range(nb)])
+    assert torch.equal(got, want.transpose(0, 1).reshape(300, -1)[:, :n])

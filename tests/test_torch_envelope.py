@@ -253,9 +253,11 @@ def test_session_replaces_and_drops_envelope_states(wav_sessions):
     mt = msv_tpu_torch.MultiTrack(device="cpu")
     mt.add_tracks([0], [paths[0]])
     a = mt.get_wav_image(0, 100.0, 50, -1.0, 1.0)
-    assert 0 in mt._env_states
+    old = mt._env_states[0]
     mt.add_tracks([0], [paths[2]])  # a re-add draws the new file
-    assert 0 not in mt._env_states
+    new = mt._env_states[0]  # adopted from the new file's row
+    assert new is not old and new.origin == "adopted"
+    assert new.n == mt.tracks[0].n_samples != old.n
     b = mt.get_wav_image(0, 100.0, 50, -1.0, 1.0)
     assert a.shape != b.shape or not np.array_equal(a, b)
     mt.remove_track(0)
@@ -265,22 +267,192 @@ def test_session_replaces_and_drops_envelope_states(wav_sessions):
 def test_session_streamed_track_adopts_the_streamed_wave(tmp_path,
                                                          monkeypatch):
     """A streamed track's envelope is the device wave streaming already
-    shipped (no second upload) and draws what a one-shot track draws."""
+    shipped, a one-shot track's its row of the group's batch (no second
+    upload either way), and both draw what an uploaded state draws."""
     sr = 8000
     path = str(tmp_path / "x.wav")
     write_wav(path, _tone(sr, 2.0, 220)[None], sr)
     short = msv_tpu_torch.MultiTrack(device="cpu")
     short.add_tracks([0], [path])
-    img_short = short.get_wav_image(0, 50.0, 80, -1.0, 1.0)
-    assert short._env_states[0].origin == "upload"
+    tr = short.tracks[0]
+    uploaded = tenv.EnvelopeState(None, tr._wav_int, n=tr.n_samples,
+                                  scale=tr.scale, device="cpu")
+    img = tenv.wav_to_image(None, 100, 80, (-1.0, 1.0), state=uploaded)
 
     monkeypatch.setattr(tmt, "STREAMING_FRAME_THRESHOLD", 4)
     long = msv_tpu_torch.MultiTrack(device="cpu")
     long.add_tracks([0], [path])
-    st = long._env_states[0]  # adopted during add_tracks
-    assert st.origin == "adopted" and st.offset == long.tracks[0].win_length // 2
-    np.testing.assert_array_equal(long.get_wav_image(0, 50.0, 80, -1.0, 1.0),
-                                  img_short)
-    np.testing.assert_array_equal(
-        long.get_wav_image_crop(0, 50.0, 80, -1.0, 1.0, 0.3, 1.2),
-        img_short[:, 15:60])
+    for mt in (short, long):
+        st = mt._env_states[0]  # adopted during add_tracks
+        assert (st.origin == "adopted"
+                and st.offset == mt.tracks[0].win_length // 2)
+        np.testing.assert_array_equal(
+            mt.get_wav_image(0, 50.0, 80, -1.0, 1.0), img)
+        np.testing.assert_array_equal(
+            mt.get_wav_image_crop(0, 50.0, 80, -1.0, 1.0, 0.3, 1.2),
+            img[:, 15:60])
+
+
+# ------------------------------------- grouped tracks adopt their batch row
+
+
+def _write_pcm32(path, x, sr):
+    """A mono 32-bit integer PCM WAV of ``x`` (|x| < 1)."""
+    import struct
+
+    raw = np.round(np.asarray(x, np.float64) * 2.0**31).astype("<i4")
+    data = raw.tobytes()
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 36 + len(data)) + b"WAVE"
+                + b"fmt " + struct.pack("<IHHIIHH", 16, 1, 1, sr, 4 * sr, 4,
+                                        32)
+                + b"data" + struct.pack("<I", len(data)) + data)
+
+
+@pytest.fixture(scope="module")
+def wire_paths(wav_sessions, tmp_path_factory):
+    """One file a wire: wav_sessions' PCM16 mono ("i16"), stereo PCM16 sum
+    (an int32 carrier on the "f32" wire) and float WAV (no integer
+    carrier), a 32-bit PCM mono (an int32 carrier, "f32"), and a second
+    PCM16 mono at the first one's rate and frame bucket."""
+    _, _, paths = wav_sessions
+    d = tmp_path_factory.mktemp("torch_envelope_wires")
+    rng = np.random.default_rng(25)
+    pcm32 = str(d / "pcm32.wav")
+    _write_pcm32(pcm32, _tone(11025, 1.6, 520) + 0.05 * rng.standard_normal(
+        int(1.6 * 11025)), 11025)
+    pair = str(d / "pair.wav")
+    write_wav(pair, _tone(8000, 1.5, 640)[None], 8000)
+    return {"i16": paths[0], "sum_i32": paths[1], "pcm32": pcm32,
+            "float": paths[2], "pair": pair}
+
+
+def _profile():
+    return torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+def _envelope_spans():
+    from msv_tpu_torch.utils import profiling
+
+    return [s for s in profiling.recorded() if s.name == "session.envelope"]
+
+
+def _uploaded(tr):
+    """The track's envelope state as the first render ships it."""
+    return tenv.EnvelopeState(None if tr._wav_int is not None else tr.wav,
+                              tr._wav_int, n=tr.n_samples, scale=tr.scale,
+                              device="cpu")
+
+
+def _wav_views(mt, tid):
+    """Full, crop and deep-zoom (crop and full) waveform images."""
+    return [mt.get_wav_image(tid, 100.0, 64, -1.0, 1.0),
+            mt.get_wav_image_crop(tid, 700.0, 64, -1.0, 1.0, 0.25, 1.1),
+            mt.get_wav_image_crop(tid, 40000.0, 64, -0.5, 0.7, 0.5, 0.52),
+            mt.get_wav_image(tid, 40000.0, 40, -1.0, 1.0)]
+
+
+@pytest.mark.parametrize("wire", ["i16", "sum_i32", "pcm32", "float"])
+def test_session_grouped_track_adopts_its_row(wire_paths, wire):
+    """Right after add_tracks a grouped track's envelope is its row of the
+    group's batch: the carrier (times its scale on f32 rows) at
+    [win // 2 : win // 2 + n], left so by the route, and every image equal
+    to that of a state uploaded from the same carrier."""
+    from msv_tpu_torch.utils import profiling
+
+    profiling.clear()
+    mt = msv_tpu_torch.MultiTrack(device="cpu")
+    with _profile():
+        mt.add_tracks([0], [wire_paths[wire]])
+    tr = mt.tracks[0]
+    carrier = {"i16": (np.int16, "i16"), "sum_i32": (np.int32, "f32"),
+               "pcm32": (np.int32, "f32"), "float": (None, "f32")}[wire]
+    assert (None if tr._wav_int is None else tr._wav_int.dtype) == (
+        carrier[0] and np.dtype(carrier[0])) and tr.wire == carrier[1]
+    assert wire != "sum_i32" or tr.n_channels == 2
+    st = mt._env_states[0]
+    assert st.origin == "adopted" and st.offset == tr.win_length // 2
+    body = st.dev[st.offset : st.offset + tr.n_samples]
+    if tr.wire == "i16":
+        assert torch.equal(body, torch.from_numpy(tr._wav_int))
+    else:  # the bits of the host's astype(f32) * f32(scale)
+        assert body.dtype == torch.float32
+        np.testing.assert_array_equal(body.numpy(), tr.wav)
+    (sp,) = _envelope_spans()
+    assert sp.attrs == {"origin": "adopted", "tracks": 1,
+                        "bytes": st.dev.untyped_storage().nbytes()}
+    profiling.clear()
+    with _profile():
+        adopted = _wav_views(mt, 0)
+    assert _envelope_spans() == []  # the first crops ship nothing
+    mt._env_states[0] = _uploaded(tr)
+    for got, want in zip(adopted, _wav_views(mt, 0)):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_session_two_track_group_rows_own_their_storage(wire_paths):
+    """In a group of two each adopted row is a copy of its own (a spill of
+    one track frees it); after the spill the next render uploads, records
+    one "upload" span and draws the same image."""
+    from msv_tpu_torch.utils import profiling
+
+    mt = msv_tpu_torch.MultiTrack(device="cpu")
+    mt.add_tracks([0, 1], [wire_paths["i16"], wire_paths["pair"]])
+    a, b = mt._env_states[0], mt._env_states[1]
+    assert a.origin == b.origin == "adopted"
+    assert a.dev.data_ptr() != b.dev.data_ptr()
+    tr, st = mt.tracks[1], mt._state[1]
+    assert st.n_frames_pad == mt._state[0].n_frames_pad  # one group
+    need = (st.n_frames_pad - 1) * tr.hop_length + tr.win_length
+    for env in (a, b):
+        assert env.dev.untyped_storage().nbytes() == 2 * need  # one int16 row
+    want = _wav_views(mt, 1)
+    mt._spill_track(1)
+    assert 1 not in mt._env_states and mt._track_device_bytes(1) == 0
+    profiling.clear()
+    with _profile():
+        got = _wav_views(mt, 1)
+    env = mt._env_states[1]
+    (sp,) = _envelope_spans()
+    assert env.origin == "upload" and sp.attrs == {
+        "origin": "upload", "tracks": 1,
+        "bytes": env.dev.untyped_storage().nbytes()}
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_session_row_cut_short_takes_the_upload(tmp_path):
+    """With a hop over win / 2 (t_overlap 1) a track of 256 frames less a
+    few samples outruns its row ((n_frames_pad - 1) * hop + win samples,
+    win // 2 of them the reflected edge): no state is adopted, and the
+    first render uploads the carrier and draws what an uploaded state
+    draws."""
+    from msv_tpu_torch.utils import profiling
+
+    setting = msv_tpu_torch.SpecSetting(t_overlap=1)
+    sr = 8000
+    hop = msv_tpu_torch.derive_stft_params(sr, setting).hop_length
+    path = str(tmp_path / "short_row.wav")
+    write_wav(path, _tone(sr, (256 * hop - 20) / sr, 330)[None], sr)
+    mt = msv_tpu_torch.MultiTrack(setting, device="cpu")
+    mt.add_tracks([0], [path])
+    tr = mt.tracks[0]
+    assert tr.win_length == hop and tr.n_samples == 256 * hop - 20
+    need = (mt._state[0].n_frames_pad - 1) * hop + tr.win_length
+    assert need - tr.win_length // 2 < tr.n_samples
+    assert 0 not in mt._env_states
+    profiling.clear()
+    with _profile():
+        got = _wav_views(mt, 0)
+    (sp,) = _envelope_spans()
+    assert sp.attrs["origin"] == "upload"
+    assert mt._env_states[0].origin == "upload"
+    nwidth = int(np.float32(100.0) * np.float32(tr.n_samples)
+                 / np.float32(sr))
+    np.testing.assert_array_equal(got[0], jenv.wav_to_image(
+        None, nwidth, 64, (-1.0, 1.0),
+        state=jenv.EnvelopeState(None, tr._wav_int, n=tr.n_samples)))
+    mt._env_states[0] = _uploaded(tr)
+    for g, w in zip(got, _wav_views(mt, 0)):
+        np.testing.assert_array_equal(g, w)

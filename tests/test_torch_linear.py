@@ -358,9 +358,20 @@ def test_set_setting_mel_linear_mel(linear_paths):
     mt = msv_tpu_torch.MultiTrack(device="cpu")
     mt.add_tracks(ids, linear_paths, channels=[None, None, 1, None])
     mt.get_wav_image(0, 100.0, 40, -1.0, 1.0)
-    assert mt._env_states
+    old = dict(mt._env_states)
+    assert sorted(old) == ids
     mt.set_setting(LINEAR)
-    assert mt._env_states == {} and sorted(mt.tracks) == ids
+    assert sorted(mt._env_states) == sorted(mt.tracks) == ids
+    for tid, env in mt._env_states.items():  # adopted from the new rows
+        tr, st = mt.tracks[tid], mt._state[tid]
+        assert env is not old[tid] and env.origin == "adopted"
+        assert env.offset == tr.win_length // 2
+        assert env.dev.shape == ((st.n_frames_pad - 1) * tr.hop_length
+                                 + tr.win_length,)
+        # the linear route left the row's samples as they were uploaded
+        body = env.dev[env.offset : env.offset + tr.n_samples].numpy()
+        np.testing.assert_array_equal(
+            body, tr._wav_int if tr.wire == "i16" else tr.wav)
     assert mt.get_channel(2) == 1
     assert all(isinstance(r, K.LinearRoute) for r in mt._operands.values())
     lin = msv_tpu.MultiTrack(J_LINEAR)

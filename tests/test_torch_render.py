@@ -46,6 +46,22 @@ def test_spec_to_grey_matches(max_db, min_db, rng):
         assert not got.any()
 
 
+@pytest.mark.parametrize("n", [500, 2048, 4096 + 37])
+def test_blocked_matmul_equals_the_padded_block_form(n, rng):
+    """The blocks written straight from b give the bits of a zero-padded,
+    contiguous copy of b cut into blocks: the same GEMMs on the same
+    operands."""
+    a = torch.from_numpy(rng.standard_normal((30, 70)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((70, n)).astype(np.float32))
+    block = tpipe.RENDER_BLOCK
+    nb = -(-n // block)
+    bb = torch.nn.functional.pad(b, (0, nb * block - n))
+    bb = bb.reshape(70, nb, block).transpose(0, 1).contiguous()
+    want = torch.cat([a @ bb[i] for i in range(nb)], dim=1)[:, :n]
+    got = tpipe.blocked_matmul(a, b, block)
+    assert got.shape == (30, n) and torch.equal(got, want)
+
+
 @pytest.mark.parametrize(
     "shape,out_h,out_w",
     [((120, 700), 90, 1500),   # dense: both widths <= DENSE_LIMIT
